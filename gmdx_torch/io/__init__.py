@@ -1,0 +1,19 @@
+"""I/O of the port (counterpart of ``gmdx.io``): .hdr export and weights."""
+
+from gmdx_torch.io.convert import (
+    load_unet,
+    load_vae,
+    unet_state_dict_from_flax,
+    vae_state_dict_from_flax,
+)
+from gmdx_torch.io.hdr import read_hdr, save_hdr_image, write_hdr
+
+__all__ = [
+    "load_unet",
+    "load_vae",
+    "unet_state_dict_from_flax",
+    "vae_state_dict_from_flax",
+    "read_hdr",
+    "write_hdr",
+    "save_hdr_image",
+]

@@ -1,0 +1,197 @@
+"""Carry weights across: the JAX package's param trees -> the port's modules.
+
+A port-local copy of the export mapping of ``gmdx/io/torch_import.py``
+(``export_unet_state_dict`` / ``export_vae_state_dict``): Flax param trees
+(nested dicts of numpy arrays) become state dicts in diffusers key naming,
+with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW.
+Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
+same modules unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from gmdx_torch import resolve_device
+from gmdx_torch.models.unet2d import UNet2DConditionModel, UNetConfig
+from gmdx_torch.models.vae import AutoencoderKL, VAEConfig
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flatten(v, p))
+        else:
+            out[p] = np.asarray(v)
+    return out
+
+
+def _inv_linear(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.T)
+
+
+def _inv_conv(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+def _param(kernel_name: str, value: np.ndarray, inv) -> tuple[str, np.ndarray]:
+    """('weight', inv(value)) for a kernel, ('bias', value) otherwise."""
+    return ("weight", inv(value)) if kernel_name == "kernel" else ("bias", value)
+
+
+def _norm_param(name: str) -> str:
+    return {"scale": "weight", "bias": "bias"}[name]
+
+
+def _resnet(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.ndarray]:
+    mod, sub = rest.split("/", 1)
+    if mod in ("norm1", "norm2"):
+        return f"{prefix}.{mod}.{_norm_param(sub.split('/')[-1])}", value
+    if mod in ("conv1", "conv2", "conv_shortcut"):
+        p, v = _param(sub, value, _inv_conv)
+        return f"{prefix}.{mod}.{p}", v
+    if mod == "time_emb_proj":
+        p, v = _param(sub, value, _inv_linear)
+        return f"{prefix}.{mod}.{p}", v
+    raise KeyError(f"unhandled resnet path {rest}")
+
+
+def _transformer2d(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.ndarray]:
+    parts = rest.split("/")
+    if parts[0] == "norm":
+        return f"{prefix}.norm.{_norm_param(parts[-1])}", value
+    if parts[0] in ("proj_in", "proj_out"):
+        p, v = _param(parts[-1], value, _inv_conv)
+        return f"{prefix}.{parts[0]}.{p}", v
+    if parts[0].startswith("blocks_"):
+        bp = f"{prefix}.transformer_blocks.{parts[0].split('_')[1]}"
+        mod = parts[1]
+        if mod in ("norm1", "norm2", "norm3"):
+            return f"{bp}.{mod}.{_norm_param(parts[-1])}", value
+        if mod in ("attn1", "attn2"):
+            tail = "to_out.0" if parts[2] == "to_out" else parts[2]
+            p, v = _param(parts[-1], value, _inv_linear)
+            return f"{bp}.{mod}.{tail}.{p}", v
+        if mod == "ff":
+            name = "net.0.proj" if parts[2] == "proj_in" else "net.2"
+            p, v = _param(parts[-1], value, _inv_linear)
+            return f"{bp}.ff.{name}.{p}", v
+    raise KeyError(f"unhandled transformer path {rest}")
+
+
+def unet_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``UNet2DConditionModel`` params -> diffusers-named state dict."""
+    out = {}
+    for path, value in _flatten(params).items():
+        top, rest = path.split("/", 1)
+        last = rest.split("/")[-1]
+        if top in ("conv_in", "conv_out"):
+            p, v = _param(last, value, _inv_conv)
+            out[f"{top}.{p}"] = v
+        elif top == "time_embedding":
+            p, v = _param(last, value, _inv_linear)
+            out[f"time_embedding.{rest.split('/')[0]}.{p}"] = v
+        elif top == "conv_norm_out":
+            out[f"conv_norm_out.{_norm_param(last)}"] = value
+        elif top.startswith(("down_", "up_")):
+            side, i, kind, *j = top.split("_")  # down_0_resnet_1 / down_0_downsample
+            tp = f"{side}_blocks.{i}"
+            if kind == "resnet":
+                k, v = _resnet(rest, value, f"{tp}.resnets.{j[0]}")
+            elif kind == "attn":
+                k, v = _transformer2d(rest, value, f"{tp}.attentions.{j[0]}")
+            else:
+                samp = "downsamplers" if kind == "downsample" else "upsamplers"
+                p, v = _param(last, value, _inv_conv)
+                k = f"{tp}.{samp}.0.conv.{p}"
+            out[k] = v
+        elif top.startswith("mid_resnet_"):
+            k, v = _resnet(rest, value, f"mid_block.resnets.{top.split('_')[-1]}")
+            out[k] = v
+        elif top == "mid_attn":
+            k, v = _transformer2d(rest, value, "mid_block.attentions.0")
+            out[k] = v
+        else:
+            raise KeyError(f"unhandled UNet path {path}")
+    return out
+
+
+def _vae_attention(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.ndarray]:
+    parts = rest.split("/")
+    if parts[0] == "group_norm":
+        return f"{prefix}.group_norm.{_norm_param(parts[-1])}", value
+    tail = "to_out.0" if parts[0] == "to_out" else parts[0]
+    p, v = _param(parts[-1], value, _inv_linear)
+    return f"{prefix}.{tail}.{p}", v
+
+
+def vae_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``AutoencoderKL`` params -> diffusers-named state dict of the
+    parts the port's module holds (``decoder.*``, ``post_quant_conv``). The
+    encoder and ``quant_conv`` are skipped until the encoder is ported."""
+    out = {}
+    for path, value in _flatten(params).items():
+        top, rest = path.split("/", 1)
+        last = rest.split("/")[-1]
+        if top == "post_quant_conv":
+            p, v = _param(last, value, _inv_conv)
+            out[f"post_quant_conv.{p}"] = v
+            continue
+        if top != "decoder":  # encoder, quant_conv
+            continue
+        sub, rest2 = rest.split("/", 1)
+        if sub in ("conv_in", "conv_out"):
+            p, v = _param(last, value, _inv_conv)
+            out[f"decoder.{sub}.{p}"] = v
+        elif sub == "conv_norm_out":
+            out[f"decoder.conv_norm_out.{_norm_param(last)}"] = value
+        elif sub.startswith("up_"):
+            _, i, kind, *j = sub.split("_")
+            tp = f"decoder.up_blocks.{i}"
+            if kind == "resnet":
+                k, v = _resnet(rest2, value, f"{tp}.resnets.{j[0]}")
+            else:
+                p, v = _param(last, value, _inv_conv)
+                k = f"{tp}.upsamplers.0.conv.{p}"
+            out[k] = v
+        elif sub.startswith("mid_resnet_"):
+            k, v = _resnet(rest2, value, f"decoder.mid_block.resnets.{sub.split('_')[-1]}")
+            out[k] = v
+        elif sub == "mid_attn":
+            k, v = _vae_attention(rest2, value, "decoder.mid_block.attentions.0")
+            out[k] = v
+        else:
+            raise KeyError(f"unhandled VAE path {path}")
+    return out
+
+
+def _load(module_cls, config, state_dict: dict, device, dtype) -> nn.Module:
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = module_cls(config)
+    sd = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+def load_unet(
+    state_dict: dict, config: UNetConfig, *, device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> UNet2DConditionModel:
+    """A UNet holding ``state_dict`` (diffusers naming, ``strict=True``)."""
+    return _load(UNet2DConditionModel, config, state_dict, device, dtype)
+
+
+def load_vae(
+    state_dict: dict, config: VAEConfig, *, device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> AutoencoderKL:
+    """A VAE decoder holding ``state_dict`` (diffusers naming, ``strict=True``)."""
+    return _load(AutoencoderKL, config, state_dict, device, dtype)
+
+
+__all__ = ["unet_state_dict_from_flax", "vae_state_dict_from_flax", "load_unet", "load_vae"]

@@ -1,0 +1,54 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Every wrapper takes the plain version for a tensor on the CPU and launches
+its CUDA kernel (``gmdx_torch/csrc``, built at first use by ``_build``) for a
+tensor on the card; it raises for what the kernel does not take. There is no
+switch that sends a CUDA tensor to the plain version: a caller who wants it
+calls the ``*_plain`` function (the models' ``use_kernels=False``).
+
+``LAUNCHES`` counts each wrapper's kernel launches, so a run can show which
+kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {
+    "attention_kv_resident": 0,
+    "conv3x3": 0,
+    "group_norm_silu": 0,
+    "geglu_ff_ln": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def check_kernel_operands(name: str, *tensors: torch.Tensor | None) -> int:
+    """Validate the operands of a kernel launch (bf16, contiguous, one CUDA
+    device) and return the current stream's handle."""
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: operands must all lie on the card")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: operands on {dev} and {t.device}")
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts", "check_kernel_operands"]

@@ -1,0 +1,116 @@
+"""Attention: the KV-resident self-attention kernel and the plain path.
+
+Counterpart of ``gmdx/kernels/attention.py`` (dispatch) and
+``gmdx/kernels/flash_attention.py:attention_kv_resident`` (kernel). The
+dispatch rule is the JAX package's: self-attention with 256 <= Sk <= 4096
+keys and head dim <= 160 takes the kernel; everything else (the 77-key
+cross-attention, the 64-token mid block, the VAE's single 512-wide head)
+takes :func:`dot_product_attention`, the einsum + fp32-softmax path the JAX
+package leaves to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
+
+_LOG2_E = 1.0 / math.log(2.0)
+_KERNEL_HEAD_DIMS = (40, 80, 160)  # SD-1.5's; the instances in csrc/attention.cu
+
+
+def dot_product_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float | None = None
+) -> torch.Tensor:
+    """Attention over (B, S, H, D): logits in the input dtype, softmax in
+    fp32, weights cast back (``gmdx/kernels/attention.py:_xla_attention``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def attention_kv_resident_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of the kernel over head-packed (B, S, H*D): fp32 scores
+    and softmax, result in the input dtype."""
+    b, sq, c = q.shape
+    d = c // heads
+    if scale is None:
+        scale = d**-0.5
+    qh = q.float().reshape(b, sq, heads, d)
+    kh = k.float().reshape(b, k.shape[1], heads, d)
+    vh = v.float().reshape(b, v.shape[1], heads, d)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, sq, c).to(q.dtype)
+
+
+def attention_kv_resident(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Exact-softmax attention over head-packed (B, S, H*D) q/k/v."""
+    if q.ndim != 3 or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"bad attention shapes {q.shape} {k.shape} {v.shape}")
+    b, sq, c = q.shape
+    if c % heads:
+        raise ValueError(f"width {c} does not split into {heads} heads")
+    d = c // heads
+    if scale is None:
+        scale = d**-0.5
+    if not q.is_cuda:
+        return attention_kv_resident_plain(q, k, v, heads, scale=scale)
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention kernel has no instance for head dim {d}")
+    stream = check_kernel_operands("attention_kv_resident", q, k, v)
+    from gmdx_torch.kernels import _build
+
+    out = torch.empty_like(q)
+    _build.call(
+        "attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
+    )
+    LAUNCHES["attention_kv_resident"] += 1
+    return out
+
+
+def uses_kernel(sk: int, head_dim: int) -> bool:
+    """The JAX package's KV-resident dispatch rule (attention.py:152-158)."""
+    return 256 <= sk <= 4096 and head_dim <= 160
+
+
+def attention_packed(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None, use_kernels: bool = True,
+) -> torch.Tensor:
+    """Attention over head-packed (B, S, H*D) operands, dispatched as the
+    JAX package does. ``use_kernels=False`` sends the kernel's shapes to its
+    plain version instead."""
+    b, sq, c = q.shape
+    d = c // heads
+    if scale is None:
+        scale = d**-0.5
+    if uses_kernel(k.shape[1], d):
+        fn = attention_kv_resident if use_kernels else attention_kv_resident_plain
+        return fn(q, k, v, heads, scale=scale)
+    sk = k.shape[1]
+    out = dot_product_attention(
+        q.reshape(b, sq, heads, d), k.reshape(b, sk, heads, d),
+        v.reshape(b, sk, heads, d), scale=scale,
+    )
+    return out.reshape(b, sq, c)
+
+
+__all__ = [
+    "dot_product_attention",
+    "attention_kv_resident",
+    "attention_kv_resident_plain",
+    "attention_packed",
+    "uses_kernel",
+]

@@ -1,0 +1,81 @@
+"""LayerNorm -> GEGLU feed-forward -> residual, with a pending residual folded
+into the prologue.
+
+Counterpart of ``gmdx/kernels/geglu_ff.py:geglu_ff_ln`` with ``add=``.
+Kernel: ``csrc/geglu_ff.cu`` (two launches of the shared tile GEMM).
+Weights are the torch Linear layouts: ``w1`` (2*inner, dim) with rows
+``[hidden | gate]``, ``w2`` (dim, inner).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
+
+
+def geglu_ff_ln_plain(
+    x: torch.Tensor,
+    add: torch.Tensor | None,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain version in fp32: s = x + add (rounded to x's dtype),
+    s + GEGLU(LN(s)) @ w2^T + b2, result in x's dtype."""
+    s = x if add is None else (x.float() + add.float()).to(x.dtype)
+    sf = s.float()
+    h = F.layer_norm(sf, (sf.shape[-1],), gamma.float(), beta.float(), eps)
+    proj = h @ w1.float().t() + b1.float()
+    hidden, gate = proj.chunk(2, dim=-1)
+    act = hidden * 0.5 * gate * (1.0 + torch.erf(gate * 0.7071067811865476))
+    out = act @ w2.float().t() + b2.float() + sf
+    return out.to(x.dtype)
+
+
+def geglu_ff_ln(
+    x: torch.Tensor,
+    add: torch.Tensor | None,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """(x + add) + proj_out(GEGLU(proj_in(LN(x + add)))) over (B, S, dim)."""
+    dim = x.shape[-1]
+    inner = w2.shape[1]
+    if w1.shape != (2 * inner, dim) or w2.shape != (dim, inner):
+        raise ValueError(f"FF weights {tuple(w1.shape)}, {tuple(w2.shape)} vs dim {dim}")
+    if add is not None and add.shape != x.shape:
+        raise ValueError(f"add {tuple(add.shape)} vs x {tuple(x.shape)}")
+    if not x.is_cuda:
+        return geglu_ff_ln_plain(x, add, gamma, beta, w1, b1, w2, b2, eps=eps)
+    if dim % 8 or inner % 8:
+        raise ValueError(f"geglu_ff_ln kernel needs dim, inner % 8 == 0, got {dim}, {inner}")
+    stream = check_kernel_operands("geglu_ff_ln", x, add, gamma, beta, w1, b1, w2, b2)
+    from gmdx_torch.kernels import _build
+
+    m = x.numel() // dim
+    act = torch.empty((m, inner), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _build.call(
+        "geglu_ff", x.data_ptr(), add.data_ptr() if add is not None else None,
+        gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), act.data_ptr(), out.data_ptr(),
+        m, dim, inner, float(eps), stream,
+    )
+    LAUNCHES["geglu_ff_ln"] += 1
+    return out
+
+
+__all__ = ["geglu_ff_ln", "geglu_ff_ln_plain"]

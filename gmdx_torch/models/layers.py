@@ -1,0 +1,320 @@
+"""Shared UNet/VAE building blocks, NHWC activations, diffusers parameter names.
+
+Counterpart of ``gmdx/models/layers.py``. Activations stay (B, H, W, C) inside
+the models so that the kernels see contiguous channels; parameters keep the
+diffusers module tree (``norm1.weight``, ``attn1.to_out.0.weight``, ...) so a
+diffusers SD-1.5 state dict loads with ``strict=True``.
+
+Four kinds of call go to hand-written kernels (``gmdx_torch.kernels``):
+every 4-D GroupNorm (with its SiLU, temb pre-add and padded output), the
+resnet 3x3 convs, the self-attention of 256-4096 keys, and the transformer
+block's LN -> GEGLU FF -> residual tail. A module with ``use_kernels=False``
+calls the same functions' plain versions instead. Everything else (the
+projections, conv_in/conv_out, the 1x1 convs, down/upsampling, LayerNorm,
+cross-attention) is plain PyTorch, as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gmdx_torch.kernels.attention import attention_packed, dot_product_attention
+from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
+from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
+from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, pack_weight
+
+
+def set_use_kernels(module: nn.Module, flag: bool) -> None:
+    """Route every kernel call under ``module`` to the kernels (True) or to
+    their plain versions (False)."""
+    for m in module.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = flag
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    *,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers convention for SD-1.5)."""
+    timesteps = torch.atleast_1d(timesteps).float()
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device
+    )
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = timesteps[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    out = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        out = F.pad(out, (0, 1))
+    return out
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer SiLU MLP lifting the sinusoid to the UNet's temb width."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, result in x's dtype."""
+    return F.layer_norm(
+        x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps
+    ).to(x.dtype)
+
+
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A conv left to PyTorch, applied to NHWC ``x`` (a channels-last view)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride, conv.padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    return F.linear(x, conv.weight.view(conv.out_channels, conv.in_channels), conv.bias)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm with fp32 statistics over NHWC, always through the
+    GroupNorm kernel: ``activate`` fuses the SiLU, ``temb`` (B, C) is added
+    before the statistics, ``pad_output`` emits the 1-px zero border the
+    conv kernel takes."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.use_kernels = True
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        activate: bool = False,
+        pad_output: bool = False,
+        temb: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        fn = group_norm_silu if self.use_kernels else group_norm_silu_plain
+        return fn(
+            x, self.weight, self.bias, temb, num_groups=self.num_groups, eps=self.eps,
+            activate=activate, pad_output=pad_output,
+        )
+
+
+class Conv3x3(nn.Conv2d):
+    """3x3 stride-1 SAME conv over NHWC through the conv kernel. The kernel's
+    (O, 9*C) weight is packed from ``weight`` on first use and again whenever
+    the weight changes."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 3, padding=1)
+        if in_ch % 8 or out_ch % 8:
+            raise ValueError(f"conv kernel needs widths % 8 == 0, got {in_ch}, {out_ch}")
+        self.use_kernels = True
+        self._packed: tuple[tuple, torch.Tensor] | None = None
+
+    def packed_weight(self) -> torch.Tensor:
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.dtype, w.device)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_weight(w.detach()))
+        return self._packed[1]
+
+    def forward(self, x: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
+        fn = conv3x3 if self.use_kernels else conv3x3_plain
+        return fn(x, self.packed_weight(), self.bias, pre_padded=pre_padded)
+
+
+class Attention(nn.Module):
+    """Multi-head attention over (B, S, C); cross-attention when ``context``
+    is given. No-bias q/k/v, bias on ``to_out.0``; q/k/v stay head-packed
+    (B, S, H*D) into :func:`attention_packed`."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int, context_dim: int | None = None):
+        super().__init__()
+        inner = heads * head_dim
+        ctx = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx, inner, bias=False)
+        self.to_v = nn.Linear(ctx, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(0.0)])
+        self.use_kernels = True
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        src = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(src), self.to_v(src)
+        out = attention_packed(q, k, v, self.heads, use_kernels=self.use_kernels)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU MLP (mult 4, exact erf GELU) whose forward takes the preceding
+    LayerNorm's parameters and a pending residual: the whole
+    (x + add) -> LN -> FF -> + residual tail is one kernel call."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Dropout(0.0), nn.Linear(inner, dim)])
+        self.use_kernels = True
+
+    def forward(
+        self, x: torch.Tensor, add: torch.Tensor | None, norm: nn.LayerNorm
+    ) -> torch.Tensor:
+        fn = geglu_ff_ln if self.use_kernels else geglu_ff_ln_plain
+        proj_in, proj_out = self.net[0].proj, self.net[2]
+        return fn(
+            x, add, norm.weight, norm.bias, proj_in.weight, proj_in.bias,
+            proj_out.weight, proj_out.bias, eps=norm.eps,
+        )
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF (pre-norm,
+    LayerNorm eps 1e-5). attn2's output folds into the FF kernel's prologue;
+    norm3's parameters feed that kernel."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, head_dim, context_dim=context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(layer_norm(x, self.norm1))
+        a2 = self.attn2(layer_norm(x, self.norm2), context)
+        return self.ff(x, a2, self.norm3)
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer: GN -> 1x1 conv in -> blocks over the flattened
+    grid -> 1x1 conv out -> residual."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int, depth: int = 1):
+        super().__init__()
+        self.norm = GroupNorm(channels, 32, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(channels, heads, head_dim, context_dim) for _ in range(depth)]
+        )
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        residual = x
+        x = conv1x1_nhwc(self.norm(x), self.proj_in).reshape(b, h * w, c)
+        for block in self.transformer_blocks:
+            x = block(x, context)
+        x = conv1x1_nhwc(x.reshape(b, h, w, c), self.proj_out)
+        return x + residual
+
+
+class ResnetBlock2D(nn.Module):
+    """GN -> SiLU -> conv -> (+temb, inside the next GN) -> GN -> SiLU ->
+    conv, residual. Each GN emits the padded image its conv takes."""
+
+    def __init__(self, in_ch: int, out_ch: int, temb_dim: int | None = None):
+        super().__init__()
+        self.norm1 = GroupNorm(in_ch, 32, eps=1e-5)
+        self.conv1 = Conv3x3(in_ch, out_ch)
+        if temb_dim is not None:
+            self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+        self.norm2 = GroupNorm(out_ch, 32, eps=1e-5)
+        self.conv2 = Conv3x3(out_ch, out_ch)
+        self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None) -> torch.Tensor:
+        h = self.norm1(x, activate=True, pad_output=True)
+        h = self.conv1(h, pre_padded=True)
+        t = None
+        if temb is not None and hasattr(self, "time_emb_proj"):
+            t = self.time_emb_proj(F.silu(temb))
+        h = self.norm2(h, activate=True, pad_output=True, temb=t)
+        h = self.conv2(h, pre_padded=True)
+        if self.conv_shortcut is not None:
+            x = conv1x1_nhwc(x, self.conv_shortcut)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    """Strided 3x3 conv with symmetric pad 1 (the UNet's variant)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x, self.conv)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample + 3x3 conv (the same math as the JAX package's
+    sub-pixel fold)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
+        y = F.conv2d(up, self.conv.weight, self.conv.bias, padding=1)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class VAEAttention(nn.Module):
+    """Single-head spatial self-attention of the VAE mid block (the plain
+    attention path: its 512-wide head is past the kernel's rule)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.group_norm = GroupNorm(channels, 32, eps=1e-6)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels), nn.Dropout(0.0)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        residual = x
+        y = self.group_norm(x).reshape(b, h * w, c)
+        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
+        return self.to_out[0](out).reshape(b, h, w, c) + residual
+
+
+__all__ = [
+    "set_use_kernels",
+    "timestep_embedding",
+    "TimestepEmbedding",
+    "GroupNorm",
+    "Conv3x3",
+    "Attention",
+    "GEGLUFeedForward",
+    "BasicTransformerBlock",
+    "Transformer2D",
+    "ResnetBlock2D",
+    "Downsample2D",
+    "Upsample2D",
+    "VAEAttention",
+]

@@ -1,0 +1,213 @@
+"""Conditional 2-D UNet (SD-1.5 architecture), NHWC inside.
+
+Counterpart of ``gmdx/models/unet2d.py``: the same configs, the same forward
+order, and the diffusers module tree (``down_blocks.0.resnets.1.conv2``,
+``mid_block.attentions.0``, ...) so that diffusers SD-1.5 weights load with
+``strict=True``. I/O is NCHW at the boundary unless ``channels_last``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from gmdx_torch.models.layers import (
+    Downsample2D,
+    GroupNorm,
+    ResnetBlock2D,
+    TimestepEmbedding,
+    Transformer2D,
+    Upsample2D,
+    conv2d_nhwc,
+    timestep_embedding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    num_attention_heads: int = 8
+    cross_attention_dim: int = 768
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    transformer_depth: int = 1
+    sample_size: int = 64
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+
+
+SD15_UNET_CONFIG = UNetConfig()
+SD15_GM_UNET_CONFIG = UNetConfig(in_channels=8)
+TINY_UNET_CONFIG = UNetConfig(
+    block_out_channels=(32, 64),
+    num_attention_heads=2,
+    cross_attention_dim=32,
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+    sample_size=8,
+)
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, cfg, cross, add_down):
+        super().__init__()
+        heads = cfg.num_attention_heads
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if j == 0 else out_ch, out_ch, temb_dim)
+             for j in range(cfg.layers_per_block)]
+        )
+        if cross:
+            self.attentions = nn.ModuleList(
+                [Transformer2D(out_ch, heads, out_ch // heads, cfg.cross_attention_dim,
+                               cfg.transformer_depth)
+                 for _ in range(cfg.layers_per_block)]
+            )
+        if add_down:
+            self.downsamplers = nn.ModuleList([Downsample2D(out_ch)])
+
+
+class _UpBlock(nn.Module):
+    def __init__(self, prev_ch, skip_chs, out_ch, temb_dim, cfg, cross, add_up):
+        super().__init__()
+        heads = cfg.num_attention_heads
+        resnets, ch = [], prev_ch
+        for skip in skip_chs:
+            resnets.append(ResnetBlock2D(ch + skip, out_ch, temb_dim))
+            ch = out_ch
+        self.resnets = nn.ModuleList(resnets)
+        if cross:
+            self.attentions = nn.ModuleList(
+                [Transformer2D(out_ch, heads, out_ch // heads, cfg.cross_attention_dim,
+                               cfg.transformer_depth)
+                 for _ in skip_chs]
+            )
+        if add_up:
+            self.upsamplers = nn.ModuleList([Upsample2D(out_ch)])
+
+
+class _MidBlock(nn.Module):
+    def __init__(self, ch, temb_dim, cfg):
+        super().__init__()
+        heads = cfg.num_attention_heads
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(ch, ch, temb_dim), ResnetBlock2D(ch, ch, temb_dim)]
+        )
+        self.attentions = nn.ModuleList(
+            [Transformer2D(ch, heads, ch // heads, cfg.cross_attention_dim,
+                           cfg.transformer_depth)]
+        )
+
+
+class UNet2DConditionModel(nn.Module):
+    def __init__(self, config: UNetConfig = SD15_UNET_CONFIG):
+        super().__init__()
+        cfg = self.config = config
+        chs = tuple(cfg.block_out_channels)
+        temb_dim = chs[0] * 4
+        n = len(chs)
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
+
+        self.down_blocks = nn.ModuleList()
+        skip_chs = [chs[0]]
+        in_ch = chs[0]
+        for i, btype in enumerate(cfg.down_block_types):
+            out_ch = chs[i]
+            add_down = i < n - 1
+            self.down_blocks.append(_DownBlock(
+                in_ch, out_ch, temb_dim, cfg, btype == "CrossAttnDownBlock2D", add_down))
+            skip_chs += [out_ch] * (cfg.layers_per_block + add_down)
+            in_ch = out_ch
+
+        self.mid_block = _MidBlock(chs[-1], temb_dim, cfg)
+
+        self.up_blocks = nn.ModuleList()
+        rev = tuple(reversed(chs))
+        prev_ch = chs[-1]
+        for i, btype in enumerate(cfg.up_block_types):
+            skips = [skip_chs.pop() for _ in range(cfg.layers_per_block + 1)]
+            self.up_blocks.append(_UpBlock(
+                prev_ch, skips, rev[i], temb_dim, cfg, btype == "CrossAttnUpBlock2D",
+                i < n - 1))
+            prev_ch = rev[i]
+
+        self.conv_norm_out = GroupNorm(chs[0], 32, eps=1e-5)
+        self.conv_out = nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+
+    def forward(
+        self,
+        sample: torch.Tensor,
+        timesteps: torch.Tensor | int,
+        encoder_hidden_states: torch.Tensor,
+        channels_last: bool = False,
+    ) -> torch.Tensor:
+        """``sample`` (B, C, H, W), or (B, H, W, C) with ``channels_last``;
+        returns the fp32 prediction in the same layout."""
+        cfg = self.config
+        dtype = self.conv_in.weight.dtype
+        x = sample if channels_last else sample.permute(0, 2, 3, 1)
+        x = x.to(dtype).contiguous()
+        context = encoder_hidden_states.to(dtype)
+        b = x.shape[0]
+        t = torch.as_tensor(timesteps, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(b)
+        t_sin = timestep_embedding(
+            t, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift,
+        ).to(dtype)
+        temb = self.time_embedding(t_sin)
+
+        h = conv2d_nhwc(x, self.conv_in)
+        skips = [h]
+        for block in self.down_blocks:
+            attns = getattr(block, "attentions", None)
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                if attns is not None:
+                    h = attns[j](h, context)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, context)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            attns = getattr(block, "attentions", None)
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=-1), temb)
+                if attns is not None:
+                    h = attns[j](h, context)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+
+        h = conv2d_nhwc(self.conv_norm_out(h, activate=True), self.conv_out).float()
+        return h if channels_last else h.permute(0, 3, 1, 2).contiguous()
+
+
+__all__ = [
+    "UNet2DConditionModel",
+    "UNetConfig",
+    "SD15_UNET_CONFIG",
+    "SD15_GM_UNET_CONFIG",
+    "TINY_UNET_CONFIG",
+]
