@@ -1,23 +1,44 @@
 """Smoke run of the PyTorch/CUDA port (``gmdx_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                    # batch 2, 10 PNDM steps
+    python3 chip_smoke.py                    # batch 2 x 10 PNDM steps; train batch 2
     python3 chip_smoke.py --batch 8 --steps 50 --profile
+    python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
   2. build: compiles gmdx_torch/csrc with nvcc (seconds printed).
-  3. kernels: each hand-written kernel at the main path's shapes against its
+  3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
-     version and one PyTorch library call as a yardstick.
+     version and one PyTorch library call as a yardstick. The training
+     kernels (flash forward and backward, GroupNorm backward) run at the
+     Stage-2 step's shapes, batch --train-batch.
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
      every kernel are read around this phase only.
   5. e2e: batch 1, 3 steps, kernels vs plain versions; decoded SDR and GM
      images must agree to >= 40 dB PSNR.
-``--profile`` adds, before phase 4's timed run, the device time by kernel
-over one denoise iteration and the device's busy share.
+  6. train: the Stage-2 step (gmdx_torch.train.stage2) at 512^2 images on the
+     full-width 8-channel GM UNet, made by inflate_conv_in from a seeded
+     random SD-1.5 UNet, fp32 master weights, bf16 compute, clipped AdamW;
+     frozen full-width VAE encoder and CLIP text encoder. One step in the
+     pixel form (VAE encode), then the cached-posterior form; samples/s and
+     s/step (median of the timed steps), peak memory, the loss (finite) and
+     the launch counts of every kernel over the phase.
+  7. train_e2e: batch 1, one loss and gradient with the kernels and with
+     the plain versions on the same latents, noise and timesteps: losses
+     within 1e-3 relative, flattened gradients at cosine >= 0.9995, and the
+     gradient of every attention projection (to_q/to_k/to_v) and norm
+     parameter within relative L2 TRAIN_LEAF_REL_L2_MAX of the plain one
+     and, per kind of parameter, the gradients' norm ratio within
+     TRAIN_NORM_RATIO_TOL of 1, so that an error confined to one backward
+     kernel cannot hide in the global cosine.
+  8. train_e2e_controls: the same check with each output of the two
+     backward kernels scaled by 0.95 in turn; fails unless every one is
+     caught.
+``--profile`` adds the device time by kernel and the device's busy share
+over one denoise iteration (phase 4) and over one train step (phase 6).
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -43,9 +64,15 @@ HBM_BYTES_S = 3.35e12
 REL_L2_MAX = 1e-2
 PSNR_MIN_DB = 40.0
 E2E_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_COS_MIN = 0.9995
+TRAIN_LEAF_REL_L2_MAX = 1e-1
+TRAIN_NORM_RATIO_TOL = 3e-3
+CLIP_VOCAB = 49408
 
-# Each ported kernel's source and the TPU kernel's pl.pallas_call site it
-# replaces (group_norm_silu also replaces gmdx/kernels/groupnorm.py:712).
+# Each ported kernel's source and the TPU kernel function (whose
+# pl.pallas_call it replaces; group_norm_silu also replaces
+# gmdx/kernels/groupnorm.py:712).
 KERNELS = {
     "attention_kv_resident": (
         "gmdx_torch/csrc/attention.cu", "gmdx/kernels/flash_attention.py:778"),
@@ -53,7 +80,17 @@ KERNELS = {
     "group_norm_silu": (
         "gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:473"),
     "geglu_ff_ln": ("gmdx_torch/csrc/geglu_ff.cu", "gmdx/kernels/geglu_ff.py:325"),
+    "flash_attention_fwd": (
+        "gmdx_torch/csrc/flash_attention.cu", "gmdx/kernels/flash_attention.py:142"),
+    "flash_attention_bwd": (
+        "gmdx_torch/csrc/flash_attention.cu", "gmdx/kernels/flash_attention.py:348"),
+    "group_norm_silu_bwd": (
+        "gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:268"),
 }
+# The kernels of each path: the phase whose run must launch them all.
+INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd",
+                 "group_norm_silu", "geglu_ff_ln", "conv3x3")
 
 
 def emit(obj) -> None:
@@ -130,7 +167,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     _build.build_all()
-    for name in _build.SIGNATURES:
+    for name in _build.LIBRARIES:
         _build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info.get("seconds")})
@@ -152,13 +189,17 @@ def _randn(gen, *shape, scale=1.0):
 
 def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
            peak=BF16_FLOPS):
-    """Run one kernel case: error against the fp32 plain version, times."""
+    """Run one kernel case: error against the fp32 plain version (the worst
+    output where there are several), times."""
     import torch
 
-    out = kernel_fn()
+    outs = kernel_fn()
     torch.cuda.synchronize()
-    ref = plain_fn()
-    max_abs, rel = compare(out, ref)
+    refs = plain_fn()
+    if not isinstance(outs, (tuple, list)):
+        outs, refs = (outs,), (refs,)
+    errs = [compare(o, r) for o, r in zip(outs, refs) if r is not None]
+    max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     ms = time_ms(kernel_fn)
     plain_ms = time_ms(plain_fn, iters=3)
     lib_ms = time_ms(library_fn) if library_fn is not None else None
@@ -174,7 +215,7 @@ def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
         raise SystemExit(f"chip_smoke: {name} {shape} rel-L2 {rel} > {REL_L2_MAX}")
 
 
-def phase_kernels(batch: int) -> list[dict]:
+def phase_kernels(batch: int, train_batch: int) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
@@ -299,7 +340,102 @@ def phase_kernels(batch: int) -> list[dict]:
             2.0 * m * dim * 8 * dim + 2.0 * m * inner * dim,
             (3 * m * dim + w1.numel() + w2.numel() + 2 * inner + 3 * dim) * 2, results,
         )
+    _training_kernel_rows(gen, train_batch, results)
     return results
+
+
+def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
+    """E. flash attention forward and backward at the three differentiated
+    self-attention levels of the Stage-2 step; F. the GroupNorm backward at
+    a resnet norm2 (temb, SiLU, padded), the transformer's GN (no SiLU, eps
+    1e-6) and the 16^2 level. Batch ``tb``: training has no CFG doubling."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmdx_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_silu, group_norm_silu_bwd, group_norm_silu_bwd_plain, group_norm_silu_plain,
+    )
+
+    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+        heads = 8
+        d = c // heads
+        scale = d**-0.5
+        q, k, v, dout = (_randn(gen, tb, s, c) for _ in range(4))
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+        out, lse = flash_attention_fwd(q, k, v, heads)
+        ref_out, ref_lse = flash_attention_fwd_plain(qf, kf, vf, heads, scale)
+        # Library yardstick: SDPA forward, and its backward through autograd.
+        qh, kh, vh = (t.view(tb, s, heads, d).transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out_l = F.scaled_dot_product_attention(qh, kh, vh)
+        dout_h = dout.view(tb, s, heads, d).transpose(1, 2)
+        shape = [tb, s, heads, d]
+        # Forward: S = QK^T and PV. Backward, given (q, k, v, lse, dO): the
+        # five products S, dV, dP, dQ, dK (2.5x the forward; the dQ kernel's
+        # recompute of S and dP is the design's, not the function's).
+        fwd_flops = 4.0 * tb * heads * s * s * d
+        _check(
+            "flash_attention_fwd", shape,
+            lambda: flash_attention_fwd(q, k, v, heads),
+            lambda: flash_attention_fwd_plain(qf, kf, vf, heads, scale),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            fwd_flops, 4 * tb * s * c * 2 + tb * heads * s * 4, results,
+        )
+        _check(
+            "flash_attention_bwd", shape,
+            lambda: flash_attention_bwd(q, k, v, out, lse, dout, heads),
+            lambda: flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, dof, heads, scale),
+            lambda: torch.autograd.grad(out_l, (qh, kh, vh), dout_h, retain_graph=True),
+            2.5 * fwd_flops, 8 * tb * s * c * 2 + tb * heads * s * 4, results,
+        )
+        del out_l, qh, kh, vh
+
+    for hw, c, temb_on, act, pad, eps in (
+        (64, 320, True, True, True, 1e-5),
+        (32, 640, False, False, False, 1e-6),
+        (16, 1280, True, True, True, 1e-5),
+    ):
+        x = (_randn(gen, tb, hw, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+        gam = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+        bet = _randn(gen, c, scale=0.2)
+        t = _randn(gen, tb, c) if temb_on else None
+        hp = hw + 2 * pad
+        cot = _randn(gen, tb, hp, hp, c)
+        _, stats = group_norm_silu(x, gam, bet, t, eps=eps, activate=act, pad_output=pad,
+                                   return_stats=True)
+        f32 = [u.float() if u is not None else None for u in (x, gam, bet, t)]
+        _, ref_stats = group_norm_silu_plain(*f32, eps=eps, activate=act, pad_output=pad,
+                                             return_stats=True)
+        # Library yardstick: F.group_norm (+ F.silu) backward through
+        # autograd, on x + temb where the forward pre-adds a temb (it has no
+        # temb form; dtemb's reduction is not in it).
+        xin = x if t is None else (x.float() + t.float()[:, None, None, :]).to(torch.bfloat16)
+        xl = xin.permute(0, 3, 1, 2).detach().requires_grad_()
+        gl, bl = gam.detach().requires_grad_(), bet.detach().requires_grad_()
+        yl = F.group_norm(xl, 32, gl, bl, eps)
+        yl = F.silu(yl) if act else yl
+        cot_l = (cot[:, 1:-1, 1:-1] if pad else cot).permute(0, 3, 1, 2)
+        n = tb * hw * hw * c
+        _check(
+            "group_norm_silu_bwd",
+            [tb, hw, hw, c] + (["temb"] if temb_on else []) + (["silu"] if act else [])
+            + (["pad"] if pad else []),
+            lambda: group_norm_silu_bwd(x, gam, bet, t, stats, cot, activate=act, pad_output=pad),
+            lambda: group_norm_silu_bwd_plain(*f32, ref_stats, cot.float(), activate=act,
+                                              pad_output=pad),
+            lambda: torch.autograd.grad(yl, (xl, gl, bl), cot_l, retain_graph=True),
+            30.0 * n,
+            # x, g read; dx written (bf16); gamma, beta, temb, stats read and
+            # dgamma, dbeta, dtemb written (fp32 where fp32).
+            (n + tb * hp * hp * c + n) * 2 + 2 * c * 2 + tb * 2 * 32 * 4
+            + (tb * c * (2 + 4) if temb_on else 0) + 2 * c * 4,
+            results, peak=FP32_FLOPS,
+        )
+        del yl, xl
 
 
 # ---------------------------------------------------------------------------
@@ -361,33 +497,68 @@ def psnr01(a, b) -> float:
     return float("inf") if mse == 0.0 else -10.0 * math.log10(mse)
 
 
-def profile_step(pipe, latents, cond, uncond) -> None:
-    """Device time by kernel over one denoise iteration (torch.profiler), and
-    the device's busy share against the same iteration's unprofiled wall."""
+# Device kernels by name, for the profile's breakdown: (category, substrings).
+PROFILE_CATEGORIES = (
+    ("flash_attention_bwd", ("flash_bwd_",)),
+    ("flash_attention_fwd", ("attention_fwd_kernel<40, true>", "attention_fwd_kernel<80, true>",
+                             "attention_fwd_kernel<160, true>")),
+    ("attention_kv_resident", ("attention_fwd_kernel",)),
+    ("group_norm_silu_bwd", ("gn_bwd_",)),
+    ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("geglu_ff_ln", ("ff_gemm",)),
+    ("conv3x3", ("conv3x3_kernel",)),
+    ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
+    ("cudnn conv dgrad", ("xmma_dgrad", "dgrad")),
+    ("cudnn conv wgrad", ("xmma_wgrad", "wgrad")),
+    ("cublas gemm", ("nvjet", "gemm", "cutlass")),
+    ("foreach (optimizer, grad norms)", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy",)),
+    ("layernorm", ("layer_norm", "GammaBeta")),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def _category(name: str) -> str:
+    for cat, keys in PROFILE_CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other elementwise"
+
+
+def profile_fn(phase: str, one_step) -> None:
+    """Device time by kernel over one call of ``one_step`` (torch.profiler),
+    and the device's busy share against the same call's unprofiled wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def one_step():
-        pipe.denoise_dual(cond, uncond, latents, num_inference_steps=1, guidance_scale=7.5)
+    def run():
+        one_step()
         torch.cuda.synchronize()
 
-    one_step()
+    run()
     t0 = time.perf_counter()
-    one_step()
+    run()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_step()
+        run()
     rows = []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": total / 1e3,
-          "device_busy_share": total / 1e3 / wall_ms, "top": [
+    cats: dict[str, list] = {}
+    for us, k, n in rows:
+        c = cats.setdefault(_category(k), [0.0, 0])
+        c[0] += us
+        c[1] += n
+    emit({"phase": phase, "wall_ms": wall_ms, "device_ms": total / 1e3,
+          "device_busy_share": total / 1e3 / wall_ms, "by_category": [
+              {"category": c, "device_ms": us / 1e3, "share": us / total, "count": n}
+              for c, (us, n) in sorted(cats.items(), key=lambda kv: -kv[1][0])], "top": [
               {"name": k[:80], "device_ms": us / 1e3, "share": us / total, "count": n}
-              for us, k, n in rows[:25]]})
+              for us, k, n in rows[:40]]})
 
 
 def phase_main(args) -> dict[str, int]:
@@ -408,7 +579,8 @@ def phase_main(args) -> dict[str, int]:
 
     run_path(pipe, latents, cond, uncond, 1)  # warm-up: cuDNN/cuBLAS plans
     if args.profile:
-        profile_step(pipe, latents, cond, uncond)
+        profile_fn("profile", lambda: pipe.denoise_dual(
+            cond, uncond, latents, num_inference_steps=1, guidance_scale=7.5))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -451,7 +623,7 @@ def phase_main(args) -> dict[str, int]:
     })
     if not hdr_ok:
         raise SystemExit("chip_smoke: .hdr read back does not match what was written")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in INFERENCE_KERNELS if counts[k] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels never launched on the main path: {missing}")
     del pipe
@@ -482,6 +654,182 @@ def phase_e2e(args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 6 + 7: the Stage-2 training step
+# ---------------------------------------------------------------------------
+
+
+def build_gm_unet(seed: int):
+    """The full-width 8-channel GM UNet as Stage 2 starts it: a seeded random
+    SD-1.5 UNet's weights with conv_in inflated (tile x2, scale 0.5); fp32
+    master weights, bf16 compute."""
+    import torch
+
+    from gmdx_torch.models import (
+        SD15_GM_UNET_CONFIG, SD15_UNET_CONFIG, UNet2DConditionModel, inflate_conv_in,
+    )
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        sd = inflate_conv_in(UNet2DConditionModel(SD15_UNET_CONFIG).state_dict(), 8)
+        unet = UNet2DConditionModel(SD15_GM_UNET_CONFIG, dtype=torch.bfloat16)
+    unet.load_state_dict(sd, strict=True)
+    return unet
+
+
+def phase_train(args) -> dict[str, int]:
+    import statistics
+
+    import torch
+
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.models import (
+        CLIP_VIT_L_CONFIG, SD15_VAE_CONFIG, AutoencoderKL, CLIPTextModel,
+    )
+    from gmdx_torch.train import Stage2Config, init_state, make_train_step
+
+    t0 = time.perf_counter()
+    b = args.train_batch
+    unet = build_gm_unet(args.seed + 10)
+    with torch.device("cuda"):
+        vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
+        text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
+    config = Stage2Config(learning_rate=1e-5)
+    step = make_train_step(config, unet=unet, vae=vae, text_encoder=text)
+    state = init_state(config, unet)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    pixel = {
+        "sdr": torch.rand(b, 3, 512, 512, generator=gen, device="cuda") * 2 - 1,
+        "gm": torch.rand(b, 3, 512, 512, generator=gen, device="cuda") * 2 - 1,
+        "input_ids": torch.randint(0, CLIP_VOCAB, (b, 77), generator=gen, device="cuda"),
+    }
+    cached = {"input_ids": pixel["input_ids"]}
+    with torch.no_grad():  # the latent cache: the same images' posteriors
+        for k in ("sdr", "gm"):
+            post = vae.encode(pixel[k])
+            cached[f"{k}_latent_mean"], cached[f"{k}_latent_std"] = post.mean, post.std
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    emit({"phase": "train", "setup_s": time.perf_counter() - t0, "unet_params": n_params})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(2 + args.train_steps):  # pixel form, cached warm-up, timed
+        t1 = time.perf_counter()
+        state, metrics = step(state, pixel if i == 0 else cached, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s_step = statistics.median(times[2:])
+    emit({
+        "phase": "train", "batch": b, "resolution": 512, "timed_steps": args.train_steps,
+        "pixel_step_s": times[0], "step_s": times[2:], "s_per_step": s_step,
+        "samples_per_s": b / s_step, "peak_mem_gb": peak_gb, "losses": losses,
+        "grad_norm": float(metrics["grad_norm"]), "launches": counts,
+    })
+    if args.profile:
+        profile_fn("train_profile", lambda: step(state, cached, gen))
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"chip_smoke: train loss not finite: {losses}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels never launched on the train path: {missing}")
+    del state, step, unet, vae, text
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_e2e(args) -> None:
+    import torch
+
+    from gmdx_torch.models import set_use_kernels
+    from gmdx_torch.schedulers import DDPMScheduler
+    from gmdx_torch.train import Stage2Config, stage2_loss
+
+    unet = build_gm_unet(args.seed + 10)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 12)
+    lat = {k: torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
+           for k in ("sdr_latents", "gm_latents", "noise")}
+    context = torch.randn(1, 77, 768, generator=gen, device="cuda")
+    acp = torch.as_tensor(DDPMScheduler().alphas_cumprod, device="cuda")
+    names, params = zip(*unet.named_parameters())
+    res = {}
+    for flag in (True, False):
+        set_use_kernels(unet, flag)
+        loss = stage2_loss(unet, **lat, encoder_hidden_states=context,
+                           timesteps=torch.tensor([500], device="cuda"), alphas_cumprod=acp,
+                           config=Stage2Config())
+        grads = torch.autograd.grad(loss, params)
+        res[flag] = (float(loss.detach()), torch.cat([g.float().flatten() for g in grads]))
+        del grads
+    (lk, gk), (lp, gp) = res[True], res[False]
+    rel = abs(lk - lp) / abs(lp)
+    cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
+    # The parameters whose gradient flows straight out of the attention and
+    # GroupNorm backward kernels, per leaf (rel-L2) and per kind (the norm
+    # ratio, which a wrong scale of dQ, dK, dV, dgamma or dbeta moves while
+    # bf16 rounding leaves it at 1).
+    diff = torch.split(gk - gp, [p.numel() for p in params])
+    ref = torch.split(gp, [p.numel() for p in params])
+    kern = torch.split(gk, [p.numel() for p in params])
+    watched = {}
+    for i, n in enumerate(names):
+        for key in (".to_q.", ".to_k.", ".to_v.", "norm"):
+            if key in n:
+                watched.setdefault(key.strip(".") + "." + n.rsplit(".", 1)[1], []).append(i)
+                break
+    idx = [i for ii in watched.values() for i in ii]
+    norms = {}
+    for name, parts in (("diff", diff), ("ref", ref), ("kern", kern)):
+        norms[name] = dict(zip(idx, torch.stack(
+            torch._foreach_norm([parts[i] for i in idx])).tolist()))
+    leaf = sorted(((norms["diff"][i] / norms["ref"][i], names[i]) for i in idx), reverse=True)
+    ratio = {k: math.sqrt(sum(norms["kern"][i] ** 2 for i in ii)
+                          / sum(norms["ref"][i] ** 2 for i in ii)) for k, ii in watched.items()}
+    worst_ratio = max(abs(r - 1.0) for r in ratio.values())
+    emit({"phase": "train_e2e", "batch": 1, "loss_kernels": lk, "loss_plain": lp,
+          "loss_rel_err": rel, "grad_cosine": cos, "grad_norm_kernels": float(gk.norm()),
+          "grad_norm_plain": float(gp.norm()), "leaves_checked": len(leaf),
+          "leaf_rel_l2_worst": leaf[:5], "norm_ratio_by_kind": ratio})
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS_MIN
+            and leaf[0][0] <= TRAIN_LEAF_REL_L2_MAX and worst_ratio <= TRAIN_NORM_RATIO_TOL):
+        raise SystemExit(f"chip_smoke: train_e2e loss rel {rel}, grad cosine {cos}, leaf "
+                         f"rel-L2 {leaf[0]} or norm ratio {ratio} out of bounds")
+    del unet, res, gk, gp
+    torch.cuda.empty_cache()
+
+
+def phase_train_e2e_controls(args) -> None:
+    """train_e2e with one output of a backward kernel scaled by 0.95 (dQ,
+    dK, dV; GroupNorm dx, dgamma, dbeta): each must fail the check."""
+    import gmdx_torch.kernels.attention as attention
+    import gmdx_torch.kernels.groupnorm as groupnorm
+
+    for mod, fn_name in ((attention, "flash_attention_bwd"), (groupnorm, "group_norm_silu_bwd")):
+        orig = getattr(mod, fn_name)
+        for i in range(3):
+            def scaled(*a, _orig=orig, _i=i, **kw):
+                outs = list(_orig(*a, **kw))
+                outs[_i] = outs[_i] * 0.95
+                return tuple(outs)
+
+            setattr(mod, fn_name, scaled)
+            try:
+                phase_train_e2e(args)
+                caught = False
+            except SystemExit:
+                caught = True
+            finally:
+                setattr(mod, fn_name, orig)
+            emit({"phase": "train_e2e_control", "kernel": fn_name, "output": i,
+                  "scale": 0.95, "caught": caught})
+            if not caught:
+                raise SystemExit(f"chip_smoke: train_e2e missed {fn_name} output {i} x 0.95")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -489,8 +837,10 @@ def main() -> int:
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--train-batch", type=int, default=2)
+    p.add_argument("--train-steps", type=int, default=4, help="timed Stage-2 steps")
     p.add_argument("--profile", action="store_true",
-                   help="device time by kernel over one denoise iteration")
+                   help="device time by kernel over one denoise iteration and one train step")
     args = p.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "gmdx_torch")):
@@ -498,17 +848,22 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = phase_device()
     phase_build()
-    kernel_rows = phase_kernels(args.batch)
+    kernel_rows = phase_kernels(args.batch, args.train_batch)
     launches = phase_main(args)
     phase_e2e(args)
+    train_launches = phase_train(args)
+    phase_train_e2e(args)
+    phase_train_e2e_controls(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in kernel_rows if r["name"] == name]
         head = rows[0]
+        # Launches from the run of the path the kernel was ported for.
+        n = launches[name] if name in INFERENCE_KERNELS else train_launches[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],

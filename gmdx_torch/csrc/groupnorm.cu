@@ -25,7 +25,27 @@
 // Bound on the H100: bytes. Two reads of x and one write of y, against ~10
 // operations an element; the design moves 16 bytes per access and fills the
 // card with splits x B blocks. The second read of x mostly hits L2 at the
-// UNet's sizes (<= 21 MB per tensor at batch 4).
+// UNet's sizes (<= 21 MB per tensor at batch 4). When asked, the apply pass
+// also writes each image's final per-group (mean, rstd) for the backward.
+//
+// Backward (gmdx_group_norm_silu_bwd) replaces gmdx/kernels/groupnorm.py:
+// _gn_backward (TPU kernels _gn_bwd_reduce_kernel, _gn_bwd_apply_kernel).
+// It recomputes xhat = (x + t - mean) * rstd from the statistics the forward
+// saved (not recomputed in another order), and dy from the cotangent g
+// through the SiLU derivative when the forward activated. Two launches, for
+// the same reason as the forward:
+//   1. reduce: grid (splits, B); a block sums over its pixels, per channel,
+//      dy and dy * xhat (the partials of dbeta and dgamma, written as
+//      (B, splits, 2, C)), and from those per group dxhat = dy * gamma and
+//      dxhat * xhat (written as (B, splits, 2, G));
+//   2. apply: grid (splits, B); each block folds its image's group partials
+//      into m1 = mean(dxhat), m2 = mean(dxhat * xhat) and writes
+//      dx = rstd * (dxhat - m1 - xhat * m2).
+// The wrapper sums the channel partials over (B, splits) into dgamma and
+// dbeta. A padded cotangent (the forward's pad_output) is read in place:
+// its border, a constant of the forward, carries no gradient.
+// Bound: bytes; x and g read twice, dx written once, ~30 operations an
+// element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +80,7 @@ struct GnArgs {
   const __nv_bfloat16* temb;  // (B, C) or null
   __nv_bfloat16* out;
   float* partials;  // (B, splits, G, 2)
+  float* stats;     // (B, 2, G) final (mean, rstd), or null
   int HW, W, C, G, splits, pad;
   float eps;
   int activate;
@@ -149,6 +170,10 @@ __global__ void gn_apply_kernel(GnArgs a) {
                         (a.temb != nullptr ? __bfloat162float(a.temb[(size_t)b * a.C + gfirst]) : 0.0f);
     gmean[g] = (float)md + shift;
     grstd[g] = rsqrtf((float)var + a.eps);
+    if (a.stats != nullptr && blockIdx.x == 0) {
+      a.stats[(size_t)b * 2 * a.G + g] = gmean[g];
+      a.stats[((size_t)b * 2 + 1) * a.G + g] = grstd[g];
+    }
   }
   __syncthreads();
   if (threadIdx.x >= chunks * r) return;
@@ -199,15 +224,160 @@ __global__ void gn_apply_kernel(GnArgs a) {
   }
 }
 
+struct GnBwdArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* g;  // (B, H, W, C), or (B, H+2, W+2, C) with gpad
+  const __nv_bfloat16* gamma;
+  const __nv_bfloat16* beta;
+  const __nv_bfloat16* temb;  // (B, C) or null
+  const float* stats;         // (B, 2, G) (mean, rstd) of the forward
+  __nv_bfloat16* dx;
+  float* chpart;  // (B, splits, 2, C): sum dy, sum dy * xhat
+  float* grpart;  // (B, splits, 2, G): sum dxhat, sum dxhat * xhat
+  int HW, W, C, G, splits, gpad, activate;
+};
+
+// Per-thread constants of the backward for channels [c0, c0 + 8) of image b:
+// the forward's shift (t - mean) and rstd, gamma and beta.
+struct GnBwdChan {
+  float sh[8], rs[8], gm[8], bt[8];
+};
+
+__device__ __forceinline__ void bwd_chan(const GnBwdArgs& a, int b, int c0, GnBwdChan& ch) {
+  const int cg = a.C / a.G;
+  float t[8];
+  load8(a.gamma + c0, ch.gm);
+  load8(a.beta + c0, ch.bt);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t[e] = 0.0f;
+  if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, t);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int g = (c0 + e) / cg;
+    ch.sh[e] = t[e] - a.stats[(size_t)b * 2 * a.G + g];
+    ch.rs[e] = a.stats[((size_t)b * 2 + 1) * a.G + g];
+  }
+}
+
+// xhat and dL/dy (through the SiLU when the forward activated) of pixel p.
+__device__ __forceinline__ void bwd_pixel(const GnBwdArgs& a, int b, int p, int c0,
+                                          const GnBwdChan& ch, float* xh, float* dy) {
+  float v[8], gv[8];
+  load8(a.x + ((size_t)b * a.HW + p) * a.C + c0, v);
+  size_t gp = (size_t)b * a.HW + p;
+  if (a.gpad) {
+    const int H = a.HW / a.W;
+    gp = ((size_t)b * (H + 2) + p / a.W + 1) * (a.W + 2) + p % a.W + 1;
+  }
+  load8(a.g + gp * a.C + c0, gv);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    xh[e] = (v[e] + ch.sh[e]) * ch.rs[e];
+    if (a.activate) {
+      const float y = xh[e] * ch.gm[e] + ch.bt[e];
+      const float sig = 1.0f / (1.0f + __expf(-y));
+      dy[e] = gv[e] * sig * (1.0f + y * (1.0f - sig));
+    } else {
+      dy[e] = gv[e];
+    }
+  }
+}
+
+__global__ void gn_bwd_reduce_kernel(GnBwdArgs a) {
+  extern __shared__ float cs[];  // [2][C]
+  const int b = blockIdx.y;
+  const int chunks = a.C / 8;
+  const int r = blockDim.x / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int cg = a.C / a.G;
+  for (int i = threadIdx.x; i < 2 * a.C; i += blockDim.x) cs[i] = 0.0f;
+  __syncthreads();
+
+  GnBwdChan ch;
+  bwd_chan(a, b, c0, ch);
+  float s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.0f;
+  int p0, p1;
+  block_range(a.HW, a.splits, p0, p1);
+  for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
+    float xh[8], dy[8];
+    bwd_pixel(a, b, p, c0, ch, xh, dy);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s1[e] += dy[e];
+      s2[e] += dy[e] * xh[e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    atomicAdd(&cs[c0 + e], s1[e]);
+    atomicAdd(&cs[a.C + c0 + e], s2[e]);
+  }
+  __syncthreads();
+  const size_t part = (size_t)b * a.splits + blockIdx.x;
+  float* cp = a.chpart + part * 2 * a.C;
+  for (int i = threadIdx.x; i < 2 * a.C; i += blockDim.x) cp[i] = cs[i];
+  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int c = g * cg; c < (g + 1) * cg; ++c) {
+      const float gm = __bfloat162float(a.gamma[c]);
+      t1 += gm * cs[c];
+      t2 += gm * cs[a.C + c];
+    }
+    a.grpart[part * 2 * a.G + g] = t1;
+    a.grpart[(part * 2 + 1) * a.G + g] = t2;
+  }
+}
+
+__global__ void gn_bwd_apply_kernel(GnBwdArgs a) {
+  __shared__ float gm1[MAXG], gm2[MAXG];
+  const int b = blockIdx.y;
+  const int chunks = a.C / 8;
+  const int r = blockDim.x / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int cg = a.C / a.G;
+  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
+    double t1 = 0.0, t2 = 0.0;
+    for (int s = 0; s < a.splits; ++s) {
+      const size_t part = (size_t)b * a.splits + s;
+      t1 += a.grpart[part * 2 * a.G + g];
+      t2 += a.grpart[(part * 2 + 1) * a.G + g];
+    }
+    const double n = (double)a.HW * cg;
+    gm1[g] = (float)(t1 / n);
+    gm2[g] = (float)(t2 / n);
+  }
+  __syncthreads();
+
+  GnBwdChan ch;
+  bwd_chan(a, b, c0, ch);
+  float m1[8], m2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    m1[e] = gm1[(c0 + e) / cg];
+    m2[e] = gm2[(c0 + e) / cg];
+  }
+  int p0, p1;
+  block_range(a.HW, a.splits, p0, p1);
+  for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
+    float xh[8], dy[8], dx[8];
+    bwd_pixel(a, b, p, c0, ch, xh, dy);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dx[e] = ch.rs[e] * (dy[e] * ch.gm[e] - m1[e] - xh[e] * m2[e]);
+    *reinterpret_cast<uint4*>(a.dx + ((size_t)b * a.HW + p) * a.C + c0) = pack8(dx);
+  }
+}
+
 }  // namespace
 
 // x: (B, H, W, C); out: (B, H + 2 pad, W + 2 pad, C); partials: B * splits *
-// G * 2 floats of scratch. All tensors bf16 except partials. C % 8 == 0,
-// C % G == 0, G <= 64, C / 8 <= 1024.
+// G * 2 floats of scratch; stats: (B, 2, G) fp32 or null. All other tensors
+// bf16. C % 8 == 0, C % G == 0, G <= 64, C / 8 <= 1024.
 extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void* beta,
-                                    const void* temb, void* out, void* partials, int B, int H,
-                                    int W, int C, int G, int splits, float eps, int activate,
-                                    int pad, void* stream) {
+                                    const void* temb, void* out, void* partials, void* stats,
+                                    int B, int H, int W, int C, int G, int splits, float eps,
+                                    int activate, int pad, void* stream) {
   GnArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.gamma = static_cast<const __nv_bfloat16*>(gamma);
@@ -215,6 +385,7 @@ extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void
   a.temb = static_cast<const __nv_bfloat16*>(temb);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.partials = static_cast<float*>(partials);
+  a.stats = static_cast<float*>(stats);
   a.HW = H * W;
   a.W = W;
   a.C = C;
@@ -231,5 +402,49 @@ extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gn_apply_kernel<<<grid, threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, dx: (B, H, W, C); g: the same, or (B, H+2, W+2, C) with gpad; stats:
+// (B, 2, G) fp32 from the forward; chpart: B * splits * 2 * C and grpart:
+// B * splits * 2 * G floats, written here (chpart is the caller's to sum
+// into dbeta, dgamma). Other tensors bf16. The limits of the forward hold.
+extern "C" int gmdx_group_norm_silu_bwd(const void* x, const void* g, const void* gamma,
+                                        const void* beta, const void* temb, const void* stats,
+                                        void* dx, void* chpart, void* grpart, int B, int H, int W,
+                                        int C, int G, int splits, int activate, int gpad,
+                                        void* stream) {
+  GnBwdArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
+  a.beta = static_cast<const __nv_bfloat16*>(beta);
+  a.temb = static_cast<const __nv_bfloat16*>(temb);
+  a.stats = static_cast<const float*>(stats);
+  a.dx = static_cast<__nv_bfloat16*>(dx);
+  a.chpart = static_cast<float*>(chpart);
+  a.grpart = static_cast<float*>(grpart);
+  a.HW = H * W;
+  a.W = W;
+  a.C = C;
+  a.G = G;
+  a.splits = splits;
+  a.gpad = gpad;
+  a.activate = activate;
+  const int chunks = C / 8;
+  const int threads = chunks * (chunks >= 512 ? 1 : 512 / chunks);
+  const int smem = 2 * C * static_cast<int>(sizeof(float));
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(gn_bwd_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         2 * 8192 * static_cast<int>(sizeof(float)));
+    attr = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(splits, B);
+  gn_bwd_reduce_kernel<<<grid, threads, smem, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_bwd_apply_kernel<<<grid, threads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

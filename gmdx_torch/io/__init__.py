@@ -1,6 +1,8 @@
 """I/O of the port (counterpart of ``gmdx.io``): .hdr export and weights."""
 
 from gmdx_torch.io.convert import (
+    clip_text_state_dict_from_flax,
+    load_clip_text,
     load_unet,
     load_vae,
     unet_state_dict_from_flax,
@@ -9,6 +11,8 @@ from gmdx_torch.io.convert import (
 from gmdx_torch.io.hdr import read_hdr, save_hdr_image, write_hdr
 
 __all__ = [
+    "clip_text_state_dict_from_flax",
+    "load_clip_text",
     "load_unet",
     "load_vae",
     "unet_state_dict_from_flax",

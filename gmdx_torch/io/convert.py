@@ -1,7 +1,8 @@
 """Carry weights across: the JAX package's param trees -> the port's modules.
 
 A port-local copy of the export mapping of ``gmdx/io/torch_import.py``
-(``export_unet_state_dict`` / ``export_vae_state_dict``): Flax param trees
+(``export_unet_state_dict``, ``export_vae_state_dict``,
+``export_clip_text_state_dict``): Flax param trees
 (nested dicts of numpy arrays) become state dicts in diffusers key naming,
 with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW.
 Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from gmdx_torch.models.unet2d import UNet2DConditionModel, UNetConfig
 from gmdx_torch.models.vae import AutoencoderKL, VAEConfig
 
@@ -130,42 +132,69 @@ def _vae_attention(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.n
 
 
 def vae_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
-    """gmdx ``AutoencoderKL`` params -> diffusers-named state dict of the
-    parts the port's module holds (``decoder.*``, ``post_quant_conv``). The
-    encoder and ``quant_conv`` are skipped until the encoder is ported."""
+    """gmdx ``AutoencoderKL`` params -> diffusers-named state dict
+    (``encoder.*``, ``quant_conv``, ``decoder.*``, ``post_quant_conv``)."""
     out = {}
     for path, value in _flatten(params).items():
         top, rest = path.split("/", 1)
         last = rest.split("/")[-1]
-        if top == "post_quant_conv":
+        if top in ("quant_conv", "post_quant_conv"):
             p, v = _param(last, value, _inv_conv)
-            out[f"post_quant_conv.{p}"] = v
+            out[f"{top}.{p}"] = v
             continue
-        if top != "decoder":  # encoder, quant_conv
-            continue
+        if top not in ("encoder", "decoder"):
+            raise KeyError(f"unhandled VAE path {path}")
         sub, rest2 = rest.split("/", 1)
         if sub in ("conv_in", "conv_out"):
             p, v = _param(last, value, _inv_conv)
-            out[f"decoder.{sub}.{p}"] = v
+            out[f"{top}.{sub}.{p}"] = v
         elif sub == "conv_norm_out":
-            out[f"decoder.conv_norm_out.{_norm_param(last)}"] = value
-        elif sub.startswith("up_"):
-            _, i, kind, *j = sub.split("_")
-            tp = f"decoder.up_blocks.{i}"
+            out[f"{top}.conv_norm_out.{_norm_param(last)}"] = value
+        elif sub.startswith(("down_", "up_")):
+            side, i, kind, *j = sub.split("_")  # down_0_resnet_1 / up_0_upsample
+            tp = f"{top}.{side}_blocks.{i}"
             if kind == "resnet":
                 k, v = _resnet(rest2, value, f"{tp}.resnets.{j[0]}")
             else:
+                samp = "downsamplers" if kind == "downsample" else "upsamplers"
                 p, v = _param(last, value, _inv_conv)
-                k = f"{tp}.upsamplers.0.conv.{p}"
+                k = f"{tp}.{samp}.0.conv.{p}"
             out[k] = v
         elif sub.startswith("mid_resnet_"):
-            k, v = _resnet(rest2, value, f"decoder.mid_block.resnets.{sub.split('_')[-1]}")
+            k, v = _resnet(rest2, value, f"{top}.mid_block.resnets.{sub.split('_')[-1]}")
             out[k] = v
         elif sub == "mid_attn":
-            k, v = _vae_attention(rest2, value, "decoder.mid_block.attentions.0")
+            k, v = _vae_attention(rest2, value, f"{top}.mid_block.attentions.0")
             out[k] = v
         else:
             raise KeyError(f"unhandled VAE path {path}")
+    return out
+
+
+def clip_text_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``CLIPTextModel`` params -> transformers-named state dict."""
+    out = {}
+    for path, value in _flatten(params).items():
+        parts = path.split("/")
+        last = parts[-1]
+        if parts[0] in ("token_embedding", "position_embedding"):
+            out[f"text_model.embeddings.{parts[0]}.weight"] = value
+        elif parts[0] == "final_layer_norm":
+            out[f"text_model.final_layer_norm.{_norm_param(last)}"] = value
+        elif parts[0].startswith("layers_"):
+            lp = f"text_model.encoder.layers.{parts[0].split('_')[1]}"
+            if parts[1] in ("norm1", "norm2"):
+                out[f"{lp}.layer_{parts[1]}.{_norm_param(last)}"] = value
+            elif parts[1] == "attn":
+                p, v = _param(last, value, _inv_linear)
+                out[f"{lp}.self_attn.{parts[2]}.{p}"] = v
+            elif parts[1] in ("fc1", "fc2"):
+                p, v = _param(last, value, _inv_linear)
+                out[f"{lp}.mlp.{parts[1]}.{p}"] = v
+            else:
+                raise KeyError(f"unhandled CLIP path {path}")
+        else:
+            raise KeyError(f"unhandled CLIP path {path}")
     return out
 
 
@@ -190,8 +219,24 @@ def load_vae(
     state_dict: dict, config: VAEConfig, *, device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> AutoencoderKL:
-    """A VAE decoder holding ``state_dict`` (diffusers naming, ``strict=True``)."""
+    """A VAE holding ``state_dict`` (diffusers naming, ``strict=True``)."""
     return _load(AutoencoderKL, config, state_dict, device, dtype)
 
 
-__all__ = ["unet_state_dict_from_flax", "vae_state_dict_from_flax", "load_unet", "load_vae"]
+def load_clip_text(
+    state_dict: dict, config: CLIPTextConfig, *, device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> CLIPTextModel:
+    """A CLIP text encoder holding ``state_dict`` (transformers naming,
+    ``strict=True``)."""
+    return _load(CLIPTextModel, config, state_dict, device, dtype)
+
+
+__all__ = [
+    "unet_state_dict_from_flax",
+    "vae_state_dict_from_flax",
+    "clip_text_state_dict_from_flax",
+    "load_unet",
+    "load_vae",
+    "load_clip_text",
+]

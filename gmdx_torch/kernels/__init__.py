@@ -6,6 +6,12 @@ tensor on the card; it raises for what the kernel does not take. There is no
 switch that sends a CUDA tensor to the plain version: a caller who wants it
 calls the ``*_plain`` function (the models' ``use_kernels=False``).
 
+Under autograd (:func:`needs_grad`) the models take the differentiated
+routes: ``torch.autograd.Function``s whose forward and backward are kernels
+where the JAX package's custom VJPs call Pallas kernels (attention,
+GroupNorm), and a recompute of the plain version where they recompute jnp
+(the GEGLU FF backward).
+
 ``LAUNCHES`` counts each wrapper's kernel launches, so a run can show which
 kernels its path went through.
 """
@@ -19,6 +25,9 @@ LAUNCHES = {
     "conv3x3": 0,
     "group_norm_silu": 0,
     "geglu_ff_ln": 0,
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd": 0,
+    "group_norm_silu_bwd": 0,
 }
 
 
@@ -29,6 +38,21 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def needs_grad(*tensors: torch.Tensor | None) -> bool:
+    """Whether autograd will differentiate through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+def check_fp32(name: str, *tensors: torch.Tensor) -> None:
+    """Validate the fp32 side operands of a launch (contiguous, on the card)."""
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous fp32 CUDA tensor, got "
+                             f"{t.dtype} on {t.device}")
 
 
 def check_kernel_operands(name: str, *tensors: torch.Tensor | None) -> int:
@@ -51,4 +75,7 @@ def check_kernel_operands(name: str, *tensors: torch.Tensor | None) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts", "check_kernel_operands"]
+__all__ = [
+    "LAUNCHES", "reset_launch_counts", "launch_counts", "needs_grad", "check_fp32",
+    "check_kernel_operands",
+]

@@ -31,19 +31,32 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's entry point: (function, argtypes).
-SIGNATURES = {
-    "attention": ("gmdx_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "conv3x3": ("gmdx_conv3x3", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "groupnorm": (
-        "gmdx_group_norm_silu",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+# Each C entry point: (library it lives in, argtypes). A library lib<name>.so
+# is built from csrc/<name>.cu.
+ENTRY_POINTS = {
+    "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "gmdx_group_norm_silu": (
+        "groupnorm",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
-    "geglu_ff": (
-        "gmdx_geglu_ff_ln",
+    "gmdx_group_norm_silu_bwd": (
+        "groupnorm",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "gmdx_geglu_ff_ln": (
+        "geglu_ff",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     ),
+    "gmdx_flash_fwd": (
+        "flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "gmdx_flash_bwd": (
+        "flash_attention",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    ),
 }
+LIBRARIES = sorted({lib for lib, _ in ENTRY_POINTS.values()})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -71,7 +84,7 @@ def build_all() -> Path:
     """Compile every source (in parallel) unless this hash is built; returns
     the build directory."""
     out_dir = BUILD_ROOT / _source_hash()
-    targets = {name: out_dir / f"lib{name}.so" for name in SIGNATURES}
+    targets = {name: out_dir / f"lib{name}.so" for name in LIBRARIES}
     if all(t.exists() for t in targets.values()):
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -103,22 +116,23 @@ def build_all() -> Path:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>.so``, built on first use."""
+    """The loaded library ``lib<name>.so``, built on first use, with the
+    argument types of its entry points set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, (lib_name, argtypes) in ENTRY_POINTS.items():
+                if lib_name == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
 
-def call(name: str, *args) -> None:
-    """Launch ``name``'s entry point and raise on a non-zero CUDA error."""
-    fn = getattr(library(name), SIGNATURES[name][0])
-    err = fn(*args)
+def call(fn_name: str, *args) -> None:
+    """Launch the entry point ``fn_name`` and raise on a non-zero CUDA error."""
+    err = getattr(library(ENTRY_POINTS[fn_name][0]), fn_name)(*args)
     if err != 0:
-        raise RuntimeError(f"{SIGNATURES[name][0]} failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

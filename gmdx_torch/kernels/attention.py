@@ -7,18 +7,25 @@ keys and head dim <= 160 takes the kernel; everything else (the 77-key
 cross-attention, the 64-token mid block, the VAE's single 512-wide head)
 takes :func:`dot_product_attention`, the einsum + fp32-softmax path the JAX
 package leaves to XLA.
+
+Under autograd the kernel's shapes take :class:`FlashAttention`, the
+counterpart of the ``_attn_kvres`` custom VJP (``flash_attention.py:824-848``):
+its forward is the flash forward, which also saves the logsumexp, and its
+backward the two flash backward kernels. Without grad, inference keeps the
+KV-resident kernel.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
-
-_LOG2_E = 1.0 / math.log(2.0)
-_KERNEL_HEAD_DIMS = (40, 80, 160)  # SD-1.5's; the instances in csrc/attention.cu
+from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, needs_grad
+from gmdx_torch.kernels.flash_attention import (
+    _KERNEL_HEAD_DIMS,
+    _LOG2_E,
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
 
 
 def dot_product_attention(
@@ -73,7 +80,7 @@ def attention_kv_resident(
 
     out = torch.empty_like(q)
     _build.call(
-        "attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        "gmdx_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
     )
     LAUNCHES["attention_kv_resident"] += 1
@@ -85,20 +92,45 @@ def uses_kernel(sk: int, head_dim: int) -> bool:
     return 256 <= sk <= 4096 and head_dim <= 160
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiated self-attention over head-packed (B, S, H*D): the flash
+    forward (saving out and lse) and the flash backward kernels. The
+    cotangent from PyTorch is cast to q's dtype and made contiguous here,
+    because the kernels take contiguous bf16."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        out, lse = flash_attention_fwd(q, k, v, heads, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.heads, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
     scale: float | None = None, use_kernels: bool = True,
 ) -> torch.Tensor:
     """Attention over head-packed (B, S, H*D) operands, dispatched as the
-    JAX package does. ``use_kernels=False`` sends the kernel's shapes to its
-    plain version instead."""
+    JAX package does: the kernel's shapes take the KV-resident kernel, or
+    under autograd :class:`FlashAttention`. ``use_kernels=False`` sends the
+    kernel's shapes to the plain version (differentiated by autograd)."""
     b, sq, c = q.shape
     d = c // heads
     if scale is None:
         scale = d**-0.5
     if uses_kernel(k.shape[1], d):
-        fn = attention_kv_resident if use_kernels else attention_kv_resident_plain
-        return fn(q, k, v, heads, scale=scale)
+        if not use_kernels:
+            return attention_kv_resident_plain(q, k, v, heads, scale=scale)
+        if needs_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, heads, scale)
+        return attention_kv_resident(q, k, v, heads, scale=scale)
     sk = k.shape[1]
     out = dot_product_attention(
         q.reshape(b, sq, heads, d), k.reshape(b, sk, heads, d),
@@ -113,4 +145,5 @@ __all__ = [
     "attention_kv_resident_plain",
     "attention_packed",
     "uses_kernel",
+    "FlashAttention",
 ]

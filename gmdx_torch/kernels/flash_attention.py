@@ -1,0 +1,135 @@
+"""Flash attention for training: forward with the base-2 logsumexp, backward.
+
+Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward`` and
+``_flash_backward``, over the port's head-packed (B, S, H*D) layout instead
+of the JAX package's (B*H, S, D). Kernels: ``csrc/flash_attention.cu``.
+
+``lse`` is (B, H, Sq) fp32: the base-2 logsumexp of the logits pre-scaled by
+``scale * log2(e)``, exactly as the TPU kernel's ``_finish`` defines it. The
+backward recomputes the softmax from (Q, K, lse) with
+``dd = rowsum(dO * O)``, and applies ``dK *= 1 / log2(e)``, ``dQ *= scale``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands
+
+_LOG2_E = 1.0 / math.log(2.0)
+# SD-1.5's head dims: the instances of csrc/attention_fwd.cuh's forward in
+# attention.cu and flash_attention.cu, and of the backward kernels.
+_KERNEL_HEAD_DIMS = (40, 80, 160)
+
+
+def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, s, c = x.shape
+    return x.float().reshape(b, s, heads, c // heads)
+
+
+def flash_attention_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version in fp32: (out in q's dtype, lse (B, H, Sq) fp32)."""
+    qs = _split(q, heads) * (scale * _LOG2_E)
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qs, _split(k, heads))
+    m = s2.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True))
+    p = torch.exp2(s2 - lse)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _split(v, heads))
+    return out.reshape(q.shape).to(q.dtype), lse[..., 0]
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, heads: int, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the two backward kernels in fp32: the same formula,
+    P = exp2(Qs K^T - lse) recomputed from the saved lse, over whole rows
+    instead of tiles. Returns (dq, dk, dv) in the operands' dtypes."""
+    qs = _split(q, heads) * (scale * _LOG2_E)
+    kf, vf, g = _split(k, heads), _split(v, heads), _split(dout, heads)
+    dd = (g * _split(out, heads)).sum(dim=-1).transpose(1, 2)  # (B, H, Sq)
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, vf)
+    ds = p * (dp - dd[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs) * (1.0 / _LOG2_E)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype))
+
+
+def _check_shapes(q, k, v, heads) -> int:
+    if q.ndim != 3 or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"bad attention shapes {q.shape} {k.shape} {v.shape}")
+    if q.shape[-1] % heads:
+        raise ValueError(f"width {q.shape[-1]} does not split into {heads} heads")
+    d = q.shape[-1] // heads
+    if q.is_cuda and d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel has no instance for head dim {d}")
+    return d
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-softmax attention over head-packed (B, S, H*D) q/k/v, and the
+    base-2 logsumexp (B, H, Sq) the backward needs."""
+    d = _check_shapes(q, k, v, heads)
+    if scale is None:
+        scale = d**-0.5
+    if not q.is_cuda:
+        return flash_attention_fwd_plain(q, k, v, heads, scale)
+    stream = check_kernel_operands("flash_attention_fwd", q, k, v)
+    from gmdx_torch.kernels import _build
+
+    b, sq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, sq), dtype=torch.float32, device=q.device)
+    _build.call(
+        "gmdx_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
+    )
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, heads: int, *, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_fwd` for the cotangent
+    ``dout`` of ``out``."""
+    d = _check_shapes(q, k, v, heads)
+    if scale is None:
+        scale = d**-0.5
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, heads, scale)
+    stream = check_kernel_operands("flash_attention_bwd", q, k, v, out, dout)
+    b, sq, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, heads, sq):
+        raise ValueError(f"flash backward: out {out.shape}, dout {dout.shape}, lse {lse.shape}")
+    dd = (dout.float() * out.float()).reshape(b, sq, heads, d).sum(-1).transpose(1, 2).contiguous()
+    check_fp32("flash_attention_bwd", lse, dd)
+    from gmdx_torch.kernels import _build
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.call(
+        "gmdx_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, k.shape[1], heads, d, float(scale), float(scale * _LOG2_E), stream,
+    )
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+__all__ = [
+    "flash_attention_fwd",
+    "flash_attention_fwd_plain",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+]

@@ -5,6 +5,11 @@ Counterpart of ``gmdx/kernels/geglu_ff.py:geglu_ff_ln`` with ``add=``.
 Kernel: ``csrc/geglu_ff.cu`` (two launches of the shared tile GEMM).
 Weights are the torch Linear layouts: ``w1`` (2*inner, dim) with rows
 ``[hidden | gate]``, ``w2`` (dim, inner).
+
+Under autograd, :class:`GegluFFLN` runs the kernel forward and, like
+``_ff_ln_bwd``/``_ff_add_ln_bwd`` (``geglu_ff.py:385-428``), differentiates
+a recompute of :func:`geglu_ff_ln_reference` in its backward: the JAX
+package has no backward kernel here, so the port writes none.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ def geglu_ff_ln(
     act = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.call(
-        "geglu_ff", x.data_ptr(), add.data_ptr() if add is not None else None,
+        "gmdx_geglu_ff_ln", x.data_ptr(), add.data_ptr() if add is not None else None,
         gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), act.data_ptr(), out.data_ptr(),
         m, dim, inner, float(eps), stream,
@@ -78,4 +83,36 @@ def geglu_ff_ln(
     return out
 
 
-__all__ = ["geglu_ff_ln", "geglu_ff_ln_plain"]
+def geglu_ff_ln_reference(x, add, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """The JAX package's backward recompute target (``_ff_add_ln_reference``):
+    the same function as :func:`geglu_ff_ln_plain`, but LN with fp32
+    statistics rounded to x's dtype and the two products in x's dtype (bf16
+    GEMMs on the card, where the plain version's fp32 ones would be slow)."""
+    s = x if add is None else (x.float() + add.float()).to(x.dtype)
+    y = F.layer_norm(s.float(), (s.shape[-1],), gamma.float(), beta.float(), eps).to(s.dtype)
+    hidden, gate = F.linear(y, w1.to(y.dtype), b1.to(y.dtype)).chunk(2, dim=-1)
+    return s + F.linear(hidden * F.gelu(gate), w2.to(y.dtype), b2.to(y.dtype))
+
+
+class GegluFFLN(torch.autograd.Function):
+    """Differentiated :func:`geglu_ff_ln`: kernel forward, backward by
+    autograd through a recompute of :func:`geglu_ff_ln_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, add, gamma, beta, w1, b1, w2, b2, eps: float):
+        ctx.save_for_backward(x, add, gamma, beta, w1, b1, w2, b2)
+        ctx.eps = eps
+        return geglu_ff_ln(x, add, gamma, beta, w1, b1, w2, b2, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if t is not None else None for t in saved]
+            out = geglu_ff_ln_reference(*leaves, eps=ctx.eps)
+            live = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad(out, live, g))
+        return (*(next(grads) if t is not None else None for t in leaves), None)
+
+
+__all__ = ["geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "GegluFFLN"]

@@ -4,6 +4,11 @@ Counterpart of ``gmdx/kernels/groupnorm.py``: one function covers both
 ``fused_group_norm_silu`` (plain, optionally padded) and
 ``parity_gn_pad_silu`` (temb added before the statistics), without the
 Winograd parity layout. Kernel: ``csrc/groupnorm.cu``.
+
+The backward (``_gn_backward``, two passes from the statistics the forward
+saved) is :func:`group_norm_silu_bwd`; :class:`GroupNormSiLU` ties the two
+together for autograd, as ``_gn_silu_pallas``'s custom VJP does. Statistics
+are (B, 2, G) fp32: each group's mean (of ``x + temb``) and rstd.
 """
 
 from __future__ import annotations
@@ -11,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
+from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands
 
 _TARGET_BLOCKS = 528  # about four blocks per SM of the H100's 132
 
@@ -26,9 +31,11 @@ def group_norm_silu_plain(
     eps: float = 1e-5,
     activate: bool = True,
     pad_output: bool = False,
-) -> torch.Tensor:
+    return_stats: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Plain version: fp32 statistics (two-pass variance), result in x's
-    dtype. ``temb`` is (B, C), added before the statistics."""
+    dtype. ``temb`` is (B, C), added before the statistics. With
+    ``return_stats`` also the (B, 2, G) (mean, rstd)."""
     b, h, w, c = x.shape
     xf = x.float()
     if temb is not None:
@@ -36,14 +43,24 @@ def group_norm_silu_plain(
     xg = xf.reshape(b, h * w, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
-    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+    rstd = torch.rsqrt(var + eps)
+    y = ((xg - mean) * rstd).reshape(b, h, w, c)
     y = y * scale.float() + bias.float()
     if activate:
         y = F.silu(y)
     y = y.to(x.dtype)
     if pad_output:
         y = F.pad(y, (0, 0, 1, 1, 1, 1))
+    if return_stats:
+        return y, torch.stack([mean.reshape(b, num_groups), rstd.reshape(b, num_groups)], 1)
     return y
+
+
+def _splits(b: int, hw: int, c: int) -> int:
+    """Blocks per image of both passes: about _TARGET_BLOCKS in all, and no
+    more than a block's walk of ``rows`` pixels each."""
+    rows = max(1, 512 // (c // 8))  # pixels a block walks in parallel
+    return max(1, min(-(-_TARGET_BLOCKS // b), -(-hw // rows)))
 
 
 def group_norm_silu(
@@ -56,12 +73,14 @@ def group_norm_silu(
     eps: float = 1e-5,
     activate: bool = True,
     pad_output: bool = False,
-) -> torch.Tensor:
+    return_stats: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """GN(num_groups) over NHWC ``x`` (B, H, W, C) with affine ``scale``/
     ``bias`` (C,), optional ``temb`` (B, C) added before the statistics,
     optional SiLU, and with ``pad_output`` the 1-px zero-bordered result
     (B, H+2, W+2, C) that :func:`gmdx_torch.kernels.winograd.conv3x3` takes
-    with ``pre_padded=True``."""
+    with ``pre_padded=True``. ``return_stats`` also returns the kernel's own
+    final (B, 2, G) (mean, rstd), which the backward needs."""
     if x.ndim != 4:
         raise ValueError(f"expected NHWC, got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -70,7 +89,7 @@ def group_norm_silu(
     if not x.is_cuda:
         return group_norm_silu_plain(
             x, scale, bias, temb, num_groups=num_groups, eps=eps,
-            activate=activate, pad_output=pad_output,
+            activate=activate, pad_output=pad_output, return_stats=return_stats,
         )
     if c % 8 or c > 8192 or num_groups > 64:
         raise ValueError(f"group_norm_silu kernel: unsupported C={c}, G={num_groups}")
@@ -81,18 +100,146 @@ def group_norm_silu(
 
     pad = 1 if pad_output else 0
     out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
-    chunks = c // 8
-    rows = max(1, 512 // chunks)  # pixels a block walks in parallel
-    splits = max(1, min(-(-_TARGET_BLOCKS // b), -(-(h * w) // rows)))
+    splits = _splits(b, h * w, c)
     partials = torch.empty((b, splits, num_groups, 2), dtype=torch.float32, device=x.device)
+    stats = (torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
+             if return_stats else None)
     _build.call(
-        "groupnorm", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        "gmdx_group_norm_silu", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         temb.data_ptr() if temb is not None else None, out.data_ptr(),
-        partials.data_ptr(), b, h, w, c, num_groups, splits, float(eps),
-        int(activate), pad, stream,
+        partials.data_ptr(), stats.data_ptr() if stats is not None else None,
+        b, h, w, c, num_groups, splits, float(eps), int(activate), pad, stream,
     )
     LAUNCHES["group_norm_silu"] += 1
-    return out
+    return (out, stats) if return_stats else out
 
 
-__all__ = ["group_norm_silu", "group_norm_silu_plain"]
+def _expand(t: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, G) per-group values -> (B, 1, 1, C) per-channel."""
+    return t.repeat_interleave(c // t.shape[1], dim=1)[:, None, None, :]
+
+
+def group_norm_silu_bwd_plain(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    temb: torch.Tensor | None,
+    stats: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    activate: bool = True,
+    pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Plain version of the backward in fp32: ``xhat`` from the saved
+    (mean, rstd), dy through the SiLU derivative, then
+    ``dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))`` per
+    group. Returns (dx in x's dtype, dscale, dbias, dtemb) with the last
+    three fp32 (dtemb None without temb)."""
+    if pad_output:
+        g = g[:, 1:-1, 1:-1, :]
+    b, h, w, c = x.shape
+    groups = stats.shape[-1]
+    xf = x.float()
+    if temb is not None:
+        xf = xf + temb.float()[:, None, None, :]
+    rstd = _expand(stats[:, 1].float(), c)
+    xhat = (xf - _expand(stats[:, 0].float(), c)) * rstd
+    dy = g.float()
+    if activate:
+        y = xhat * scale.float() + bias.float()
+        sig = torch.sigmoid(y)
+        dy = dy * sig * (1.0 + y * (1.0 - sig))
+    dbias = dy.sum(dim=(0, 1, 2))
+    dscale = (dy * xhat).sum(dim=(0, 1, 2))
+    dxhat = dy * scale.float()
+
+    def group_mean(t):
+        return t.reshape(b, h * w, groups, c // groups).mean(dim=(1, 3))
+
+    dx = rstd * (dxhat - _expand(group_mean(dxhat), c) - xhat * _expand(group_mean(dxhat * xhat), c))
+    dtemb = dx.sum(dim=(1, 2)) if temb is not None else None
+    return dx.to(x.dtype), dscale, dbias, dtemb
+
+
+def group_norm_silu_bwd(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    temb: torch.Tensor | None,
+    stats: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    activate: bool = True,
+    pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Backward of :func:`group_norm_silu` for the cotangent ``g`` of its
+    output (padded when ``pad_output``; its border carries no gradient), from
+    the forward's ``stats``. Returns (dx, dscale, dbias, dtemb) as
+    :func:`group_norm_silu_bwd_plain` does."""
+    if not x.is_cuda:
+        return group_norm_silu_bwd_plain(
+            x, scale, bias, temb, stats, g, activate=activate, pad_output=pad_output,
+        )
+    b, h, w, c = x.shape
+    groups = stats.shape[-1]
+    pad = 1 if pad_output else 0
+    if g.shape != (b, h + 2 * pad, w + 2 * pad, c) or stats.shape != (b, 2, groups):
+        raise ValueError(f"GN backward: g {tuple(g.shape)}, stats {tuple(stats.shape)} vs x {tuple(x.shape)}")
+    if c % 8 or c > 8192 or groups > 64 or c % groups:
+        raise ValueError(f"group_norm_silu_bwd kernel: unsupported C={c}, G={groups}")
+    stream = check_kernel_operands("group_norm_silu_bwd", x, g, scale, bias, temb)
+    check_fp32("group_norm_silu_bwd", stats)
+    from gmdx_torch.kernels import _build
+
+    splits = _splits(b, h * w, c)
+    chpart = torch.empty((b, splits, 2, c), dtype=torch.float32, device=x.device)
+    grpart = torch.empty((b, splits, 2, groups), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    _build.call(
+        "gmdx_group_norm_silu_bwd", x.data_ptr(), g.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), temb.data_ptr() if temb is not None else None,
+        stats.data_ptr(), dx.data_ptr(), chpart.data_ptr(), grpart.data_ptr(),
+        b, h, w, c, groups, splits, int(activate), pad, stream,
+    )
+    LAUNCHES["group_norm_silu_bwd"] += 1
+    sums = chpart.sum(dim=(0, 1))
+    dtemb = dx.sum(dim=(1, 2), dtype=torch.float32) if temb is not None else None
+    return dx, sums[1], sums[0], dtemb
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """Differentiated :func:`group_norm_silu`: the forward kernel saves its
+    statistics, the backward kernel reads them. The cotangent from PyTorch
+    is cast to x's dtype and made contiguous here (the conv's backward may
+    hand over another layout); the fp32 parameter gradients are cast to the
+    dtypes the parameters were used in."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, temb, num_groups: int, eps: float, activate: bool,
+                pad_output: bool):
+        out, stats = group_norm_silu(
+            x, scale, bias, temb, num_groups=num_groups, eps=eps, activate=activate,
+            pad_output=pad_output, return_stats=True,
+        )
+        ctx.save_for_backward(x, scale, bias, temb, stats)
+        ctx.activate, ctx.pad_output = activate, pad_output
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, temb, stats = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx, dscale, dbias, dtemb = group_norm_silu_bwd(
+            x, scale, bias, temb, stats, g, activate=ctx.activate, pad_output=ctx.pad_output,
+        )
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
+                dtemb.to(temb.dtype) if temb is not None else None, None, None, None, None)
+
+
+__all__ = [
+    "group_norm_silu",
+    "group_norm_silu_plain",
+    "group_norm_silu_bwd",
+    "group_norm_silu_bwd_plain",
+    "GroupNormSiLU",
+]

@@ -4,6 +4,11 @@ Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``. The Hopper
 kernel (``csrc/conv3x3.cu``) is an implicit GEMM, not a Winograd transform;
 the source says why. Its weight operand is the (O, 9*C) repacking of the
 OIHW conv weight made by :func:`pack_weight`, once per weight.
+
+Under autograd the conv is :func:`conv3x3_direct`, ``F.conv2d`` in both
+directions, as the JAX package's ``_wino_fwd`` takes the direct XLA conv for
+training by default (``winograd.py:1028-1048``, ``GMDX_WINOGRAD_TRAIN=0``):
+a computation the JAX package leaves outside Pallas.
 """
 
 from __future__ import annotations
@@ -61,11 +66,21 @@ def conv3x3(
 
     out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
     _build.call(
-        "conv3x3", x.data_ptr(), wpacked.data_ptr(), bias.data_ptr(),
+        "gmdx_conv3x3", x.data_ptr(), wpacked.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, h, w, c, o, int(pre_padded), stream,
     )
     LAUNCHES["conv3x3"] += 1
     return out
 
 
-__all__ = ["conv3x3", "conv3x3_plain", "pack_weight"]
+def conv3x3_direct(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, pre_padded: bool = False,
+) -> torch.Tensor:
+    """The same conv by ``F.conv2d`` on a channels-last view, with the OIHW
+    ``weight``: the differentiated route. A channels-last input gives a
+    channels-last result, so the final ``contiguous`` copies nothing."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=0 if pre_padded else 1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight"]

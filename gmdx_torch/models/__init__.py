@@ -1,5 +1,11 @@
-"""UNet and VAE modules of the port (counterpart of ``gmdx.models``)."""
+"""UNet, VAE and CLIP text modules of the port (counterpart of ``gmdx.models``)."""
 
+from gmdx_torch.models.clip_text import (
+    CLIP_VIT_L_CONFIG,
+    TINY_CLIP_CONFIG,
+    CLIPTextConfig,
+    CLIPTextModel,
+)
 from gmdx_torch.models.layers import set_use_kernels
 from gmdx_torch.models.unet2d import (
     SD15_GM_UNET_CONFIG,
@@ -7,6 +13,7 @@ from gmdx_torch.models.unet2d import (
     TINY_UNET_CONFIG,
     UNet2DConditionModel,
     UNetConfig,
+    inflate_conv_in,
 )
 from gmdx_torch.models.vae import (
     SD15_VAE_CONFIG,
@@ -17,6 +24,11 @@ from gmdx_torch.models.vae import (
 
 __all__ = [
     "set_use_kernels",
+    "CLIPTextModel",
+    "CLIPTextConfig",
+    "CLIP_VIT_L_CONFIG",
+    "TINY_CLIP_CONFIG",
+    "inflate_conv_in",
     "UNet2DConditionModel",
     "UNetConfig",
     "SD15_UNET_CONFIG",

@@ -12,6 +12,16 @@ block's LN -> GEGLU FF -> residual tail. A module with ``use_kernels=False``
 calls the same functions' plain versions instead. Everything else (the
 projections, conv_in/conv_out, the 1x1 convs, down/upsampling, LayerNorm,
 cross-attention) is plain PyTorch, as the JAX package leaves it to XLA.
+
+Parameters may be kept in another dtype than the activations (fp32 master
+weights, bf16 compute: flax's ``dtype=``): every layer casts its weights to
+the activations' dtype at use, inside the autograd graph, so gradients land
+on the parameters in their own dtype. Under autograd
+(:func:`gmdx_torch.kernels.needs_grad`) the kernel calls take their
+differentiated routes: the flash-attention and GroupNorm
+``autograd.Function``s, the GEGLU FF's kernel forward with a recomputed
+backward, and ``F.conv2d`` for the 3x3 conv (the JAX package's direct conv
+under AD).
 """
 
 from __future__ import annotations
@@ -22,10 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gmdx_torch.kernels import needs_grad
 from gmdx_torch.kernels.attention import attention_packed, dot_product_attention
-from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
-from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
-from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, pack_weight
+from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
+from gmdx_torch.kernels.groupnorm import GroupNormSiLU, group_norm_silu, group_norm_silu_plain
+from gmdx_torch.kernels.winograd import conv3x3, conv3x3_direct, conv3x3_plain, pack_weight
 
 
 def set_use_kernels(module: nn.Module, flag: bool) -> None:
@@ -59,6 +70,15 @@ def timestep_embedding(
     return out
 
 
+def _cast(t: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    """A parameter in the activations' dtype (a no-op when it already is)."""
+    return None if t is None else t.to(x.dtype)
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    return F.linear(x, _cast(lin.weight, x), _cast(lin.bias, x))
+
+
 class TimestepEmbedding(nn.Module):
     """Two-layer SiLU MLP lifting the sinusoid to the UNet's temb width."""
 
@@ -68,7 +88,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(x)))
+        return linear(F.silu(linear(x, self.linear_1)), self.linear_2)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -80,19 +100,22 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """A conv left to PyTorch, applied to NHWC ``x`` (a channels-last view)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride, conv.padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, x), _cast(conv.bias, x),
+                 conv.stride, conv.padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    return F.linear(x, conv.weight.view(conv.out_channels, conv.in_channels), conv.bias)
+    w = conv.weight.view(conv.out_channels, conv.in_channels)
+    return F.linear(x, _cast(w, x), _cast(conv.bias, x))
 
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics over NHWC, always through the
-    GroupNorm kernel: ``activate`` fuses the SiLU, ``temb`` (B, C) is added
-    before the statistics, ``pad_output`` emits the 1-px zero border the
-    conv kernel takes."""
+    GroupNorm kernel (under autograd :class:`GroupNormSiLU`, whose backward
+    is the GN-backward kernel): ``activate`` fuses the SiLU, ``temb`` (B, C)
+    is added before the statistics, ``pad_output`` emits the 1-px zero
+    border the conv kernel takes."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__(num_groups, num_channels, eps=eps)
@@ -105,9 +128,14 @@ class GroupNorm(nn.GroupNorm):
         pad_output: bool = False,
         temb: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        w, b = _cast(self.weight, x), _cast(self.bias, x)
+        if self.use_kernels and needs_grad(x, w, b, temb):
+            return GroupNormSiLU.apply(
+                x, w, b, temb, self.num_groups, self.eps, activate, pad_output
+            )
         fn = group_norm_silu if self.use_kernels else group_norm_silu_plain
         return fn(
-            x, self.weight, self.bias, temb, num_groups=self.num_groups, eps=self.eps,
+            x, w, b, temb, num_groups=self.num_groups, eps=self.eps,
             activate=activate, pad_output=pad_output,
         )
 
@@ -115,7 +143,9 @@ class GroupNorm(nn.GroupNorm):
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 SAME conv over NHWC through the conv kernel. The kernel's
     (O, 9*C) weight is packed from ``weight`` on first use and again whenever
-    the weight changes."""
+    the weight changes: an optimizer's in-place update bumps the weight's
+    version, which the cache is keyed on. Under autograd the conv is
+    :func:`conv3x3_direct` with the weight itself."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, padding=1)
@@ -124,16 +154,19 @@ class Conv3x3(nn.Conv2d):
         self.use_kernels = True
         self._packed: tuple[tuple, torch.Tensor] | None = None
 
-    def packed_weight(self) -> torch.Tensor:
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         w = self.weight
-        key = (w._version, w.data_ptr(), w.dtype, w.device)
+        key = (w._version, w.data_ptr(), w.dtype, w.device, dtype)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_weight(w.detach()))
+            self._packed = (key, pack_weight(w.detach().to(dtype)))
         return self._packed[1]
 
     def forward(self, x: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
+        bias = _cast(self.bias, x)
+        if needs_grad(x, self.weight, self.bias):
+            return conv3x3_direct(x, _cast(self.weight, x), bias, pre_padded=pre_padded)
         fn = conv3x3 if self.use_kernels else conv3x3_plain
-        return fn(x, self.packed_weight(), self.bias, pre_padded=pre_padded)
+        return fn(x, self.packed_weight(x.dtype), bias, pre_padded=pre_padded)
 
 
 class Attention(nn.Module):
@@ -154,9 +187,9 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         src = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(src), self.to_v(src)
+        q, k, v = linear(x, self.to_q), linear(src, self.to_k), linear(src, self.to_v)
         out = attention_packed(q, k, v, self.heads, use_kernels=self.use_kernels)
-        return self.to_out[0](out)
+        return linear(out, self.to_out[0])
 
 
 class GEGLU(nn.Module):
@@ -179,12 +212,16 @@ class GEGLUFeedForward(nn.Module):
     def forward(
         self, x: torch.Tensor, add: torch.Tensor | None, norm: nn.LayerNorm
     ) -> torch.Tensor:
-        fn = geglu_ff_ln if self.use_kernels else geglu_ff_ln_plain
         proj_in, proj_out = self.net[0].proj, self.net[2]
-        return fn(
-            x, add, norm.weight, norm.bias, proj_in.weight, proj_in.bias,
-            proj_out.weight, proj_out.bias, eps=norm.eps,
-        )
+        args = [x, add] + [
+            _cast(p, x) for p in (norm.weight, norm.bias, proj_in.weight, proj_in.bias,
+                                  proj_out.weight, proj_out.bias)
+        ]
+        if not self.use_kernels:
+            return geglu_ff_ln_plain(*args, eps=norm.eps)
+        if needs_grad(*args):
+            return GegluFFLN.apply(*args, norm.eps)
+        return geglu_ff_ln(*args, eps=norm.eps)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -249,7 +286,7 @@ class ResnetBlock2D(nn.Module):
         h = self.conv1(h, pre_padded=True)
         t = None
         if temb is not None and hasattr(self, "time_emb_proj"):
-            t = self.time_emb_proj(F.silu(temb))
+            t = linear(F.silu(temb), self.time_emb_proj)
         h = self.norm2(h, activate=True, pad_output=True, temb=t)
         h = self.conv2(h, pre_padded=True)
         if self.conv_shortcut is not None:
@@ -258,13 +295,17 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Strided 3x3 conv with symmetric pad 1 (the UNet's variant)."""
+    """Strided 3x3 conv. The UNet pads 1 on every side; the VAE encoder pads
+    (0, 1) x (0, 1), which ``asymmetric_pad`` selects."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric_pad else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))
         return conv2d_nhwc(x, self.conv)
 
 
@@ -278,7 +319,7 @@ class Upsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
-        y = F.conv2d(up, self.conv.weight, self.conv.bias, padding=1)
+        y = F.conv2d(up, _cast(self.conv.weight, x), _cast(self.conv.bias, x), padding=1)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -298,13 +339,15 @@ class VAEAttention(nn.Module):
         b, h, w, c = x.shape
         residual = x
         y = self.group_norm(x).reshape(b, h * w, c)
-        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        q, k, v = linear(y, self.to_q), linear(y, self.to_k), linear(y, self.to_v)
         out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
-        return self.to_out[0](out).reshape(b, h, w, c) + residual
+        return linear(out, self.to_out[0]).reshape(b, h, w, c) + residual
 
 
 __all__ = [
     "set_use_kernels",
+    "linear",
+    "layer_norm",
     "timestep_embedding",
     "TimestepEmbedding",
     "GroupNorm",

@@ -4,6 +4,12 @@ Counterpart of ``gmdx/models/unet2d.py``: the same configs, the same forward
 order, and the diffusers module tree (``down_blocks.0.resnets.1.conv2``,
 ``mid_block.attentions.0``, ...) so that diffusers SD-1.5 weights load with
 ``strict=True``. I/O is NCHW at the boundary unless ``channels_last``.
+
+``dtype`` is the compute dtype (flax's ``dtype=``): activations run in it
+and weights are cast to it at use, so a model kept in fp32 for training
+computes in bf16 and its gradients land in fp32. ``None`` computes in the
+parameters' own dtype. The prediction comes out in fp32 either way, so a
+loss on it is taken in fp32 (``gmdx/models/unet2d.py:222-224``).
 """
 
 from __future__ import annotations
@@ -115,9 +121,10 @@ class _MidBlock(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig = SD15_UNET_CONFIG):
+    def __init__(self, config: UNetConfig = SD15_UNET_CONFIG, dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
+        self.compute_dtype = dtype
         chs = tuple(cfg.block_out_channels)
         temb_dim = chs[0] * 4
         n = len(chs)
@@ -160,7 +167,7 @@ class UNet2DConditionModel(nn.Module):
         """``sample`` (B, C, H, W), or (B, H, W, C) with ``channels_last``;
         returns the fp32 prediction in the same layout."""
         cfg = self.config
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
         x = sample if channels_last else sample.permute(0, 2, 3, 1)
         x = x.to(dtype).contiguous()
         context = encoder_hidden_states.to(dtype)
@@ -204,7 +211,24 @@ class UNet2DConditionModel(nn.Module):
         return h if channels_last else h.permute(0, 3, 1, 2).contiguous()
 
 
+def inflate_conv_in(
+    state_dict: dict[str, torch.Tensor], new_in_channels: int, scale: float = 0.5
+) -> dict[str, torch.Tensor]:
+    """Widen a trained UNet's ``conv_in`` from C to ``new_in_channels`` input
+    channels by tiling its weight along the input axis and scaling it (x0.5
+    keeps the activations' magnitude), as ``gmdx/models/unet2d.py:227-245``.
+    Returns a new state dict; the 8-channel GM UNet loads it."""
+    w = state_dict["conv_in.weight"]  # (O, C, 3, 3)
+    c_in = w.shape[1]
+    if new_in_channels % c_in:
+        raise ValueError(f"cannot inflate conv_in {c_in} -> {new_in_channels}")
+    out = dict(state_dict)
+    out["conv_in.weight"] = w.repeat(1, new_in_channels // c_in, 1, 1) * scale
+    return out
+
+
 __all__ = [
+    "inflate_conv_in",
     "UNet2DConditionModel",
     "UNetConfig",
     "SD15_UNET_CONFIG",

@@ -13,6 +13,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,61 @@ def alphas_cumprod_from_config(config: SchedulerConfig) -> np.ndarray:
     return np.cumprod(np.float32(1.0) - make_betas(config), dtype=np.float32)
 
 
+def _extract(table: torch.Tensor, t: torch.Tensor | int, ref: torch.Tensor) -> torch.Tensor:
+    """Per-sample values of a 1-D table at ``t`` (scalar or leading-dim
+    integers), on ``ref``'s device and right-padded to broadcast against it."""
+    vals = torch.as_tensor(table, device=ref.device)[torch.as_tensor(t, device=ref.device)]
+    return vals.reshape(vals.shape + (1,) * (ref.ndim - vals.ndim))
+
+
+def add_noise(
+    alphas_cumprod, original: torch.Tensor, noise: torch.Tensor, timesteps
+) -> torch.Tensor:
+    """Forward q(x_t | x_0): ``sqrt(acp_t) x0 + sqrt(1 - acp_t) eps``."""
+    acp = torch.as_tensor(alphas_cumprod, dtype=torch.float32)
+    a = _extract(acp.sqrt(), timesteps, original)
+    s = _extract((1.0 - acp).sqrt(), timesteps, original)
+    return a * original + s * noise
+
+
+def get_velocity(
+    alphas_cumprod, sample: torch.Tensor, noise: torch.Tensor, timesteps
+) -> torch.Tensor:
+    """v-prediction target ``sqrt(acp_t) eps - sqrt(1 - acp_t) x0``."""
+    acp = torch.as_tensor(alphas_cumprod, dtype=torch.float32)
+    a = _extract(acp.sqrt(), timesteps, sample)
+    s = _extract((1.0 - acp).sqrt(), timesteps, sample)
+    return a * noise - s * sample
+
+
+def predict_x0(
+    alphas_cumprod, sample: torch.Tensor, model_output: torch.Tensor, t, prediction_type: str
+) -> torch.Tensor:
+    """x0 from the model output under the configured parameterization."""
+    a = _extract(torch.as_tensor(alphas_cumprod, dtype=torch.float32), t, sample)
+    if prediction_type == "epsilon":
+        return (sample - (1.0 - a).sqrt() * model_output) / a.sqrt()
+    if prediction_type == "v_prediction":
+        return a.sqrt() * sample - (1.0 - a).sqrt() * model_output
+    if prediction_type == "sample":
+        return model_output
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
+def predict_eps(
+    alphas_cumprod, sample: torch.Tensor, model_output: torch.Tensor, t, prediction_type: str
+) -> torch.Tensor:
+    """eps from the model output under the configured parameterization."""
+    a = _extract(torch.as_tensor(alphas_cumprod, dtype=torch.float32), t, sample)
+    if prediction_type == "epsilon":
+        return model_output
+    if prediction_type == "v_prediction":
+        return a.sqrt() * model_output + (1.0 - a).sqrt() * sample
+    if prediction_type == "sample":
+        return (sample - a.sqrt() * model_output) / (1.0 - a).sqrt()
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
 def leading_timesteps(config: SchedulerConfig, num_inference_steps: int) -> tuple[np.ndarray, int]:
     """'leading' spacing: arange(N) * (T // N) + steps_offset, descending.
     Returns (timesteps[int64, N], step_ratio)."""
@@ -62,5 +118,9 @@ __all__ = [
     "SchedulerConfig",
     "make_betas",
     "alphas_cumprod_from_config",
+    "add_noise",
+    "get_velocity",
+    "predict_x0",
+    "predict_eps",
     "leading_timesteps",
 ]

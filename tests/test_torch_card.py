@@ -15,8 +15,15 @@ import torch
 
 from gmdx_torch.kernels import attention as tk_attention
 from gmdx_torch.kernels import launch_counts
-from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
-from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
+from gmdx_torch.kernels.flash_attention import (
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
+from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
+from gmdx_torch.kernels.groupnorm import (
+    GroupNormSiLU, group_norm_silu, group_norm_silu_bwd, group_norm_silu_bwd_plain,
+    group_norm_silu_plain,
+)
 from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, pack_weight
 
 
@@ -101,3 +108,156 @@ def test_wrappers_count_launches_and_refuse_other_dtypes(card):
     q = _bf16(card, 1, 256, 2 * 24)
     with pytest.raises(ValueError, match="head dim"):
         tk_attention.attention_kv_resident(q, q, q, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,c", [(4096, 4096, 320), (1000, 1000, 640), (256, 300, 1280)])
+def test_flash_attention_kernels_on_card(card, sq, sk, c):
+    """Forward (out, lse) and backward (dq, dk, dv) against the fp32 plain
+    versions; 1000 and 300 leave ragged query and key tiles."""
+    heads = 8
+    q = _bf16(card, 2, sq, c)
+    k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
+    dout = _bf16(card, 2, sq, c)
+    out, lse = flash_attention_fwd(q, k, v, heads)
+    f32 = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = flash_attention_fwd_plain(*f32, heads, (c // heads) ** -0.5)
+    assert _rel_l2(out, ref_out) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, heads)
+    refs = flash_attention_bwd_plain(*f32, ref_out, ref_lse, dout.float(), heads,
+                                     (c // heads) ** -0.5)
+    for got, ref in zip(grads, refs):
+        assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,temb,act,pad", [
+    (64, 320, True, True, True), (32, 640, False, False, False), (16, 1280, False, True, True),
+])
+def test_group_norm_bwd_kernel_on_card(card, hw, c, temb, act, pad):
+    x = _bf16(card, 2, hw, hw, c, scale=2.0)
+    gam = (1.0 + _bf16(card, c, scale=0.2).float()).to(torch.bfloat16)
+    bet = _bf16(card, c, scale=0.2)
+    t = _bf16(card, 2, c) if temb else None
+    g = _bf16(card, 2, hw + 2 * pad, hw + 2 * pad, c)
+    _, stats = group_norm_silu(x, gam, bet, t, activate=act, pad_output=pad, return_stats=True)
+    _, ref_stats = group_norm_silu_plain(
+        x.float(), gam.float(), bet.float(), t.float() if temb else None,
+        activate=act, pad_output=pad, return_stats=True,
+    )
+    assert _rel_l2(stats, ref_stats) <= 1e-4  # fp32 statistics on both sides
+    got = group_norm_silu_bwd(x, gam, bet, t, stats, g, activate=act, pad_output=pad)
+    ref = group_norm_silu_bwd_plain(
+        x.float(), gam.float(), bet.float(), t.float() if temb else None, ref_stats,
+        g.float(), activate=act, pad_output=pad,
+    )
+    for a, b in zip(got, ref):
+        if b is not None:
+            assert _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_autograd_functions_on_card(card):
+    """The three differentiated routes against autograd of the plain
+    versions, all operands bf16 on the card."""
+    def grads(fn, *args):
+        leaves = [a.clone().requires_grad_() if a is not None else None for a in args]
+        out = fn(*leaves)
+        out.float().square().sum().backward()
+        return [a.grad for a in leaves if a is not None]
+
+    q, k, v = (_bf16(card, 2, 1024, 640) for _ in range(3))
+    for a, b in zip(grads(lambda *t: tk_attention.FlashAttention.apply(*t, 8, 80 ** -0.5), q, k, v),
+                    grads(lambda *t: tk_attention.attention_kv_resident_plain(*t, 8), q, k, v)):
+        assert _rel_l2(a, b) <= 2e-2
+    x = _bf16(card, 2, 32, 32, 640, scale=2.0)
+    gam = (1.0 + _bf16(card, 640, scale=0.2).float()).to(torch.bfloat16)
+    bet, t = _bf16(card, 640, scale=0.2), _bf16(card, 2, 640)
+    for a, b in zip(grads(lambda *z: GroupNormSiLU.apply(*z, 32, 1e-5, True, True), x, gam, bet, t),
+                    grads(lambda *z: group_norm_silu_plain(*z, pad_output=True), x, gam, bet, t)):
+        assert _rel_l2(a, b) <= 2e-2
+    dim, inner = 320, 1280
+    ff = [_bf16(card, 2, 256, dim), _bf16(card, 2, 256, dim),
+          (1.0 + _bf16(card, dim, scale=0.2).float()).to(torch.bfloat16),
+          _bf16(card, dim, scale=0.2), _bf16(card, 2 * inner, dim, scale=dim**-0.5),
+          _bf16(card, 2 * inner, scale=0.1), _bf16(card, dim, inner, scale=inner**-0.5),
+          _bf16(card, dim, scale=0.1)]
+    for a, b in zip(grads(lambda *z: GegluFFLN.apply(*z, 1e-5), *ff),
+                    grads(lambda *z: geglu_ff_ln_plain(*z), *ff)):
+        assert _rel_l2(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_accumulates_and_matches_plain(card):
+    """The Stage-2 step on the card (the default device) at a small config
+    whose head dim is the kernels' 40: the differentiated kernel routes
+    launch, gradient accumulation moves the parameters on every second call
+    only, EMA advances, and the kernels' loss and gradient agree with the
+    plain versions' on the same inputs."""
+    import dataclasses
+
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.models import (
+        TINY_CLIP_CONFIG, TINY_UNET_CONFIG, TINY_VAE_CONFIG, AutoencoderKL, CLIPTextModel,
+        UNet2DConditionModel, set_use_kernels,
+    )
+    from gmdx_torch.schedulers import DDPMScheduler
+    from gmdx_torch.train import (
+        Stage2Config, init_state, make_ema_step, make_train_step, stage2_loss,
+    )
+
+    torch.manual_seed(0)
+    cfg = dataclasses.replace(TINY_UNET_CONFIG, in_channels=8, block_out_channels=(320, 640),
+                              num_attention_heads=8)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(cfg, dtype=torch.bfloat16)
+        vae = AutoencoderKL(TINY_VAE_CONFIG).to(torch.bfloat16)
+        text = CLIPTextModel(TINY_CLIP_CONFIG).to(torch.bfloat16)
+    config = Stage2Config(learning_rate=1e-4, gradient_accumulation_steps=2, use_ema=True)
+    step = make_train_step(config, unet=unet, vae=vae, text_encoder=text)
+    state = init_state(config, unet)
+    ema = make_ema_step(config)
+    ids = torch.randint(0, TINY_CLIP_CONFIG.vocab_size, (2, 7), generator=card, device="cuda")
+    pixel = {"sdr": torch.rand(2, 3, 32, 32, generator=card, device="cuda") * 2 - 1,
+             "gm": torch.rand(2, 3, 32, 32, generator=card, device="cuda") * 2 - 1,
+             "input_ids": ids}
+    reset_launch_counts()
+    seen = [unet.conv_in.weight.detach().clone()]
+    for _ in range(4):
+        state, metrics = step(state, pixel, card)
+        if state.optimizer.mini_step == 0:
+            state = ema(state)
+        assert torch.isfinite(metrics["loss"])
+        seen.append(unet.conv_in.weight.detach().clone())
+    assert [not torch.equal(a, b) for a, b in zip(seen, seen[1:])] == [False, True, False, True]
+    assert state.ema.step == 2
+    counts = launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd",
+                 "group_norm_silu", "geglu_ff_ln", "conv3x3"):
+        assert counts[name] > 0, name
+
+    lat = {k: torch.randn(2, 4, 16, 16, generator=card, device="cuda")
+           for k in ("sdr_latents", "gm_latents", "noise")}
+    ctx = torch.randn(2, 7, 32, generator=card, device="cuda")
+    acp = torch.as_tensor(DDPMScheduler().alphas_cumprod, device="cuda")
+    res = []
+    for flag in (True, False):
+        set_use_kernels(unet, flag)
+        loss = stage2_loss(unet, **lat, encoder_hidden_states=ctx,
+                           timesteps=torch.tensor([100, 700], device="cuda"),
+                           alphas_cumprod=acp, config=config)
+        grads = torch.autograd.grad(loss, list(unet.parameters()))
+        res.append((float(loss.detach()), [g.float() for g in grads]))
+    (lk, gk), (lp, gp) = res
+    flat_k, flat_p = torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp])
+    # Per leaf, the gradients straight out of the attention and GroupNorm
+    # backward kernels, so that one wrong kernel cannot hide in the cosine.
+    watched = (".to_q.", ".to_k.", ".to_v.", "norm")
+    leaf = {n: float((a - b).norm() / b.norm())
+            for (n, _), a, b in zip(unet.named_parameters(), gk, gp)
+            if any(k in n for k in watched)}
+    cos = float(torch.dot(flat_k, flat_p) / (flat_k.norm() * flat_p.norm()))
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert cos >= 0.9995
+    assert max(leaf.values()) <= 5e-2, max(leaf.items(), key=lambda kv: kv[1])

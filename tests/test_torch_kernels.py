@@ -148,3 +148,146 @@ def test_geglu_ff_ln_matches_kernel():
         t(np.ascontiguousarray(w2.T)), t(b2), eps=1e-5,
     )
     assert _max_abs(got.numpy(), want) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# The training kernels' plain versions and the differentiated routes
+# ---------------------------------------------------------------------------
+
+
+def _flat(x, heads):
+    """(B, S, H*D) numpy -> the JAX kernels' (B*H, S, D)."""
+    b, s, c = x.shape
+    return jnp.asarray(x.reshape(b, s, heads, c // heads).transpose(0, 2, 1, 3)
+                       .reshape(b * heads, s, c // heads))
+
+
+def _packed(x, b, heads):
+    """The JAX kernels' (B*H, S, D) -> (B, S, H*D) numpy."""
+    x = np.asarray(x)
+    _, s, d = x.shape
+    return x.reshape(b, heads, s, d).transpose(0, 2, 1, 3).reshape(b, s, heads * d)
+
+
+@pytest.mark.parametrize("sq,sk", [(256, 256), (256, 200)])
+def test_flash_attention_plain_matches_flash_kernels(sq, sk):
+    """Forward (out, base-2 lse) and backward (dq, dk, dv) against
+    _flash_forward/_flash_backward in interpret mode; Sk = 200 is not a
+    multiple of the key tile, so the JAX kernels mask a ragged tile."""
+    from gmdx.kernels.flash_attention import _flash_backward, _flash_forward
+    from gmdx_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    rng = _rng(5)
+    b, heads, d = 2, 2, 40
+    q, do = _normal(rng, b, sq, heads * d), _normal(rng, b, sq, heads * d)
+    k, v = _normal(rng, b, sk, heads * d), _normal(rng, b, sk, heads * d)
+    scale = d**-0.5
+    with jax.default_matmul_precision("highest"):
+        out, lse = _flash_forward(_flat(q, heads), _flat(k, heads), _flat(v, heads), scale,
+                                  interpret=True)
+        grads = _flash_backward(_flat(q, heads), _flat(k, heads), _flat(v, heads), out, lse,
+                                _flat(do, heads), scale, interpret=True)
+    t = torch.from_numpy
+    got_out, got_lse = flash_attention_fwd(t(q), t(k), t(v), heads)
+    assert _max_abs(got_out.numpy(), _packed(out, b, heads)) <= TOL
+    assert _max_abs(got_lse.numpy(), np.asarray(lse).reshape(b, heads, sq)) <= TOL
+    got = flash_attention_bwd(t(q), t(k), t(v), got_out, got_lse, t(do), heads)
+    for g, want in zip(got, grads):
+        assert _max_abs(g.numpy(), _packed(want, b, heads)) <= TOL
+
+
+@pytest.mark.parametrize("activate,temb", [(True, False), (False, False), (True, True)])
+def test_group_norm_bwd_plain_matches_gn_backward(activate, temb):
+    """dx, dscale, dbias against _gn_backward in interpret mode, each
+    package from its own forward's statistics. The JAX package adds temb
+    outside its kernels, so its side normalises x + temb and takes
+    dtemb = sum over pixels of dx."""
+    from gmdx.kernels.groupnorm import _gn_backward, _gn_forward
+    from gmdx_torch.kernels.groupnorm import group_norm_silu_bwd
+
+    rng = _rng(6)
+    x = _normal(rng, 2, 8, 8, 64, scale=2.0) + 0.5
+    scale = 1.0 + _normal(rng, 64, scale=0.2)
+    bias = _normal(rng, 64, scale=0.2)
+    tm = _normal(rng, 2, 64) if temb else None
+    g = _normal(rng, 2, 8, 8, 64)
+    xs = x + tm[:, None, None, :] if temb else x
+    with jax.default_matmul_precision("highest"):
+        args = (jnp.asarray(xs), jnp.asarray(scale), jnp.asarray(bias))
+        _, jstats = _gn_forward(*args, 32, 1e-5, activate, True)
+        want = _gn_backward(*args, jstats, jnp.asarray(g), 32, 1e-5, activate, True)
+    t = torch.from_numpy
+    _, stats = group_norm_silu(t(x), t(scale), t(bias), t(tm) if temb else None,
+                               eps=1e-5, activate=activate, return_stats=True)
+    dx, dscale, dbias, dtemb = group_norm_silu_bwd(
+        t(x), t(scale), t(bias), t(tm) if temb else None, stats, t(g), activate=activate)
+    for a, w in zip((dx, dscale, dbias), want):
+        assert _max_abs(a.numpy(), w) <= TOL
+    if temb:
+        assert _max_abs(dtemb.numpy(), np.asarray(want[0]).sum(axis=(1, 2))) <= TOL
+    else:
+        assert dtemb is None
+
+
+def test_group_norm_autograd_pad_output_matches_jax_vjp():
+    """The padded output's border carries no gradient: GroupNormSiLU's
+    backward against jax.vjp through fused_group_norm_silu(pad_output=True)."""
+    from gmdx_torch.kernels.groupnorm import GroupNormSiLU
+
+    rng = _rng(7)
+    x = _normal(rng, 2, 8, 8, 64, scale=2.0) + 0.5
+    scale = 1.0 + _normal(rng, 64, scale=0.2)
+    bias = _normal(rng, 64, scale=0.2)
+    g = _normal(rng, 2, 10, 10, 64)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(
+            lambda a, s, c: fused_group_norm_silu(a, s, c, num_groups=32, eps=1e-5, activate=True,
+                                                  interpret=True, pad_output=True),
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+        want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    GroupNormSiLU.apply(*leaves, None, 32, 1e-5, True, True).backward(torch.from_numpy(g))
+    for leaf, w in zip(leaves, want):
+        assert _max_abs(leaf.grad.numpy(), w) <= TOL
+
+
+def _autograd_grads(fn, args, cot):
+    leaves = [torch.from_numpy(a).requires_grad_() if a is not None else None for a in args]
+    fn(*leaves).backward(torch.from_numpy(cot))
+    return [leaf.grad for leaf in leaves if leaf is not None]
+
+
+def test_autograd_functions_match_autograd_of_plain_versions():
+    """Each differentiated route on the CPU (plain forward + plain backward
+    formula) against torch.autograd through the forward plain version."""
+    from gmdx_torch.kernels.attention import FlashAttention, attention_kv_resident_plain
+    from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln_plain
+    from gmdx_torch.kernels.groupnorm import GroupNormSiLU, group_norm_silu_plain
+
+    rng = _rng(8)
+    heads = 2
+    qkv = [_normal(rng, 2, 256, 80) for _ in range(3)]
+    cot = _normal(rng, 2, 256, 80)
+    got = _autograd_grads(lambda *a: FlashAttention.apply(*a, heads, 40**-0.5), qkv, cot)
+    want = _autograd_grads(lambda *a: attention_kv_resident_plain(*a, heads), qkv, cot)
+    for a, w in zip(got, want):
+        assert _max_abs(a.numpy(), w.numpy()) <= TOL
+
+    gn = [_normal(rng, 2, 8, 8, 64, scale=2.0), 1.0 + _normal(rng, 64, scale=0.2),
+          _normal(rng, 64, scale=0.2), _normal(rng, 2, 64)]
+    cot = _normal(rng, 2, 10, 10, 64)
+    got = _autograd_grads(lambda *a: GroupNormSiLU.apply(*a, 32, 1e-5, True, True), gn, cot)
+    want = _autograd_grads(lambda *a: group_norm_silu_plain(*a, pad_output=True), gn, cot)
+    for a, w in zip(got, want):
+        assert _max_abs(a.numpy(), w.numpy()) <= TOL
+
+    dim, inner = 64, 256
+    ff = [_normal(rng, 2, 16, dim), _normal(rng, 2, 16, dim), 1.0 + _normal(rng, dim, scale=0.2),
+          _normal(rng, dim, scale=0.2), _normal(rng, 2 * inner, dim, scale=dim**-0.5),
+          _normal(rng, 2 * inner, scale=0.1), _normal(rng, dim, inner, scale=inner**-0.5),
+          _normal(rng, dim, scale=0.1)]
+    cot = _normal(rng, 2, 16, dim)
+    got = _autograd_grads(lambda *a: GegluFFLN.apply(*a, 1e-5), ff, cot)
+    want = _autograd_grads(lambda *a: geglu_ff_ln_plain(*a), ff, cot)
+    for a, w in zip(got, want):
+        assert _max_abs(a.numpy(), w.numpy()) <= TOL
