@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (``gmdx_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                    # batch 2 x 10 PNDM steps; train batch 2
+    python3 chip_smoke.py                    # batch 2 x 10 PNDM steps; train batch 2;
+                                             # 1024^2 up-conversion, 10 steps
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
+    python3 chip_smoke.py --hdrtv-steps 50 --profile
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
@@ -12,7 +14,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      rounding of inputs and output), with times for the kernel, the plain
      version and one PyTorch library call as a yardstick. The training
      kernels (flash forward and backward, GroupNorm backward) run at the
-     Stage-2 step's shapes, batch --train-batch.
+     Stage-2 step's shapes, batch --train-batch; the 1024^2 path's kernels
+     (flash_attention_bsc, the flash forward at head dim 512) and the
+     largest 1024^2 shapes of the conv, GroupNorm and FF kernels at the
+     up-conversion's (CFG) batch.
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -37,8 +42,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
   8. train_e2e_controls: the same check with each output of the two
      backward kernels scaled by 0.95 in turn; fails unless every one is
      caught.
+  9. hdrtv: ControlNet SDR->HDRTV up-conversion (upconvert_sdr_to_hdrtv) of
+     one random 1024^2 frame at full SD-1.5 width with seeded random bf16
+     weights: the ControlNet copied from the SDR UNet with zero adapters,
+     random 77x768 embeddings, PNDM --hdrtv-steps steps, CFG 7.5, one
+     batched decode, Eq. (1) from the input frame, a .hdr written and read
+     back. s/frame, s/iteration, the decode's time, peak memory and the
+     launches of every kernel over the phase; flash_attention_bsc must
+     launch 12 times an iteration (5 SDR-UNet and 2 ControlNet calls at the
+     CFG batch, 5 GM-UNet calls) and the 512-wide flash forward once.
+ 10. hdrtv_e2e: batch 1, 2 steps, non-zero ControlNet output convs; kernels
+     against plain versions: decoded SDR and GM >= 40 dB; the kernels' run
+     with conditioning_scale 0 must differ from it by more than that.
 ``--profile`` adds the device time by kernel and the device's busy share
-over one denoise iteration (phase 4) and over one train step (phase 6).
+over one denoise iteration (phases 4 and 9) and over one train step
+(phase 6).
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -86,11 +104,23 @@ KERNELS = {
         "gmdx_torch/csrc/flash_attention.cu", "gmdx/kernels/flash_attention.py:348"),
     "group_norm_silu_bwd": (
         "gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:268"),
+    "flash_attention_bsc": (
+        "gmdx_torch/csrc/attention.cu", "gmdx/kernels/flash_attention.py:558"),
+    "flash_attention_fwd_d512": (
+        "gmdx_torch/csrc/attention_wide.cuh", "gmdx/kernels/flash_attention.py:142"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd",
                  "group_norm_silu", "geglu_ff_ln", "conv3x3")
+HDRTV_KERNELS = ("flash_attention_bsc", "flash_attention_fwd_d512", "attention_kv_resident",
+                 "conv3x3", "group_norm_silu", "geglu_ff_ln")
+HDRTV_SIDE = 1024
+HDRTV_E2E_STEPS = 2
+# flash_attention_bsc calls per denoise iteration at 1024^2: the 16384-token
+# level's self-attentions, 5 in each UNet (2 down, 3 up) and 2 in the
+# ControlNet's copy of the down blocks.
+HDRTV_BSC_PER_ITERATION = 12
 
 
 def emit(obj) -> None:
@@ -188,9 +218,10 @@ def _randn(gen, *shape, scale=1.0):
 
 
 def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
-           peak=BF16_FLOPS):
+           peak=BF16_FLOPS, library=None):
     """Run one kernel case: error against the fp32 plain version (the worst
-    output where there are several), times."""
+    output where there are several), times. ``library`` names the yardstick
+    where the row should say which call it was."""
     import torch
 
     outs = kernel_fn()
@@ -209,6 +240,8 @@ def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
         "rel_l2": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
         "bound_ms": b_ms, "bound_by": b_by, "roofline_share": b_ms / ms,
     }
+    if library is not None:
+        row["library"] = library
     emit(row)
     results.append(row)
     if not math.isfinite(rel) or rel > REL_L2_MAX:
@@ -341,6 +374,7 @@ def phase_kernels(batch: int, train_batch: int) -> list[dict]:
             (3 * m * dim + w1.numel() + w2.numel() + 2 * inner + 3 * dim) * 2, results,
         )
     _training_kernel_rows(gen, train_batch, results)
+    _hdrtv_kernel_rows(gen, results)
     return results
 
 
@@ -438,6 +472,122 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
         del yl, xl
 
 
+def _sdpa_backend(q, k, v):
+    """The first backend of PyTorch's own order that takes these SDPA
+    operands, and a call through it; ("none", None) when none does."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v)
+        try:
+            with warnings.catch_warnings():  # each refusal warns why
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        return backend.name.lower(), call
+    return "none", None
+
+
+def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
+    """G. The 1024^2 up-conversion's kernels at its shapes: flash_attention_bsc
+    at the 16384-token UNet level (CFG batch 2 and the GM UNet's batch 1),
+    the flash forward at the VAE's 512-wide head (one batched decode of SDR
+    and GM), and the largest 1024^2 shapes of the 512^2 path's kernels: the VAE's
+    1024^2 x 128 and the UNet's 128^2 x 320 conv, the VAE's 1024^2 x 128
+    GroupNorm, the FF at 16384 tokens x 320."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmdx_torch.kernels.flash_attention import (
+        flash_attention_bsc, flash_attention_bsc_plain, flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
+    from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
+    from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, pack_weight
+
+    s = (HDRTV_SIDE // 8) ** 2
+    for b, heads, d in ((2, 8, 40), (1, 8, 40), (2, 1, 512)):
+        c = heads * d
+        q, k, v = (_randn(gen, b, s, c) for _ in range(3))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
+        if d == 512:
+            name = "flash_attention_fwd_d512"
+            backend, lib = _sdpa_backend(qh, kh, vh)
+            kern = lambda: flash_attention_fwd(q, k, v, heads)[0]  # noqa: E731
+            plain = lambda: flash_attention_fwd_plain(qf, kf, vf, heads, d**-0.5)[0]  # noqa: E731
+        else:
+            name, backend = "flash_attention_bsc", "default"
+            lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+            kern = lambda: flash_attention_bsc(q, k, v, heads)  # noqa: E731
+            plain = lambda: flash_attention_bsc_plain(qf, kf, vf, heads)  # noqa: E731
+        _check(name, [b, s, heads, d], kern, plain, lib, 4.0 * b * heads * s * s * d,
+               4 * b * s * c * 2, results,
+               library=f"F.scaled_dot_product_attention ({backend} backend)")
+        del q, k, v, qf, kf, vf, qh, kh, vh
+
+    for bb, hw, c in ((2, HDRTV_SIDE, 128), (2, HDRTV_SIDE // 8, 320)):
+        x = F.pad(_randn(gen, bb, hw, hw, c), (0, 0, 1, 1, 1, 1))
+        w = _randn(gen, c, c, 3, 3, scale=(9 * c) ** -0.5)
+        bias = _randn(gen, c, scale=0.1)
+        wp = pack_weight(w)
+        x_nchw = x[:, 1:-1, 1:-1].permute(0, 3, 1, 2)
+        _check(
+            "conv3x3", [bb, hw, hw, c, c, "pre_padded"],
+            lambda: conv3x3(x, wp, bias, pre_padded=True),
+            lambda: conv3x3_plain(x.float(), wp.float(), bias.float(), pre_padded=True),
+            lambda: F.conv2d(x_nchw, w, bias, padding=1),
+            2.0 * bb * hw * hw * 9 * c * c,
+            (x.numel() + w.numel() + c + bb * hw * hw * c) * 2, results,
+        )
+        del x, x_nchw
+
+    bb, hw, c = 2, HDRTV_SIDE, 128
+    x = (_randn(gen, bb, hw, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+    g = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+    be = _randn(gen, c, scale=0.2)
+    x_nchw = x.permute(0, 3, 1, 2)
+    _check(
+        "group_norm_silu", [bb, hw, hw, c, "silu", "pad"],
+        lambda: group_norm_silu(x, g, be, None, eps=1e-5, activate=True, pad_output=True),
+        lambda: group_norm_silu_plain(x.float(), g.float(), be.float(), None, eps=1e-5,
+                                      activate=True, pad_output=True),
+        lambda: F.silu(F.group_norm(x_nchw, 32, g, be, 1e-5)),
+        10.0 * x.numel(), (x.numel() + bb * (hw + 2) ** 2 * c + 2 * c) * 2, results,
+        peak=FP32_FLOPS,
+    )
+    del x, x_nchw
+
+    dim, inner, m = 320, 1280, 2 * s
+    x, a = _randn(gen, 2, s, dim), _randn(gen, 2, s, dim)
+    ff = [(_randn(gen, dim, scale=0.2).float() + 1.0).to(torch.bfloat16),
+          _randn(gen, dim, scale=0.2), _randn(gen, 2 * inner, dim, scale=dim ** -0.5),
+          _randn(gen, 2 * inner, scale=0.1), _randn(gen, dim, inner, scale=inner ** -0.5),
+          _randn(gen, dim, scale=0.1)]
+
+    def lib():
+        s_ = x + a
+        h = F.layer_norm(s_, (dim,), ff[0], ff[1], 1e-5)
+        hid, gate = F.linear(h, ff[2], ff[3]).chunk(2, dim=-1)
+        return F.linear(hid * F.gelu(gate), ff[4], ff[5]) + s_
+
+    _check(
+        "geglu_ff_ln", [2, s, dim],
+        lambda: geglu_ff_ln(x, a, *ff),
+        lambda: geglu_ff_ln_plain(x.float(), a.float(), *(t.float() for t in ff)),
+        lib, 2.0 * m * dim * 8 * dim + 2.0 * m * inner * dim,
+        (3 * m * dim + ff[2].numel() + ff[4].numel() + 2 * inner + 3 * dim) * 2, results,
+    )
+
+
 # ---------------------------------------------------------------------------
 # phases 4 + 5: the main path
 # ---------------------------------------------------------------------------
@@ -499,6 +649,8 @@ def psnr01(a, b) -> float:
 
 # Device kernels by name, for the profile's breakdown: (category, substrings).
 PROFILE_CATEGORIES = (
+    ("flash_attention_bsc", ("flash_bsc_kernel",)),
+    ("flash_attention_fwd_d512", ("flash_fwd_wide_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("flash_attention_fwd", ("attention_fwd_kernel<40, true>", "attention_fwd_kernel<80, true>",
                              "attention_fwd_kernel<160, true>")),
@@ -830,6 +982,177 @@ def phase_train_e2e_controls(args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 9 + 10: ControlNet SDR->HDRTV up-conversion at 1024^2
+# ---------------------------------------------------------------------------
+
+
+def build_hdrtv_pipeline(seed: int, adapter_std: float = 0.0):
+    """The full-width dual pipeline of build_pipeline plus a ControlNet
+    copied from its SDR UNet by controlnet_state_dict_from_unet, bf16. Its
+    zero convs (the 1x1 output convs and the embedder's conv_out) stay zero,
+    as the up-conversion starts, or with ``adapter_std`` are drawn
+    N(0, adapter_std^2) so that the adapter acts."""
+    import torch
+
+    from gmdx_torch.io import controlnet_state_dict_from_unet
+    from gmdx_torch.models import SD15_CONTROLNET_CONFIG, ControlNetModel
+    from gmdx_torch.pipelines import StableDiffusionControlNetHDRPipeline
+
+    dual = build_pipeline(seed)
+    with torch.device("cuda"):
+        cnet = ControlNetModel(SD15_CONTROLNET_CONFIG).to(torch.bfloat16).eval()
+    cnet.load_state_dict(controlnet_state_dict_from_unet(cnet.state_dict(), dual.unet.state_dict()))
+    if adapter_std:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+        for name, p in cnet.named_parameters():
+            if name.startswith(("controlnet_down_blocks.", "controlnet_mid_block.",
+                                "controlnet_cond_embedding.conv_out.")):
+                p.data.copy_(torch.randn(p.shape, generator=gen, device="cuda") * adapter_std)
+    return StableDiffusionControlNetHDRPipeline(
+        dual.unet, dual.vae, dual.scheduler, dual.gm_unet, cnet, device="cuda")
+
+
+def hdrtv_inputs(batch: int, seed: int):
+    """A random SDR frame in [0, 1] and random 77x768 embeddings."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sdr = torch.rand(batch, 3, HDRTV_SIDE, HDRTV_SIDE, generator=gen, device="cuda")
+    cond, uncond = (torch.randn(batch, 77, 768, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    return sdr, cond, uncond
+
+
+def upconvert(pipe, sdr, cond, uncond, steps: int, seed: int, conditioning_scale: float = 1.0):
+    import torch
+
+    from gmdx_torch.pipelines import upconvert_sdr_to_hdrtv
+
+    return upconvert_sdr_to_hdrtv(
+        pipe, sdr, generator=torch.Generator(device="cuda").manual_seed(seed),
+        num_inference_steps=steps, guidance_scale=7.5, conditioning_scale=conditioning_scale,
+        qmax=99.0, prompt_embeds=cond, negative_prompt_embeds=uncond,
+    )
+
+
+def phase_hdrtv(args) -> dict[str, int]:
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io import read_hdr, save_hdr_image
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    pipe = build_hdrtv_pipeline(args.seed)
+    sdr, cond, uncond = hdrtv_inputs(1, args.seed + 20)
+    torch.cuda.synchronize()
+    emit({"phase": "hdrtv", "setup_s": time.perf_counter() - t0,
+          "weights_gb": sum(p.numel() * p.element_size() for m in
+                            (pipe.unet, pipe.gm_unet, pipe.controlnet, pipe.vae)
+                            for p in m.parameters()) / 1e9})
+
+    upconvert(pipe, sdr, cond, uncond, 1, args.seed + 21)  # warm-up: cuDNN/cuBLAS plans
+    if args.profile:
+        latents = pipe.prepare_latents(torch.Generator(device="cuda").manual_seed(0), 1,
+                                       HDRTV_SIDE, HDRTV_SIDE)
+        profile_fn("hdrtv_profile", lambda: pipe.denoise_dual(
+            cond, uncond, latents, control_image=sdr, num_inference_steps=1, guidance_scale=7.5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The frame's denoise and decode, timed inside the one up-conversion call.
+    spans: dict[str, float] = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = time.perf_counter() - t
+            return out
+        return run
+
+    pipe.denoise_dual = timed("denoise_s", pipe.denoise_dual)
+    pipe.decode_latents = timed("decode_s", pipe.decode_latents)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sdr01, gm01, hdr = upconvert(pipe, sdr, cond, uncond, args.hdrtv_steps, args.seed + 22)
+    frame_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_iter = pipe.scheduler.num_steps(args.hdrtv_steps)
+    side = HDRTV_SIDE
+    ok = all(np.isfinite(a).all() for a in (sdr01, gm01, hdr))
+    if not ok or sdr01.shape != (1, side, side, 3) or hdr.shape != (1, 3, side, side):
+        raise SystemExit(f"chip_smoke: hdrtv output not finite or misshapen {sdr01.shape} "
+                         f"{hdr.shape}")
+    hdr0 = np.ascontiguousarray(hdr[0].transpose(1, 2, 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hdrtv_0.hdr")
+        save_hdr_image(path, hdr0, qmax=99.0)
+        back = read_hdr(path)
+    want = np.maximum(hdr0 / 100.0, 0.0)
+    tol = want.max(axis=-1, keepdims=True) / 128.0 + 1e-30
+    hdr_ok = back.shape == want.shape and bool(np.all(np.abs(back - want) <= tol))
+    emit({
+        "phase": "hdrtv", "batch": 1, "resolution": side, "steps": args.hdrtv_steps,
+        "denoise_iterations": n_iter, "guidance_scale": 7.5, "s_per_frame": frame_s,
+        "denoise_s": spans["denoise_s"], "s_per_iteration": spans["denoise_s"] / n_iter,
+        "decode_s": spans["decode_s"], "peak_mem_gb": peak_gb, "launches": counts,
+        "bsc_per_iteration": counts["flash_attention_bsc"] / n_iter, "hdr_readback_ok": hdr_ok,
+        "hdr_max": float(hdr.max()), "sdr_mean": float(sdr01.mean()),
+        "gm_mean": float(gm01.mean()),
+    })
+    if not hdr_ok:
+        raise SystemExit("chip_smoke: hdrtv .hdr read back does not match what was written")
+    missing = [k for k in HDRTV_KERNELS if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels never launched on the hdrtv path: {missing}")
+    if (counts["flash_attention_bsc"] != HDRTV_BSC_PER_ITERATION * n_iter
+            or counts["flash_attention_fwd_d512"] != 1):
+        raise SystemExit(f"chip_smoke: hdrtv launched flash_attention_bsc "
+                         f"{counts['flash_attention_bsc']} times in {n_iter} iterations and the "
+                         f"512-wide flash forward {counts['flash_attention_fwd_d512']} times")
+    del pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hdrtv_e2e(args) -> None:
+    import numpy as np
+    import torch
+
+    from gmdx_torch.models import set_use_kernels
+
+    pipe = build_hdrtv_pipeline(args.seed, adapter_std=0.05)
+    sdr, cond, uncond = hdrtv_inputs(1, args.seed + 23)
+    mods = (pipe.unet, pipe.gm_unet, pipe.controlnet, pipe.vae)
+    outs = {}
+    for name, flag, scale in (("kernels", True, 1.0), ("plain", False, 1.0),
+                              ("kernels_scale0", True, 0.0)):
+        for m in mods:
+            set_use_kernels(m, flag)
+        sdr01, gm01, _ = upconvert(pipe, sdr, cond, uncond, HDRTV_E2E_STEPS, args.seed + 24,
+                                   conditioning_scale=scale)
+        outs[name] = [torch.from_numpy(np.ascontiguousarray(a)) for a in (sdr01, gm01)]
+    p_sdr, p_gm = (psnr01(a, b) for a, b in zip(outs["kernels"], outs["plain"]))
+    s_sdr, s_gm = (psnr01(a, b) for a, b in zip(outs["kernels"], outs["kernels_scale0"]))
+    emit({"phase": "hdrtv_e2e", "batch": 1, "resolution": HDRTV_SIDE, "steps": HDRTV_E2E_STEPS,
+          "psnr_sdr_db": p_sdr, "psnr_gm_db": p_gm, "min_db": PSNR_MIN_DB,
+          "scale0_psnr_sdr_db": s_sdr, "scale0_psnr_gm_db": s_gm})
+    if not min(p_sdr, p_gm) >= PSNR_MIN_DB:
+        raise SystemExit(f"chip_smoke: hdrtv kernels vs plain PSNR {min(p_sdr, p_gm)} "
+                         f"< {PSNR_MIN_DB} dB")
+    if not s_sdr < PSNR_MIN_DB:
+        raise SystemExit(f"chip_smoke: conditioning_scale 0 leaves the SDR at {s_sdr} dB of "
+                         f"scale 1: the adapter does not act")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -839,8 +1162,11 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train-batch", type=int, default=2)
     p.add_argument("--train-steps", type=int, default=4, help="timed Stage-2 steps")
+    p.add_argument("--hdrtv-steps", type=int, default=10,
+                   help="PNDM steps of the 1024^2 up-conversion (50 for the headline)")
     p.add_argument("--profile", action="store_true",
-                   help="device time by kernel over one denoise iteration and one train step")
+                   help="device time by kernel over one denoise iteration (512^2 and 1024^2) "
+                        "and one train step")
     args = p.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "gmdx_torch")):
@@ -854,13 +1180,16 @@ def main() -> int:
     train_launches = phase_train(args)
     phase_train_e2e(args)
     phase_train_e2e_controls(args)
+    hdrtv_launches = phase_hdrtv(args)
+    phase_hdrtv_e2e(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in kernel_rows if r["name"] == name]
         head = rows[0]
         # Launches from the run of the path the kernel was ported for.
-        n = launches[name] if name in INFERENCE_KERNELS else train_launches[name]
+        n = (launches if name in INFERENCE_KERNELS
+             else train_launches if name in TRAIN_KERNELS else hdrtv_launches)[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),

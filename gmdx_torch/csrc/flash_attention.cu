@@ -9,7 +9,9 @@
 // the head-packed projections in place with a row stride of H*D.
 //
 // Forward: attention_fwd.cuh with LSE on. lse (B, H, Sq) fp32 holds
-// m + log2(l) of the logits pre-scaled by scale * log2(e).
+// m + log2(l) of the logits pre-scaled by scale * log2(e). The VAE's single
+// 512-wide head takes attention_wide.cuh's kernel instead (its header says
+// why).
 //
 // Backward, as the TPU split it (the TPU's dQ-in-dKV fusion was a measured
 // loss there; on this card an atomics-based dQ is a later choice):
@@ -40,6 +42,7 @@
 // about 16 S H D bytes; at S = 4096, D = 40 that is ~3600 operations a
 // byte.
 #include "attention_fwd.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -409,7 +412,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // q, out: (B, Sq, H*D); k, v: (B, Sk, H*D), contiguous bf16; lse: (B, H, Sq)
-// fp32. Head dims 40, 80, 160; any other returns cudaErrorInvalidValue.
+// fp32. Head dims 40, 80, 160 and 512; any other returns
+// cudaErrorInvalidValue.
 extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int B, int Sq, int Sk, int H, int D, float qscale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -418,6 +422,7 @@ extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void*
     case 40: return gmdx_attn::launch_fwd<40, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
     case 80: return gmdx_attn::launch_fwd<80, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
     case 160: return gmdx_attn::launch_fwd<160, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
+    case 512: return gmdx_wide::launch_wide(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

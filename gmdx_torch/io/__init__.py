@@ -2,7 +2,10 @@
 
 from gmdx_torch.io.convert import (
     clip_text_state_dict_from_flax,
+    controlnet_state_dict_from_flax,
+    controlnet_state_dict_from_unet,
     load_clip_text,
+    load_controlnet,
     load_unet,
     load_vae,
     unet_state_dict_from_flax,
@@ -12,7 +15,10 @@ from gmdx_torch.io.hdr import read_hdr, save_hdr_image, write_hdr
 
 __all__ = [
     "clip_text_state_dict_from_flax",
+    "controlnet_state_dict_from_flax",
+    "controlnet_state_dict_from_unet",
     "load_clip_text",
+    "load_controlnet",
     "load_unet",
     "load_vae",
     "unet_state_dict_from_flax",

@@ -6,7 +6,9 @@ A port-local copy of the export mapping of ``gmdx/io/torch_import.py``
 (nested dicts of numpy arrays) become state dicts in diffusers key naming,
 with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW.
 Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
-same modules unchanged.
+same modules unchanged. The ControlNet's mapping is the port's own (the JAX
+package exports none): the UNet's rules for the shared encoder, diffusers'
+names for the embedder and the zero convs.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 
 from gmdx_torch import resolve_device
 from gmdx_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from gmdx_torch.models.controlnet import ControlNetConfig, ControlNetModel
 from gmdx_torch.models.unet2d import UNet2DConditionModel, UNetConfig
 from gmdx_torch.models.vae import AutoencoderKL, VAEConfig
 
@@ -122,6 +125,46 @@ def unet_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
+def controlnet_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``ControlNetModel`` params -> the port's state dict: the shared
+    encoder (``conv_in``, ``time_embedding``, ``down_*``, ``mid_*``) by the
+    UNet's rules, ``cond_embedding/{conv_in,blocks_k,conv_out}`` ->
+    ``controlnet_cond_embedding.{conv_in,blocks.k,conv_out}``,
+    ``controlnet_down_k`` -> ``controlnet_down_blocks.k`` and
+    ``controlnet_mid`` -> ``controlnet_mid_block``."""
+    out, shared = {}, {}
+    for top, sub in params.items():
+        if top == "cond_embedding":
+            for path, value in _flatten(sub).items():
+                mod, last = path.split("/")
+                name = f"blocks.{mod.split('_')[1]}" if mod.startswith("blocks_") else mod
+                p, v = _param(last, value, _inv_conv)
+                out[f"controlnet_cond_embedding.{name}.{p}"] = v
+        elif top == "controlnet_mid" or top.startswith("controlnet_down_"):
+            name = ("controlnet_mid_block" if top == "controlnet_mid"
+                    else f"controlnet_down_blocks.{top.rsplit('_', 1)[1]}")
+            for last, value in _flatten(sub).items():
+                p, v = _param(last, value, _inv_conv)
+                out[f"{name}.{p}"] = v
+        else:
+            shared[top] = sub
+    out.update(unet_state_dict_from_flax(shared))
+    return out
+
+
+def controlnet_state_dict_from_unet(controlnet_state_dict: dict, unet_state_dict: dict) -> dict:
+    """The standard ControlNet start (``gmdx/models/controlnet.py:187-199``):
+    every entry of ``controlnet_state_dict`` that the UNet shares
+    (``conv_in``, ``time_embedding``, ``down_blocks``, ``mid_block``) taken
+    from ``unet_state_dict``; the embedder and the zero convs keep their own.
+    Returns a new dict."""
+    out = dict(controlnet_state_dict)
+    for k, v in unet_state_dict.items():
+        if k in out and k.startswith(("conv_in.", "time_embedding.", "down_blocks.", "mid_block.")):
+            out[k] = v
+    return out
+
+
 def _vae_attention(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.ndarray]:
     parts = rest.split("/")
     if parts[0] == "group_norm":
@@ -223,6 +266,14 @@ def load_vae(
     return _load(AutoencoderKL, config, state_dict, device, dtype)
 
 
+def load_controlnet(
+    state_dict: dict, config: ControlNetConfig, *, device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> ControlNetModel:
+    """A ControlNet holding ``state_dict`` (``strict=True``)."""
+    return _load(ControlNetModel, config, state_dict, device, dtype)
+
+
 def load_clip_text(
     state_dict: dict, config: CLIPTextConfig, *, device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.bfloat16,
@@ -233,6 +284,9 @@ def load_clip_text(
 
 
 __all__ = [
+    "controlnet_state_dict_from_flax",
+    "controlnet_state_dict_from_unet",
+    "load_controlnet",
     "unet_state_dict_from_flax",
     "vae_state_dict_from_flax",
     "clip_text_state_dict_from_flax",

@@ -26,6 +26,8 @@ LAUNCHES = {
     "group_norm_silu": 0,
     "geglu_ff_ln": 0,
     "flash_attention_fwd": 0,
+    "flash_attention_fwd_d512": 0,
+    "flash_attention_bsc": 0,
     "flash_attention_bwd": 0,
     "group_norm_silu_bwd": 0,
 }

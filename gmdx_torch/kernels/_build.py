@@ -35,6 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # is built from csrc/<name>.cu.
 ENTRY_POINTS = {
     "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_flash_bsc": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gmdx_group_norm_silu": (
         "groupnorm",

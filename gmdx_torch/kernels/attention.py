@@ -1,18 +1,27 @@
-"""Attention: the KV-resident self-attention kernel and the plain path.
+"""Attention dispatch: the KV-resident kernel, the long-sequence flash
+kernels and the plain path.
 
 Counterpart of ``gmdx/kernels/attention.py`` (dispatch) and
 ``gmdx/kernels/flash_attention.py:attention_kv_resident`` (kernel). The
-dispatch rule is the JAX package's: self-attention with 256 <= Sk <= 4096
-keys and head dim <= 160 takes the kernel; everything else (the 77-key
-cross-attention, the 64-token mid block, the VAE's single 512-wide head)
-takes :func:`dot_product_attention`, the einsum + fp32-softmax path the JAX
-package leaves to XLA.
+dispatch rule is the JAX package's, in :func:`attention_route`:
+  * head-packed self-attention (:func:`attention_packed`) with 256 <= Sk <=
+    4096 keys and head dim <= 160 takes the KV-resident kernel;
+  * failing that, Sk >= 1024 and head dim <= 160 takes
+    :func:`flash_attention_bsc` (the UNet's first level at 1024^2);
+  * everything else goes to :func:`dot_product_attention`, where Sk >= 1024
+    and (head dim <= 256 or Sk > 4096) take the flash forward (the VAE's
+    single 512-wide head at 1024^2) and the rest (the 77-key
+    cross-attention, the 64-token mid block, the VAE's head at 512^2) the
+    einsum + fp32-softmax path the JAX package leaves to XLA.
+A head dim with no kernel instance raises on the card; it never falls back.
 
-Under autograd the kernel's shapes take :class:`FlashAttention`, the
-counterpart of the ``_attn_kvres`` custom VJP (``flash_attention.py:824-848``):
-its forward is the flash forward, which also saves the logsumexp, and its
-backward the two flash backward kernels. Without grad, inference keeps the
-KV-resident kernel.
+Under autograd the kernel shapes take :class:`FlashAttention`, the
+counterpart of the ``_attn_kvres`` and ``_flash_bsc`` custom VJPs
+(``flash_attention.py:653-667, 824-848``): its forward is the flash forward,
+which also saves the logsumexp, and its backward the two flash backward
+kernels. Without grad, inference keeps the KV-resident and bsc kernels.
+``use_kernels=False`` sends each kernel shape to that kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -23,18 +32,52 @@ from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, needs_grad
 from gmdx_torch.kernels.flash_attention import (
     _KERNEL_HEAD_DIMS,
     _LOG2_E,
+    flash_attention_bsc,
+    flash_attention_bsc_plain,
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_fwd_plain,
 )
 
 
+def attention_route(sk: int, head_dim: int, *, packed: bool = True) -> str:
+    """Where the JAX package sends an attention call with ``sk`` keys:
+    ``"kv_resident"``, ``"flash_bsc"``, ``"flash"`` or ``"plain"``
+    (``attention.py:148-169`` for head-packed calls, then ``:55-60``;
+    ``packed=False`` is the (B, S, H, D) entry alone)."""
+    if packed and head_dim <= 160:
+        if 256 <= sk <= 4096:
+            return "kv_resident"
+        if sk >= 1024:
+            return "flash_bsc"
+    if sk >= 1024 and (head_dim <= 256 or sk > 4096):
+        return "flash"
+    return "plain"
+
+
+def _flash(q, k, v, heads: int, scale: float, use_kernels: bool) -> torch.Tensor:
+    """The flash forward over head-packed operands (its plain version with
+    ``use_kernels=False``, :class:`FlashAttention` under autograd)."""
+    if not use_kernels:
+        return flash_attention_fwd_plain(q, k, v, heads, scale)[0]
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, heads, scale)
+    return flash_attention_fwd(q, k, v, heads, scale=scale)[0]
+
+
 def dot_product_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float | None = None,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
-    """Attention over (B, S, H, D): logits in the input dtype, softmax in
-    fp32, weights cast back (``gmdx/kernels/attention.py:_xla_attention``)."""
+    """Attention over (B, S, H, D). Long keys take the flash forward;
+    otherwise logits in the input dtype, softmax in fp32, weights cast back
+    (``gmdx/kernels/attention.py:_xla_attention``)."""
+    b, sq, heads, d = q.shape
     if scale is None:
-        scale = q.shape[-1] ** -0.5
+        scale = d**-0.5
+    if attention_route(k.shape[1], d, packed=False) == "flash":
+        q3, k3, v3 = (t.reshape(t.shape[0], t.shape[1], heads * d) for t in (q, k, v))
+        return _flash(q3, k3, v3, heads, scale, use_kernels).reshape(q.shape)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
@@ -89,7 +132,7 @@ def attention_kv_resident(
 
 def uses_kernel(sk: int, head_dim: int) -> bool:
     """The JAX package's KV-resident dispatch rule (attention.py:152-158)."""
-    return 256 <= sk <= 4096 and head_dim <= 160
+    return attention_route(sk, head_dim) == "kv_resident"
 
 
 class FlashAttention(torch.autograd.Function):
@@ -113,33 +156,41 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# The head-packed routes: (kernel wrapper, plain version).
+_PACKED_KERNELS = {
+    "kv_resident": (attention_kv_resident, attention_kv_resident_plain),
+    "flash_bsc": (flash_attention_bsc, flash_attention_bsc_plain),
+}
+
+
 def attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
     scale: float | None = None, use_kernels: bool = True,
 ) -> torch.Tensor:
     """Attention over head-packed (B, S, H*D) operands, dispatched as the
-    JAX package does: the kernel's shapes take the KV-resident kernel, or
-    under autograd :class:`FlashAttention`. ``use_kernels=False`` sends the
-    kernel's shapes to the plain version (differentiated by autograd)."""
+    JAX package does (:func:`attention_route`)."""
     b, sq, c = q.shape
     d = c // heads
     if scale is None:
         scale = d**-0.5
-    if uses_kernel(k.shape[1], d):
+    route = attention_route(k.shape[1], d)
+    if route in _PACKED_KERNELS:
+        kernel, plain = _PACKED_KERNELS[route]
         if not use_kernels:
-            return attention_kv_resident_plain(q, k, v, heads, scale=scale)
+            return plain(q, k, v, heads, scale=scale)
         if needs_grad(q, k, v):
             return FlashAttention.apply(q, k, v, heads, scale)
-        return attention_kv_resident(q, k, v, heads, scale=scale)
+        return kernel(q, k, v, heads, scale=scale)
     sk = k.shape[1]
     out = dot_product_attention(
         q.reshape(b, sq, heads, d), k.reshape(b, sk, heads, d),
-        v.reshape(b, sk, heads, d), scale=scale,
+        v.reshape(b, sk, heads, d), scale=scale, use_kernels=use_kernels,
     )
     return out.reshape(b, sq, c)
 
 
 __all__ = [
+    "attention_route",
     "dot_product_attention",
     "attention_kv_resident",
     "attention_kv_resident_plain",

@@ -1,8 +1,16 @@
-"""Flash attention for training: forward with the base-2 logsumexp, backward.
+"""Flash attention: forward with the base-2 logsumexp, backward, and the
+long-sequence inference forward.
 
-Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward`` and
-``_flash_backward``, over the port's head-packed (B, S, H*D) layout instead
-of the JAX package's (B*H, S, D). Kernels: ``csrc/flash_attention.cu``.
+Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
+``_flash_backward`` and ``flash_attention_bsc`` (``_flash_forward_bsc``),
+over the port's head-packed (B, S, H*D) layout instead of the JAX package's
+(B*H, S, D). Kernels: ``csrc/flash_attention.cu`` (the forward at head dims
+40/80/160 and, through ``csrc/attention_wide.cuh``, at the VAE's 512; the
+backward at 40/80/160) and ``csrc/attention.cu`` (``gmdx_flash_bsc``).
+
+The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
+at 16384 tokens the whole fp32 score matrix of one call would take tens of
+GB. Chunking changes no row's arithmetic.
 
 ``lse`` is (B, H, Sq) fp32: the base-2 logsumexp of the logits pre-scaled by
 ``scale * log2(e)``, exactly as the TPU kernel's ``_finish`` defines it. The
@@ -22,6 +30,9 @@ _LOG2_E = 1.0 / math.log(2.0)
 # SD-1.5's head dims: the instances of csrc/attention_fwd.cuh's forward in
 # attention.cu and flash_attention.cu, and of the backward kernels.
 _KERNEL_HEAD_DIMS = (40, 80, 160)
+# The flash forward also has the VAE's single 512-wide head.
+_FWD_HEAD_DIMS = _KERNEL_HEAD_DIMS + (512,)
+PLAIN_CHUNK = 1024
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -33,13 +44,26 @@ def flash_attention_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version in fp32: (out in q's dtype, lse (B, H, Sq) fp32)."""
-    qs = _split(q, heads) * (scale * _LOG2_E)
-    s2 = torch.einsum("bqhd,bkhd->bhqk", qs, _split(k, heads))
-    m = s2.amax(dim=-1, keepdim=True)
-    lse = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True))
-    p = torch.exp2(s2 - lse)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _split(v, heads))
-    return out.reshape(q.shape).to(q.dtype), lse[..., 0]
+    kf, vf = _split(k, heads), _split(v, heads)
+    outs, lses = [], []
+    for qc in (_split(q, heads) * (scale * _LOG2_E)).split(PLAIN_CHUNK, dim=1):
+        s2 = torch.einsum("bqhd,bkhd->bhqk", qc, kf)
+        m = s2.amax(dim=-1, keepdim=True)
+        lse = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True))
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", torch.exp2(s2 - lse), vf))
+        lses.append(lse[..., 0])
+    return torch.cat(outs, dim=1).reshape(q.shape).to(q.dtype), torch.cat(lses, dim=-1)
+
+
+def flash_attention_bsc_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`flash_attention_bsc` in fp32 (the forward
+    without its logsumexp), result in q's dtype."""
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    return flash_attention_fwd_plain(q, k, v, heads, scale)[0]
 
 
 def flash_attention_bwd_plain(
@@ -62,13 +86,13 @@ def flash_attention_bwd_plain(
             dv.reshape(v.shape).to(v.dtype))
 
 
-def _check_shapes(q, k, v, heads) -> int:
+def _check_shapes(q, k, v, heads, head_dims=_KERNEL_HEAD_DIMS) -> int:
     if q.ndim != 3 or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"bad attention shapes {q.shape} {k.shape} {v.shape}")
     if q.shape[-1] % heads:
         raise ValueError(f"width {q.shape[-1]} does not split into {heads} heads")
     d = q.shape[-1] // heads
-    if q.is_cuda and d not in _KERNEL_HEAD_DIMS:
+    if q.is_cuda and d not in head_dims:
         raise ValueError(f"flash attention kernel has no instance for head dim {d}")
     return d
 
@@ -78,8 +102,10 @@ def flash_attention_fwd(
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact-softmax attention over head-packed (B, S, H*D) q/k/v, and the
-    base-2 logsumexp (B, H, Sq) the backward needs."""
-    d = _check_shapes(q, k, v, heads)
+    base-2 logsumexp (B, H, Sq) the backward needs. Head dim 512 takes the
+    wide kernel (``csrc/attention_wide.cuh``), counted as
+    ``flash_attention_fwd_d512``."""
+    d = _check_shapes(q, k, v, heads, _FWD_HEAD_DIMS)
     if scale is None:
         scale = d**-0.5
     if not q.is_cuda:
@@ -94,8 +120,32 @@ def flash_attention_fwd(
         "gmdx_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
     )
-    LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES["flash_attention_fwd_d512" if d == 512 else "flash_attention_fwd"] += 1
     return out, lse
+
+
+def flash_attention_bsc(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Exact-softmax attention over head-packed (B, S, H*D) q/k/v for any
+    key count, without the logsumexp: the inference route past 4096 keys."""
+    d = _check_shapes(q, k, v, heads)
+    if scale is None:
+        scale = d**-0.5
+    if not q.is_cuda:
+        return flash_attention_bsc_plain(q, k, v, heads, scale=scale)
+    stream = check_kernel_operands("flash_attention_bsc", q, k, v)
+    from gmdx_torch.kernels import _build
+
+    b, sq, _ = q.shape
+    out = torch.empty_like(q)
+    _build.call(
+        "gmdx_flash_bsc", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
+    )
+    LAUNCHES["flash_attention_bsc"] += 1
+    return out
 
 
 def flash_attention_bwd(
@@ -128,6 +178,9 @@ def flash_attention_bwd(
 
 
 __all__ = [
+    "PLAIN_CHUNK",
+    "flash_attention_bsc",
+    "flash_attention_bsc_plain",
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "flash_attention_bwd",

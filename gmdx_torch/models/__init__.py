@@ -1,4 +1,5 @@
-"""UNet, VAE and CLIP text modules of the port (counterpart of ``gmdx.models``)."""
+"""UNet, ControlNet, VAE, CLIP text and tokenizer modules of the port
+(counterpart of ``gmdx.models``)."""
 
 from gmdx_torch.models.clip_text import (
     CLIP_VIT_L_CONFIG,
@@ -6,7 +7,15 @@ from gmdx_torch.models.clip_text import (
     CLIPTextConfig,
     CLIPTextModel,
 )
+from gmdx_torch.models.controlnet import (
+    SD15_CONTROLNET_CONFIG,
+    TINY_CONTROLNET_CONFIG,
+    ConditioningEmbedding,
+    ControlNetConfig,
+    ControlNetModel,
+)
 from gmdx_torch.models.layers import set_use_kernels
+from gmdx_torch.models.tokenizer import CLIPTokenizer
 from gmdx_torch.models.unet2d import (
     SD15_GM_UNET_CONFIG,
     SD15_UNET_CONFIG,
@@ -28,6 +37,12 @@ __all__ = [
     "CLIPTextConfig",
     "CLIP_VIT_L_CONFIG",
     "TINY_CLIP_CONFIG",
+    "CLIPTokenizer",
+    "ControlNetModel",
+    "ControlNetConfig",
+    "ConditioningEmbedding",
+    "SD15_CONTROLNET_CONFIG",
+    "TINY_CONTROLNET_CONFIG",
     "inflate_conv_in",
     "UNet2DConditionModel",
     "UNetConfig",

@@ -7,11 +7,12 @@ diffusers SD-1.5 state dict loads with ``strict=True``.
 
 Four kinds of call go to hand-written kernels (``gmdx_torch.kernels``):
 every 4-D GroupNorm (with its SiLU, temb pre-add and padded output), the
-resnet 3x3 convs, the self-attention of 256-4096 keys, and the transformer
-block's LN -> GEGLU FF -> residual tail. A module with ``use_kernels=False``
-calls the same functions' plain versions instead. Everything else (the
-projections, conv_in/conv_out, the 1x1 convs, down/upsampling, LayerNorm,
-cross-attention) is plain PyTorch, as the JAX package leaves it to XLA.
+resnet 3x3 convs, the self-attention of 256 keys and more (the VAE's past
+4096), and the transformer block's LN -> GEGLU FF -> residual tail. A module
+with ``use_kernels=False`` calls the same functions' plain versions instead.
+Everything else (the projections, conv_in/conv_out, the 1x1 convs,
+down/upsampling, LayerNorm, cross-attention) is plain PyTorch, as the JAX
+package leaves it to XLA.
 
 Parameters may be kept in another dtype than the activations (fp32 master
 weights, bf16 compute: flax's ``dtype=``): every layer casts its weights to
@@ -324,8 +325,9 @@ class Upsample2D(nn.Module):
 
 
 class VAEAttention(nn.Module):
-    """Single-head spatial self-attention of the VAE mid block (the plain
-    attention path: its 512-wide head is past the kernel's rule)."""
+    """Single-head spatial self-attention of the VAE mid block, through
+    :func:`dot_product_attention`: its 512-wide head takes the plain path up
+    to 4096 tokens (512^2) and the flash forward past them (1024^2)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -334,13 +336,15 @@ class VAEAttention(nn.Module):
         self.to_k = nn.Linear(channels, channels)
         self.to_v = nn.Linear(channels, channels)
         self.to_out = nn.ModuleList([nn.Linear(channels, channels), nn.Dropout(0.0)])
+        self.use_kernels = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         residual = x
         y = self.group_norm(x).reshape(b, h * w, c)
         q, k, v = linear(y, self.to_q), linear(y, self.to_k), linear(y, self.to_v)
-        out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
+        out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                                    use_kernels=self.use_kernels)[:, :, 0]
         return linear(out, self.to_out[0]).reshape(b, h, w, c) + residual
 
 

@@ -15,7 +15,7 @@ loss on it is taken in fp32 (``gmdx/models/unet2d.py:222-224``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -120,10 +120,12 @@ class _MidBlock(nn.Module):
         )
 
 
-class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig = SD15_UNET_CONFIG, dtype: torch.dtype | None = None):
+class _UNetEncoder(nn.Module):
+    """conv_in, the time embedding, the down blocks and the mid block: the
+    part of the UNet that the ControlNet copies, under the same names."""
+
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype | None):
         super().__init__()
-        cfg = self.config = config
         self.compute_dtype = dtype
         chs = tuple(cfg.block_out_channels)
         temb_dim = chs[0] * 4
@@ -132,18 +134,62 @@ class UNet2DConditionModel(nn.Module):
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
 
         self.down_blocks = nn.ModuleList()
-        skip_chs = [chs[0]]
+        # Channels of each skip, in the order the down pass stores them.
+        self.skip_channels = [chs[0]]
         in_ch = chs[0]
         for i, btype in enumerate(cfg.down_block_types):
             out_ch = chs[i]
             add_down = i < n - 1
             self.down_blocks.append(_DownBlock(
                 in_ch, out_ch, temb_dim, cfg, btype == "CrossAttnDownBlock2D", add_down))
-            skip_chs += [out_ch] * (cfg.layers_per_block + add_down)
+            self.skip_channels += [out_ch] * (cfg.layers_per_block + add_down)
             in_ch = out_ch
 
         self.mid_block = _MidBlock(chs[-1], temb_dim, cfg)
 
+    def _inputs(self, cfg: UNetConfig, sample, timesteps, encoder_hidden_states, channels_last):
+        """NHWC ``x``, the time embedding and the context, in the compute dtype."""
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
+        x = sample if channels_last else sample.permute(0, 2, 3, 1)
+        x = x.to(dtype).contiguous()
+        context = encoder_hidden_states.to(dtype)
+        t = torch.as_tensor(timesteps, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(x.shape[0])
+        t_sin = timestep_embedding(
+            t, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift,
+        ).to(dtype)
+        return x, self.time_embedding(t_sin), context
+
+    def _encode(self, h, temb, context):
+        """Down blocks and mid block from ``conv_in``'s output ``h``: the mid
+        state and the skips."""
+        skips = [h]
+        for block in self.down_blocks:
+            attns = getattr(block, "attentions", None)
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                if attns is not None:
+                    h = attns[j](h, context)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, context)
+        h = self.mid_block.resnets[1](h, temb)
+        return h, skips
+
+
+class UNet2DConditionModel(_UNetEncoder):
+    def __init__(self, config: UNetConfig = SD15_UNET_CONFIG, dtype: torch.dtype | None = None):
+        super().__init__(config, dtype)
+        cfg = self.config = config
+        chs = tuple(cfg.block_out_channels)
+        temb_dim = chs[0] * 4
+        n = len(chs)
+        skip_chs = list(self.skip_channels)
         self.up_blocks = nn.ModuleList()
         rev = tuple(reversed(chs))
         prev_ch = chs[-1]
@@ -162,41 +208,25 @@ class UNet2DConditionModel(nn.Module):
         sample: torch.Tensor,
         timesteps: torch.Tensor | int,
         encoder_hidden_states: torch.Tensor,
+        down_block_additional_residuals: Sequence[torch.Tensor] | None = None,
+        mid_block_additional_residual: torch.Tensor | None = None,
         channels_last: bool = False,
     ) -> torch.Tensor:
         """``sample`` (B, C, H, W), or (B, H, W, C) with ``channels_last``;
-        returns the fp32 prediction in the same layout."""
-        cfg = self.config
-        dtype = self.compute_dtype or self.conv_in.weight.dtype
-        x = sample if channels_last else sample.permute(0, 2, 3, 1)
-        x = x.to(dtype).contiguous()
-        context = encoder_hidden_states.to(dtype)
-        b = x.shape[0]
-        t = torch.as_tensor(timesteps, device=x.device)
-        if t.ndim == 0:
-            t = t.expand(b)
-        t_sin = timestep_embedding(
-            t, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
-            downscale_freq_shift=cfg.freq_shift,
-        ).to(dtype)
-        temb = self.time_embedding(t_sin)
-
-        h = conv2d_nhwc(x, self.conv_in)
-        skips = [h]
-        for block in self.down_blocks:
-            attns = getattr(block, "attentions", None)
-            for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
-                if attns is not None:
-                    h = attns[j](h, context)
-                skips.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                skips.append(h)
-
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
-        h = self.mid_block.resnets[1](h, temb)
+        returns the fp32 prediction in the same layout. The ControlNet's
+        residuals (NHWC, one per skip and one for the mid state) are added
+        to each stored skip and to the mid block's output, each in its
+        tensor's dtype (``gmdx/models/unet2d.py:178-189``)."""
+        x, temb, context = self._inputs(
+            self.config, sample, timesteps, encoder_hidden_states, channels_last)
+        h, skips = self._encode(conv2d_nhwc(x, self.conv_in), temb, context)
+        if down_block_additional_residuals is not None:
+            if len(down_block_additional_residuals) != len(skips):
+                raise ValueError(f"expected {len(skips)} down residuals, got "
+                                 f"{len(down_block_additional_residuals)}")
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_block_additional_residuals)]
+        if mid_block_additional_residual is not None:
+            h = h + mid_block_additional_residual.to(h.dtype)
 
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)

@@ -3,10 +3,10 @@
 Counterpart of ``gmdx/models/vae.py``: ``VAEConfig``, the ``Encoder`` and
 ``Decoder``, ``AutoencoderKL.encode``/``decode`` and the
 ``DiagonalGaussianDistribution`` posterior, with the diffusers module tree
-(``encoder.*``, ``quant_conv``, ``decoder.*``, ``post_quant_conv``). The
-encoder's mid attention (4096 tokens at 512^2, one 512-wide head) is plain
-PyTorch, by the JAX package's dispatch rule. ``dtype`` is the compute dtype,
-as in the UNet.
+(``encoder.*``, ``quant_conv``, ``decoder.*``, ``post_quant_conv``). The mid
+attention (one 512-wide head) is plain PyTorch at 512^2 (4096 tokens) and
+the flash forward at 1024^2 (16384 tokens), by the JAX package's dispatch
+rule. ``dtype`` is the compute dtype, as in the UNet.
 """
 
 from __future__ import annotations

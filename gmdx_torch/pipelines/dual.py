@@ -1,7 +1,8 @@
 """Dual-UNet text-to-HDR pipeline: joint SDR + gain-map denoising.
 
-Counterpart of ``gmdx/pipelines/dual.py`` (``denoise_dual`` and
-``prepare_latents``), keeping the reference pipeline's subtleties:
+Counterpart of ``gmdx/pipelines/dual.py`` (``prepare_latents``,
+``denoise_dual`` and ``__call__`` with PNDM), keeping the reference
+pipeline's subtleties:
   * separate scheduler state per branch;
   * the GM branch is conditioned on the SDR branch's x0 prediction, taken
     from alphas_cumprod[t] BEFORE the SDR scheduler step;
@@ -12,9 +13,15 @@ Counterpart of ``gmdx/pipelines/dual.py`` (``denoise_dual`` and
   * ``low_memory`` runs the uncond and cond SDR passes one after the other
     instead of as one CFG-doubled batch.
 Latents stay NHWC fp32 across the loop; the UNets take NHWC directly.
+
+``__call__`` does not yet take step-end callbacks, ``return_intermediates``,
+custom ``timesteps``/``sigmas`` or LoRA ``cross_attention_kwargs``; each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -32,9 +39,11 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
 
     def __init__(
         self, unet: nn.Module, vae: nn.Module, scheduler, gm_unet: nn.Module, *,
+        text_encoder: nn.Module | None = None, tokenizer=None,
         device: str | torch.device = "cuda",
     ):
-        super().__init__(unet, vae, scheduler, device=device)
+        super().__init__(unet, vae, scheduler, text_encoder=text_encoder, tokenizer=tokenizer,
+                         device=device)
         self.gm_unet = gm_unet.to(self.device)
 
     def prepare_latents(
@@ -47,7 +56,6 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         )
         return noise.to(self.device) * self.scheduler.init_noise_sigma
 
-    @torch.no_grad()
     def denoise_dual(
         self,
         prompt_embeds: torch.Tensor,
@@ -60,6 +68,22 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         low_memory: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns the (SDR, GM) latents, each (B, 4, h, w) fp32."""
+        return self._denoise_dual(
+            lambda x, t, context: self.unet(x, t, context, channels_last=True),
+            prompt_embeds, negative_prompt_embeds, latents,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            guidance_rescale=guidance_rescale, low_memory=low_memory,
+        )
+
+    @torch.no_grad()
+    def _denoise_dual(
+        self, sdr_eps, prompt_embeds, negative_prompt_embeds, latents, *,
+        num_inference_steps: int, guidance_scale: float, guidance_rescale: float,
+        low_memory: bool,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The joint loop; ``sdr_eps(x, t, context)`` is the SDR branch's
+        prediction on NHWC ``x`` (the ControlNet pipeline adds its
+        residuals there)."""
         dev = self.device
         sched = self.scheduler
         cond = prompt_embeds.to(dev)
@@ -73,14 +97,13 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         gm_state = sched.init_state(num_inference_steps)
         acp = sched.alphas_cumprod
 
-        for _ in range(sched.num_steps(num_inference_steps)):
+        for _ in range(self._num_steps(num_inference_steps)):
             t = sdr_state.timestep
             if do_cfg and low_memory:
-                eps_uncond = self.unet(lat, t, uncond, channels_last=True)
-                eps_text = self.unet(lat, t, cond, channels_last=True)
+                eps_uncond = sdr_eps(lat, t, uncond)
+                eps_text = sdr_eps(lat, t, cond)
             else:
-                inp = torch.cat([lat, lat]) if do_cfg else lat
-                eps = self.unet(inp, t, context, channels_last=True)
+                eps = sdr_eps(torch.cat([lat, lat]) if do_cfg else lat, t, context)
                 if do_cfg:
                     eps_uncond, eps_text = eps.chunk(2)
             if do_cfg:
@@ -101,6 +124,73 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
             lat.permute(0, 3, 1, 2).contiguous(),
             gm_lat.permute(0, 3, 1, 2).contiguous(),
         )
+
+    def __call__(
+        self,
+        prompt: str | Sequence[str] = "",
+        *,
+        generator: torch.Generator | None = None,
+        negative_prompt: str | Sequence[str] | None = None,
+        height: int = 512,
+        width: int = 512,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
+        latents: torch.Tensor | None = None,
+        prompt_embeds: torch.Tensor | None = None,
+        negative_prompt_embeds: torch.Tensor | None = None,
+        num_images_per_prompt: int = 1,
+        clip_skip: int | None = None,
+        output_type: str = "np",
+        low_memory: bool = False,
+        cross_attention_kwargs: dict | None = None,
+        timesteps=None,
+        sigmas=None,
+        return_intermediates: bool = False,
+        callback_on_step_end=None,
+        callback_on_step_end_tensor_inputs=None,
+        callback=None,
+        callback_steps: int | None = None,
+        **denoise_kwargs,
+    ):
+        """Text (or ``prompt_embeds``) -> the (SDR, GM) pair: latents with
+        ``output_type="latent"``, else decoded images in [0, 1], NHWC numpy
+        (one batched decode; one image at a time with ``low_memory``).
+        ``generator`` draws the initial noise unless ``latents`` is given
+        (seed 0 on the pipeline's device by default). ``denoise_kwargs`` go
+        to :meth:`denoise_dual` (the ControlNet pipeline's control image)."""
+        self.check_inputs(prompt, height=height, width=width, guidance_rescale=guidance_rescale,
+                          negative_prompt=negative_prompt, latents=latents)
+        unported = {
+            "cross_attention_kwargs": cross_attention_kwargs, "timesteps": timesteps,
+            "sigmas": sigmas, "return_intermediates": return_intermediates or None,
+            "callback_on_step_end": callback_on_step_end,
+            "callback_on_step_end_tensor_inputs": callback_on_step_end_tensor_inputs,
+            "callback": callback, "callback_steps": callback_steps,
+        }
+        given = [k for k, v in unported.items() if v is not None]
+        if given:
+            raise NotImplementedError(f"gmdx_torch's dual pipeline does not yet take {given}")
+        cond, uncond = self._resolve_embeds(
+            prompt, negative_prompt, prompt_embeds, negative_prompt_embeds,
+            do_cfg=guidance_scale > 1.0, clip_skip=clip_skip,
+            num_images_per_prompt=num_images_per_prompt,
+        )
+        if latents is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            latents = self.prepare_latents(generator, cond.shape[0], height, width)
+        sdr_lat, gm_lat = self.denoise_dual(
+            cond, uncond, torch.as_tensor(latents), num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+            low_memory=low_memory, **denoise_kwargs,
+        )
+        if output_type == "latent":
+            return sdr_lat, gm_lat
+        both = self.decode_latents(torch.cat([sdr_lat, gm_lat]), chunk=1 if low_memory else None)
+        both = (both / 2.0 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
+        b = sdr_lat.shape[0]
+        return both[:b], both[b:]
 
 
 __all__ = ["StableDiffusionDualUNetPipeline"]

@@ -10,14 +10,15 @@ Inputs are seeded bf16 on the card; the plain versions run in fp32 with TF32
 off; the bound is relative L2 <= 1e-2 (bf16 rounding of inputs and output).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from gmdx_torch.kernels import attention as tk_attention
 from gmdx_torch.kernels import launch_counts
 from gmdx_torch.kernels.flash_attention import (
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain,
+    flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
 )
 from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
 from gmdx_torch.kernels.groupnorm import (
@@ -261,3 +262,90 @@ def test_train_step_on_card_accumulates_and_matches_plain(card):
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert cos >= 0.9995
     assert max(leaf.values()) <= 5e-2, max(leaf.items(), key=lambda kv: kv[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [16384, 16300])
+def test_flash_bsc_kernel_on_card(card, sk):
+    """The 1024^2 UNet's first level (16384 tokens, 8 heads of 40) and a
+    masked key count; the launch is counted."""
+    q = _bf16(card, 2, 16384, 320)
+    k, v = _bf16(card, 2, sk, 320), _bf16(card, 2, sk, 320)
+    before = launch_counts()["flash_attention_bsc"]
+    out = flash_attention_bsc(q, k, v, 8)
+    assert launch_counts()["flash_attention_bsc"] == before + 1
+    ref = flash_attention_bsc_plain(q.float(), k.float(), v.float(), 8)
+    assert _rel_l2(out, ref) <= 1e-2
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bsc(q, k, v, 5)  # head dim 64: no instance
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [16384, 16300])
+def test_flash_fwd_d512_kernel_on_card(card, sk):
+    """The 1024^2 VAE mid block's single 512-wide head, output and
+    logsumexp; the backward has no instance at 512."""
+    q = _bf16(card, 2, 16384, 512)
+    k, v = _bf16(card, 2, sk, 512), _bf16(card, 2, sk, 512)
+    before = launch_counts()["flash_attention_fwd_d512"]
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    assert launch_counts()["flash_attention_fwd_d512"] == before + 1
+    ref, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 1, 512**-0.5)
+    assert _rel_l2(out, ref) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, k, v, out, lse, q, 1)
+
+
+@pytest.mark.cuda
+def test_controlnet_upconvert_on_card(card):
+    """SDR->HDRTV through the ControlNet pipeline at a small width whose
+    shapes reach the long-sequence kernels (72^2 latents: 5184 tokens, 8
+    heads of 40, and a 512-wide VAE head), 2 steps, kernels against plain
+    versions on the same noise, with non-zero adapter convs."""
+    import dataclasses
+
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.models import (
+        TINY_CONTROLNET_CONFIG, TINY_UNET_CONFIG, AutoencoderKL, ControlNetModel,
+        UNet2DConditionModel, VAEConfig, set_use_kernels,
+    )
+    from gmdx_torch.pipelines import StableDiffusionControlNetHDRPipeline, upconvert_sdr_to_hdrtv
+    from gmdx_torch.schedulers import PNDMScheduler
+
+    torch.manual_seed(0)
+    cfg = dataclasses.replace(TINY_UNET_CONFIG, block_out_channels=(320, 640),
+                              num_attention_heads=8)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(cfg)
+        gm_unet = UNet2DConditionModel(dataclasses.replace(cfg, in_channels=8))
+        vae = AutoencoderKL(VAEConfig(block_out_channels=(128, 512), layers_per_block=1))
+        cnet = ControlNetModel(dataclasses.replace(TINY_CONTROLNET_CONFIG, unet=cfg))
+        for name, p in cnet.named_parameters():
+            if name.startswith(("controlnet_down_blocks", "controlnet_mid_block",
+                                "controlnet_cond_embedding.conv_out")):
+                p.data.normal_(0.0, 0.05)
+    mods = [m.to(torch.bfloat16).eval() for m in (unet, vae, gm_unet, cnet)]
+    pipe = StableDiffusionControlNetHDRPipeline(mods[0], mods[1], PNDMScheduler(), mods[2],
+                                                mods[3])
+    sdr = torch.rand(1, 3, 576, 576, generator=card, device="cuda")
+    cond, uncond = (torch.randn(1, 7, 32, generator=card, device="cuda") for _ in range(2))
+    outs = []
+    for flag in (True, False):
+        for m in mods:
+            set_use_kernels(m, flag)
+        reset_launch_counts()
+        outs.append(upconvert_sdr_to_hdrtv(
+            pipe, sdr, generator=torch.Generator(device="cuda").manual_seed(1),
+            num_inference_steps=2, prompt_embeds=cond, negative_prompt_embeds=uncond))
+        if flag:
+            counts = launch_counts()
+            for name in ("flash_attention_bsc", "flash_attention_fwd_d512",
+                         "attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln"):
+                assert counts[name] > 0, name
+    for a, b in zip(outs[0], outs[1]):
+        assert a.shape == b.shape
+        assert np.isfinite(a).all()
+    for i in (0, 1):  # decoded SDR and GM in [0, 1]
+        mse = float(np.mean((outs[0][i].astype(np.float64) - outs[1][i]) ** 2))
+        assert -10.0 * np.log10(max(mse, 1e-30)) >= 40.0
