@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (``gmdx_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py                    # batch 2 x 10 PNDM steps; train batch 2;
-                                             # 1024^2 up-conversion, 10 steps
+                                             # 1024^2 up-conversion, 10 steps;
+                                             # SDR->HDR batch 2 x 10 steps
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
     python3 chip_smoke.py --hdrtv-steps 50 --profile
+    python3 chip_smoke.py --sdr2hdr-batch 8 --sdr2hdr-steps 50 --profile
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
@@ -17,7 +19,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      Stage-2 step's shapes, batch --train-batch; the 1024^2 path's kernels
      (flash_attention_bsc, the flash forward at head dim 512) and the
      largest 1024^2 shapes of the conv, GroupNorm and FF kernels at the
-     up-conversion's (CFG) batch.
+     up-conversion's (CFG) batch; the four opt-in kernels (short-K
+     cross-attention, add + LayerNorm, the LN-free FF, Winograd F(4x4)) at
+     the single-UNet SDR->HDR path's shapes, batch --sdr2hdr-batch, with
+     F(4x4) also held, by its max error over the output's peak, to the JAX
+     package's bar against the fp32 direct conv (its relative L2 there is
+     reported: the algorithm's own bf16 error).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -54,9 +61,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
  10. hdrtv_e2e: batch 1, 2 steps, non-zero ControlNet output convs; kernels
      against plain versions: decoded SDR and GM >= 40 dB; the kernels' run
      with conditioning_scale 0 must differ from it by more than that.
+ 11. sdr2hdr: the single-UNet SDR->HDR up-conversion at 512^2 (the JAX
+     package's benchmark config 1) with seeded random bf16 weights: random
+     SDR frames in [-1, 1] encoded by the VAE, PNDM --sdr2hdr-steps steps of
+     the full-width 8-channel GM UNet with CFG 7.5 on random 77x768
+     embeddings, one batched decode of SDR and GM latents, Eq. (1) from the
+     decoded and the original SDR, .hdr read back; first with the three
+     kernel opt-ins (short-K cross-attention, fused add + LayerNorm, F(4x4))
+     on the UNet and the VAE, each kernel's launches checked exactly, then
+     with the default kernels. img/s, s/iteration, encode and decode
+     seconds and peak memory for both.
+ 12. sdr2hdr_e2e: batch 1, 3 steps, kernels against plain versions with the
+     three opt-ins and with F(4x4) off: decoded GM and HDR >= 40 dB; the
+     opt-in kernels against the default kernels, report only.
 ``--profile`` adds the device time by kernel and the device's busy share
-over one denoise iteration (phases 4 and 9) and over one train step
-(phase 6).
+over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
+on and off) and over one train step (phase 6).
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +128,11 @@ KERNELS = {
         "gmdx_torch/csrc/attention.cu", "gmdx/kernels/flash_attention.py:558"),
     "flash_attention_fwd_d512": (
         "gmdx_torch/csrc/attention_wide.cuh", "gmdx/kernels/flash_attention.py:142"),
+    "cross_attention_shortk": (
+        "gmdx_torch/csrc/attention_xattn.cuh", "gmdx/kernels/flash_attention.py:939"),
+    "add_layer_norm": ("gmdx_torch/csrc/add_ln.cu", "gmdx/kernels/geglu_ff.py:521"),
+    "geglu_ff": ("gmdx_torch/csrc/geglu_ff.cu", "gmdx/kernels/geglu_ff.py:139"),
+    "winograd4_conv3x3": ("gmdx_torch/csrc/winograd4.cu", "gmdx/kernels/winograd.py:693"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
@@ -121,6 +146,21 @@ HDRTV_E2E_STEPS = 2
 # level's self-attentions, 5 in each UNet (2 down, 3 up) and 2 in the
 # ControlNet's copy of the down blocks.
 HDRTV_BSC_PER_ITERATION = 12
+# The single-UNet SDR->HDR path with the three opt-ins: launches per GM-UNet
+# call at 512^2 (SD-1.5: 16 transformer blocks, 10 of them at the 64^2 and
+# 32^2 levels, 15 self-attentions of 256-4096 keys; 44 resnet convs, 14 of
+# them at 8^2) and per VAE encode (20 resnet convs) and decode (28).
+SDR2HDR_PER_UNET_CALL = {
+    "cross_attention_shortk": 10, "add_layer_norm": 16, "winograd4_conv3x3": 30,
+    "conv3x3": 14, "attention_kv_resident": 15, "geglu_ff_ln": 16, "geglu_ff": 0,
+}
+SDR2HDR_VAE_WINO4 = 20 + 28
+SDR2HDR_E2E_STEPS = 3
+# The F(4x4) algorithm's max error relative to the output's peak against the
+# fp32 direct conv must stay under max(10x the direct bf16 conv's, 5e-2), the
+# JAX package's own bar (tests/test_kernels.py:1192-1219).
+WINO4_BAR_FACTOR, WINO4_BAR_FLOOR = 10.0, 5e-2
+OPT_INS = {"xattn_kernel": True, "fused_addln": True, "winograd_m": 4}
 
 
 def emit(obj) -> None:
@@ -248,7 +288,7 @@ def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
         raise SystemExit(f"chip_smoke: {name} {shape} rel-L2 {rel} > {REL_L2_MAX}")
 
 
-def phase_kernels(batch: int, train_batch: int) -> list[dict]:
+def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
@@ -375,6 +415,7 @@ def phase_kernels(batch: int, train_batch: int) -> list[dict]:
         )
     _training_kernel_rows(gen, train_batch, results)
     _hdrtv_kernel_rows(gen, results)
+    _optin_kernel_rows(gen, sdr2hdr_batch, results)
     return results
 
 
@@ -588,6 +629,117 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
     )
 
 
+def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
+    """H. The four opt-in kernels at the single-UNet SDR->HDR path's shapes,
+    the GM UNet's CFG batch 2 * ``batch``: the short-K cross-attention at
+    the 64^2 and 32^2 levels (77 keys), add + LayerNorm and the LN-free FF at
+    the transformer widths, F(4x4) at the three UNet levels it takes and the
+    VAE decoder's 512^2 x 128 level (SDR + GM at ``batch``). F(4x4) is also
+    held to the fp32 direct conv (report only: the algorithm's error) and,
+    by its max error over the output's peak, to the JAX package's bar."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmdx_torch.kernels.flash_attention import (
+        cross_attention_shortk, cross_attention_shortk_plain,
+    )
+    from gmdx_torch.kernels.geglu_ff import (
+        add_layer_norm, add_layer_norm_plain, geglu_ff, geglu_ff_plain,
+    )
+    from gmdx_torch.kernels.winograd import (
+        pack_weight4, winograd4_conv3x3, winograd4_conv3x3_plain,
+    )
+
+    cfg_b, sk, heads = 2 * batch, 77, 8
+    for s, c in ((4096, 320), (1024, 640)):
+        d = c // heads
+        q = _randn(gen, cfg_b, s, c)
+        k, v = _randn(gen, cfg_b, sk, c), _randn(gen, cfg_b, sk, c)
+        qh = q.view(cfg_b, s, heads, d).transpose(1, 2)
+        kh, vh = (t.view(cfg_b, sk, heads, d).transpose(1, 2) for t in (k, v))
+        _check(
+            "cross_attention_shortk", [cfg_b, s, sk, heads, d],
+            lambda: cross_attention_shortk(q, k, v, heads),
+            lambda: cross_attention_shortk_plain(q, k, v, heads),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            4.0 * cfg_b * heads * s * sk * d, (2 * cfg_b * s * c + 2 * cfg_b * sk * c) * 2,
+            results,
+        )
+
+    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+        x, y = _randn(gen, cfg_b, s, c), _randn(gen, cfg_b, s, c)
+        gam = _randn(gen, c, scale=0.2).float() + 1.0
+        bet = _randn(gen, c, scale=0.2).float()
+        n = x.numel()
+
+        def lib(x=x, y=y, gam=gam, bet=bet, c=c):
+            s_ = x + y
+            return s_, F.layer_norm(s_, (c,), gam.to(s_.dtype), bet.to(s_.dtype), 1e-5)
+
+        _check(
+            "add_layer_norm", [cfg_b, s, c],
+            lambda: add_layer_norm(x, y, gam, bet),
+            lambda: add_layer_norm_plain(x, y, gam, bet),
+            lib, 10.0 * n, 4 * n * 2 + 2 * c * 4, results, peak=FP32_FLOPS,
+            library="x + y, then F.layer_norm (two calls: no single call gives both outputs)",
+        )
+
+    for s, dim in ((4096, 320), (1024, 640)):
+        inner = 4 * dim
+        x, res = _randn(gen, cfg_b, s, dim), _randn(gen, cfg_b, s, dim)
+        ff = [_randn(gen, 2 * inner, dim, scale=dim ** -0.5), _randn(gen, 2 * inner, scale=0.1),
+              _randn(gen, dim, inner, scale=inner ** -0.5), _randn(gen, dim, scale=0.1)]
+        m = cfg_b * s
+
+        def lib(x=x, res=res, ff=ff):
+            hid, gate = F.linear(x, ff[0], ff[1]).chunk(2, dim=-1)
+            return F.linear(hid * F.gelu(gate), ff[2], ff[3]) + res
+
+        _check(
+            "geglu_ff", [cfg_b, s, dim],
+            lambda: geglu_ff(x, res, *ff),
+            lambda: geglu_ff_plain(x.float(), res.float(), *(t.float() for t in ff)),
+            lib, 24.0 * m * dim * dim,
+            (3 * m * dim + ff[0].numel() + ff[2].numel() + 2 * inner + dim) * 2, results,
+        )
+
+    for bb, hw, c, o in ((cfg_b, 64, 320, 320), (cfg_b, 32, 640, 640),
+                         (cfg_b, 16, 1280, 1280), (cfg_b, 512, 128, 128)):
+        x = F.pad(_randn(gen, bb, hw, hw, c), (0, 0, 1, 1, 1, 1))
+        w = _randn(gen, o, c, 3, 3, scale=(9 * c) ** -0.5)
+        bias = _randn(gen, o, scale=0.1)
+        u = pack_weight4(w, torch.bfloat16)
+        x_nchw = x[:, 1:-1, 1:-1].permute(0, 3, 1, 2)
+        tiles = bb * (hw // 4) ** 2
+        shape = [bb, hw, hw, c, o, "pre_padded"]
+        _check(
+            "winograd4_conv3x3", shape,
+            lambda: winograd4_conv3x3(x, u, bias, pre_padded=True),
+            # bf16 x: the plain version rounds V to it where the kernel does.
+            lambda: winograd4_conv3x3_plain(x, u, bias, pre_padded=True),
+            lambda: F.conv2d(x_nchw, w, bias, padding=1),
+            2.0 * 36 * tiles * c * o, (x.numel() + u.numel() + o + bb * hw * hw * o) * 2, results,
+        )
+        ref = F.conv2d(x_nchw.float(), w.float(), bias.float(), padding=1)
+        out = winograd4_conv3x3(x, u, bias, pre_padded=True).permute(0, 3, 1, 2)
+        direct_bf16 = F.conv2d(x_nchw, w, bias, padding=1)
+        peak = float(ref.abs().max())
+        max_rel = float((out.float() - ref).abs().max()) / peak
+        direct_max_rel = float((direct_bf16.float() - ref).abs().max()) / peak
+        bar = max(WINO4_BAR_FACTOR * direct_max_rel, WINO4_BAR_FLOOR)
+        row = {"phase": "kernels", "name": "winograd4_conv3x3 vs fp32 direct conv",
+               "shape": shape, "rel_l2": compare(out, ref)[1], "max_rel": max_rel,
+               "direct_bf16_rel_l2": compare(direct_bf16, ref)[1],
+               "direct_bf16_max_rel": direct_max_rel, "max_rel_bar": bar,
+               # The direct conv's least time, to read beside conv3x3's rows.
+               "direct_bound_ms": bound_ms(2.0 * bb * hw * hw * 9 * c * o,
+                                           (x.numel() + w.numel() + o + bb * hw * hw * o) * 2)[0]}
+        emit(row)
+        if not max_rel < bar:
+            raise SystemExit(f"chip_smoke: F(4x4) {shape} max-rel {max_rel} >= bar {bar}")
+        del x, x_nchw, ref, out, direct_bf16
+
+
 # ---------------------------------------------------------------------------
 # phases 4 + 5: the main path
 # ---------------------------------------------------------------------------
@@ -658,6 +810,10 @@ PROFILE_CATEGORIES = (
     ("group_norm_silu_bwd", ("gn_bwd_",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("geglu_ff_ln", ("ff_gemm",)),
+    ("geglu_ff", ("geglu_gemm",)),
+    ("cross_attention_shortk", ("xattn_kernel",)),
+    ("add_layer_norm", ("add_ln_kernel",)),
+    ("winograd4_conv3x3", ("wino4_",)),
     ("conv3x3", ("conv3x3_kernel",)),
     ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
     ("cudnn conv dgrad", ("xmma_dgrad", "dgrad")),
@@ -1153,6 +1309,193 @@ def phase_hdrtv_e2e(args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 11 + 12: single-UNet SDR->HDR up-conversion at 512^2 with the opt-ins
+# ---------------------------------------------------------------------------
+
+
+def build_gm_pipeline(seed: int):
+    """The full-width 8-channel GM UNet and the VAE with seeded random bf16
+    weights, in the single-UNet pipeline."""
+    import torch
+
+    from gmdx_torch.models import (
+        SD15_GM_UNET_CONFIG, SD15_VAE_CONFIG, AutoencoderKL, UNet2DConditionModel,
+    )
+    from gmdx_torch.pipelines import StableDiffusionGMPipeline
+    from gmdx_torch.schedulers import PNDMScheduler
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(SD15_GM_UNET_CONFIG).to(torch.bfloat16).eval()
+        vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
+    return StableDiffusionGMPipeline(unet, vae, PNDMScheduler(), device="cuda")
+
+
+def set_options(pipe, **options) -> None:
+    """The kernel options on the UNet and the VAE alike, as the JAX package's
+    environment toggles are global."""
+    from gmdx_torch.models import set_kernel_options
+
+    for m in (pipe.unet, pipe.vae):
+        set_kernel_options(m, **options)
+
+
+def sdr2hdr_inputs(batch: int, seed: int):
+    """Random SDR frames in [-1, 1] and random 77x768 embeddings."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sdr = torch.rand(batch, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
+    cond, uncond = (torch.randn(batch, 77, 768, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    return sdr, cond, uncond
+
+
+def run_sdr2hdr(pipe, sdr, cond, uncond, steps: int, seed: int, spans: dict | None = None):
+    """encode_sdr -> prepare_latents -> denoise (PNDM, CFG 7.5) -> one batched
+    decode of the SDR and GM latents; the decoded SDR and GM in [0, 1]. With
+    ``spans``, the seconds of the three stages land there."""
+    import torch
+
+    def stage(name, fn, *a, **kw):
+        if spans is not None:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        out = fn(*a, **kw)
+        if spans is not None:
+            torch.cuda.synchronize()
+            spans[name] = time.perf_counter() - t
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sdr_lat = stage("encode_s", pipe.encode_sdr, sdr, gen)
+    latents = pipe.prepare_latents(gen, sdr_lat)
+    gm_lat = stage("denoise_s", pipe.denoise, sdr_lat, cond, uncond, latents,
+                   num_inference_steps=steps, guidance_scale=7.5)
+    both = stage("decode_s", pipe.decode_latents, torch.cat([sdr_lat, gm_lat]))
+    b = sdr.shape[0]
+    return to01(both[:b]), to01(both[b:])
+
+
+def phase_sdr2hdr(args) -> dict[str, int]:
+    """The single-UNet SDR->HDR path at 512^2 with the three opt-ins, then
+    with the JAX package's default kernel set at the same settings."""
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io import read_hdr, save_hdr_image
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.ops import apply_gm_to_sdr
+
+    t0 = time.perf_counter()
+    b, steps = args.sdr2hdr_batch, args.sdr2hdr_steps
+    pipe = build_gm_pipeline(args.seed + 40)
+    sdr, cond, uncond = sdr2hdr_inputs(b, args.seed + 41)
+    torch.cuda.synchronize()
+    emit({"phase": "sdr2hdr", "setup_s": time.perf_counter() - t0,
+          "weights_gb": sum(p.numel() * p.element_size() for m in (pipe.unet, pipe.vae)
+                            for p in m.parameters()) / 1e9})
+    n_iter = pipe.scheduler.num_steps(steps)
+    opt_in_counts = None
+    for name, options in (("opt_ins", OPT_INS), ("defaults", {})):
+        set_options(pipe, **options)
+        run_sdr2hdr(pipe, sdr, cond, uncond, 1, args.seed + 42)  # warm-up: weight caches, plans
+        if args.profile:
+            sdr_lat = pipe.encode_sdr(sdr)
+            lat = pipe.prepare_latents(torch.Generator(device="cuda").manual_seed(0), sdr_lat)
+            profile_fn(f"sdr2hdr_profile_{name}", lambda: pipe.denoise(
+                sdr_lat, cond, uncond, lat, num_inference_steps=1, guidance_scale=7.5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spans: dict[str, float] = {}
+        reset_launch_counts()
+        sdr01, gm01 = run_sdr2hdr(pipe, sdr, cond, uncond, steps, args.seed + 43, spans)
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hdr = apply_gm_to_sdr(gm01, sdr01, qmax=99.0, clip_output=False)
+        hdr_orig = apply_gm_to_sdr(gm01, to01(sdr), qmax=99.0, clip_output=False)
+        ok = all(bool(torch.isfinite(t).all()) for t in (sdr01, gm01, hdr, hdr_orig))
+        if not ok or gm01.shape != (b, 3, 512, 512) or hdr_orig.shape != (b, 3, 512, 512):
+            raise SystemExit(f"chip_smoke: sdr2hdr ({name}) output not finite or misshapen "
+                             f"{tuple(gm01.shape)}")
+        hdr_ok = True
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, img in (("decoded", hdr), ("original", hdr_orig)):
+                img0 = img[0].permute(1, 2, 0).cpu().numpy()
+                path = os.path.join(tmp, f"hdr_{tag}_0.hdr")
+                save_hdr_image(path, img0, qmax=99.0)
+                back = read_hdr(path)
+                want = np.maximum(img0 / 100.0, 0.0)
+                tol = want.max(axis=-1, keepdims=True) / 128.0 + 1e-30
+                hdr_ok &= back.shape == want.shape and bool(np.all(np.abs(back - want) <= tol))
+        total = spans["encode_s"] + spans["denoise_s"] + spans["decode_s"]
+        emit({
+            "phase": "sdr2hdr", "kernels": name, "options": options, "batch": b,
+            "resolution": 512, "steps": steps, "denoise_iterations": n_iter,
+            "guidance_scale": 7.5, **spans, "s_per_iteration": spans["denoise_s"] / n_iter,
+            "img_per_s": b / total, "peak_mem_gb": peak_gb, "launches": counts,
+            "hdr_readback_ok": hdr_ok, "hdr_max": float(hdr.max()),
+            "hdr_original_max": float(hdr_orig.max()), "gm_mean": float(gm01.mean()),
+        })
+        if not hdr_ok:
+            raise SystemExit(f"chip_smoke: sdr2hdr ({name}) .hdr read back does not match")
+        if name == "opt_ins":
+            want_counts = {k: n * n_iter for k, n in SDR2HDR_PER_UNET_CALL.items()}
+            want_counts["winograd4_conv3x3"] += SDR2HDR_VAE_WINO4
+            wrong = {k: (counts[k], n) for k, n in want_counts.items() if counts[k] != n}
+            if wrong:
+                raise SystemExit(f"chip_smoke: sdr2hdr launches (got, want): {wrong}")
+            opt_in_counts = counts
+        elif any(counts[k] for k in ("cross_attention_shortk", "add_layer_norm",
+                                     "winograd4_conv3x3")):
+            raise SystemExit(f"chip_smoke: sdr2hdr with the default kernels launched an "
+                             f"opt-in kernel: {counts}")
+    del pipe
+    torch.cuda.empty_cache()
+    return opt_in_counts
+
+
+def phase_sdr2hdr_e2e(args) -> None:
+    """Batch 1, 3 steps: kernels against plain versions with the three
+    opt-ins and with the short-K and add+LN opt-ins alone (>= 40 dB); the
+    opt-in kernels against the default kernels, report only (F(4x4)'s bf16
+    arithmetic end to end)."""
+    import torch
+
+    from gmdx_torch.models import set_use_kernels
+
+    pipe = build_gm_pipeline(args.seed + 40)
+    sdr, cond, uncond = sdr2hdr_inputs(1, args.seed + 44)
+    no_wino4 = dict(OPT_INS, winograd_m=2)
+    outs = {}
+    for name, flag, options in (("opt_ins", True, OPT_INS), ("opt_ins_plain", False, OPT_INS),
+                                ("no_wino4", True, no_wino4), ("no_wino4_plain", False, no_wino4),
+                                ("defaults", True, {})):
+        set_options(pipe, **options)
+        for m in (pipe.unet, pipe.vae):
+            set_use_kernels(m, flag)
+        outs[name] = run_sdr2hdr(pipe, sdr, cond, uncond, SDR2HDR_E2E_STEPS, args.seed + 45)
+    from gmdx_torch.ops import apply_gm_to_sdr
+
+    def db(a, b):
+        (sdr_a, gm_a), (sdr_b, gm_b) = outs[a], outs[b]
+        hdr_a = apply_gm_to_sdr(gm_a, sdr_a, qmax=99.0, clip_output=False) / 100.0
+        hdr_b = apply_gm_to_sdr(gm_b, sdr_b, qmax=99.0, clip_output=False) / 100.0
+        peak = float(hdr_b.abs().max())
+        return psnr01(gm_a, gm_b), psnr01(hdr_a / peak, hdr_b / peak)
+
+    res = {"opt_ins": db("opt_ins", "opt_ins_plain"), "no_wino4": db("no_wino4", "no_wino4_plain"),
+           "opt_ins_vs_defaults": db("opt_ins", "defaults")}
+    emit({"phase": "sdr2hdr_e2e", "batch": 1, "steps": SDR2HDR_E2E_STEPS,
+          "min_db": PSNR_MIN_DB, **{f"{k}_psnr_gm_hdr_db": v for k, v in res.items()}})
+    worst = min(min(res["opt_ins"]), min(res["no_wino4"]))
+    if not worst >= PSNR_MIN_DB:
+        raise SystemExit(f"chip_smoke: sdr2hdr kernels vs plain PSNR {worst} < {PSNR_MIN_DB} dB")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1164,6 +1507,10 @@ def main() -> int:
     p.add_argument("--train-steps", type=int, default=4, help="timed Stage-2 steps")
     p.add_argument("--hdrtv-steps", type=int, default=10,
                    help="PNDM steps of the 1024^2 up-conversion (50 for the headline)")
+    p.add_argument("--sdr2hdr-batch", type=int, default=2,
+                   help="frames of the single-UNet SDR->HDR phase (8 for the headline)")
+    p.add_argument("--sdr2hdr-steps", type=int, default=10,
+                   help="PNDM steps of the single-UNet SDR->HDR phase (50 for the headline)")
     p.add_argument("--profile", action="store_true",
                    help="device time by kernel over one denoise iteration (512^2 and 1024^2) "
                         "and one train step")
@@ -1174,7 +1521,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = phase_device()
     phase_build()
-    kernel_rows = phase_kernels(args.batch, args.train_batch)
+    kernel_rows = phase_kernels(args.batch, args.train_batch, args.sdr2hdr_batch)
     launches = phase_main(args)
     phase_e2e(args)
     train_launches = phase_train(args)
@@ -1182,6 +1529,8 @@ def main() -> int:
     phase_train_e2e_controls(args)
     hdrtv_launches = phase_hdrtv(args)
     phase_hdrtv_e2e(args)
+    sdr2hdr_launches = phase_sdr2hdr(args)
+    phase_sdr2hdr_e2e(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
@@ -1189,7 +1538,8 @@ def main() -> int:
         head = rows[0]
         # Launches from the run of the path the kernel was ported for.
         n = (launches if name in INFERENCE_KERNELS
-             else train_launches if name in TRAIN_KERNELS else hdrtv_launches)[name]
+             else train_launches if name in TRAIN_KERNELS
+             else hdrtv_launches if name in HDRTV_KERNELS else sdr2hdr_launches)[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),

@@ -27,7 +27,12 @@
 // it is counted and timed apart from the KV-resident calls. At B 2, S 16384,
 // H 8, D 40 it is operations-bound: 687 GFLOP, 0.695 ms at the bf16 peak,
 // against 0.025 ms for its bytes.
+//
+// gmdx_xattn replaces gmdx/kernels/flash_attention.py:cross_attention_shortk
+// (TPU kernel _xattn_kernel): the short-K cross-attention of
+// attention_xattn.cuh, whose note gives its design and bound.
 #include "attention_fwd.cuh"
+#include "attention_xattn.cuh"
 
 // q: (B, Sq, H*D), k and v: (B, Sk, H*D), out: (B, Sq, H*D), all contiguous
 // bf16. Head dims are SD-1.5's 40, 80 and 160; any other returns
@@ -54,6 +59,20 @@ extern "C" int gmdx_flash_bsc(const void* q, const void* k, const void* v, void*
     case 40: return launch_bsc<40>(q, k, v, out, B, Sq, Sk, H, qscale, st);
     case 80: return launch_bsc<80>(q, k, v, out, B, Sq, Sk, H, qscale, st);
     case 160: return launch_bsc<160>(q, k, v, out, B, Sq, Sk, H, qscale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Same operands and head dims as gmdx_attention, with 1 <= Sk <= 128 keys.
+extern "C" int gmdx_xattn(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                          int Sk, int H, int D, float qscale, void* stream) {
+  using gmdx_attn::launch_xattn;
+  if (Sk < 1 || Sk > gmdx_attn::XATTN_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40: return launch_xattn<40>(q, k, v, out, B, Sq, Sk, H, qscale, st);
+    case 80: return launch_xattn<80>(q, k, v, out, B, Sq, Sk, H, qscale, st);
+    case 160: return launch_xattn<160>(q, k, v, out, B, Sq, Sk, H, qscale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

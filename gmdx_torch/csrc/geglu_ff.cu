@@ -5,6 +5,14 @@
 // Replaces gmdx/kernels/geglu_ff.py:geglu_ff_ln with add= (TPU kernels
 // _ff_add_ln_kernel and _ff_ln_kernel, which covered dims 320 and 640 only).
 //
+// gmdx_geglu_ff replaces gmdx/kernels/geglu_ff.py:geglu_ff (TPU kernel
+// _ff_kernel, pallas_call in _ff_pallas): the same two GEMMs without the
+// LayerNorm, out = GEGLU(x) @ W2 + b2 + residual. GEMM1 reads x with a plain
+// cp.async loader; GEMM2 is the same kernel, with the residual in place of
+// the summed stream (and no add without one). Same bound: 24 * M * dim^2
+// operations, tensor-core bound at dims 320 and 640, the dims the JAX rule
+// gives it.
+//
 // Two launches of the shared tile GEMM (gemm_tile.cuh):
 //   1. GEMM1 with the add + LayerNorm in its A loader and the GEGLU in its
 //      epilogue. Each block first takes fp32 row statistics of s for its
@@ -71,23 +79,6 @@ struct LnALoader {
   }
 };
 
-struct RowALoader {
-  const __nv_bfloat16* a;
-  int M, K;
-
-  __device__ __forceinline__ void operator()(__nv_bfloat16* sa, int m0, int k0, int tid) const {
-    const int kc = (tid & 3) * 8;
-    const int k = k0 + kc;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (tid >> 2) + i * 64;
-      const int m = m0 + r;
-      const bool ok = m < M && k < K;
-      cp_async16(sa + r * LDS + kc, ok ? a + (size_t)m * K + k : a, ok);
-    }
-  }
-};
-
 // Two-pass fp32 statistics of s = bf16(x + a) for the block's rows.
 __device__ void row_stats(const __nv_bfloat16* x, const __nv_bfloat16* a, int M, int K, float eps,
                           int m0, float* stats) {
@@ -141,16 +132,11 @@ __device__ void row_stats(const __nv_bfloat16* x, const __nv_bfloat16* a, int M,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-ff_gemm1_kernel(LnALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b1,
-                __nv_bfloat16* __restrict__ act, int M, int inner, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stats = reinterpret_cast<float*>(smem + GEMM_SMEM_BYTES);
-  const int m0 = blockIdx.x * BM;
-  const int nh0 = blockIdx.y * (BN / 2);
-  row_stats(al.x, al.a, M, al.K, eps, m0, stats);
-  al.stats = stats;
-  const float* ct = gemm_tile(al, bl, m0, nh0, al.K, smem);
+// GEMM1's epilogue: act = (hidden + b1a) * gelu_erf(gate + b1b) for the
+// tile's 64 hidden columns and their 64 gate columns.
+__device__ __forceinline__ void geglu_epilogue(const float* ct, const __nv_bfloat16* b1,
+                                               __nv_bfloat16* act, int m0, int nh0, int M,
+                                               int inner) {
   for (int c = threadIdx.x; c < BM * (BN / 16); c += GEMM_THREADS) {
     const int r = c / (BN / 16);
     const int j = (c % (BN / 16)) * 8;
@@ -171,6 +157,28 @@ ff_gemm1_kernel(LnALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__
 }
 
 __global__ void __launch_bounds__(GEMM_THREADS)
+ff_gemm1_kernel(LnALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b1,
+                __nv_bfloat16* __restrict__ act, int M, int inner, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stats = reinterpret_cast<float*>(smem + GEMM_SMEM_BYTES);
+  const int m0 = blockIdx.x * BM;
+  const int nh0 = blockIdx.y * (BN / 2);
+  row_stats(al.x, al.a, M, al.K, eps, m0, stats);
+  al.stats = stats;
+  geglu_epilogue(gemm_tile(al, bl, m0, nh0, al.K, smem), b1, act, m0, nh0, M, inner);
+}
+
+// GEMM1 of the LN-free feed-forward (gmdx_geglu_ff): x straight from memory.
+__global__ void __launch_bounds__(GEMM_THREADS)
+geglu_gemm1_kernel(RowALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b1,
+                   __nv_bfloat16* __restrict__ act, int M, int inner) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m0 = blockIdx.x * BM;
+  const int nh0 = blockIdx.y * (BN / 2);
+  geglu_epilogue(gemm_tile(al, bl, m0, nh0, al.K, smem), b1, act, m0, nh0, M, inner);
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS)
 ff_gemm2_kernel(RowALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b2,
                 const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
                 __nv_bfloat16* __restrict__ out, int M, int dim) {
@@ -184,9 +192,9 @@ ff_gemm2_kernel(RowALoader al, WeightLoader bl, const __nv_bfloat16* __restrict_
     const int m = m0 + r;
     const int n = n0 + j;
     if (m >= M || n >= dim) continue;
-    float bv[8], xv[8], v[8];
+    float bv[8], xv[8] = {}, v[8];
     load8(b2 + n, bv);
-    load8(x + (size_t)m * dim + n, xv);
+    if (x != nullptr) load8(x + (size_t)m * dim + n, xv);
     if (a != nullptr) {
       float av[8];
       load8(a + (size_t)m * dim + n, av);
@@ -233,6 +241,38 @@ extern "C" int gmdx_geglu_ff_ln(const void* x, const void* a, const void* gamma,
   dim3 g2((M + BM - 1) / BM, (dim + BN - 1) / BN);
   ff_gemm2_kernel<<<g2, GEMM_THREADS, GEMM_SMEM_BYTES, st>>>(
       al2, bl2, static_cast<const __nv_bfloat16*>(b2), xb, ab, static_cast<__nv_bfloat16*>(out), M,
+      dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The LN-free feed-forward: x, residual (may be null), out: (M, dim); w1, b1,
+// w2, b2 and the (M, inner) scratch act as for gmdx_geglu_ff_ln.
+extern "C" int gmdx_geglu_ff(const void* x, const void* residual, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* act, void* out, int M, int dim,
+                             int inner, void* stream) {
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(geglu_gemm1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         GEMM_SMEM_BYTES);
+    cudaFuncSetAttribute(ff_gemm2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         GEMM_SMEM_BYTES);
+    attr = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RowALoader al1{static_cast<const __nv_bfloat16*>(x), M, dim};
+  WeightLoader bl1{static_cast<const __nv_bfloat16*>(w1), inner, dim, inner};
+  dim3 g1((M + BM - 1) / BM, (inner + BN / 2 - 1) / (BN / 2));
+  geglu_gemm1_kernel<<<g1, GEMM_THREADS, GEMM_SMEM_BYTES, st>>>(
+      al1, bl1, static_cast<const __nv_bfloat16*>(b1), static_cast<__nv_bfloat16*>(act), M, inner);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  RowALoader al2{static_cast<const __nv_bfloat16*>(act), M, inner};
+  WeightLoader bl2{static_cast<const __nv_bfloat16*>(w2), dim, inner, 0};
+  dim3 g2((M + BM - 1) / BM, (dim + BN - 1) / BN);
+  ff_gemm2_kernel<<<g2, GEMM_THREADS, GEMM_SMEM_BYTES, st>>>(
+      al2, bl2, static_cast<const __nv_bfloat16*>(b2),
+      static_cast<const __nv_bfloat16*>(residual), nullptr, static_cast<__nv_bfloat16*>(out), M,
       dim);
   return static_cast<int>(cudaGetLastError());
 }

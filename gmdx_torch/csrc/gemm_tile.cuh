@@ -109,6 +109,24 @@ struct WeightLoader {
   }
 };
 
+// A slice loader for a plain (M, K) row-major bf16 operand.
+struct RowALoader {
+  const __nv_bfloat16* a;
+  int M, K;
+
+  __device__ __forceinline__ void operator()(__nv_bfloat16* sa, int m0, int k0, int tid) const {
+    const int kc = (tid & 3) * 8;
+    const int k = k0 + kc;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (tid >> 2) + i * 64;
+      const int m = m0 + r;
+      const bool ok = m < M && k < K;
+      cp_async16(sa + r * LDS + kc, ok ? a + (size_t)m * K + k : a, ok);
+    }
+  }
+};
+
 // One output tile: runs the K loop and leaves the fp32 result in shared
 // memory (row stride LDC) for the epilogue. `smem` holds GEMM_SMEM_BYTES.
 template <class ALoad, class BLoad>

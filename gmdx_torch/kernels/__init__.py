@@ -30,6 +30,10 @@ LAUNCHES = {
     "flash_attention_bsc": 0,
     "flash_attention_bwd": 0,
     "group_norm_silu_bwd": 0,
+    "cross_attention_shortk": 0,
+    "add_layer_norm": 0,
+    "geglu_ff": 0,
+    "winograd4_conv3x3": 0,
 }
 
 
@@ -77,7 +81,16 @@ def check_kernel_operands(name: str, *tensors: torch.Tensor | None) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """The opt-in kernels are inference-only: raise under autograd."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: training with the opt-in kernels is ROADMAP "
+            "Queue 1 item 13"
+        )
+
+
 __all__ = [
     "LAUNCHES", "reset_launch_counts", "launch_counts", "needs_grad", "check_fp32",
-    "check_kernel_operands",
+    "check_kernel_operands", "refuse_grad",
 ]

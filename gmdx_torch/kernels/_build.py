@@ -36,6 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_flash_bsc": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_xattn": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+    "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gmdx_conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gmdx_group_norm_silu": (
         "groupnorm",
@@ -48,6 +51,9 @@ ENTRY_POINTS = {
     "gmdx_geglu_ff_ln": (
         "geglu_ff",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    ),
+    "gmdx_geglu_ff": (
+        "geglu_ff", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
     "gmdx_flash_fwd": (
         "flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

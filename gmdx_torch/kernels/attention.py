@@ -8,6 +8,11 @@ dispatch rule is the JAX package's, in :func:`attention_route`:
     4096 keys and head dim <= 160 takes the KV-resident kernel;
   * failing that, Sk >= 1024 and head dim <= 160 takes
     :func:`flash_attention_bsc` (the UNet's first level at 1024^2);
+  * failing that, with the ``xattn_kernel`` option (the JAX package's
+    ``GMDX_XATTN_KERNEL=1``, off by default), Sk <= 128, Sq >= 1024 and a
+    head dim <= 160 that is a multiple of 8 take
+    :func:`cross_attention_shortk` (the 77-key cross-attention of the two
+    widest UNet levels);
   * everything else goes to :func:`dot_product_attention`, where Sk >= 1024
     and (head dim <= 256 or Sk > 4096) take the flash forward (the VAE's
     single 512-wide head at 1024^2) and the rest (the 77-key
@@ -16,10 +21,12 @@ dispatch rule is the JAX package's, in :func:`attention_route`:
 A head dim with no kernel instance raises on the card; it never falls back.
 
 Under autograd the kernel shapes take :class:`FlashAttention`, the
-counterpart of the ``_attn_kvres`` and ``_flash_bsc`` custom VJPs
-(``flash_attention.py:653-667, 824-848``): its forward is the flash forward,
+counterpart of the ``_attn_kvres``, ``_flash_bsc`` and ``_xattn_bsc`` custom
+VJPs (``flash_attention.py:653-667, 824-848, 1005-1023``): its forward is the
+flash forward,
 which also saves the logsumexp, and its backward the two flash backward
-kernels. Without grad, inference keeps the KV-resident and bsc kernels.
+kernels. Without grad, inference keeps the KV-resident, bsc and short-K
+kernels.
 ``use_kernels=False`` sends each kernel shape to that kernel's plain
 version.
 """
@@ -32,6 +39,9 @@ from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, needs_grad
 from gmdx_torch.kernels.flash_attention import (
     _KERNEL_HEAD_DIMS,
     _LOG2_E,
+    XATTN_MAX_KEYS,
+    cross_attention_shortk,
+    cross_attention_shortk_plain,
     flash_attention_bsc,
     flash_attention_bsc_plain,
     flash_attention_bwd,
@@ -40,16 +50,21 @@ from gmdx_torch.kernels.flash_attention import (
 )
 
 
-def attention_route(sk: int, head_dim: int, *, packed: bool = True) -> str:
-    """Where the JAX package sends an attention call with ``sk`` keys:
-    ``"kv_resident"``, ``"flash_bsc"``, ``"flash"`` or ``"plain"``
-    (``attention.py:148-169`` for head-packed calls, then ``:55-60``;
-    ``packed=False`` is the (B, S, H, D) entry alone)."""
+def attention_route(
+    sk: int, head_dim: int, *, packed: bool = True, sq: int = 0, xattn_kernel: bool = False,
+) -> str:
+    """Where the JAX package sends an attention call with ``sq`` queries and
+    ``sk`` keys: ``"kv_resident"``, ``"flash_bsc"``, ``"xattn_shortk"``,
+    ``"flash"`` or ``"plain"`` (``attention.py:148-188`` for head-packed
+    calls, then ``:55-60``; ``packed=False`` is the (B, S, H, D) entry
+    alone)."""
     if packed and head_dim <= 160:
         if 256 <= sk <= 4096:
             return "kv_resident"
         if sk >= 1024:
             return "flash_bsc"
+        if xattn_kernel and sk <= XATTN_MAX_KEYS and sq >= 1024 and head_dim % 8 == 0:
+            return "xattn_shortk"
     if sk >= 1024 and (head_dim <= 256 or sk > 4096):
         return "flash"
     return "plain"
@@ -160,12 +175,13 @@ class FlashAttention(torch.autograd.Function):
 _PACKED_KERNELS = {
     "kv_resident": (attention_kv_resident, attention_kv_resident_plain),
     "flash_bsc": (flash_attention_bsc, flash_attention_bsc_plain),
+    "xattn_shortk": (cross_attention_shortk, cross_attention_shortk_plain),
 }
 
 
 def attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
-    scale: float | None = None, use_kernels: bool = True,
+    scale: float | None = None, use_kernels: bool = True, xattn_kernel: bool = False,
 ) -> torch.Tensor:
     """Attention over head-packed (B, S, H*D) operands, dispatched as the
     JAX package does (:func:`attention_route`)."""
@@ -173,7 +189,7 @@ def attention_packed(
     d = c // heads
     if scale is None:
         scale = d**-0.5
-    route = attention_route(k.shape[1], d)
+    route = attention_route(k.shape[1], d, sq=sq, xattn_kernel=xattn_kernel)
     if route in _PACKED_KERNELS:
         kernel, plain = _PACKED_KERNELS[route]
         if not use_kernels:

@@ -1,12 +1,14 @@
-"""Flash attention: forward with the base-2 logsumexp, backward, and the
-long-sequence inference forward.
+"""Flash attention: forward with the base-2 logsumexp, backward, the
+long-sequence inference forward and the short-K cross-attention.
 
 Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
-``_flash_backward`` and ``flash_attention_bsc`` (``_flash_forward_bsc``),
-over the port's head-packed (B, S, H*D) layout instead of the JAX package's
-(B*H, S, D). Kernels: ``csrc/flash_attention.cu`` (the forward at head dims
-40/80/160 and, through ``csrc/attention_wide.cuh``, at the VAE's 512; the
-backward at 40/80/160) and ``csrc/attention.cu`` (``gmdx_flash_bsc``).
+``_flash_backward``, ``flash_attention_bsc`` (``_flash_forward_bsc``) and
+``cross_attention_shortk`` (``_xattn_forward_bsc``), over the port's
+head-packed (B, S, H*D) layout instead of the JAX package's (B*H, S, D).
+Kernels: ``csrc/flash_attention.cu`` (the forward at head dims 40/80/160
+and, through ``csrc/attention_wide.cuh``, at the VAE's 512; the backward at
+40/80/160) and ``csrc/attention.cu`` (``gmdx_flash_bsc``, and
+``gmdx_xattn`` from ``csrc/attention_xattn.cuh``).
 
 The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
 at 16384 tokens the whole fp32 score matrix of one call would take tens of
@@ -24,7 +26,7 @@ import math
 
 import torch
 
-from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands
+from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, refuse_grad
 
 _LOG2_E = 1.0 / math.log(2.0)
 # SD-1.5's head dims: the instances of csrc/attention_fwd.cuh's forward in
@@ -33,6 +35,8 @@ _KERNEL_HEAD_DIMS = (40, 80, 160)
 # The flash forward also has the VAE's single 512-wide head.
 _FWD_HEAD_DIMS = _KERNEL_HEAD_DIMS + (512,)
 PLAIN_CHUNK = 1024
+# The short-K kernel holds every key of a head in shared memory.
+XATTN_MAX_KEYS = 128
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -177,8 +181,58 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
+def cross_attention_shortk_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`cross_attention_shortk` in fp32, with the
+    kernel's two roundings to q's dtype (``_xattn_kernel``): Q after its
+    scale by ``scale * log2(e)``, and the softmax numerator before the PV
+    product, whose sum is taken unrounded. No-ops for fp32 operands."""
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    dt = q.dtype
+    qs = (_split(q, heads) * (scale * _LOG2_E)).to(dt).float()
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qs, _split(k, heads))
+    p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), _split(v, heads))
+    out = acc / p.sum(dim=-1).transpose(1, 2)[..., None]
+    return out.reshape(q.shape).to(dt)
+
+
+def cross_attention_shortk(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Exact-softmax attention over head-packed (B, S, H*D) q/k/v with at
+    most :data:`XATTN_MAX_KEYS` keys (the 77 CLIP tokens): every key of a
+    head is resident at once, so nothing is online. Inference only."""
+    d = _check_shapes(q, k, v, heads)
+    if not 1 <= k.shape[1] <= XATTN_MAX_KEYS:
+        raise ValueError(f"short-K attention takes 1 to {XATTN_MAX_KEYS} keys, got {k.shape[1]}")
+    refuse_grad("cross_attention_shortk", q, k, v)
+    if scale is None:
+        scale = d**-0.5
+    if not q.is_cuda:
+        return cross_attention_shortk_plain(q, k, v, heads, scale=scale)
+    stream = check_kernel_operands("cross_attention_shortk", q, k, v)
+    from gmdx_torch.kernels import _build
+
+    b, sq, _ = q.shape
+    out = torch.empty_like(q)
+    _build.call(
+        "gmdx_xattn", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, k.shape[1], heads, d, float(scale * _LOG2_E), stream,
+    )
+    LAUNCHES["cross_attention_shortk"] += 1
+    return out
+
+
 __all__ = [
     "PLAIN_CHUNK",
+    "XATTN_MAX_KEYS",
+    "cross_attention_shortk",
+    "cross_attention_shortk_plain",
     "flash_attention_bsc",
     "flash_attention_bsc_plain",
     "flash_attention_fwd",

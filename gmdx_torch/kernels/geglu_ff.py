@@ -1,15 +1,29 @@
-"""LayerNorm -> GEGLU feed-forward -> residual, with a pending residual folded
-into the prologue.
+"""The transformer block's feed-forward tail and its fused add + LayerNorm.
 
-Counterpart of ``gmdx/kernels/geglu_ff.py:geglu_ff_ln`` with ``add=``.
-Kernel: ``csrc/geglu_ff.cu`` (two launches of the shared tile GEMM).
+* :func:`geglu_ff_ln`: LayerNorm -> GEGLU feed-forward -> residual, with a
+  pending residual folded into the prologue. Counterpart of
+  ``gmdx/kernels/geglu_ff.py:geglu_ff_ln`` with ``add=``; kernel
+  ``csrc/geglu_ff.cu`` (``gmdx_geglu_ff_ln``, two launches of the shared
+  tile GEMM).
+* :func:`geglu_ff`: the same FF + residual without the LayerNorm, the
+  counterpart of ``geglu_ff`` (``_ff_pallas``), which ``GEGLUFeedForward``
+  reaches when called without LayerNorm parameters. Kernel
+  ``gmdx_geglu_ff`` in the same source. The JAX package's rule gives it
+  dims 320 and 640 (:func:`geglu_ff_uses_kernel`); other dims take
+  :func:`geglu_ff_reference`, as the JAX package takes jnp.
+* :func:`add_layer_norm`: (x + y, LayerNorm(x + y)), the counterpart of
+  ``add_layer_norm`` (``_add_ln_pallas``), the attn1-residual / norm2 pair
+  of the transformer block under the ``fused_addln`` option. Kernel
+  ``csrc/add_ln.cu``.
+
 Weights are the torch Linear layouts: ``w1`` (2*inner, dim) with rows
 ``[hidden | gate]``, ``w2`` (dim, inner).
 
-Under autograd, :class:`GegluFFLN` runs the kernel forward and, like
-``_ff_ln_bwd``/``_ff_add_ln_bwd`` (``geglu_ff.py:385-428``), differentiates
-a recompute of :func:`geglu_ff_ln_reference` in its backward: the JAX
-package has no backward kernel here, so the port writes none.
+Under autograd, :class:`GegluFFLN` and :class:`GegluFF` run the kernel
+forward and, like ``_ff_ln_bwd``/``_ff_add_ln_bwd``/``_ff_bwd``
+(``geglu_ff.py:195-208, 385-428``), differentiate a recompute of the
+reference in their backward: the JAX package has no backward kernel here,
+so the port writes none. :func:`add_layer_norm` is inference-only.
 """
 
 from __future__ import annotations
@@ -17,7 +31,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
+from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, refuse_grad
+
+_SQRT_HALF = 0.7071067811865476
+# ``_TOKEN_BLOCK``: the dims the JAX package gives its LN-free FF kernel.
+GEGLU_FF_KERNEL_DIMS = (320, 640)
+# csrc/add_ln.cu keeps a row in registers: 8 chunks of 8 channels per lane.
+ADD_LN_MAX_DIM = 2048
 
 
 def geglu_ff_ln_plain(
@@ -37,11 +57,7 @@ def geglu_ff_ln_plain(
     s = x if add is None else (x.float() + add.float()).to(x.dtype)
     sf = s.float()
     h = F.layer_norm(sf, (sf.shape[-1],), gamma.float(), beta.float(), eps)
-    proj = h @ w1.float().t() + b1.float()
-    hidden, gate = proj.chunk(2, dim=-1)
-    act = hidden * 0.5 * gate * (1.0 + torch.erf(gate * 0.7071067811865476))
-    out = act @ w2.float().t() + b2.float() + sf
-    return out.to(x.dtype)
+    return geglu_ff_plain(h, sf, w1, b1, w2, b2).to(x.dtype)
 
 
 def geglu_ff_ln(
@@ -58,9 +74,7 @@ def geglu_ff_ln(
 ) -> torch.Tensor:
     """(x + add) + proj_out(GEGLU(proj_in(LN(x + add)))) over (B, S, dim)."""
     dim = x.shape[-1]
-    inner = w2.shape[1]
-    if w1.shape != (2 * inner, dim) or w2.shape != (dim, inner):
-        raise ValueError(f"FF weights {tuple(w1.shape)}, {tuple(w2.shape)} vs dim {dim}")
+    inner = _check_ff_weights(dim, w1, w2)
     if add is not None and add.shape != x.shape:
         raise ValueError(f"add {tuple(add.shape)} vs x {tuple(x.shape)}")
     if not x.is_cuda:
@@ -90,8 +104,7 @@ def geglu_ff_ln_reference(x, add, gamma, beta, w1, b1, w2, b2, *, eps: float = 1
     GEMMs on the card, where the plain version's fp32 ones would be slow)."""
     s = x if add is None else (x.float() + add.float()).to(x.dtype)
     y = F.layer_norm(s.float(), (s.shape[-1],), gamma.float(), beta.float(), eps).to(s.dtype)
-    hidden, gate = F.linear(y, w1.to(y.dtype), b1.to(y.dtype)).chunk(2, dim=-1)
-    return s + F.linear(hidden * F.gelu(gate), w2.to(y.dtype), b2.to(y.dtype))
+    return geglu_ff_reference(y, s, w1, b1, w2, b2)
 
 
 class GegluFFLN(torch.autograd.Function):
@@ -115,4 +128,138 @@ class GegluFFLN(torch.autograd.Function):
         return (*(next(grads) if t is not None else None for t in leaves), None)
 
 
-__all__ = ["geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "GegluFFLN"]
+def _check_ff_weights(dim: int, w1: torch.Tensor, w2: torch.Tensor) -> int:
+    inner = w2.shape[1]
+    if w1.shape != (2 * inner, dim) or w2.shape != (dim, inner):
+        raise ValueError(f"FF weights {tuple(w1.shape)}, {tuple(w2.shape)} vs dim {dim}")
+    return inner
+
+
+def geglu_ff_uses_kernel(dim: int, inner: int) -> bool:
+    """The JAX package's rule for its LN-free FF kernel
+    (``geglu_ff.py:619-626``): dims 320/640, 2*inner a multiple of 256."""
+    return dim in GEGLU_FF_KERNEL_DIMS and (2 * inner) % 256 == 0
+
+
+def geglu_ff_plain(
+    x: torch.Tensor, residual: torch.Tensor | None, w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of :func:`geglu_ff` in fp32: residual + GEGLU(x) @
+    w2^T + b2 (no residual when it is None), result in x's dtype."""
+    xf = x.float()
+    hidden, gate = (xf @ w1.float().t() + b1.float()).chunk(2, dim=-1)
+    act = hidden * 0.5 * gate * (1.0 + torch.erf(gate * _SQRT_HALF))
+    out = act @ w2.float().t() + b2.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(x.dtype)
+
+
+def geglu_ff_reference(x, residual, w1, b1, w2, b2):
+    """``_ff_reference``: the two products in x's dtype, then + residual.
+    The route for dims without the kernel, and the backward's recompute."""
+    hidden, gate = F.linear(x, w1.to(x.dtype), b1.to(x.dtype)).chunk(2, dim=-1)
+    out = F.linear(hidden * F.gelu(gate), w2.to(x.dtype), b2.to(x.dtype))
+    return out if residual is None else residual + out
+
+
+def geglu_ff(
+    x: torch.Tensor, residual: torch.Tensor | None, w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+) -> torch.Tensor:
+    """residual + proj_out(GEGLU(proj_in(x))) over (B, S, dim); ``residual``
+    None adds nothing."""
+    dim = x.shape[-1]
+    inner = _check_ff_weights(dim, w1, w2)
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"residual {tuple(residual.shape)} vs x {tuple(x.shape)}")
+    if not x.is_cuda:
+        return geglu_ff_plain(x, residual, w1, b1, w2, b2)
+    if dim % 8 or inner % 8:
+        raise ValueError(f"geglu_ff kernel needs dim, inner % 8 == 0, got {dim}, {inner}")
+    stream = check_kernel_operands("geglu_ff", x, residual, w1, b1, w2, b2)
+    from gmdx_torch.kernels import _build
+
+    m = x.numel() // dim
+    act = torch.empty((m, inner), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _build.call(
+        "gmdx_geglu_ff", x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), act.data_ptr(),
+        out.data_ptr(), m, dim, inner, stream,
+    )
+    LAUNCHES["geglu_ff"] += 1
+    return out
+
+
+class GegluFF(torch.autograd.Function):
+    """Differentiated :func:`geglu_ff`: kernel forward, backward by autograd
+    through a recompute of :func:`geglu_ff_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, residual, w1, b1, w2, b2):
+        ctx.save_for_backward(x, residual, w1, b1, w2, b2)
+        return geglu_ff(x, residual, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if t is not None else None for t in saved]
+            out = geglu_ff_reference(*leaves)
+            live = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad(out, live, g))
+        return tuple(next(grads) if t is not None else None for t in leaves)
+
+
+def add_layer_norm_plain(
+    x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`add_layer_norm`: s = x + y rounded to x's
+    dtype, then LayerNorm of the rounded s with fp32 statistics."""
+    s = (x.float() + y.float()).to(x.dtype)
+    sf = s.float()
+    mean = sf.mean(dim=-1, keepdim=True)
+    c = sf - mean
+    h = c * torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    return s, (h * gamma.float() + beta.float()).to(x.dtype)
+
+
+def add_layer_norm(
+    x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + y, LayerNorm(x + y)) over (B, S, C): the residual stream and
+    the next sublayer's input in one pass. ``gamma``/``beta`` are fp32 on
+    the card, as the JAX kernel takes them. Inference only."""
+    c = x.shape[-1]
+    if y.shape != x.shape or gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"add_layer_norm: x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                         f"gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)}")
+    refuse_grad("add_layer_norm", x, y, gamma, beta)
+    if not x.is_cuda:
+        return add_layer_norm_plain(x, y, gamma, beta, eps=eps)
+    if c % 8 or c > ADD_LN_MAX_DIM:
+        raise ValueError(f"add_layer_norm kernel needs C % 8 == 0 and C <= {ADD_LN_MAX_DIM}, "
+                         f"got {c}")
+    stream = check_kernel_operands("add_layer_norm", x, y)
+    check_fp32("add_layer_norm", gamma, beta)
+    from gmdx_torch.kernels import _build
+
+    s, h = torch.empty_like(x), torch.empty_like(x)
+    _build.call(
+        "gmdx_add_ln", x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        s.data_ptr(), h.data_ptr(), x.numel() // c, c, float(eps), stream,
+    )
+    LAUNCHES["add_layer_norm"] += 1
+    return s, h
+
+
+__all__ = [
+    "GEGLU_FF_KERNEL_DIMS",
+    "geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "GegluFFLN",
+    "geglu_ff", "geglu_ff_plain", "geglu_ff_reference", "geglu_ff_uses_kernel", "GegluFF",
+    "add_layer_norm", "add_layer_norm_plain",
+]

@@ -1,9 +1,17 @@
-"""3x3 stride-1 SAME convolution + bias over NHWC.
+"""3x3 stride-1 SAME convolution + bias over NHWC: the implicit-GEMM kernel
+and Winograd F(4x4, 3x3).
 
-Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``. The Hopper
-kernel (``csrc/conv3x3.cu``) is an implicit GEMM, not a Winograd transform;
-the source says why. Its weight operand is the (O, 9*C) repacking of the
-OIHW conv weight made by :func:`pack_weight`, once per weight.
+Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``.
+* :func:`conv3x3` (``csrc/conv3x3.cu``) stands in for the JAX package's
+  default F(2x2) kernel. It is an implicit GEMM, not a Winograd transform;
+  the source says why. Its weight operand is the (O, 9*C) repacking of the
+  OIHW conv weight made by :func:`pack_weight`, once per weight.
+* :func:`winograd4_conv3x3` (``csrc/winograd4.cu``) is the F(4x4, 3x3)
+  kernel the JAX package runs under ``GMDX_WINOGRAD_M=4`` (``_wino4_forward``),
+  with its Cook-Toom matrices over the points {0, 1, -1, 2, -1/2}. Its
+  weight operand is the transformed weight U (36, O, C) made by
+  :func:`pack_weight4`, once per weight.
+:func:`conv_route` says which of the two a conv takes.
 
 Under autograd the conv is :func:`conv3x3_direct`, ``F.conv2d`` in both
 directions, as the JAX package's ``_wino_fwd`` takes the direct XLA conv for
@@ -16,7 +24,41 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_kernel_operands
+from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, refuse_grad
+
+# B^T, G, A^T of F(4x4, 3x3) (``gmdx/kernels/winograd.py:_BT4/_G4/_AT4``).
+BT4 = (
+    (1.0, 1.5, -2.0, -1.5, 1.0, 0.0),
+    (0.0, -1.0, -2.5, -0.5, 1.0, 0.0),
+    (0.0, 1.0, 0.5, -2.5, 1.0, 0.0),
+    (0.0, -0.5, -1.0, 0.5, 1.0, 0.0),
+    (0.0, 2.0, -1.0, -2.0, 1.0, 0.0),
+    (0.0, 1.0, 1.5, -2.0, -1.5, 1.0),
+)
+G4 = (
+    (1.0, 0.0, 0.0),
+    (-1 / 3, -1 / 3, -1 / 3),
+    (1 / 3, -1 / 3, 1 / 3),
+    (1 / 15, 2 / 15, 4 / 15),
+    (-16 / 15, 8 / 15, -4 / 15),
+    (0.0, 0.0, 1.0),
+)
+AT4 = (
+    (1.0, 1.0, 1.0, 1.0, 1.0, 0.0),
+    (0.0, 1.0, -1.0, 2.0, -0.5, 0.0),
+    (0.0, 1.0, 1.0, 4.0, 0.25, 0.0),
+    (0.0, 1.0, -1.0, 8.0, -0.125, 1.0),
+)
+
+
+def conv_route(h: int, w: int, c: int, o: int, winograd_m: int = 2) -> str:
+    """``"wino4"`` where the JAX package takes F(4x4) under
+    ``GMDX_WINOGRAD_M=4`` (``winograd.py:1079, 1193-1196``), else
+    ``"conv3x3"``. The JAX rule's VMEM budget (``_pick_tiling4``) is a TPU
+    limit and is not part of it."""
+    if winograd_m == 4 and h == w and h % 4 == 0 and h >= 16 and c % 8 == 0 and o % 8 == 0:
+        return "wino4"
+    return "conv3x3"
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -83,4 +125,80 @@ def conv3x3_direct(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight"]
+def pack_weight4(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW (O, C, 3, 3) -> U (36, O, C), U[6*xi + nu] = G g G^T at (xi, nu),
+    taken in fp32 from the weight's own dtype and rounded to ``dtype``, as
+    ``_wino4_kernel`` fills its ``u_scr``."""
+    g4 = torch.tensor(G4, dtype=torch.float32, device=weight.device)
+    u = torch.einsum("ak,bl,ockl->aboc", g4, g4, weight.detach().float())
+    return u.reshape(36, *weight.shape[:2]).to(dtype).contiguous()
+
+
+def _wino4_pad(x: torch.Tensor, pre_padded: bool) -> torch.Tensor:
+    """The image with a 1-px top/left and 3-px bottom/right zero border."""
+    return F.pad(x, (0, 0, 0, 2, 0, 2) if pre_padded else (0, 0, 1, 3, 1, 3))
+
+
+def winograd4_conv3x3_plain(
+    x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor, *, pre_padded: bool = False,
+) -> torch.Tensor:
+    """Plain version, the kernel's three stages in fp32 with the JAX
+    kernel's rounding: V = B^T d B per 6x6 patch (rows first, then columns)
+    rounded to x's dtype, M[p] = V[p] U[p]^T, Y = A^T M A + bias."""
+    b, hp, wp, c = x.shape
+    h, w = (hp - 2, wp - 2) if pre_padded else (hp, wp)
+    o = u.shape[1]
+    xp = _wino4_pad(x, pre_padded).float()
+    bt = torch.tensor(BT4, dtype=torch.float32, device=x.device)
+    at = torch.tensor(AT4, dtype=torch.float32, device=x.device)
+    # d[i, j] = xpad[4ty + i, 4tx + j]: (6, 6, B, H/4, W/4, C).
+    d = torch.stack([torch.stack([xp[:, i:i + h:4, j:j + w:4] for j in range(6)])
+                     for i in range(6)])
+    rowt = torch.einsum("xi,ij...->xj...", bt, d)
+    v = torch.einsum("nj,xj...->xn...", bt, rowt).to(x.dtype).float()
+    m = torch.einsum("pbyxc,poc->pbyxo", v.reshape(36, b, h // 4, w // 4, c), u.float())
+    z = torch.einsum("rx,xnbyzo->rnbyzo", at, m.reshape(6, 6, b, h // 4, w // 4, o))
+    y = torch.einsum("qn,rnbyzo->byrzqo", at, z) + bias.float()
+    return y.reshape(b, h, w, o).to(x.dtype)
+
+
+def winograd4_conv3x3(
+    x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor, *, pre_padded: bool = False,
+) -> torch.Tensor:
+    """3x3 SAME conv of NHWC ``x`` (B, H, W, C), or of its 1-px zero-bordered
+    form (B, H+2, W+2, C) with ``pre_padded``, by Winograd F(4x4, 3x3) with
+    the transformed weight ``u`` (36, O, C) plus ``bias`` (O,); H == W, a
+    multiple of 4. Returns (B, H, W, O). Inference only."""
+    if x.ndim != 4:
+        raise ValueError(f"expected NHWC, got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if pre_padded:
+        h, w = h - 2, w - 2
+    o = u.shape[1]
+    if u.shape != (36, o, c) or bias.shape != (o,):
+        raise ValueError(f"transformed weight {tuple(u.shape)} does not match C={c}")
+    if conv_route(h, w, c, o, 4) != "wino4":
+        raise ValueError(f"F(4x4) takes square H % 4 == 0 >= 16 and C, O % 8 == 0, "
+                         f"got {h}x{w}, {c} -> {o}")
+    refuse_grad("winograd4_conv3x3", x, u, bias)
+    if not x.is_cuda:
+        return winograd4_conv3x3_plain(x, u, bias, pre_padded=pre_padded)
+    stream = check_kernel_operands("winograd4_conv3x3", x, u, bias)
+    from gmdx_torch.kernels import _build
+
+    tiles = b * (h // 4) * (w // 4)
+    v = torch.empty((36, tiles, c), dtype=x.dtype, device=x.device)
+    m = torch.empty((36, tiles, o), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
+    _build.call(
+        "gmdx_wino4", x.data_ptr(), u.data_ptr(), bias.data_ptr(), v.data_ptr(),
+        m.data_ptr(), out.data_ptr(), b, h, w, c, o, int(pre_padded), stream,
+    )
+    LAUNCHES["winograd4_conv3x3"] += 1
+    return out
+
+
+__all__ = [
+    "conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight", "conv_route",
+    "pack_weight4", "winograd4_conv3x3", "winograd4_conv3x3_plain",
+]

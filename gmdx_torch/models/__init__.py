@@ -14,7 +14,7 @@ from gmdx_torch.models.controlnet import (
     ControlNetConfig,
     ControlNetModel,
 )
-from gmdx_torch.models.layers import set_use_kernels
+from gmdx_torch.models.layers import set_kernel_options, set_use_kernels
 from gmdx_torch.models.tokenizer import CLIPTokenizer
 from gmdx_torch.models.unet2d import (
     SD15_GM_UNET_CONFIG,
@@ -33,6 +33,7 @@ from gmdx_torch.models.vae import (
 
 __all__ = [
     "set_use_kernels",
+    "set_kernel_options",
     "CLIPTextModel",
     "CLIPTextConfig",
     "CLIP_VIT_L_CONFIG",

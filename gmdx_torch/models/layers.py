@@ -5,14 +5,19 @@ the models so that the kernels see contiguous channels; parameters keep the
 diffusers module tree (``norm1.weight``, ``attn1.to_out.0.weight``, ...) so a
 diffusers SD-1.5 state dict loads with ``strict=True``.
 
-Four kinds of call go to hand-written kernels (``gmdx_torch.kernels``):
-every 4-D GroupNorm (with its SiLU, temb pre-add and padded output), the
-resnet 3x3 convs, the self-attention of 256 keys and more (the VAE's past
-4096), and the transformer block's LN -> GEGLU FF -> residual tail. A module
-with ``use_kernels=False`` calls the same functions' plain versions instead.
-Everything else (the projections, conv_in/conv_out, the 1x1 convs,
-down/upsampling, LayerNorm, cross-attention) is plain PyTorch, as the JAX
-package leaves it to XLA.
+Four kinds of call go to hand-written kernels (``gmdx_torch.kernels``) by
+default: every 4-D GroupNorm (with its SiLU, temb pre-add and padded
+output), the resnet 3x3 convs, the self-attention of 256 keys and more (the
+VAE's past 4096), and the transformer block's LN -> GEGLU FF -> residual
+tail. :func:`set_kernel_options` switches on the JAX package's three opt-in
+kernels (its ``GMDX_XATTN_KERNEL``, ``GMDX_FUSED_ADDLN`` and
+``GMDX_WINOGRAD_M`` toggles): the short-K cross-attention, the fused
+attn1-residual + norm2, and Winograd F(4x4) for the convs it tiles. A
+``GEGLUFeedForward`` called without LayerNorm parameters takes the LN-free
+FF kernel. A module with ``use_kernels=False`` calls the same functions'
+plain versions instead. Everything else (the projections, conv_in/conv_out,
+the 1x1 convs, down/upsampling, LayerNorm, and cross-attention unless
+opted in) is plain PyTorch, as the JAX package leaves it to XLA.
 
 Parameters may be kept in another dtype than the activations (fp32 master
 weights, bf16 compute: flax's ``dtype=``): every layer casts its weights to
@@ -35,9 +40,29 @@ from torch import nn
 
 from gmdx_torch.kernels import needs_grad
 from gmdx_torch.kernels.attention import attention_packed, dot_product_attention
-from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
+from gmdx_torch.kernels.geglu_ff import (
+    GegluFF,
+    GegluFFLN,
+    add_layer_norm,
+    add_layer_norm_plain,
+    geglu_ff,
+    geglu_ff_ln,
+    geglu_ff_ln_plain,
+    geglu_ff_plain,
+    geglu_ff_reference,
+    geglu_ff_uses_kernel,
+)
 from gmdx_torch.kernels.groupnorm import GroupNormSiLU, group_norm_silu, group_norm_silu_plain
-from gmdx_torch.kernels.winograd import conv3x3, conv3x3_direct, conv3x3_plain, pack_weight
+from gmdx_torch.kernels.winograd import (
+    conv3x3,
+    conv3x3_direct,
+    conv3x3_plain,
+    conv_route,
+    pack_weight,
+    pack_weight4,
+    winograd4_conv3x3,
+    winograd4_conv3x3_plain,
+)
 
 
 def set_use_kernels(module: nn.Module, flag: bool) -> None:
@@ -46,6 +71,25 @@ def set_use_kernels(module: nn.Module, flag: bool) -> None:
     for m in module.modules():
         if hasattr(m, "use_kernels"):
             m.use_kernels = flag
+
+
+def set_kernel_options(
+    module: nn.Module, *, xattn_kernel: bool = False, fused_addln: bool = False,
+    winograd_m: int = 2,
+) -> None:
+    """The JAX package's opt-in kernels for every module under ``module``;
+    the defaults are its defaults. ``xattn_kernel``: the short-K
+    cross-attention (``GMDX_XATTN_KERNEL=1``); ``fused_addln``: the
+    transformer block's attn1 residual and norm2 in one call
+    (``GMDX_FUSED_ADDLN=1``); ``winograd_m=4``: F(4x4) Winograd for the 3x3
+    convs :func:`conv_route` gives it (``GMDX_WINOGRAD_M=4``)."""
+    if winograd_m not in (2, 4):
+        raise ValueError(f"winograd_m is 2 or 4, got {winograd_m}")
+    for m in module.modules():
+        for name, value in (("xattn_kernel", xattn_kernel), ("fused_addln", fused_addln),
+                            ("winograd_m", winograd_m)):
+            if hasattr(m, name):
+                setattr(m, name, value)
 
 
 def timestep_embedding(
@@ -142,30 +186,45 @@ class GroupNorm(nn.GroupNorm):
 
 
 class Conv3x3(nn.Conv2d):
-    """3x3 stride-1 SAME conv over NHWC through the conv kernel. The kernel's
-    (O, 9*C) weight is packed from ``weight`` on first use and again whenever
-    the weight changes: an optimizer's in-place update bumps the weight's
-    version, which the cache is keyed on. Under autograd the conv is
-    :func:`conv3x3_direct` with the weight itself."""
+    """3x3 stride-1 SAME conv over NHWC through the conv kernel, or with
+    ``winograd_m=4`` through the F(4x4) kernel where :func:`conv_route`
+    says so. Each kernel's weight operand (the (O, 9*C) packing, the
+    transformed (36, O, C) U) is made from ``weight`` on first use and again
+    whenever the weight changes: an optimizer's in-place update bumps the
+    weight's version, which the caches are keyed on. Under autograd the
+    conv is :func:`conv3x3_direct` with the weight itself."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, padding=1)
         if in_ch % 8 or out_ch % 8:
             raise ValueError(f"conv kernel needs widths % 8 == 0, got {in_ch}, {out_ch}")
         self.use_kernels = True
-        self._packed: tuple[tuple, torch.Tensor] | None = None
+        self.winograd_m = 2
+        self._cached: dict[str, tuple[tuple, torch.Tensor]] = {}
 
-    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+    def _weight_operand(self, kind: str, dtype: torch.dtype, make) -> torch.Tensor:
         w = self.weight
         key = (w._version, w.data_ptr(), w.dtype, w.device, dtype)
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_weight(w.detach().to(dtype)))
-        return self._packed[1]
+        hit = self._cached.get(kind)
+        if hit is None or hit[0] != key:
+            hit = self._cached[kind] = (key, make(w.detach(), dtype))
+        return hit[1]
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        return self._weight_operand("packed", dtype, lambda w, dt: pack_weight(w.to(dt)))
+
+    def wino4_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """U in ``dtype``, transformed in fp32 from the parameter's dtype."""
+        return self._weight_operand("wino4", dtype, pack_weight4)
 
     def forward(self, x: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
         bias = _cast(self.bias, x)
         if needs_grad(x, self.weight, self.bias):
             return conv3x3_direct(x, _cast(self.weight, x), bias, pre_padded=pre_padded)
+        h, w = x.shape[1] - 2 * pre_padded, x.shape[2] - 2 * pre_padded
+        if conv_route(h, w, self.in_channels, self.out_channels, self.winograd_m) == "wino4":
+            fn = winograd4_conv3x3 if self.use_kernels else winograd4_conv3x3_plain
+            return fn(x, self.wino4_weight(x.dtype), bias, pre_padded=pre_padded)
         fn = conv3x3 if self.use_kernels else conv3x3_plain
         return fn(x, self.packed_weight(x.dtype), bias, pre_padded=pre_padded)
 
@@ -173,7 +232,8 @@ class Conv3x3(nn.Conv2d):
 class Attention(nn.Module):
     """Multi-head attention over (B, S, C); cross-attention when ``context``
     is given. No-bias q/k/v, bias on ``to_out.0``; q/k/v stay head-packed
-    (B, S, H*D) into :func:`attention_packed`."""
+    (B, S, H*D) into :func:`attention_packed`, with the ``xattn_kernel``
+    option."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int, context_dim: int | None = None):
         super().__init__()
@@ -185,11 +245,13 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(0.0)])
         self.use_kernels = True
+        self.xattn_kernel = False
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         src = x if context is None else context
         q, k, v = linear(x, self.to_q), linear(src, self.to_k), linear(src, self.to_v)
-        out = attention_packed(q, k, v, self.heads, use_kernels=self.use_kernels)
+        out = attention_packed(q, k, v, self.heads, use_kernels=self.use_kernels,
+                               xattn_kernel=self.xattn_kernel)
         return linear(out, self.to_out[0])
 
 
@@ -200,9 +262,12 @@ class GEGLU(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU MLP (mult 4, exact erf GELU) whose forward takes the preceding
-    LayerNorm's parameters and a pending residual: the whole
-    (x + add) -> LN -> FF -> + residual tail is one kernel call."""
+    """GEGLU MLP (mult 4, exact erf GELU). Given the preceding LayerNorm
+    ``norm`` and a pending residual ``add``, the whole (x + add) -> LN -> FF
+    -> + residual tail is one kernel call (the transformer block's). Without
+    ``norm`` it is the JAX module's LN-free branch: ``residual`` + FF(x)
+    (nothing added when it is None), through the LN-free FF kernel at the
+    dims the JAX rule gives it and :func:`geglu_ff_reference` at others."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -211,9 +276,12 @@ class GEGLUFeedForward(nn.Module):
         self.use_kernels = True
 
     def forward(
-        self, x: torch.Tensor, add: torch.Tensor | None, norm: nn.LayerNorm
+        self, x: torch.Tensor, add: torch.Tensor | None = None, norm: nn.LayerNorm | None = None,
+        *, residual: torch.Tensor | None = None,
     ) -> torch.Tensor:
         proj_in, proj_out = self.net[0].proj, self.net[2]
+        if norm is None:
+            return self._forward_no_ln(x, _cast(residual, x), proj_in, proj_out)
         args = [x, add] + [
             _cast(p, x) for p in (norm.weight, norm.bias, proj_in.weight, proj_in.bias,
                                   proj_out.weight, proj_out.bias)
@@ -224,11 +292,25 @@ class GEGLUFeedForward(nn.Module):
             return GegluFFLN.apply(*args, norm.eps)
         return geglu_ff_ln(*args, eps=norm.eps)
 
+    def _forward_no_ln(self, x, residual, proj_in, proj_out) -> torch.Tensor:
+        args = [x, residual] + [
+            _cast(p, x) for p in (proj_in.weight, proj_in.bias, proj_out.weight, proj_out.bias)
+        ]
+        if not self.use_kernels:
+            return geglu_ff_plain(*args)
+        if not geglu_ff_uses_kernel(x.shape[-1], proj_out.in_features):
+            return geglu_ff_reference(*args)
+        if needs_grad(*args):
+            return GegluFF.apply(*args)
+        return geglu_ff(*args)
+
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF (pre-norm,
     LayerNorm eps 1e-5). attn2's output folds into the FF kernel's prologue;
-    norm3's parameters feed that kernel."""
+    norm3's parameters feed that kernel. With ``fused_addln`` the attn1
+    residual and norm2 are one :func:`add_layer_norm` call
+    (``gmdx/models/layers.py:368-383``); the parameters are the same."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
         super().__init__()
@@ -238,10 +320,19 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = Attention(dim, heads, head_dim, context_dim=context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
+        self.use_kernels = True
+        self.fused_addln = False
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(layer_norm(x, self.norm1))
-        a2 = self.attn2(layer_norm(x, self.norm2), context)
+        a1 = self.attn1(layer_norm(x, self.norm1))
+        if self.fused_addln:
+            fn = add_layer_norm if self.use_kernels else add_layer_norm_plain
+            x, h = fn(x, a1, self.norm2.weight.float(), self.norm2.bias.float(),
+                      eps=self.norm2.eps)
+        else:
+            x = x + a1
+            h = layer_norm(x, self.norm2)
+        a2 = self.attn2(h, context)
         return self.ff(x, a2, self.norm3)
 
 
@@ -350,6 +441,7 @@ class VAEAttention(nn.Module):
 
 __all__ = [
     "set_use_kernels",
+    "set_kernel_options",
     "linear",
     "layer_norm",
     "timestep_embedding",

@@ -29,6 +29,7 @@ from torch import nn
 
 from gmdx_torch.pipelines.gm import (
     StableDiffusionGMPipeline,
+    reject_unported,
     rescale_noise_cfg,
     scheduler_step,
 )
@@ -161,16 +162,13 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         to :meth:`denoise_dual` (the ControlNet pipeline's control image)."""
         self.check_inputs(prompt, height=height, width=width, guidance_rescale=guidance_rescale,
                           negative_prompt=negative_prompt, latents=latents)
-        unported = {
-            "cross_attention_kwargs": cross_attention_kwargs, "timesteps": timesteps,
-            "sigmas": sigmas, "return_intermediates": return_intermediates or None,
-            "callback_on_step_end": callback_on_step_end,
-            "callback_on_step_end_tensor_inputs": callback_on_step_end_tensor_inputs,
-            "callback": callback, "callback_steps": callback_steps,
-        }
-        given = [k for k, v in unported.items() if v is not None]
-        if given:
-            raise NotImplementedError(f"gmdx_torch's dual pipeline does not yet take {given}")
+        reject_unported(
+            "dual", cross_attention_kwargs=cross_attention_kwargs, timesteps=timesteps,
+            sigmas=sigmas, return_intermediates=return_intermediates or None,
+            callback_on_step_end=callback_on_step_end,
+            callback_on_step_end_tensor_inputs=callback_on_step_end_tensor_inputs,
+            callback=callback, callback_steps=callback_steps,
+        )
         cond, uncond = self._resolve_embeds(
             prompt, negative_prompt, prompt_embeds, negative_prompt_embeds,
             do_cfg=guidance_scale > 1.0, clip_skip=clip_skip,

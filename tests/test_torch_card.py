@@ -349,3 +349,105 @@ def test_controlnet_upconvert_on_card(card):
     for i in (0, 1):  # decoded SDR and GM in [0, 1]
         mse = float(np.mean((outs[0][i].astype(np.float64) - outs[1][i]) ** 2))
         assert -10.0 * np.log10(max(mse, 1e-30)) >= 40.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,c", [(4096, 320), (1024, 640), (1000, 1280)])
+def test_cross_attention_shortk_kernel_on_card(card, sq, c):
+    """77 keys at head dims 40/80/160; a ragged query count at 160."""
+    from gmdx_torch.kernels.flash_attention import (
+        cross_attention_shortk, cross_attention_shortk_plain,
+    )
+
+    q = _bf16(card, 2, sq, c)
+    k, v = _bf16(card, 2, 77, c), _bf16(card, 2, 77, c)
+    out = cross_attention_shortk(q, k, v, 8)
+    assert _rel_l2(out, cross_attention_shortk_plain(q, k, v, 8)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,c", [(4096, 320), (1000, 640), (256, 1280), (64, 1280)])
+def test_add_layer_norm_kernel_on_card(card, tokens, c):
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm, add_layer_norm_plain
+
+    x, y = _bf16(card, 2, tokens, c), _bf16(card, 2, tokens, c)
+    g = 1.0 + _bf16(card, c, scale=0.2).float()
+    b = _bf16(card, c, scale=0.2).float()
+    for out, ref in zip(add_layer_norm(x, y, g, b), add_layer_norm_plain(x, y, g, b)):
+        assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tokens,residual", [(320, 4096, True), (640, 1000, True),
+                                                 (320, 300, False)])
+def test_geglu_ff_no_ln_kernel_on_card(card, dim, tokens, residual):
+    from gmdx_torch.kernels.geglu_ff import geglu_ff, geglu_ff_plain
+
+    inner = 4 * dim
+    x = _bf16(card, 2, tokens, dim)
+    res = _bf16(card, 2, tokens, dim) if residual else None
+    ws = [_bf16(card, 2 * inner, dim, scale=dim ** -0.5), _bf16(card, 2 * inner, scale=0.1),
+          _bf16(card, dim, inner, scale=inner ** -0.5), _bf16(card, dim, scale=0.1)]
+    out = geglu_ff(x, res, *ws)
+    ref = geglu_ff_plain(x.float(), None if res is None else res.float(), *(w.float() for w in ws))
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,o,pre", [(64, 320, 320, True), (32, 640, 1280, False),
+                                        (16, 40, 24, True), (16, 2560, 1280, True)])
+def test_winograd4_kernel_on_card(card, hw, c, o, pre):
+    """F(4x4) against its plain version (U and V rounded to bf16 where the
+    kernel rounds them), raw and pre-padded, with a ragged channel count."""
+    from gmdx_torch.kernels.winograd import pack_weight4, winograd4_conv3x3, winograd4_conv3x3_plain
+
+    x = _bf16(card, 2, hw, hw, c)
+    if pre:
+        x = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    u = pack_weight4(_bf16(card, o, c, 3, 3, scale=(9 * c) ** -0.5), torch.bfloat16)
+    bias = _bf16(card, o, scale=0.1)
+    out = winograd4_conv3x3(x, u, bias, pre_padded=pre)
+    assert _rel_l2(out, winograd4_conv3x3_plain(x, u, bias, pre_padded=pre)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_opt_in_kernels_refuse_what_they_do_not_take(card):
+    from gmdx_torch.kernels.flash_attention import cross_attention_shortk
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm
+    from gmdx_torch.kernels.winograd import pack_weight4, winograd4_conv3x3
+
+    q, k = _bf16(card, 1, 1024, 64), _bf16(card, 1, 77, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        cross_attention_shortk(q, k, k, 2)  # d = 32: no instance
+    q40 = _bf16(card, 1, 1024, 80)
+    with pytest.raises(ValueError, match="keys"):
+        cross_attention_shortk(q40, q40, q40, 2)  # 1024 keys
+    x = _bf16(card, 1, 8, 2056)
+    with pytest.raises(ValueError, match="C % 8"):
+        add_layer_norm(x, x, torch.ones(2056, device="cuda"), torch.zeros(2056, device="cuda"))
+    u = pack_weight4(_bf16(card, 8, 8, 3, 3), torch.bfloat16)
+    with pytest.raises(ValueError, match="F\\(4x4\\)"):
+        winograd4_conv3x3(_bf16(card, 1, 8, 8, 8), u, _bf16(card, 8))
+
+
+@pytest.mark.cuda
+def test_unet_with_options_launches_per_call_counts(card):
+    """One full-width GM-UNet forward at 512^2 with the three options: the
+    launches of each kernel per call that chip_smoke.py's sdr2hdr phase
+    asserts over a run."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.models import SD15_GM_UNET_CONFIG, UNet2DConditionModel, set_kernel_options
+
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(SD15_GM_UNET_CONFIG).to(torch.bfloat16).eval()
+    set_kernel_options(unet, xattn_kernel=True, fused_addln=True, winograd_m=4)
+    x = _bf16(card, 2, 64, 64, 8)
+    ctx = _bf16(card, 2, 77, 768)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = unet(x, 500, ctx, channels_last=True)
+    assert torch.isfinite(out).all()
+    counts = launch_counts()
+    want = {"cross_attention_shortk": 10, "add_layer_norm": 16, "winograd4_conv3x3": 30,
+            "conv3x3": 14, "attention_kv_resident": 15, "geglu_ff_ln": 16, "geglu_ff": 0}
+    assert {k: counts[k] for k in want} == want
