@@ -10,7 +10,10 @@
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
-  2. build: compiles gmdx_torch/csrc with nvcc (seconds printed).
+  2. build: compiles gmdx_torch/csrc with nvcc (seconds printed), prints
+     each kernel's ptxas registers and spills, and fails unless every
+     instance of the Hopper GEMM core (the conv and FF kernels) issues wgmma
+     (HGMMA) and TMA loads (UTMALDG) in its SASS.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -236,14 +239,43 @@ def phase_build() -> None:
     from gmdx_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
+    build_dir = _build.build_all()
     for name in _build.LIBRARIES:
         _build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info.get("seconds")})
     for name, report in _build.build_info.get("ptxas", {}).items():
-        lines = [ln for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        lines = [ln for ln in report.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"{name}.cu", "ptxas": lines})
+    check_sass(build_dir, _build._nvcc())
+
+
+# The libraries whose kernels run on the Hopper GEMM core (gemm_sm90.cuh).
+SM90_GEMM_LIBRARIES = ("conv3x3", "geglu_ff")
+SM90_GEMM_KERNEL = "ws_gemm_kernel"
+SM90_GEMM_SASS = ("HGMMA", "UTMALDG")
+
+
+def check_sass(build_dir, nvcc: str) -> None:
+    """Every instance of the core's kernel in libconv3x3.so and
+    libgeglu_ff.so must issue wgmma (HGMMA) and TMA loads (UTMALDG) in its
+    SASS (cuobjdump -sass)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    for lib in SM90_GEMM_LIBRARIES:
+        sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
+                              check=True, capture_output=True, text=True).stdout
+        funcs = {}
+        for chunk in sass.split("Function : ")[1:]:
+            name, _, body = chunk.partition("\n")
+            funcs[name.strip()] = body
+        core = {n: {op: body.count(op) for op in SM90_GEMM_SASS}
+                for n, body in funcs.items() if SM90_GEMM_KERNEL in n}
+        emit({"phase": "build", "sass": f"lib{lib}.so", "kernels": len(funcs),
+              "gemm_core_instances": core})
+        if not core or any(min(c.values()) == 0 for c in core.values()):
+            raise SystemExit(f"chip_smoke: lib{lib}.so lacks {SM90_GEMM_SASS} in its "
+                             f"{SM90_GEMM_KERNEL} instances: {core}")
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +290,11 @@ def _randn(gen, *shape, scale=1.0):
 
 
 def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
-           peak=BF16_FLOPS, library=None):
+           peak=BF16_FLOPS, library=None, extra=None):
     """Run one kernel case: error against the fp32 plain version (the worst
     output where there are several), times. ``library`` names the yardstick
-    where the row should say which call it was."""
+    where the row should say which call it was; ``extra`` adds keys (a
+    launch plan) to the row."""
     import torch
 
     outs = kernel_fn()
@@ -282,10 +315,25 @@ def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
     }
     if library is not None:
         row["library"] = library
+    row.update(extra or {})
     emit(row)
     results.append(row)
     if not math.isfinite(rel) or rel > REL_L2_MAX:
         raise SystemExit(f"chip_smoke: {name} {shape} rel-L2 {rel} > {REL_L2_MAX}")
+
+
+def _conv_plan_keys(b, hw, c, o, pre) -> dict:
+    from gmdx_torch.kernels.winograd import conv3x3_plan
+
+    p = conv3x3_plan(b, hw, hw, c, o, pre)
+    return {"plan": {"route": p.route, "box": p.box, "bn": p.bn, "split": p.split,
+                     "units": p.units}}
+
+
+def _ff_plan_keys(m, dim) -> dict:
+    from gmdx_torch.kernels.geglu_ff import geglu_ff_ln_plan
+
+    return {"plan": geglu_ff_ln_plan(m, dim, 4 * dim)}
 
 
 def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict]:
@@ -345,6 +393,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
             lambda: F.conv2d(x_nchw, w, bias, padding=pad),
             2.0 * bb * hw * hw * 9 * c * o,
             (x.numel() + w.numel() + o + bb * hw * hw * o) * 2, results,
+            extra=_conv_plan_keys(bb, hw, c, o, pre),
         )
 
     # C. GroupNorm(+temb)+SiLU: resnet norm1 (padded), norm2 (temb, padded),
@@ -412,6 +461,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
             lib,
             2.0 * m * dim * 8 * dim + 2.0 * m * inner * dim,
             (3 * m * dim + w1.numel() + w2.numel() + 2 * inner + 3 * dim) * 2, results,
+            extra=_ff_plan_keys(m, dim),
         )
     _training_kernel_rows(gen, train_batch, results)
     _hdrtv_kernel_rows(gen, results)
@@ -588,6 +638,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
             lambda: F.conv2d(x_nchw, w, bias, padding=1),
             2.0 * bb * hw * hw * 9 * c * c,
             (x.numel() + w.numel() + c + bb * hw * hw * c) * 2, results,
+            extra=_conv_plan_keys(bb, hw, c, c, True),
         )
         del x, x_nchw
 
@@ -626,6 +677,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
         lambda: geglu_ff_ln_plain(x.float(), a.float(), *(t.float() for t in ff)),
         lib, 2.0 * m * dim * 8 * dim + 2.0 * m * inner * dim,
         (3 * m * dim + ff[2].numel() + ff[4].numel() + 2 * inner + 3 * dim) * 2, results,
+        extra=_ff_plan_keys(m, dim),
     )
 
 
@@ -809,12 +861,12 @@ PROFILE_CATEGORIES = (
     ("attention_kv_resident", ("attention_fwd_kernel",)),
     ("group_norm_silu_bwd", ("gn_bwd_",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
-    ("geglu_ff_ln", ("ff_gemm",)),
-    ("geglu_ff", ("geglu_gemm",)),
+    ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),
+    ("geglu_ff", ("geglu_gemm", "ff_gemm2")),
     ("cross_attention_shortk", ("xattn_kernel",)),
     ("add_layer_norm", ("add_ln_kernel",)),
     ("winograd4_conv3x3", ("wino4_",)),
-    ("conv3x3", ("conv3x3_kernel",)),
+    ("conv3x3", ("ConvOp", "splitk_reduce_kernel")),
     ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
     ("cudnn conv dgrad", ("xmma_dgrad", "dgrad")),
     ("cudnn conv wgrad", ("xmma_wgrad", "wgrad")),

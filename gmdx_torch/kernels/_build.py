@@ -39,7 +39,10 @@ ENTRY_POINTS = {
     "gmdx_xattn": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "gmdx_conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "gmdx_conv3x3": (
+        "conv3x3",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
     "gmdx_group_norm_silu": (
         "groupnorm",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
@@ -50,7 +53,7 @@ ENTRY_POINTS = {
     ),
     "gmdx_geglu_ff_ln": (
         "geglu_ff",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     ),
     "gmdx_geglu_ff": (
         "geglu_ff", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -64,6 +67,8 @@ ENTRY_POINTS = {
     ),
 }
 LIBRARIES = sorted({lib for lib, _ in ENTRY_POINTS.values()})
+# gemm_sm90.cuh's TMA_MAP_REFUSED: cuTensorMapEncodeTiled refused a map.
+TMA_MAP_REFUSED = -1
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -141,5 +146,7 @@ def library(name: str) -> ctypes.CDLL:
 def call(fn_name: str, *args) -> None:
     """Launch the entry point ``fn_name`` and raise on a non-zero CUDA error."""
     err = getattr(library(ENTRY_POINTS[fn_name][0]), fn_name)(*args)
+    if err == TMA_MAP_REFUSED:
+        raise RuntimeError(f"{fn_name} failed: cuTensorMapEncodeTiled refused a TMA tensor map")
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

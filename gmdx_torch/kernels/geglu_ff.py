@@ -3,8 +3,9 @@
 * :func:`geglu_ff_ln`: LayerNorm -> GEGLU feed-forward -> residual, with a
   pending residual folded into the prologue. Counterpart of
   ``gmdx/kernels/geglu_ff.py:geglu_ff_ln`` with ``add=``; kernel
-  ``csrc/geglu_ff.cu`` (``gmdx_geglu_ff_ln``, two launches of the shared
-  tile GEMM).
+  ``csrc/geglu_ff.cu`` (``gmdx_geglu_ff_ln``: a row pre-pass for the
+  LayerNorm, then two GEMMs on the Hopper core of ``csrc/gemm_sm90.cuh``,
+  as :func:`geglu_ff_ln_plan` lays them out).
 * :func:`geglu_ff`: the same FF + residual without the LayerNorm, the
   counterpart of ``geglu_ff`` (``_ff_pallas``), which ``GEGLUFeedForward``
   reaches when called without LayerNorm parameters. Kernel
@@ -38,6 +39,24 @@ _SQRT_HALF = 0.7071067811865476
 GEGLU_FF_KERNEL_DIMS = (320, 640)
 # csrc/add_ln.cu keeps a row in registers: 8 chunks of 8 channels per lane.
 ADD_LN_MAX_DIM = 2048
+# csrc/gemm_sm90.cuh's row tile and K slice; GEMM1's tile holds 64 hidden
+# and their 64 gate columns.
+FF_BLOCK_M = 128
+FF_BLOCK_K = 64
+FF_GEMM1_COLS = 64
+
+
+def geglu_ff_ln_plan(m: int, dim: int, inner: int) -> dict:
+    """The kernel's launch layout for ``m`` tokens: GEMM2's tile width
+    (160 where it divides dim, as at 320/640/1280, so no tile is padding;
+    else 128) and each GEMM's (row tiles, column tiles, K slices)."""
+    bn2 = 160 if dim % 160 == 0 else 128
+    m_tiles = -(-m // FF_BLOCK_M)
+    return {
+        "bn2": bn2,
+        "gemm1_tiles": (m_tiles, -(-inner // FF_GEMM1_COLS), -(-dim // FF_BLOCK_K)),
+        "gemm2_tiles": (m_tiles, -(-dim // bn2), -(-inner // FF_BLOCK_K)),
+    }
 
 
 def geglu_ff_ln_plain(
@@ -82,16 +101,21 @@ def geglu_ff_ln(
     if dim % 8 or inner % 8:
         raise ValueError(f"geglu_ff_ln kernel needs dim, inner % 8 == 0, got {dim}, {inner}")
     stream = check_kernel_operands("geglu_ff_ln", x, add, gamma, beta, w1, b1, w2, b2)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, add, w1, w2)):
+        raise ValueError("geglu_ff_ln kernel needs 16-byte aligned operands")
     from gmdx_torch.kernels import _build
 
     m = x.numel() // dim
+    plan = geglu_ff_ln_plan(m, dim, inner)
+    h = torch.empty((m, dim), dtype=x.dtype, device=x.device)
+    s = torch.empty((m, dim), dtype=x.dtype, device=x.device) if add is not None else None
     act = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.call(
         "gmdx_geglu_ff_ln", x.data_ptr(), add.data_ptr() if add is not None else None,
         gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), act.data_ptr(), out.data_ptr(),
-        m, dim, inner, float(eps), stream,
+        w2.data_ptr(), b2.data_ptr(), h.data_ptr(), None if s is None else s.data_ptr(),
+        act.data_ptr(), out.data_ptr(), m, dim, inner, float(eps), plan["bn2"], stream,
     )
     LAUNCHES["geglu_ff_ln"] += 1
     return out
@@ -259,7 +283,7 @@ def add_layer_norm(
 
 __all__ = [
     "GEGLU_FF_KERNEL_DIMS",
-    "geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "GegluFFLN",
+    "geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "geglu_ff_ln_plan", "GegluFFLN",
     "geglu_ff", "geglu_ff_plain", "geglu_ff_reference", "geglu_ff_uses_kernel", "GegluFF",
     "add_layer_norm", "add_layer_norm_plain",
 ]

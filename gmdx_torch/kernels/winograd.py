@@ -5,7 +5,10 @@ Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``.
 * :func:`conv3x3` (``csrc/conv3x3.cu``) stands in for the JAX package's
   default F(2x2) kernel. It is an implicit GEMM, not a Winograd transform;
   the source says why. Its weight operand is the (O, 9*C) repacking of the
-  OIHW conv weight made by :func:`pack_weight`, once per weight.
+  OIHW conv weight made by :func:`pack_weight`, once per weight. Every
+  launch follows :func:`conv3x3_plan`: which producer feeds the GEMM core
+  its A tiles (a TMA box of whole pixel rows, or a cp.async gather), the
+  box, the tile width and the K split.
 * :func:`winograd4_conv3x3` (``csrc/winograd4.cu``) is the F(4x4, 3x3)
   kernel the JAX package runs under ``GMDX_WINOGRAD_M=4`` (``_wino4_forward``),
   with its Cook-Toom matrices over the points {0, 1, -1, 2, -1/2}. Its
@@ -21,10 +24,25 @@ a computation the JAX package leaves outside Pallas.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 import torch.nn.functional as F
 
 from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, refuse_grad
+
+# The H100 SXM's SMs, which a launch's work units should fill.
+SMS = 132
+# csrc/gemm_sm90.cuh: the output tile's rows (pixels), the K slice, and the
+# tile widths it has a wgmma instance for.
+CONV_BLOCK_M = 128
+CONV_BLOCK_K = 64
+CONV_BLOCK_NS = (128, 160)
+CONV_MAX_SPLIT = 8
+# H100 SXM peaks (data sheet): the plan's time estimates.
+BF16_FLOPS = 989e12
+HBM_BYTES_S = 3.35e12
 
 # B^T, G, A^T of F(4x4, 3x3) (``gmdx/kernels/winograd.py:_BT4/_G4/_AT4``).
 BT4 = (
@@ -59,6 +77,103 @@ def conv_route(h: int, w: int, c: int, o: int, winograd_m: int = 2) -> str:
     if winograd_m == 4 and h == w and h % 4 == 0 and h >= 16 and c % 8 == 0 and o % 8 == 0:
         return "wino4"
     return "conv3x3"
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How ``csrc/conv3x3.cu`` runs one conv: the A producer (``"tma"``: one
+    box (block_k, bw, bh, bb) of whole pixel rows a slice; ``"gather"``:
+    cp.async, 16 bytes at a time), the tile width ``bn``, and K cut into
+    ``split`` runs of ``slices_per_split`` slices of ``block_k``."""
+
+    b: int
+    h: int
+    w: int
+    c: int
+    o: int
+    halo: int
+    route: str
+    box: tuple[int, int, int] | None
+    bn: int
+    split: int
+    slices: int
+    slices_per_split: int
+    m_tiles: int
+    n_tiles: int
+    block_m: int
+    block_k: int
+
+    @property
+    def units(self) -> int:
+        """Work units (row tile, column tile, split): the blocks' work."""
+        return self.m_tiles * self.n_tiles * self.split
+
+    def box_origin(self, mt: int, s: int) -> tuple[int, int, int, int]:
+        """The TMA box origin (c0, x, y, b) of row tile ``mt`` and K slice
+        ``s``: the arithmetic of ``ConvOp::load``. Slice s is channels
+        [c0, c0 + block_k) of tap s // (C / block_k)."""
+        m0 = mt * self.block_m
+        b0, r = divmod(m0, self.h * self.w)
+        y0, x0 = divmod(r, self.w)
+        tap, cs = divmod(s, self.c // self.block_k)
+        ky, kx = divmod(tap, 3)
+        return cs * self.block_k, x0 + kx - self.halo, y0 + ky - self.halo, b0
+
+
+def conv3x3_box(h: int, w: int, block_m: int = CONV_BLOCK_M) -> tuple[int, int, int] | None:
+    """(bw, bh, bb): a box of ``block_m`` output pixels in M order that is
+    whole image rows, or None. 128 | W: part of one row; W | 128: whole rows
+    of one image, or whole images."""
+    if w >= block_m:
+        return (block_m, 1, 1) if w % block_m == 0 else None
+    if block_m % w:
+        return None
+    rows = block_m // w
+    if h % rows == 0:
+        return (w, rows, 1)
+    if rows % h == 0:
+        return (w, h, rows // h)
+    return None
+
+
+def conv3x3_plan(
+    b: int, h: int, w: int, c: int, o: int, pre_padded: bool = False, *,
+    block_m: int = CONV_BLOCK_M, block_k: int = CONV_BLOCK_K, sms: int = SMS,
+) -> ConvPlan:
+    """The launch plan of a (B, H, W, C) -> O conv. The TMA route takes
+    C % block_k == 0 and a :func:`conv3x3_box`; other shapes gather.
+
+    K is split only where the unsplit tiles would leave SMs idle. Among the
+    tile widths and splits, a plan whose units fill every SM comes first,
+    then the least estimated time: the busiest SM's tile products at the
+    bf16 peak plus the split's fp32 partials written and read back at the
+    memory rate; then fewer splits, then the wider tile. K splits at slice
+    boundaries; with C % block_k == 0 a slice never straddles a tap."""
+    box = conv3x3_box(h, w, block_m) if c % block_k == 0 else None
+    m = b * h * w
+    m_tiles = -(-m // block_m)
+    slices = -(-9 * c // block_k)
+    best = None
+    for bn in CONV_BLOCK_NS:
+        n_tiles = -(-o // bn)
+        splits = range(1, min(CONV_MAX_SPLIT, slices) + 1) if m_tiles * n_tiles < sms else (1,)
+        for split in splits:
+            per = -(-slices // split)
+            if -(-slices // per) != split:  # a split would be empty
+                continue
+            units = m_tiles * n_tiles * split
+            t_tiles = math.ceil(units / sms) * per * 2.0 * block_m * block_k * bn / (BF16_FLOPS / sms)
+            t_partials = (2.0 * split * m * o * 4 / HBM_BYTES_S) if split > 1 else 0.0
+            key = (units < sms, t_tiles + t_partials, split, -bn)
+            if best is None or key < best[0]:
+                best = (key, bn, n_tiles, split, per)
+    _, bn, n_tiles, split, per = best
+    return ConvPlan(
+        b=b, h=h, w=w, c=c, o=o, halo=0 if pre_padded else 1,
+        route="tma" if box is not None else "gather", box=box, bn=bn, split=split,
+        slices=slices, slices_per_split=per, m_tiles=m_tiles, n_tiles=n_tiles,
+        block_m=block_m, block_k=block_k,
+    )
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -104,12 +219,21 @@ def conv3x3(
     if c % 8 or o % 8:
         raise ValueError(f"conv3x3 kernel needs C % 8 == O % 8 == 0, got {c}, {o}")
     stream = check_kernel_operands("conv3x3", x, wpacked, bias)
+    for t in (x, wpacked, bias):
+        if t.data_ptr() % 16:
+            raise ValueError("conv3x3 kernel needs 16-byte aligned operands")
     from gmdx_torch.kernels import _build
 
+    plan = conv3x3_plan(b, h, w, c, o, pre_padded)
     out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((plan.split, b * h * w, o), dtype=torch.float32, device=x.device)
+               if plan.split > 1 else None)
+    bw, bh, bb = plan.box or (0, 0, 0)
     _build.call(
         "gmdx_conv3x3", x.data_ptr(), wpacked.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, w, c, o, int(pre_padded), stream,
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        b, h, w, c, o, int(pre_padded), int(plan.route == "gather"), bw, bh, bb,
+        plan.bn, plan.split, plan.slices_per_split, stream,
     )
     LAUNCHES["conv3x3"] += 1
     return out
@@ -200,5 +324,6 @@ def winograd4_conv3x3(
 
 __all__ = [
     "conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight", "conv_route",
+    "ConvPlan", "conv3x3_box", "conv3x3_plan",
     "pack_weight4", "winograd4_conv3x3", "winograd4_conv3x3_plain",
 ]

@@ -25,7 +25,23 @@ from gmdx_torch.kernels.groupnorm import (
     GroupNormSiLU, group_norm_silu, group_norm_silu_bwd, group_norm_silu_bwd_plain,
     group_norm_silu_plain,
 )
-from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, pack_weight
+from gmdx_torch.kernels.winograd import conv3x3, conv3x3_plain, conv3x3_plan, pack_weight
+
+# Every distinct Conv3x3 (H = W, C, O) of the four paths: the SD-1.5 UNet at
+# 64^2 and 128^2 latents (the ControlNet runs the UNet's down-block shapes),
+# the VAE decoder from 64^2 and 128^2 latents and its encoder at 512^2 and
+# 1024^2. tests/test_torch_gemm_plan.py checks the list against the configs.
+CONV_SHAPES = [
+    (8, 1280, 1280), (8, 2560, 1280), (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280),
+    (16, 2560, 1280), (32, 320, 640), (32, 640, 640), (32, 640, 1280), (32, 960, 640),
+    (32, 1280, 640), (32, 1280, 1280), (32, 1920, 640), (32, 1920, 1280), (32, 2560, 1280),
+    (64, 320, 320), (64, 320, 640), (64, 512, 512), (64, 640, 320), (64, 640, 640),
+    (64, 960, 320), (64, 960, 640), (64, 1280, 640), (64, 1920, 640), (128, 256, 512),
+    (128, 320, 320), (128, 512, 512), (128, 640, 320), (128, 960, 320), (256, 128, 256),
+    (256, 256, 256), (256, 256, 512), (256, 512, 256), (256, 512, 512), (512, 128, 128),
+    (512, 128, 256), (512, 256, 128), (512, 256, 256), (512, 512, 256), (1024, 128, 128),
+    (1024, 256, 128),
+]
 
 
 @pytest.fixture
@@ -67,6 +83,59 @@ def test_conv3x3_kernel_on_card(card, hw, c, o, pre):
     assert _rel_l2(out, ref) <= 1e-2
 
 
+def _conv_case(gen, b, hw, c, o, pre):
+    x = _bf16(gen, b, hw, hw, c)
+    if pre:
+        x = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    wp = pack_weight(_bf16(gen, o, c, 3, 3, scale=(9 * c) ** -0.5))
+    bias = _bf16(gen, o, scale=0.1)
+    out = conv3x3(x, wp, bias, pre_padded=pre)
+    ref = conv3x3_plain(x.float(), wp.float(), bias.float(), pre_padded=pre)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,o", CONV_SHAPES)
+def test_conv3x3_path_shapes_on_card(card, hw, c, o):
+    """Every Conv3x3 shape of the four paths, pre-padded as the resnets call
+    it, through the TMA route; batch 2 up to 64^2, else 1."""
+    b = 2 if hw <= 64 else 1
+    assert conv3x3_plan(b, hw, hw, c, o, True).route == "tma"
+    out, ref = _conv_case(card, b, hw, c, o, True)
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,o,pre,route,split", [
+    (2, 64, 320, 320, False, "tma", False),     # raw: the TMA's zero fill is the padding
+    (1, 256, 256, 256, False, "tma", False),    # raw, 128 | W
+    (3, 8, 1280, 1280, True, "tma", True),      # ragged M: 192 pixels, half a last tile
+    (3, 8, 1280, 1280, False, "tma", True),
+    (16, 8, 1280, 1280, True, "tma", True),     # the CFG-16 8^2 level, split K
+    (16, 16, 1280, 1280, False, "tma", False),
+    (2, 17, 72, 40, False, "gather", True),     # C % 64 != 0, W fits no box
+    (2, 17, 72, 40, True, "gather", True),
+])
+def test_conv3x3_routes_on_card(card, b, hw, c, o, pre, route, split):
+    plan = conv3x3_plan(b, hw, hw, c, o, pre)
+    assert plan.route == route and (plan.split > 1) == split
+    out, ref = _conv_case(card, b, hw, c, o, pre)
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_conv3x3_and_ff_are_deterministic_on_card(card):
+    """Two identical calls give bit-identical outputs: the split-K sum runs
+    in a fixed order and nothing uses atomics."""
+    x = _bf16(card, 16, 10, 10, 1280)
+    wp = pack_weight(_bf16(card, 1280, 1280, 3, 3, scale=(9 * 1280) ** -0.5))
+    bias = _bf16(card, 1280, scale=0.1)
+    assert conv3x3_plan(16, 8, 8, 1280, 1280, True).split > 1
+    assert torch.equal(conv3x3(x, wp, bias, pre_padded=True), conv3x3(x, wp, bias, pre_padded=True))
+    args = _ff_args(card, 320, 1000, True)
+    assert torch.equal(geglu_ff_ln(*args), geglu_ff_ln(*args))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("temb,pad", [(False, False), (True, True)])
 def test_group_norm_kernel_on_card(card, temb, pad):
@@ -81,19 +150,35 @@ def test_group_norm_kernel_on_card(card, temb, pad):
     assert _rel_l2(out, ref) <= 1e-2
 
 
+def _ff_args(gen, dim, tokens, add):
+    inner = 4 * dim
+    return [
+        _bf16(gen, 2, tokens, dim), _bf16(gen, 2, tokens, dim) if add else None,
+        (1.0 + _bf16(gen, dim, scale=0.2).float()).to(torch.bfloat16),
+        _bf16(gen, dim, scale=0.2), _bf16(gen, 2 * inner, dim, scale=dim**-0.5),
+        _bf16(gen, 2 * inner, scale=0.1), _bf16(gen, dim, inner, scale=inner**-0.5),
+        _bf16(gen, dim, scale=0.1),
+    ]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,tokens", [(320, 4096), (640, 1000), (1280, 256)])
 def test_geglu_ff_kernel_on_card(card, dim, tokens):
-    inner = 4 * dim
-    args = [
-        _bf16(card, 2, tokens, dim), _bf16(card, 2, tokens, dim),
-        (1.0 + _bf16(card, dim, scale=0.2).float()).to(torch.bfloat16),
-        _bf16(card, dim, scale=0.2), _bf16(card, 2 * inner, dim, scale=dim**-0.5),
-        _bf16(card, 2 * inner, scale=0.1), _bf16(card, dim, inner, scale=inner**-0.5),
-        _bf16(card, dim, scale=0.1),
-    ]
+    args = _ff_args(card, dim, tokens, True)
     out = geglu_ff_ln(*args)
     ref = geglu_ff_ln_plain(*(a.float() for a in args))
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [320, 640, 1280])
+@pytest.mark.parametrize("add", [True, False])
+def test_geglu_ff_ln_dims_on_card(card, dim, add):
+    """1000 tokens a batch element (2000 rows: a ragged last row tile),
+    with and without the pending residual."""
+    args = _ff_args(card, dim, 1000, add)
+    out = geglu_ff_ln(*args)
+    ref = geglu_ff_ln_plain(*(a.float() if a is not None else None for a in args))
     assert _rel_l2(out, ref) <= 1e-2
 
 
