@@ -12,8 +12,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
   2. build: compiles gmdx_torch/csrc with nvcc (seconds printed), prints
      each kernel's ptxas registers and spills, and fails unless every
-     instance of the Hopper GEMM core (the conv and FF kernels) issues wgmma
-     (HGMMA) and TMA loads (UTMALDG) in its SASS.
+     instance of the Hopper kernels (the GEMM core's conv and FF,
+     flash_attention_bsc and its logsumexp form, the flash backward's dK/dV
+     and dQ) issues wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS and
+     spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -27,7 +29,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      the single-UNet SDR->HDR path's shapes, batch --sdr2hdr-batch, with
      F(4x4) also held, by its max error over the output's peak, to the JAX
      package's bar against the fp32 direct conv (its relative L2 there is
-     reported: the algorithm's own bf16 error).
+     reported: the algorithm's own bf16 error). Attention rows also give
+     their exp2 count and the SFU's floor for it; flash_attention_bsc and
+     flash_attention_bwd their launch plans, each held to the kernel's own
+     (gmdx_attention_sm90_plan).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -90,6 +95,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +108,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# exp2 on the SFU: 16 a clock on each of the 132 SMs, about 3.9 T/s
+# (FlashAttention-3, section 3.1). One exp2 a score is a floor of its own
+# beside the bound, the larger of operations and bytes.
+EXP2_S = 3.9e12
 REL_L2_MAX = 1e-2
 PSNR_MIN_DB = 40.0
 E2E_STEPS = 3
@@ -128,7 +138,7 @@ KERNELS = {
     "group_norm_silu_bwd": (
         "gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:268"),
     "flash_attention_bsc": (
-        "gmdx_torch/csrc/attention.cu", "gmdx/kernels/flash_attention.py:558"),
+        "gmdx_torch/csrc/attention_sm90.cuh", "gmdx/kernels/flash_attention.py:558"),
     "flash_attention_fwd_d512": (
         "gmdx_torch/csrc/attention_wide.cuh", "gmdx/kernels/flash_attention.py:142"),
     "cross_attention_shortk": (
@@ -202,6 +212,12 @@ def bound_ms(flops: float, nbytes: float, peak: float = BF16_FLOPS) -> tuple[flo
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def exp2_keys(n: float) -> dict:
+    """The exp2 count of an attention call and the time the SFU needs for
+    it, for a kernel row."""
+    return {"exp2": n, "exp2_floor_ms": n / EXP2_S * 1e3}
+
+
 def compare(out, ref) -> tuple[float, float]:
     """(max abs error, relative L2 error) of ``out`` against ``ref``."""
     d = out.float() - ref.float()
@@ -244,38 +260,66 @@ def phase_build() -> None:
         _build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info.get("seconds")})
-    for name, report in _build.build_info.get("ptxas", {}).items():
+    reports = _build.build_info.get("ptxas", {})
+    for name, report in reports.items():
         lines = [ln for ln in report.splitlines()
                  if "entry function" in ln or "registers" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"{name}.cu", "ptxas": lines})
+    check_spills(reports)
     check_sass(build_dir, _build._nvcc())
 
 
-# The libraries whose kernels run on the Hopper GEMM core (gemm_sm90.cuh).
-SM90_GEMM_LIBRARIES = ("conv3x3", "geglu_ff")
-SM90_GEMM_KERNEL = "ws_gemm_kernel"
-SM90_GEMM_SASS = ("HGMMA", "UTMALDG")
+# The Hopper kernels, by library: every instance of each must issue wgmma
+# (HGMMA) and TMA loads (UTMALDG) in its SASS. The conv and FF kernels run
+# on the GEMM core (gemm_sm90.cuh), flash_attention_bsc and the flash
+# backward on attention_sm90.cuh.
+SM90_KERNELS = {
+    "conv3x3": ("ws_gemm_kernel",),
+    "geglu_ff": ("ws_gemm_kernel",),
+    "attention": ("flash_bsc_kernel", "attention_sm90_lse_kernel"),
+    "flash_attention": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
+}
+SM90_SASS = ("HGMMA", "UTMALDG")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def check_spills(reports: dict) -> None:
+    """No instance of the Hopper kernels of SM90_KERNELS may spill: their
+    wgmma accumulators live in the registers setmaxnreg gives a consumer
+    thread, and ptxas alone decides whether they fit (``-Xptxas -v``)."""
+    for lib, kernels in SM90_KERNELS.items():
+        func, bad = None, {}
+        for ln in reports.get(lib, "").splitlines():
+            hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+            if hit:
+                func = hit.group(1)
+            spill = _SPILLS.search(ln)
+            if spill and func and any(k in func for k in kernels) \
+                    and any(int(n) for n in spill.groups()):
+                bad[func] = ln.strip()
+        if bad:
+            raise SystemExit(f"chip_smoke: lib{lib}.so spills in its Hopper kernels: {bad}")
 
 
 def check_sass(build_dir, nvcc: str) -> None:
-    """Every instance of the core's kernel in libconv3x3.so and
-    libgeglu_ff.so must issue wgmma (HGMMA) and TMA loads (UTMALDG) in its
-    SASS (cuobjdump -sass)."""
+    """Every instance of the Hopper kernels of SM90_KERNELS must issue wgmma
+    (HGMMA) and TMA loads (UTMALDG) in its SASS (cuobjdump -sass)."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    for lib in SM90_GEMM_LIBRARIES:
+    for lib, kernels in SM90_KERNELS.items():
         sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
                               check=True, capture_output=True, text=True).stdout
         funcs = {}
         for chunk in sass.split("Function : ")[1:]:
             name, _, body = chunk.partition("\n")
             funcs[name.strip()] = body
-        core = {n: {op: body.count(op) for op in SM90_GEMM_SASS}
-                for n, body in funcs.items() if SM90_GEMM_KERNEL in n}
-        emit({"phase": "build", "sass": f"lib{lib}.so", "kernels": len(funcs),
-              "gemm_core_instances": core})
-        if not core or any(min(c.values()) == 0 for c in core.values()):
-            raise SystemExit(f"chip_smoke: lib{lib}.so lacks {SM90_GEMM_SASS} in its "
-                             f"{SM90_GEMM_KERNEL} instances: {core}")
+        for kernel in kernels:
+            inst = {n: {op: body.count(op) for op in SM90_SASS}
+                    for n, body in funcs.items() if kernel in n}
+            emit({"phase": "build", "sass": f"lib{lib}.so", "kernels": len(funcs),
+                  "kernel": kernel, "instances": inst})
+            if not inst or any(min(c.values()) == 0 for c in inst.values()):
+                raise SystemExit(f"chip_smoke: lib{lib}.so lacks {SM90_SASS} in its "
+                                 f"{kernel} instances: {inst}")
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +374,25 @@ def _conv_plan_keys(b, hw, c, o, pre) -> dict:
                      "units": p.units}}
 
 
+def _attention_plan(kind, plan, b, sq, sk, heads, d) -> dict:
+    """The C plan of attention_sm90.cuh's kernel ``kind`` (0 the forward, 1
+    dK/dV, 2 dQ) at this shape, held to the Python ``plan`` field for field."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+
+    got = (ctypes.c_int * 9)()
+    if _build.library("attention").gmdx_attention_sm90_plan(kind, b, sq, sk, heads, d, got):
+        raise SystemExit(f"chip_smoke: no attention plan of kind {kind} at d {d}")
+    mine = dataclasses.astuple(plan)
+    flat = [*mine[:4], *mine[4], *mine[5]]
+    if list(got) != flat:
+        raise SystemExit(f"chip_smoke: attention plan {kind} at {[b, sq, sk, heads, d]}: "
+                         f"kernel {list(got)}, Python {flat}")
+    return dataclasses.asdict(plan)
+
+
 def _ff_plan_keys(m, dim) -> dict:
     from gmdx_torch.kernels.geglu_ff import geglu_ff_ln_plan
 
@@ -365,6 +428,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
             lambda: attention_kv_resident_plain(qf, kf, vf, heads),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             4.0 * cfg_b * heads * s * s * d, 4 * cfg_b * s * c * 2, results,
+            extra=exp2_keys(cfg_b * heads * s * s),
         )
 
     # B. 3x3 conv: the resnet convs of the four UNet levels and one of the
@@ -479,7 +543,7 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
 
     from gmdx_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_fwd_plain,
+        flash_attention_fwd_plain, flash_bwd_plan,
     )
     from gmdx_torch.kernels.groupnorm import (
         group_norm_silu, group_norm_silu_bwd, group_norm_silu_bwd_plain, group_norm_silu_plain,
@@ -509,13 +573,19 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
             lambda: flash_attention_fwd_plain(qf, kf, vf, heads, scale),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             fwd_flops, 4 * tb * s * c * 2 + tb * heads * s * 4, results,
+            extra=exp2_keys(tb * heads * s * s),
         )
+        # The dK/dV and dQ kernels both recompute P: two exp2 a score.
+        dkv, dq = flash_bwd_plan(tb, s, s, heads, d)
         _check(
             "flash_attention_bwd", shape,
             lambda: flash_attention_bwd(q, k, v, out, lse, dout, heads),
             lambda: flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, dof, heads, scale),
             lambda: torch.autograd.grad(out_l, (qh, kh, vh), dout_h, retain_graph=True),
             2.5 * fwd_flops, 8 * tb * s * c * 2 + tb * heads * s * 4, results,
+            extra={**exp2_keys(2 * tb * heads * s * s),
+                   "plan": {"dkv": _attention_plan(1, dkv, tb, s, s, heads, d),
+                            "dq": _attention_plan(2, dq, tb, s, s, heads, d)}},
         )
         del out_l, qh, kh, vh
 
@@ -598,7 +668,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
 
     from gmdx_torch.kernels.flash_attention import (
         flash_attention_bsc, flash_attention_bsc_plain, flash_attention_fwd,
-        flash_attention_fwd_plain,
+        flash_attention_fwd_plain, flash_bsc_plan,
     )
     from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
     from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
@@ -610,6 +680,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
         q, k, v = (_randn(gen, b, s, c) for _ in range(3))
         qf, kf, vf = (t.float() for t in (q, k, v))
         qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
+        extra = exp2_keys(b * heads * s * s)
         if d == 512:
             name = "flash_attention_fwd_d512"
             backend, lib = _sdpa_backend(qh, kh, vh)
@@ -620,9 +691,14 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
             lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
             kern = lambda: flash_attention_bsc(q, k, v, heads)  # noqa: E731
             plain = lambda: flash_attention_bsc_plain(qf, kf, vf, heads)  # noqa: E731
+            p = flash_bsc_plan(b, s, s, heads, d)
+            extra["plan"] = _attention_plan(0, p, b, s, s, heads, d)
+            # K and V bytes the blocks read from L2: each block reads its
+            # head's whole K and V once.
+            extra["l2_kv_bytes"] = p.grid[0] * b * heads * 2 * s * d * 2
         _check(name, [b, s, heads, d], kern, plain, lib, 4.0 * b * heads * s * s * d,
                4 * b * s * c * 2, results,
-               library=f"F.scaled_dot_product_attention ({backend} backend)")
+               library=f"F.scaled_dot_product_attention ({backend} backend)", extra=extra)
         del q, k, v, qf, kf, vf, qh, kh, vh
 
     for bb, hw, c in ((2, HDRTV_SIDE, 128), (2, HDRTV_SIDE // 8, 320)):
@@ -715,7 +791,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             lambda: cross_attention_shortk_plain(q, k, v, heads),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             4.0 * cfg_b * heads * s * sk * d, (2 * cfg_b * s * c + 2 * cfg_b * sk * c) * 2,
-            results,
+            results, extra=exp2_keys(cfg_b * heads * s * sk),
         )
 
     for s, c in ((4096, 320), (1024, 640), (256, 1280)):

@@ -16,22 +16,22 @@
 // columns useful) as the overheads.
 //
 // gmdx_flash_bsc replaces gmdx/kernels/flash_attention.py:flash_attention_bsc
-// (TPU kernel _flash_bsc_kernel): the same online-softmax forward over
+// (TPU kernel _flash_bsc_kernel): the same exact-softmax forward over
 // head-packed operands, for the self-attention past 4096 keys (the UNet's and
 // the ControlNet's first level at 1024^2: 16384 tokens, 8 heads of 40). The
 // TPU kernel's blocks of 512 queries x 2048 keys, its per-head scratch
 // replicated H times and its unrolled head loop were ways to fill VMEM; here
-// a block takes 64 queries of one head and streams the keys in 64-key tiles
-// (256 tiles at Sk = 16384), so nothing grows with the sequence. It is the
-// body of attention_fwd.cuh under its own kernel name (flash_bsc_kernel), so
-// it is counted and timed apart from the KV-resident calls. At B 2, S 16384,
-// H 8, D 40 it is operations-bound: 687 GFLOP, 0.695 ms at the bf16 peak,
-// against 0.025 ms for its bytes.
+// it is attention_sm90.cuh's Hopper forward (TMA ring, wgmma, 64 queries
+// for each consumer warpgroup: three at D = 40, two above, their softmax
+// overlapping the others' products through the warp schedulers alone),
+// whose note gives the design and the bound: at B 2, S 16384, H 8, D 40 the exp2 floor (1.10 ms)
+// is above the operations bound (0.695 ms) and far above the bytes' (0.025).
 //
 // gmdx_xattn replaces gmdx/kernels/flash_attention.py:cross_attention_shortk
 // (TPU kernel _xattn_kernel): the short-K cross-attention of
 // attention_xattn.cuh, whose note gives its design and bound.
 #include "attention_fwd.cuh"
+#include "attention_sm90.cuh"
 #include "attention_xattn.cuh"
 
 // q: (B, Sq, H*D), k and v: (B, Sk, H*D), out: (B, Sq, H*D), all contiguous
@@ -49,16 +49,82 @@ extern "C" int gmdx_attention(const void* q, const void* k, const void* v, void*
   }
 }
 
-// Same operands and head dims as gmdx_attention; any Sk (keys past Sk are
-// masked, no logsumexp).
+// Same operands and head dims as gmdx_attention; any Sk >= 1 (keys past Sk
+// are masked, no logsumexp). Returns -1 where the driver refuses a TMA map.
 extern "C" int gmdx_flash_bsc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                               int Sk, int H, int D, float qscale, void* stream) {
-  using gmdx_attn::launch_bsc;
+  using gmdx::attn90::flash_bsc_kernel;
+  using gmdx::attn90::launch_fwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return launch_bsc<40>(q, k, v, out, B, Sq, Sk, H, qscale, st);
-    case 80: return launch_bsc<80>(q, k, v, out, B, Sq, Sk, H, qscale, st);
-    case 160: return launch_bsc<160>(q, k, v, out, B, Sq, Sk, H, qscale, st);
+    case 40:
+      return launch_fwd<40, false, flash_bsc_kernel<40>>(q, k, v, out, nullptr, B, Sq, Sk, H,
+                                                         qscale, st);
+    case 80:
+      return launch_fwd<80, false, flash_bsc_kernel<80>>(q, k, v, out, nullptr, B, Sq, Sk, H,
+                                                         qscale, st);
+    case 160:
+      return launch_fwd<160, false, flash_bsc_kernel<160>>(q, k, v, out, nullptr, B, Sq, Sk, H,
+                                                           qscale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The forward with the base-2 logsumexp of the scaled logits, lse (B, H,
+// Sq) fp32, as gmdx_flash_fwd (flash_attention.cu) returns it: the
+// attention_sm90.cuh form of the training forward. Same operands, head dims
+// and return codes as gmdx_flash_bsc.
+extern "C" int gmdx_attention_sm90_lse(const void* q, const void* k, const void* v, void* out,
+                                       void* lse, int B, int Sq, int Sk, int H, int D,
+                                       float qscale, void* stream) {
+  using gmdx::attn90::attention_sm90_lse_kernel;
+  using gmdx::attn90::launch_fwd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (D) {
+    case 40:
+      return launch_fwd<40, true, attention_sm90_lse_kernel<40>>(q, k, v, out, l, B, Sq, Sk, H,
+                                                                 qscale, st);
+    case 80:
+      return launch_fwd<80, true, attention_sm90_lse_kernel<80>>(q, k, v, out, l, B, Sq, Sk, H,
+                                                                 qscale, st);
+    case 160:
+      return launch_fwd<160, true, attention_sm90_lse_kernel<160>>(q, k, v, out, l, B, Sq, Sk,
+                                                                   H, qscale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch plans of attention_sm90.cuh's kernels at (B, Sq, Sk, H, D), for
+// the wrappers' Python plans to be held to: kind 0 the forward, 1 the dK/dV
+// kernel, 2 the dQ kernel; out[9] = rows a block owns, rows of a streamed
+// tile, stages, dynamic shared-memory bytes, the grid's three dims, and the
+// box rows of the Q (and dO) and the K (and V) maps.
+template <class P>
+int plan_fields(int* out, int B, int Sq, int Sk, int H) {
+  const dim3 g = P::grid(B, Sq, Sk, H);
+  const int fields[9] = {P::OWNED, P::TILE,       P::STAGES, P::BYTES,  static_cast<int>(g.x),
+                         static_cast<int>(g.y), static_cast<int>(g.z), P::Q_ROWS, P::KV_ROWS};
+  for (int i = 0; i < 9; ++i) out[i] = fields[i];
+  return 0;
+}
+
+template <int D>
+int plan_of(int kind, int* out, int B, int Sq, int Sk, int H) {
+  using namespace gmdx::attn90;
+  switch (kind) {
+    case 0: return plan_fields<FwdPlan<D>>(out, B, Sq, Sk, H);
+    case 1: return plan_fields<DkvPlan<D>>(out, B, Sq, Sk, H);
+    case 2: return plan_fields<DqPlan<D>>(out, B, Sq, Sk, H);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int gmdx_attention_sm90_plan(int kind, int B, int Sq, int Sk, int H, int D, int* out) {
+  switch (D) {
+    case 40: return plan_of<40>(kind, out, B, Sq, Sk, H);
+    case 80: return plan_of<80>(kind, out, B, Sq, Sk, H);
+    case 160: return plan_of<160>(kind, out, B, Sq, Sk, H);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,7 @@
 // Online-softmax attention forward over head-packed (B, S, H*D) bf16, shared
-// by attention.cu (the KV-resident inference kernel and the long-sequence
-// flash_bsc kernel) and flash_attention.cu (the training forward, which also
-// writes the base-2 logsumexp). The body is one device function; each use
-// has its own __global__ wrapper, so a profile tells them apart by name.
+// by attention.cu (the KV-resident inference kernel) and flash_attention.cu
+// (the training forward, which also writes the base-2 logsumexp). The
+// long-sequence forward runs on attention_sm90.cuh instead.
 //
 // Layout: a block takes 64 queries of one (batch, head); each of its 4 warps
 // owns 16 query rows. Scores S = Q K^T and the output O = P V run on
@@ -264,15 +263,6 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   attention_fwd_body<D, LSE>(q, k, v, out, lse, Sq, Sk, H, qscale);
 }
 
-// The same body for the long-key inference calls (gmdx_flash_bsc).
-template <int D>
-__global__ void __launch_bounds__(ATT_THREADS)
-flash_bsc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq,
-                 int Sk, int H, float qscale) {
-  attention_fwd_body<D, false>(q, k, v, out, nullptr, Sq, Sk, H, qscale);
-}
-
 template <int D>
 constexpr int fwd_smem_bytes() { return 5 * 64 * ((D + 15) / 16 * 16 + 8) * 2; }
 
@@ -291,22 +281,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
       qscale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_bsc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-               int H, float qscale, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_bsc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr = true;
-  }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bsc_kernel<D><<<grid, ATT_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,411 +1,394 @@
 // Flash attention for training over head-packed (B, S, H*D) bf16: the
-// forward that also writes the base-2 logsumexp, and the two backward
-// kernels that recompute the softmax blockwise from (Q, K, LSE).
+// forward that also writes the base-2 logsumexp, and the backward: a dd
+// pre-pass and two kernels that recompute the softmax blockwise from
+// (Q, K, LSE).
 //
 // Replaces gmdx/kernels/flash_attention.py:_flash_forward (TPU kernel
-// _flash_kernel) and _flash_backward (_flash_bwd_dkv_kernel,
-// _flash_bwd_dq_kernel). The function is the TPU's; the layout is not: the
-// TPU kernels took (B*H, S, D) after an XLA transpose, these kernels index
-// the head-packed projections in place with a row stride of H*D.
+// _flash_kernel) and _flash_backward (the dd = rowsum(dO * O) of its line
+// 376, _flash_bwd_dkv_kernel, _flash_bwd_dq_kernel). The function is the
+// TPU's; the layout is not: the TPU kernels took (B*H, S, D) after an XLA
+// transpose, these kernels index the head-packed projections in place.
 //
 // Forward: attention_fwd.cuh with LSE on. lse (B, H, Sq) fp32 holds
 // m + log2(l) of the logits pre-scaled by scale * log2(e). The VAE's single
 // 512-wide head takes attention_wide.cuh's kernel instead (its header says
 // why).
 //
-// Backward, as the TPU split it (the TPU's dQ-in-dKV fusion was a measured
-// loss there; on this card an atomics-based dQ is a later choice):
-//   dkv: grid (ceil(Sk/64), H, B). A block owns 64 keys, each of its 4 warps
-//        16 of them, and walks the queries in tiles of NQ. Per tile, with
-//        Qs = bf16(Q * scale * log2(e)):
-//          S^T = K Qs^T,  P^T = exp2(S^T - lse),  dV += P^T dO,
-//          dP^T = V dO^T, dS^T = P^T (dP^T - dd),  dK += dS^T Qs,
-//        and at the end dK *= 1 / log2(e). dd = rowsum(dO * O) comes from
-//        the wrapper (fp32, (B, H, Sq)).
-//   dq:  grid (ceil(Sq/64), H, B). A block owns 64 queries and walks the
-//        keys in tiles of 64: S = Qs K^T, P = exp2(S - lse), dP = dO V^T,
-//        dS = P (dP - dd), dQ += dS K; at the end dQ *= scale.
-// Every product runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate); the
-// score-shaped accumulators (P^T, dS^T, dS) are re-used in registers as
-// the A operand of the next product, so they never touch shared memory.
-// The A operands that stay fixed over the loop (K, V in dkv; Qs, dO in dq)
-// are read from shared memory at each use rather than held in registers:
-// at D = 160 the two fp32 accumulators of dkv alone take 160 registers a
-// thread. For the same reason dkv takes 32-query tiles at D = 160.
+// Backward, on attention_sm90.cuh's Hopper pieces (TMA ring, a producer
+// warpgroup, two wgmma consumer warpgroups; 4-D tensor maps whose
+// out-of-bounds zeros pad D to 64-column boxes and fill the ragged rows):
+//   dd:  flash_bwd_dd_kernel, one thread per (batch, query, head): dd (B, H,
+//        Sq) fp32 = rowsum(dO * O), one read of each.
+//   dkv: grid (ceil(Sk/128), H, B). A block holds 128 keys of K and V, 64
+//        for each consumer, and streams (Q, dO) tiles of NQ queries (64; 32
+//        at D = 160) with their lse and dd rows. Per tile, c = scale log2 e:
+//          S^T = K Q^T, dP^T = V dO^T       (wgmma, both from shared memory)
+//          P^T = exp2(c S^T - lse),  dS^T = P^T (dP^T - dd)
+//          dV += P^T dO, dK += dS^T Q       (wgmma, A from registers, B
+//                                            MN-major)
+//        and at the end dK *= scale: unscaled Q with the scale folded into
+//        exp2's FFMA. Queries past Sq have lse = +inf, so P = 0.
+//   dq:  grid (ceil(Sq/128), H, B). A block holds 128 queries of Q and dO and
+//        streams (K, V) tiles of NK keys (128; 64 at D = 160): S = Q K^T,
+//        dP = dO V^T, P = exp2(c S - lse) (0 past Sk), dS = P (dP - dd),
+//        dQ += dS K; at the end dQ *= scale.
+// No atomics: each gradient row has one writer, so a repeat is bit-identical.
+// Within a consumer, the exp2 of P overlaps the dP^T product (dkv) and the
+// two consumers' products overlap each other's softmax.
 //
-// Ragged edges: keys past Sk are zero rows of K/V, masked to P = 0 in dq
-// and never written in dkv; queries past Sq have Q = dO = 0, lse = dd = 0
-// and are masked to P = 0 in dkv and never written in dq.
-//
-// Bound on the H100: operations. The backward does 14 * Sq * Sk * D (seven
-// products of 2 Sq Sk D: S and dP in both kernels, then dV, dK and dQ) on
-// about 16 S H D bytes; at S = 4096, D = 40 that is ~3600 operations a
-// byte.
+// Bound on the H100: the function needs 10 B H Sq Sk D operations (S, dV,
+// dP, dK, dQ); this design does 14 (dkv and dq both recompute S and dP), on
+// about 16 S H D bytes. Both kernels take one exp2 per score: 2 B H Sq Sk
+// exp2 at 16 per SM per clock (about 3.9 T/s), 0.55 ms at B 8, S 4096, H 8,
+// above the 0.434 ms operations bound at D = 40.
 #include "attention_fwd.cuh"
+#include "attention_sm90.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
-using namespace gmdx_attn;
+namespace s9 = gmdx::sm90;
+namespace a9 = gmdx::attn90;
+using a9::CONSUMER_WARPS;
+using a9::THREADS;
 
-constexpr float LN2 = 0.6931471805599453f;  // 1 / log2(e)
-
-// A fragment (16 x 16, row-major) of rows [row0, row0 + 16), k-chunk kc, of
-// a shared tile with row stride LD.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* tile, int row0, int kc,
-                                       int g, int t) {
-  const __nv_bfloat16* p = tile + (row0 + g) * LD + kc * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// In place: the first NR rows x D columns of `tile` times qscale, rounded
-// to bf16 (the TPU kernels' pre-scaled Q).
-template <int D, int LD, int NR>
-__device__ __forceinline__ void scale_rows(__nv_bfloat16* tile, float qscale) {
-  constexpr int P = D / 2;
-  for (int i = threadIdx.x; i < NR * P; i += ATT_THREADS) {
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(tile + (i / P) * LD + (i % P) * 2);
-    const float2 f = __bfloat1622float2(*p);
-    *p = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+// dd (B, H, Sq) = rowsum(dO * O) over each head's D columns (D % 8 == 0).
+__global__ void __launch_bounds__(256)
+    flash_bwd_dd_kernel(const __nv_bfloat16* __restrict__ out,
+                        const __nv_bfloat16* __restrict__ dout, float* __restrict__ dd, int B,
+                        int Sq, int H, int D) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * Sq * H) return;
+  const int h = idx % H;
+  const long long bs = idx / H;
+  const uint4* o = reinterpret_cast<const uint4*>(out + bs * H * D + h * D);
+  const uint4* g = reinterpret_cast<const uint4*>(dout + bs * H * D + h * D);
+  float acc = 0.0f;
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 ov = o[c], gv = g[c];
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 of = __bfloat1622float2(op[j]), gf = __bfloat1622float2(gp[j]);
+      acc = fmaf(of.x, gf.x, acc);
+      acc = fmaf(of.y, gf.y, acc);
+    }
   }
+  dd[((bs / Sq) * H + h) * Sq + bs % Sq] = acc;
 }
 
 template <int D>
-__host__ __device__ constexpr int dkv_nq() { return D > 80 ? 32 : 64; }
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                         const float* __restrict__ dd, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, float c,
+                         float scale) {
+  using P = a9::DkvPlan<D>;
+  constexpr int NCH = P::NCH;
+  constexpr int NQ = P::NQ;
+  constexpr int NS = NQ / 16;  // k16 steps of dV and dK
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = s9::smem_u32(smem_raw);
+  uint8_t* k_tile = smem_raw + ((1024 - (base & 1023)) & 1023);
+  uint8_t* v_tile = k_tile + NCH * P::BK * 128;
+  uint8_t* stages = k_tile + P::KV_BYTES;
+  float* lse_s = reinterpret_cast<float*>(stages + P::STAGES * P::STAGE_BYTES);
+  float* dd_s = lse_s + a9::MAX_STAGES * NQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + P::STAGES * P::STAGE_BYTES + P::ROWS_BYTES);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* kv_full = empty + P::STAGES;
 
-template <int D>
-__global__ void __launch_bounds__(ATT_THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ dd,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                     int Sk, int H, float qscale) {
-  constexpr int NQ = dkv_nq<D>();
-  constexpr int NT = NQ / 8;   // q n-tiles of S^T, dP^T
-  constexpr int QC = NQ / 16;  // q k-chunks of dV, dK
-  constexpr int DP = (D + 15) / 16 * 16;
-  constexpr int LD = DP + 8;
-  constexpr int KC = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int KT = 64 * LD;
-  constexpr int QT = NQ * LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + KT;
-  __nv_bfloat16* sq = sv + KT;       // 2 stages
-  __nv_bfloat16* sdo = sq + 2 * QT;  // 2 stages
-  float* sl = reinterpret_cast<float*>(sdo + 2 * QT);
-  float* sd = sl + NQ;
-
+  const int wg = threadIdx.x >> 7;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int k0 = blockIdx.x * 64;
-  const int ld = H * D;
-  const size_t qoff = (size_t)b * Sq * ld + h * D;
-  const size_t koff = (size_t)b * Sk * ld + h * D;
-  const float* lseb = lse + ((size_t)b * H + h) * Sq;
-  const float* ddb = dd + ((size_t)b * H + h) * Sq;
-
-  zero_pad_cols<D, DP, LD, 64>(sk, 2);
-  zero_pad_cols<D, DP, LD, NQ>(sq, 4);
-  load_tile<D, LD, 64>(sk, k + koff, k0, Sk, ld);
-  load_tile<D, LD, 64>(sv, v + koff, k0, Sk, ld);
-  load_tile<D, LD, NQ>(sq, q + qoff, 0, Sq, ld);
-  load_tile<D, LD, NQ>(sdo, dout + qoff, 0, Sq, ld);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kr0 = warp * 16;  // this warp's key rows in the tile
-
-  float acc_dk[DT][4], acc_dv[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[i][e] = acc_dv[i][e] = 0.0f;
-  }
-
+  const int k0 = blockIdx.x * P::BK;
   const int nq = (Sq + NQ - 1) / NQ;
+  const size_t bh = (size_t)b * H + h;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      s9::mbar_init(&full[s], 1 + 32);  // the TMA thread and the row warp
+      s9::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    s9::mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    s9::setmaxnreg_dec<a9::PRODUCER_REGS>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    s9::Pipe<P::STAGES> pipe;
+    if (threadIdx.x == 256) {
+      s9::mbar_expect_tx(kv_full, P::KV_BYTES);
+      for (int ch = 0; ch < NCH; ++ch) {
+        s9::tma_load_4d(k_tile + ch * P::BK * 128, &tk, kv_full, ch * a9::BOX_COLS, h, k0, b);
+        s9::tma_load_4d(v_tile + ch * P::BK * 128, &tv, kv_full, ch * a9::BOX_COLS, h, k0, b);
+      }
+      for (int i = 0; i < nq; ++i) {
+        s9::mbar_wait(&empty[pipe.stage], pipe.phase ^ 1);
+        uint64_t* bar = &full[pipe.stage];
+        s9::mbar_expect_tx(bar, P::STAGE_BYTES);
+        uint8_t* qt = stages + pipe.stage * P::STAGE_BYTES;
+        for (int ch = 0; ch < NCH; ++ch) {
+          s9::tma_load_4d(qt + ch * NQ * 128, &tq, bar, ch * a9::BOX_COLS, h, i * NQ, b);
+          s9::tma_load_4d(qt + (NCH + ch) * NQ * 128, &tdo, bar, ch * a9::BOX_COLS, h, i * NQ, b);
+        }
+        pipe.advance();
+      }
+    } else if (warp == 1) {  // the lse and dd rows of each tile
+      const int lane = threadIdx.x & 31;
+      for (int i = 0; i < nq; ++i) {
+        s9::mbar_wait(&empty[pipe.stage], pipe.phase ^ 1);
+        for (int r = lane; r < NQ; r += 32) {
+          const int row = i * NQ + r;
+          lse_s[pipe.stage * NQ + r] = row < Sq ? lse[bh * Sq + row] : a9::pos_inf();
+          dd_s[pipe.stage * NQ + r] = row < Sq ? dd[bh * Sq + row] : 0.0f;
+        }
+        s9::mbar_arrive(&full[pipe.stage]);
+        pipe.advance();
+      }
+    }
+    return;
+  }
+
+  s9::setmaxnreg_inc<a9::CONSUMER_REGS>();
+  const int lane = threadIdx.x & 31;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+  float st[NQ / 2], dpt[NQ / 2];
+  uint32_t pb[NS][4], dsb[NS][4];
+  s9::Pipe<P::STAGES> pipe;
+  s9::mbar_wait(kv_full, 0);
+
   for (int i = 0; i < nq; ++i) {
-    const int q0 = i * NQ;
-    if (i + 1 < nq) {
-      load_tile<D, LD, NQ>(sq + ((i + 1) & 1) * QT, q + qoff, q0 + NQ, Sq, ld);
-      load_tile<D, LD, NQ>(sdo + ((i + 1) & 1) * QT, dout + qoff, q0 + NQ, Sq, ld);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    __nv_bfloat16* qt = sq + (i & 1) * QT;
-    const __nv_bfloat16* dot = sdo + (i & 1) * QT;
-    scale_rows<D, LD, NQ>(qt, qscale);
-    for (int r = threadIdx.x; r < NQ; r += ATT_THREADS) {
-      const bool ok = q0 + r < Sq;
-      sl[r] = ok ? lseb[q0 + r] : 0.0f;
-      sd[r] = ok ? ddb[q0 + r] : 0.0f;
-    }
-    __syncthreads();
-
-    // S^T = K Qs^T, then P^T = exp2(S^T - lse[q]) (0 past Sq).
-    float p[NT][4];
+    s9::mbar_wait(&full[pipe.stage], pipe.phase);
+    const uint8_t* qt = stages + pipe.stage * P::STAGE_BYTES;
+    const uint8_t* dot = qt + NCH * NQ * 128;
+    const float* ls = lse_s + pipe.stage * NQ;
+    const float* ds = dd_s + pipe.stage * NQ;
+    s9::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.0f;
+    for (int s = 0; s < a9::ksteps(D); ++s)
+      a9::wgmma_ss<NQ>(st, a9::kmajor_step(k_tile, P::BK * 128, wg * 64 * 128, s),
+                       a9::kmajor_step(qt, NQ * 128, 0, s), s > 0);
+    s9::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      load_a<LD>(a, sk, kr0, kc, g, t);
+    for (int s = 0; s < a9::ksteps(D); ++s)
+      a9::wgmma_ss<NQ>(dpt, a9::kmajor_step(v_tile, P::BK * 128, wg * 64 * 128, s),
+                       a9::kmajor_step(dot, NQ * 128, 0, s), s > 0);
+    s9::wgmma_commit();
+    s9::wgmma_wait<1>();
+    s9::fence_acc<NQ / 2>(st);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* qr = qt + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-        mma16816(p[nt], a, ld32(qr), ld32(qr + 8));
-      }
-    }
+    for (int j = 0; j < NQ / 2; ++j) st[j] = a9::ex2(fmaf(st[j], c, -ls[s9::frag_col(j)]));
+    a9::pack_a<NS>(pb, st);
+    s9::wgmma_fence();
+    const uint64_t d_do = a9::make_desc_mn(dot, NQ * 128);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int s = 0; s < NS; ++s) a9::wgmma_rs<D>(acc_dv, pb[s], d_do + 128 * s);
+    s9::wgmma_commit();
+    s9::wgmma_wait<1>();
+    s9::fence_acc<NQ / 2>(dpt);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        p[nt][e] = q0 + col < Sq ? exp2f(p[nt][e] - sl[col]) : 0.0f;
-      }
-    }
-
-    // dV += P^T dO (P^T's accumulators are the A fragments).
+    for (int j = 0; j < NQ / 2; ++j) st[j] *= dpt[j] - ds[s9::frag_col(j)];
+    a9::pack_a<NS>(dsb, st);
+    s9::wgmma_fence();
+    const uint64_t d_q = a9::make_desc_mn(qt, NQ * 128);
 #pragma unroll
-    for (int c = 0; c < QC; ++c) {
-      uint32_t pa[4];
-      pa[0] = pack2(p[2 * c][0], p[2 * c][1]);
-      pa[1] = pack2(p[2 * c][2], p[2 * c][3]);
-      pa[2] = pack2(p[2 * c + 1][0], p[2 * c + 1][1]);
-      pa[3] = pack2(p[2 * c + 1][2], p[2 * c + 1][3]);
-      const __nv_bfloat16* d0 = dot + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* dp = d0 + dt * 8;
-        mma16816(acc_dv[dt], pa, pack_bf16(dp[0], dp[LD]), pack_bf16(dp[8 * LD], dp[9 * LD]));
-      }
-    }
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - dd[q]) in place of P^T.
-    float dpt[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      load_a<LD>(a, sv, kr0, kc, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* dr = dot + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-        mma16816(dpt[nt], a, ld32(dr), ld32(dr + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] *= dpt[nt][e] - sd[nt * 8 + 2 * t + (e & 1)];
-    }
-
-    // dK += dS^T Qs.
-#pragma unroll
-    for (int c = 0; c < QC; ++c) {
-      uint32_t da[4];
-      da[0] = pack2(p[2 * c][0], p[2 * c][1]);
-      da[1] = pack2(p[2 * c][2], p[2 * c][3]);
-      da[2] = pack2(p[2 * c + 1][0], p[2 * c + 1][1]);
-      da[3] = pack2(p[2 * c + 1][2], p[2 * c + 1][3]);
-      const __nv_bfloat16* q0p = qt + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* qp = q0p + dt * 8;
-        mma16816(acc_dk[dt], da, pack_bf16(qp[0], qp[LD]), pack_bf16(qp[8 * LD], qp[9 * LD]));
-      }
-    }
-    __syncthreads();
+    for (int s = 0; s < NS; ++s) a9::wgmma_rs<D>(acc_dk, dsb[s], d_q + 128 * s);
+    s9::wgmma_commit();
+    s9::wgmma_wait<0>();
+    s9::fence_acc<D / 2>(acc_dk);
+    s9::fence_acc<D / 2>(acc_dv);
+    a9::fence_regs<NS>(pb);
+    a9::fence_regs<NS>(dsb);
+    if (lane == 0) s9::mbar_arrive(&empty[pipe.stage]);
+    pipe.advance();
   }
 
-  __nv_bfloat16* dkb = dk + koff;
-  __nv_bfloat16* dvb = dv + koff;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + kr0 + g + i * 8;
-    if (row >= Sk) continue;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col < D) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)row * ld + col) =
-            pack2(acc_dk[dt][2 * i] * LN2, acc_dk[dt][2 * i + 1] * LN2);
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)row * ld + col) =
-            pack2(acc_dv[dt][2 * i], acc_dv[dt][2 * i + 1]);
-      }
-    }
-  }
+  // Both consumers are past their last read of K and V: their space stages
+  // dK and dV.
+  a9::consumers_sync(256);
+  __nv_bfloat16* stg_k = reinterpret_cast<__nv_bfloat16*>(k_tile) + wg * 64 * (D + 8);
+  __nv_bfloat16* stg_v = reinterpret_cast<__nv_bfloat16*>(v_tile) + wg * 64 * (D + 8);
+  a9::stage_rows<D>(stg_k, acc_dk, scale, scale);
+  a9::stage_rows<D>(stg_v, acc_dv, 1.0f, 1.0f);
+  s9::warpgroup_sync(wg);
+  const int ld = H * D;
+  const size_t off = (size_t)b * Sk * ld + h * D;
+  s9::store_staged<D, D + 8>(stg_k, dk + off, ld, k0 + wg * 64, 0, Sk, D);
+  s9::store_staged<D, D + 8>(stg_v, dv + off, ld, k0 + wg * 64, 0, Sk, D);
 }
 
 template <int D>
-__global__ void __launch_bounds__(ATT_THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dd,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, float scale,
-                    float qscale) {
-  constexpr int DP = (D + 15) / 16 * 16;
-  constexpr int LD = DP + 8;
-  constexpr int KC = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int TILE = 64 * LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdo = sq + TILE;
-  __nv_bfloat16* sk = sdo + TILE;     // 2 stages
-  __nv_bfloat16* sv = sk + 2 * TILE;  // 2 stages
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                        const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int Sq,
+                        int Sk, int H, float c, float scale) {
+  using P = a9::DqPlan<D>;
+  constexpr int NCH = P::NCH;
+  constexpr int NK = P::NK;
+  constexpr int NS = NK / 16;  // k16 steps of dQ
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = s9::smem_u32(smem_raw);
+  uint8_t* q_tile = smem_raw + ((1024 - (base & 1023)) & 1023);
+  uint8_t* do_tile = q_tile + NCH * P::BQ * 128;
+  uint8_t* stages = q_tile + P::QD_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + P::STAGES * P::STAGE_BYTES);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* qd_full = empty + P::STAGES;
 
+  const int wg = threadIdx.x >> 7;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * 64;
-  const int ld = H * D;
-  const size_t qoff = (size_t)b * Sq * ld + h * D;
-  const size_t koff = (size_t)b * Sk * ld + h * D;
+  const int q0 = blockIdx.x * P::BQ;
+  const int nk = (Sk + NK - 1) / NK;
 
-  zero_pad_cols<D, DP, LD, 64>(sq, 6);
-  load_tile<D, LD, 64>(sq, q + qoff, q0, Sq, ld);
-  load_tile<D, LD, 64>(sdo, dout + qoff, q0, Sq, ld);
-  load_tile<D, LD, 64>(sk, k + koff, 0, Sk, ld);
-  load_tile<D, LD, 64>(sv, v + koff, 0, Sk, ld);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      s9::mbar_init(&full[s], 1);
+      s9::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    s9::mbar_init(qd_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
+  if (wg == 2) {
+    s9::setmaxnreg_dec<a9::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      s9::mbar_expect_tx(qd_full, P::QD_BYTES);
+      for (int ch = 0; ch < NCH; ++ch) {
+        s9::tma_load_4d(q_tile + ch * P::BQ * 128, &tq, qd_full, ch * a9::BOX_COLS, h, q0, b);
+        s9::tma_load_4d(do_tile + ch * P::BQ * 128, &tdo, qd_full, ch * a9::BOX_COLS, h, q0, b);
+      }
+      s9::Pipe<P::STAGES> pipe;
+      for (int j = 0; j < nk; ++j) {
+        s9::mbar_wait(&empty[pipe.stage], pipe.phase ^ 1);
+        uint64_t* bar = &full[pipe.stage];
+        s9::mbar_expect_tx(bar, P::STAGE_BYTES);
+        uint8_t* kt = stages + pipe.stage * P::STAGE_BYTES;
+        for (int ch = 0; ch < NCH; ++ch) {
+          s9::tma_load_4d(kt + ch * NK * 128, &tk, bar, ch * a9::BOX_COLS, h, j * NK, b);
+          s9::tma_load_4d(kt + (NCH + ch) * NK * 128, &tv, bar, ch * a9::BOX_COLS, h, j * NK, b);
+        }
+        pipe.advance();
+      }
+    }
+    return;
+  }
+
+  s9::setmaxnreg_inc<a9::CONSUMER_REGS>();
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int qr0 = warp * 16;
-
+  const int row0 = q0 + wg * 64;
   float lrow[2], drow[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + qr0 + g + i * 8;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + s9::frag_row(2 * r);
     const size_t at = ((size_t)b * H + h) * Sq + row;
-    lrow[i] = row < Sq ? lse[at] : 0.0f;
-    drow[i] = row < Sq ? dd[at] : 0.0f;
+    lrow[r] = row < Sq ? lse[at] : a9::pos_inf();
+    drow[r] = row < Sq ? dd[at] : 0.0f;
   }
-  float acc[DT][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float sc[NK / 2], dp[NK / 2];
+  uint32_t dsb[NS][4];
+  s9::Pipe<P::STAGES> pipe;
+  s9::mbar_wait(qd_full, 0);
 
-  const int nkv = (Sk + 63) / 64;
-  for (int j = 0; j < nkv; ++j) {
-    if (j + 1 < nkv) {
-      load_tile<D, LD, 64>(sk + ((j + 1) & 1) * TILE, k + koff, (j + 1) * 64, Sk, ld);
-      load_tile<D, LD, 64>(sv + ((j + 1) & 1) * TILE, v + koff, (j + 1) * 64, Sk, ld);
+  for (int j = 0; j < nk; ++j) {
+    s9::mbar_wait(&full[pipe.stage], pipe.phase);
+    const uint8_t* kt = stages + pipe.stage * P::STAGE_BYTES;
+    const uint8_t* vt = kt + NCH * NK * 128;
+    s9::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < a9::ksteps(D); ++s)
+      a9::wgmma_ss<NK>(sc, a9::kmajor_step(q_tile, P::BQ * 128, wg * 64 * 128, s),
+                       a9::kmajor_step(kt, NK * 128, 0, s), s > 0);
+    s9::wgmma_commit();
+#pragma unroll
+    for (int s = 0; s < a9::ksteps(D); ++s)
+      a9::wgmma_ss<NK>(dp, a9::kmajor_step(do_tile, P::BQ * 128, wg * 64 * 128, s),
+                       a9::kmajor_step(vt, NK * 128, 0, s), s > 0);
+    s9::wgmma_commit();
+    s9::wgmma_wait<1>();
+    s9::fence_acc<NK / 2>(sc);
+    const bool ragged = j == nk - 1 && Sk % NK != 0;
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) {
+      sc[i] = a9::ex2(fmaf(sc[i], c, -lrow[(i >> 1) & 1]));
+      if (ragged && j * NK + s9::frag_col(i) >= Sk) sc[i] = 0.0f;
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) {
-      scale_rows<D, LD, 64>(sq, qscale);
-      __syncthreads();
-    }
-    const __nv_bfloat16* kt = sk + (j & 1) * TILE;
-    const __nv_bfloat16* vt = sv + (j & 1) * TILE;
-
-    // S = Qs K^T and dP = dO V^T over this tile's 64 keys.
-    float p[8][4], dpv[8][4];
+    s9::wgmma_wait<0>();
+    s9::fence_acc<NK / 2>(dp);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int i = 0; i < NK / 2; ++i) sc[i] *= dp[i] - drow[(i >> 1) & 1];
+    a9::pack_a<NS>(dsb, sc);
+    s9::wgmma_fence();
+    const uint64_t d_k = a9::make_desc_mn(kt, NK * 128);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = dpv[nt][e] = 0.0f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t aq[4], ado[4];
-      load_a<LD>(aq, sq, qr0, kc, g, t);
-      load_a<LD>(ado, sdo, qr0, kc, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kr = kt + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-        const __nv_bfloat16* vr = vt + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-        mma16816(p[nt], aq, ld32(kr), ld32(kr + 8));
-        mma16816(dpv[nt], ado, ld32(vr), ld32(vr + 8));
-      }
-    }
-    // dS = P (dP - dd), P = exp2(S - lse) (0 past Sk), in place of P.
-    const int key0 = j * 64;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + nt * 8 + 2 * t + (e & 1);
-        const float pe = key < Sk ? exp2f(p[nt][e] - lrow[e >> 1]) : 0.0f;
-        p[nt][e] = pe * (dpv[nt][e] - drow[e >> 1]);
-      }
-    }
-    // dQ += dS K.
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t da[4];
-      da[0] = pack2(p[2 * c][0], p[2 * c][1]);
-      da[1] = pack2(p[2 * c][2], p[2 * c][3]);
-      da[2] = pack2(p[2 * c + 1][0], p[2 * c + 1][1]);
-      da[3] = pack2(p[2 * c + 1][2], p[2 * c + 1][3]);
-      const __nv_bfloat16* k0p = kt + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* kp = k0p + dt * 8;
-        mma16816(acc[dt], da, pack_bf16(kp[0], kp[LD]), pack_bf16(kp[8 * LD], kp[9 * LD]));
-      }
-    }
-    __syncthreads();
+    for (int s = 0; s < NS; ++s) a9::wgmma_rs<D>(acc, dsb[s], d_k + 128 * s);
+    s9::wgmma_commit();
+    s9::wgmma_wait<0>();
+    s9::fence_acc<D / 2>(acc);
+    a9::fence_regs<NS>(dsb);
+    if (lane == 0) s9::mbar_arrive(&empty[pipe.stage]);
+    pipe.advance();
   }
 
-  __nv_bfloat16* dqb = dq + qoff;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + qr0 + g + i * 8;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col < D) {
-        *reinterpret_cast<uint32_t*>(dqb + (size_t)row * ld + col) =
-            pack2(acc[dt][2 * i] * scale, acc[dt][2 * i + 1] * scale);
-      }
-    }
+  a9::consumers_sync(256);
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(q_tile) + wg * 64 * (D + 8);
+  a9::stage_rows<D>(stg, acc, scale, scale);
+  s9::warpgroup_sync(wg);
+  const int ld = H * D;
+  s9::store_staged<D, D + 8>(stg, dq + (size_t)b * Sq * ld + h * D, ld, row0, 0, Sq, D);
+}
+
+template <auto Kernel>
+void allow_smem(int bytes) {
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    attr = true;
   }
 }
 
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* dd, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-               float scale, float qscale, cudaStream_t stream) {
-  constexpr int DP = (D + 15) / 16 * 16;
-  constexpr int LD = DP + 8;
-  constexpr int NQ = dkv_nq<D>();
-  constexpr int smem_dkv = (2 * 64 + 4 * NQ) * LD * 2 + 2 * NQ * 4;
-  constexpr int smem_dq = 6 * 64 * LD * 2;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_dkv);
-    cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_dq);
-    attr = true;
-  }
+               float scale, float c, cudaStream_t stream) {
+  using Pk = a9::DkvPlan<D>;
+  using Pq = a9::DqPlan<D>;
+  allow_smem<flash_bwd_dkv_kernel<D>>(Pk::BYTES);
+  allow_smem<flash_bwd_dq_kernel<D>>(Pq::BYTES);
+  if (B == 0 || Sq == 0 || Sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap kq, kdo, kk, kv, qq, qdo, qk, qv;
+  if (!a9::make_head_map(&kq, q, B, Sq, H, D, Pk::Q_ROWS) ||
+      !a9::make_head_map(&kdo, dout, B, Sq, H, D, Pk::Q_ROWS) ||
+      !a9::make_head_map(&kk, k, B, Sk, H, D, Pk::KV_ROWS) ||
+      !a9::make_head_map(&kv, v, B, Sk, H, D, Pk::KV_ROWS) ||
+      !a9::make_head_map(&qq, q, B, Sq, H, D, Pq::Q_ROWS) ||
+      !a9::make_head_map(&qdo, dout, B, Sq, H, D, Pq::Q_ROWS) ||
+      !a9::make_head_map(&qk, k, B, Sk, H, D, Pq::KV_ROWS) ||
+      !a9::make_head_map(&qv, v, B, Sk, H, D, Pq::KV_ROWS))
+    return s9::TMA_MAP_REFUSED;
   using bf = __nv_bfloat16;
-  const bf* q_ = static_cast<const bf*>(q);
-  const bf* k_ = static_cast<const bf*>(k);
-  const bf* v_ = static_cast<const bf*>(v);
-  const bf* do_ = static_cast<const bf*>(dout);
-  flash_bwd_dkv_kernel<D><<<dim3((Sk + 63) / 64, H, B), ATT_THREADS, smem_dkv, stream>>>(
-      q_, k_, v_, do_, lse, dd, static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk, H, qscale);
+  flash_bwd_dkv_kernel<D><<<Pk::grid(B, Sq, Sk, H), THREADS, Pk::BYTES, stream>>>(
+      kq, kdo, kk, kv, lse, dd, static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk, H, c, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<dim3((Sq + 63) / 64, H, B), ATT_THREADS, smem_dq, stream>>>(
-      q_, k_, v_, do_, lse, dd, static_cast<bf*>(dq), Sq, Sk, H, scale, qscale);
+  flash_bwd_dq_kernel<D><<<Pq::grid(B, Sq, Sk, H), THREADS, Pq::BYTES, stream>>>(
+      qq, qdo, qk, qv, lse, dd, static_cast<bf*>(dq), Sq, Sk, H, c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,4 +426,17 @@ extern "C" int gmdx_flash_bwd(const void* q, const void* k, const void* v, const
       return launch_bwd<160>(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale, qscale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// out, dout: (B, Sq, H*D) contiguous bf16 with D % 8 == 0; dd: (B, H, Sq)
+// fp32 = rowsum(dout * out) over each head.
+extern "C" int gmdx_flash_bwd_dd(const void* out, const void* dout, void* dd, int B, int Sq,
+                                 int H, int D, void* stream) {
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = (long long)B * Sq * H;
+  if (n == 0) return 0;
+  flash_bwd_dd_kernel<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<float*>(dd), B, Sq, H, D);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -85,8 +85,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
     """The opt-in kernels are inference-only: raise under autograd."""
     if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name} has no backward: training with the opt-in kernels is ROADMAP "
-            "Queue 1 item 13"
+            f"{name} has no backward: see ROADMAP, Queue 1, \"Training with the "
+            "opt-in kernels\""
         )
 
 

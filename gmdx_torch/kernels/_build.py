@@ -37,6 +37,8 @@ ENTRY_POINTS = {
     "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_flash_bsc": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_xattn": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_attention_sm90_lse": ("attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_attention_sm90_plan": ("attention", [_I, _I, _I, _I, _I, _I, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gmdx_conv3x3": (
@@ -65,6 +67,7 @@ ENTRY_POINTS = {
         "flash_attention",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     ),
+    "gmdx_flash_bwd_dd": ("flash_attention", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _ in ENTRY_POINTS.values()})
 # gemm_sm90.cuh's TMA_MAP_REFUSED: cuTensorMapEncodeTiled refused a map.

@@ -7,8 +7,12 @@ Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
 head-packed (B, S, H*D) layout instead of the JAX package's (B*H, S, D).
 Kernels: ``csrc/flash_attention.cu`` (the forward at head dims 40/80/160
 and, through ``csrc/attention_wide.cuh``, at the VAE's 512; the backward at
-40/80/160) and ``csrc/attention.cu`` (``gmdx_flash_bsc``, and
-``gmdx_xattn`` from ``csrc/attention_xattn.cuh``).
+40/80/160: a dd pre-pass, then the dK/dV and dQ kernels on
+``csrc/attention_sm90.cuh``) and ``csrc/attention.cu`` (``gmdx_flash_bsc``
+on ``csrc/attention_sm90.cuh``, and ``gmdx_xattn`` from
+``csrc/attention_xattn.cuh``). :func:`flash_bsc_plan` and
+:func:`flash_bwd_plan` lay out the Hopper kernels' launches as their
+``*Plan`` structs do.
 
 The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
 at 16384 tokens the whole fp32 score matrix of one call would take tens of
@@ -23,6 +27,7 @@ backward recomputes the softmax from (Q, K, lse) with
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -37,6 +42,82 @@ _FWD_HEAD_DIMS = _KERNEL_HEAD_DIMS + (512,)
 PLAIN_CHUNK = 1024
 # The short-K kernel holds every key of a head in shared memory.
 XATTN_MAX_KEYS = 128
+
+# csrc/attention_sm90.cuh's constants: the dynamic shared memory a block may
+# use, the bf16 columns of one 128-byte swizzled TMA box and the deepest ring.
+SMEM_BUDGET = 232448
+BOX_COLS = 64
+MAX_STAGES = 4
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """The launch of one Hopper attention kernel (``csrc/attention_sm90.cuh``),
+    field for field what ``gmdx_attention_sm90_plan`` reports of its plan.
+
+    A block owns ``owned`` rows (queries, or keys for the dK/dV kernel), 64
+    for each consumer warpgroup, beside one producer warpgroup, and streams
+    tiles of ``tile`` rows through a ring of ``stages``, in ``smem_bytes`` of
+    dynamic shared memory, over ``grid``. Every operand is read through a
+    4-D TMA map (D, H, S, B) in boxes of (64, 1, rows, 1); ``boxes`` are the
+    rows of the Q (and dO) boxes and of the K (and V) boxes. Columns past D
+    and rows past S arrive as zeros."""
+
+    owned: int
+    tile: int
+    stages: int
+    smem_bytes: int
+    grid: tuple[int, int, int]
+    boxes: tuple[int, int]
+
+
+def _chunks(d: int) -> int:
+    return -(-d // BOX_COLS)
+
+
+def _stages(fixed: int, stage: int) -> int:
+    return min(MAX_STAGES, (SMEM_BUDGET - 1024 - fixed - 256) // stage)
+
+
+def flash_bsc_plan(b: int, sq: int, sk: int, heads: int, d: int) -> AttentionPlan:
+    """The forward's plan (``FwdPlan``): 64 queries for each consumer
+    warpgroup, three at d = 40 and two above, whose accumulators need more
+    registers; K and V in tiles of 128 keys (64 at d = 160, where a 128-key
+    stage would leave room for one)."""
+    nch, bq = _chunks(d), 192 if d == 40 else 128
+    bkv = 64 if d > 80 else 128
+    q_bytes, stage = nch * bq * 128, 2 * nch * bkv * 128
+    stages = _stages(q_bytes, stage)
+    return AttentionPlan(
+        owned=bq, tile=bkv, stages=stages, smem_bytes=1024 + q_bytes + stages * stage + 256,
+        grid=(-(-sq // bq), heads, b), boxes=(bq, bkv),
+    )
+
+
+def flash_bwd_plan(
+    b: int, sq: int, sk: int, heads: int, d: int
+) -> tuple[AttentionPlan, AttentionPlan]:
+    """The backward's plans (``DkvPlan``, ``DqPlan``): dK/dV owns 128 keys
+    and streams (Q, dO) tiles of 64 queries (32 at d = 160, where dK and dV
+    alone hold 160 fp32 a thread) with their lse and dd rows; dQ owns 128
+    queries and streams (K, V) tiles of 128 keys (64 at d = 160)."""
+    nch = _chunks(d)
+    nq = 32 if d > 80 else 64
+    kv_bytes, rows_bytes, stage = 2 * nch * 128 * 128, MAX_STAGES * nq * 8, 2 * nch * nq * 128
+    stages = _stages(kv_bytes + rows_bytes, stage)
+    dkv = AttentionPlan(
+        owned=128, tile=nq, stages=stages,
+        smem_bytes=1024 + kv_bytes + stages * stage + rows_bytes + 256,
+        grid=(-(-sk // 128), heads, b), boxes=(nq, 128),
+    )
+    nk = 64 if d > 80 else 128
+    qd_bytes, stage = 2 * nch * 128 * 128, 2 * nch * nk * 128
+    stages = _stages(qd_bytes, stage)
+    dq = AttentionPlan(
+        owned=128, tile=nk, stages=stages, smem_bytes=1024 + qd_bytes + stages * stage + 256,
+        grid=(-(-sq // 128), heads, b), boxes=(128, nk),
+    )
+    return dkv, dq
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -70,6 +151,13 @@ def flash_attention_bsc_plain(
     return flash_attention_fwd_plain(q, k, v, heads, scale)[0]
 
 
+def flash_attention_bwd_dd_plain(
+    out: torch.Tensor, dout: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """dd (B, H, Sq) fp32 = rowsum(dout * out) over each head's columns."""
+    return (_split(dout, heads) * _split(out, heads)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, dout: torch.Tensor, heads: int, scale: float,
@@ -79,7 +167,7 @@ def flash_attention_bwd_plain(
     instead of tiles. Returns (dq, dk, dv) in the operands' dtypes."""
     qs = _split(q, heads) * (scale * _LOG2_E)
     kf, vf, g = _split(k, heads), _split(v, heads), _split(dout, heads)
-    dd = (g * _split(out, heads)).sum(dim=-1).transpose(1, 2)  # (B, H, Sq)
+    dd = flash_attention_bwd_dd_plain(out, dout, heads)
     p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse.float()[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
     dp = torch.einsum("bqhd,bkhd->bhqk", g, vf)
@@ -152,12 +240,31 @@ def flash_attention_bsc(
     return out
 
 
+def flash_attention_bwd_dd(out: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tensor:
+    """The backward's pre-pass, dd = rowsum(dout * out), (B, H, Sq) fp32:
+    one kernel on the card (``gmdx_flash_bwd_dd``), counted with the
+    backward that launches it."""
+    if not out.is_cuda:
+        return flash_attention_bwd_dd_plain(out, dout, heads)
+    stream = check_kernel_operands("flash_attention_bwd_dd", out, dout)
+    b, sq, c = out.shape
+    if dout.shape != out.shape or c % heads or (c // heads) % 8:
+        raise ValueError(f"dd pre-pass: out {out.shape}, dout {dout.shape}, {heads} heads")
+    from gmdx_torch.kernels import _build
+
+    dd = torch.empty((b, heads, sq), dtype=torch.float32, device=out.device)
+    _build.call("gmdx_flash_bwd_dd", out.data_ptr(), dout.data_ptr(), dd.data_ptr(),
+                b, sq, heads, c // heads, stream)
+    return dd
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, dout: torch.Tensor, heads: int, *, scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_fwd` for the cotangent
-    ``dout`` of ``out``."""
+    ``dout`` of ``out``. On the card: a pre-pass kernel computes
+    dd = rowsum(dout * out), then the dK/dV and the dQ kernels run."""
     d = _check_shapes(q, k, v, heads)
     if scale is None:
         scale = d**-0.5
@@ -167,10 +274,10 @@ def flash_attention_bwd(
     b, sq, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, heads, sq):
         raise ValueError(f"flash backward: out {out.shape}, dout {dout.shape}, lse {lse.shape}")
-    dd = (dout.float() * out.float()).reshape(b, sq, heads, d).sum(-1).transpose(1, 2).contiguous()
-    check_fp32("flash_attention_bwd", lse, dd)
+    check_fp32("flash_attention_bwd", lse)
     from gmdx_torch.kernels import _build
 
+    dd = flash_attention_bwd_dd(out, dout, heads)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.call(
         "gmdx_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -229,6 +336,7 @@ def cross_attention_shortk(
 
 
 __all__ = [
+    "AttentionPlan",
     "PLAIN_CHUNK",
     "XATTN_MAX_KEYS",
     "cross_attention_shortk",
@@ -238,5 +346,9 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "flash_attention_bwd",
+    "flash_attention_bwd_dd",
+    "flash_attention_bwd_dd_plain",
     "flash_attention_bwd_plain",
+    "flash_bsc_plan",
+    "flash_bwd_plan",
 ]

@@ -17,8 +17,9 @@ import torch
 from gmdx_torch.kernels import attention as tk_attention
 from gmdx_torch.kernels import launch_counts
 from gmdx_torch.kernels.flash_attention import (
-    flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd,
-    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
+    flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd, flash_attention_bwd_dd,
+    flash_attention_bwd_dd_plain, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain, flash_bsc_plan, flash_bwd_plan,
 )
 from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
 from gmdx_torch.kernels.groupnorm import (
@@ -197,10 +198,12 @@ def test_wrappers_count_launches_and_refuse_other_dtypes(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,c", [(4096, 4096, 320), (1000, 1000, 640), (256, 300, 1280)])
+@pytest.mark.parametrize("sq,sk,c", [
+    (4096, 4096, 320), (4096, 4000, 320), (1000, 1000, 640), (256, 300, 1280),
+])
 def test_flash_attention_kernels_on_card(card, sq, sk, c):
     """Forward (out, lse) and backward (dq, dk, dv) against the fp32 plain
-    versions; 1000 and 300 leave ragged query and key tiles."""
+    versions; 4000, 1000 and 300 leave ragged query and key tiles."""
     heads = 8
     q = _bf16(card, 2, sq, c)
     k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
@@ -350,12 +353,16 @@ def test_train_step_on_card_accumulates_and_matches_plain(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sk", [16384, 16300])
-def test_flash_bsc_kernel_on_card(card, sk):
-    """The 1024^2 UNet's first level (16384 tokens, 8 heads of 40) and a
-    masked key count; the launch is counted."""
-    q = _bf16(card, 2, 16384, 320)
-    k, v = _bf16(card, 2, sk, 320), _bf16(card, 2, sk, 320)
+@pytest.mark.parametrize("sq,sk,c", [
+    (16384, 16384, 320), (16384, 16300, 320), (16300, 16384, 320), (4000, 4096, 640),
+    (1000, 1100, 1280), (300, 16300, 320),
+])
+def test_flash_bsc_kernel_on_card(card, sq, sk, c):
+    """The 1024^2 UNet's first level (16384 tokens, 8 heads of 40), masked
+    key counts and ragged query counts, and head dims 80 and 160; the launch
+    is counted."""
+    q = _bf16(card, 2, sq, c)
+    k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
     before = launch_counts()["flash_attention_bsc"]
     out = flash_attention_bsc(q, k, v, 8)
     assert launch_counts()["flash_attention_bsc"] == before + 1
@@ -363,6 +370,79 @@ def test_flash_bsc_kernel_on_card(card, sk):
     assert _rel_l2(out, ref) <= 1e-2
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_bsc(q, k, v, 5)  # head dim 64: no instance
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,c", [(4096, 4096, 320), (1000, 1000, 640), (300, 256, 1280)])
+def test_flash_bwd_repeat_is_bit_identical_on_card(card, sq, sk, c):
+    """Two launches of the backward on the same operands give the same dq,
+    dk and dv bit for bit: every gradient row has one writer, no atomics."""
+    q, dout = _bf16(card, 2, sq, c), _bf16(card, 2, sq, c)
+    k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
+    out, lse = flash_attention_fwd(q, k, v, 8)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, 8)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(4096, 320), (1000, 640), (300, 1280)])
+def test_flash_bwd_dd_prepass_on_card(card, s, c):
+    """The backward's dd pre-pass alone against (dO * O).sum(-1) in fp32."""
+    out, dout = _bf16(card, 2, s, c), _bf16(card, 2, s, c)
+    dd = flash_attention_bwd_dd(out, dout, 8)
+    ref = flash_attention_bwd_dd_plain(out.float(), dout.float(), 8)
+    assert dd.shape == (2, 8, s) and dd.dtype == torch.float32
+    assert float((dd - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("b,sq,sk", [(2, 16384, 16384), (8, 4096, 4096), (1, 300, 16300),
+                                     (16, 16300, 256)])
+def test_attention_plans_match_kernels_on_card(card, d, b, sq, sk):
+    """The Python plans are the C structs the Hopper attention kernels launch
+    with, field for field: rows owned, tile rows, stages, shared-memory
+    bytes, the grid and the box rows of the Q/dO and K/V maps."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+
+    lib = _build.library("attention")
+    plans = (flash_bsc_plan(b, sq, sk, 8, d), *flash_bwd_plan(b, sq, sk, 8, d))
+    for kind, plan in enumerate(plans):
+        got = (ctypes.c_int * 9)()
+        assert lib.gmdx_attention_sm90_plan(kind, b, sq, sk, 8, d, got) == 0
+        mine = dataclasses.astuple(plan)
+        assert list(got) == [*mine[:4], *mine[4], *mine[5]], (kind, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,c", [
+    (4096, 4096, 320), (4000, 4096, 320), (4096, 4000, 320), (1000, 1100, 640),
+    (300, 256, 1280),
+])
+def test_attention_sm90_lse_on_card(card, sq, sk, c):
+    """attention_sm90.cuh's forward with the base-2 logsumexp
+    (gmdx_attention_sm90_lse): out and lse against the fp32 plain forward,
+    ragged query and key counts included, at the bounds of the training
+    forward's test."""
+    from gmdx_torch.kernels import _build
+
+    heads, d = 8, c // 8
+    q = _bf16(card, 2, sq, c)
+    k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
+    out = torch.empty_like(q)
+    lse = torch.full((2, heads, sq), float("nan"), device="cuda")
+    _build.call("gmdx_attention_sm90_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), 2, sq, sk, heads, d,
+                float(d**-0.5 / np.log(2.0)), torch.cuda.current_stream().cuda_stream)
+    ref_out, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), heads,
+                                                 d**-0.5)
+    assert _rel_l2(out, ref_out) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda
