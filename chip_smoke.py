@@ -12,10 +12,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
   2. build: compiles gmdx_torch/csrc with nvcc (seconds printed), prints
      each kernel's ptxas registers and spills, and fails unless every
-     instance of the Hopper kernels (the GEMM core's conv and FF,
-     flash_attention_bsc and its logsumexp form, the flash backward's dK/dV
-     and dQ) issues wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS and
-     spills nothing.
+     instance of the Hopper kernels (the GEMM core's conv and FF;
+     attention_sm90.cuh's forward as the KV-resident, the long-sequence and
+     the training kernel, and the flash backward's dK/dV and dQ) issues
+     wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS and spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -30,9 +30,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      F(4x4) also held, by its max error over the output's peak, to the JAX
      package's bar against the fp32 direct conv (its relative L2 there is
      reported: the algorithm's own bf16 error). Attention rows also give
-     their exp2 count and the SFU's floor for it; flash_attention_bsc and
-     flash_attention_bwd their launch plans, each held to the kernel's own
-     (gmdx_attention_sm90_plan).
+     their exp2 count and the SFU's floor for it; the four kernels on
+     attention_sm90.cuh (attention_kv_resident, flash_attention_fwd,
+     flash_attention_bsc, flash_attention_bwd) their launch plans, each
+     held to the kernel's own (gmdx_attention_sm90_plan).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -271,13 +272,14 @@ def phase_build() -> None:
 
 # The Hopper kernels, by library: every instance of each must issue wgmma
 # (HGMMA) and TMA loads (UTMALDG) in its SASS. The conv and FF kernels run
-# on the GEMM core (gemm_sm90.cuh), flash_attention_bsc and the flash
-# backward on attention_sm90.cuh.
+# on the GEMM core (gemm_sm90.cuh); the KV-resident attention and
+# flash_attention_bsc (libattention), the training forward and the flash
+# backward (libflash_attention) on attention_sm90.cuh.
 SM90_KERNELS = {
     "conv3x3": ("ws_gemm_kernel",),
     "geglu_ff": ("ws_gemm_kernel",),
-    "attention": ("flash_bsc_kernel", "attention_sm90_lse_kernel"),
-    "flash_attention": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
+    "attention": ("flash_bsc_kernel", "kvres_sm90_kernel"),
+    "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
 }
 SM90_SASS = ("HGMMA", "UTMALDG")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -393,6 +395,17 @@ def _attention_plan(kind, plan, b, sq, sk, heads, d) -> dict:
     return dataclasses.asdict(plan)
 
 
+def _fwd_plan_keys(b, s, heads, d) -> dict:
+    """The Hopper forward's plan at a (b, s, s, heads, d) self-attention,
+    held to the C plan, and the K and V bytes its query tiles read from L2
+    (each reads its head's whole K and V once)."""
+    from gmdx_torch.kernels.flash_attention import attention_fwd_plan
+
+    p = attention_fwd_plan(b, s, s, heads, d)
+    return {"plan": _attention_plan(0, p, b, s, s, heads, d),
+            "l2_kv_bytes": -(-s // p.owned) * b * heads * 2 * s * d * 2}
+
+
 def _ff_plan_keys(m, dim) -> dict:
     from gmdx_torch.kernels.geglu_ff import geglu_ff_ln_plan
 
@@ -428,7 +441,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
             lambda: attention_kv_resident_plain(qf, kf, vf, heads),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             4.0 * cfg_b * heads * s * s * d, 4 * cfg_b * s * c * 2, results,
-            extra=exp2_keys(cfg_b * heads * s * s),
+            extra={**exp2_keys(cfg_b * heads * s * s), **_fwd_plan_keys(cfg_b, s, heads, d)},
         )
 
     # B. 3x3 conv: the resnet convs of the four UNet levels and one of the
@@ -573,7 +586,7 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
             lambda: flash_attention_fwd_plain(qf, kf, vf, heads, scale),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             fwd_flops, 4 * tb * s * c * 2 + tb * heads * s * 4, results,
-            extra=exp2_keys(tb * heads * s * s),
+            extra={**exp2_keys(tb * heads * s * s), **_fwd_plan_keys(tb, s, heads, d)},
         )
         # The dK/dV and dQ kernels both recompute P: two exp2 a score.
         dkv, dq = flash_bwd_plan(tb, s, s, heads, d)
@@ -668,7 +681,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
 
     from gmdx_torch.kernels.flash_attention import (
         flash_attention_bsc, flash_attention_bsc_plain, flash_attention_fwd,
-        flash_attention_fwd_plain, flash_bsc_plan,
+        flash_attention_fwd_plain,
     )
     from gmdx_torch.kernels.geglu_ff import geglu_ff_ln, geglu_ff_ln_plain
     from gmdx_torch.kernels.groupnorm import group_norm_silu, group_norm_silu_plain
@@ -691,11 +704,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
             lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
             kern = lambda: flash_attention_bsc(q, k, v, heads)  # noqa: E731
             plain = lambda: flash_attention_bsc_plain(qf, kf, vf, heads)  # noqa: E731
-            p = flash_bsc_plan(b, s, s, heads, d)
-            extra["plan"] = _attention_plan(0, p, b, s, s, heads, d)
-            # K and V bytes the blocks read from L2: each block reads its
-            # head's whole K and V once.
-            extra["l2_kv_bytes"] = p.grid[0] * b * heads * 2 * s * d * 2
+            extra.update(_fwd_plan_keys(b, s, heads, d))
         _check(name, [b, s, heads, d], kern, plain, lib, 4.0 * b * heads * s * s * d,
                4 * b * s * c * 2, results,
                library=f"F.scaled_dot_product_attention ({backend} backend)", extra=extra)
@@ -932,9 +941,8 @@ PROFILE_CATEGORIES = (
     ("flash_attention_bsc", ("flash_bsc_kernel",)),
     ("flash_attention_fwd_d512", ("flash_fwd_wide_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_",)),
-    ("flash_attention_fwd", ("attention_fwd_kernel<40, true>", "attention_fwd_kernel<80, true>",
-                             "attention_fwd_kernel<160, true>")),
-    ("attention_kv_resident", ("attention_fwd_kernel",)),
+    ("flash_attention_fwd", ("train_fwd_sm90_kernel",)),
+    ("attention_kv_resident", ("kvres_sm90_kernel",)),
     ("group_norm_silu_bwd", ("gn_bwd_",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),

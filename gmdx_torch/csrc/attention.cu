@@ -1,96 +1,75 @@
-// Exact-softmax self-attention over head-packed (B, S, H*D) bf16 operands.
+// Exact-softmax attention over head-packed (B, S, H*D) bf16 operands: the
+// inference entry points and the Hopper forward's plan report.
 //
-// Replaces gmdx/kernels/flash_attention.py:attention_kv_resident (TPU kernel
-// _kvres_kernel). The TPU kernel kept the whole K/V range of a head resident
-// in VMEM and took the row softmax in one pass. On the H100, 4096 keys x 40
-// dims of K and V are 640 KB, past the 227 KB of shared memory a block can
-// hold, so this kernel loops over 64-key tiles with an online softmax
-// (running max and sum, rescaling the output accumulator): the same exact
-// function, reached another way. The kernel body lives in attention_fwd.cuh,
-// which the training forward (flash_attention.cu) instantiates with the
-// logsumexp output; this file instantiates it without.
-//
-// Bound on the H100: 4 * Sq * Sk * D operations on (2 Sq + 2 Sk) * H * D * 2
-// bytes; at Sk = 4096, D = 40 that is about 1300 operations a byte:
-// tensor-core bound, with the softmax's exp2 and the narrow D (40 of 48
-// columns useful) as the overheads.
+// gmdx_attention replaces gmdx/kernels/flash_attention.py:attention_kv_resident
+// (TPU kernel _kvres_kernel): self-attention with 256-4096 keys, every
+// SD-1.5 UNet self-attention at 512^2 and the lower levels at 1024^2. The TPU
+// kernel kept the whole K/V range of a head resident in VMEM and took the row
+// softmax in one pass; on the H100 that fits at none of these shapes (the
+// note of attention_sm90.cuh says why), so kvres_sm90_kernel streams the keys
+// through attention_sm90.cuh's TMA ring with an online softmax: the same exact
+// function, reached another way.
 //
 // gmdx_flash_bsc replaces gmdx/kernels/flash_attention.py:flash_attention_bsc
-// (TPU kernel _flash_bsc_kernel): the same exact-softmax forward over
-// head-packed operands, for the self-attention past 4096 keys (the UNet's and
-// the ControlNet's first level at 1024^2: 16384 tokens, 8 heads of 40). The
-// TPU kernel's blocks of 512 queries x 2048 keys, its per-head scratch
-// replicated H times and its unrolled head loop were ways to fill VMEM; here
-// it is attention_sm90.cuh's Hopper forward (TMA ring, wgmma, 64 queries
-// for each consumer warpgroup: three at D = 40, two above, their softmax
-// overlapping the others' products through the warp schedulers alone),
-// whose note gives the design and the bound: at B 2, S 16384, H 8, D 40 the exp2 floor (1.10 ms)
-// is above the operations bound (0.695 ms) and far above the bytes' (0.025).
+// (TPU kernel _flash_bsc_kernel): the same forward for the self-attention past
+// 4096 keys (the UNet's and the ControlNet's first level at 1024^2: 16384
+// tokens, 8 heads of 40), as flash_bsc_kernel. The TPU kernel's blocks of 512
+// queries x 2048 keys, its per-head scratch replicated H times and its
+// unrolled head loop were ways to fill VMEM.
+//
+// Both run attention_sm90.cuh's persistent forward (TMA ring, wgmma, 64
+// queries for each consumer warpgroup, their softmax overlapping the others'
+// products through the warp schedulers alone), whose note gives the design
+// and the bound; its plan (FwdPlan) is mirrored by
+// kernels/flash_attention.py:attention_fwd_plan.
 //
 // gmdx_xattn replaces gmdx/kernels/flash_attention.py:cross_attention_shortk
 // (TPU kernel _xattn_kernel): the short-K cross-attention of
 // attention_xattn.cuh, whose note gives its design and bound.
-#include "attention_fwd.cuh"
 #include "attention_sm90.cuh"
 #include "attention_xattn.cuh"
 
+namespace a9 = gmdx::attn90;
+
 // q: (B, Sq, H*D), k and v: (B, Sk, H*D), out: (B, Sq, H*D), all contiguous
-// bf16. Head dims are SD-1.5's 40, 80 and 160; any other returns
-// cudaErrorInvalidValue.
+// bf16, any Sk >= 1 (keys past Sk are masked); c = scale * log2(e). Head
+// dims 40, 80 and 160; any other returns cudaErrorInvalidValue, a refused
+// TMA map -1.
 extern "C" int gmdx_attention(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                              int Sk, int H, int D, float qscale, void* stream) {
-  using gmdx_attn::launch_fwd;
+                              int Sk, int H, int D, float c, void* stream) {
+  using a9::kvres_sm90_kernel;
+  using a9::launch_fwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return launch_fwd<40, false>(q, k, v, out, nullptr, B, Sq, Sk, H, qscale, st);
-    case 80: return launch_fwd<80, false>(q, k, v, out, nullptr, B, Sq, Sk, H, qscale, st);
-    case 160: return launch_fwd<160, false>(q, k, v, out, nullptr, B, Sq, Sk, H, qscale, st);
+    case 40:
+      return launch_fwd<40, false, kvres_sm90_kernel<40>>(q, k, v, out, nullptr, B, Sq, Sk, H, c,
+                                                          st);
+    case 80:
+      return launch_fwd<80, false, kvres_sm90_kernel<80>>(q, k, v, out, nullptr, B, Sq, Sk, H, c,
+                                                          st);
+    case 160:
+      return launch_fwd<160, false, kvres_sm90_kernel<160>>(q, k, v, out, nullptr, B, Sq, Sk, H,
+                                                            c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Same operands and head dims as gmdx_attention; any Sk >= 1 (keys past Sk
-// are masked, no logsumexp). Returns -1 where the driver refuses a TMA map.
+// Same operands, head dims and return codes as gmdx_attention.
 extern "C" int gmdx_flash_bsc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                              int Sk, int H, int D, float qscale, void* stream) {
-  using gmdx::attn90::flash_bsc_kernel;
-  using gmdx::attn90::launch_fwd;
+                              int Sk, int H, int D, float c, void* stream) {
+  using a9::flash_bsc_kernel;
+  using a9::launch_fwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return launch_fwd<40, false, flash_bsc_kernel<40>>(q, k, v, out, nullptr, B, Sq, Sk, H,
-                                                         qscale, st);
+      return launch_fwd<40, false, flash_bsc_kernel<40>>(q, k, v, out, nullptr, B, Sq, Sk, H, c,
+                                                         st);
     case 80:
-      return launch_fwd<80, false, flash_bsc_kernel<80>>(q, k, v, out, nullptr, B, Sq, Sk, H,
-                                                         qscale, st);
+      return launch_fwd<80, false, flash_bsc_kernel<80>>(q, k, v, out, nullptr, B, Sq, Sk, H, c,
+                                                         st);
     case 160:
       return launch_fwd<160, false, flash_bsc_kernel<160>>(q, k, v, out, nullptr, B, Sq, Sk, H,
-                                                           qscale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The forward with the base-2 logsumexp of the scaled logits, lse (B, H,
-// Sq) fp32, as gmdx_flash_fwd (flash_attention.cu) returns it: the
-// attention_sm90.cuh form of the training forward. Same operands, head dims
-// and return codes as gmdx_flash_bsc.
-extern "C" int gmdx_attention_sm90_lse(const void* q, const void* k, const void* v, void* out,
-                                       void* lse, int B, int Sq, int Sk, int H, int D,
-                                       float qscale, void* stream) {
-  using gmdx::attn90::attention_sm90_lse_kernel;
-  using gmdx::attn90::launch_fwd;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 40:
-      return launch_fwd<40, true, attention_sm90_lse_kernel<40>>(q, k, v, out, l, B, Sq, Sk, H,
-                                                                 qscale, st);
-    case 80:
-      return launch_fwd<80, true, attention_sm90_lse_kernel<80>>(q, k, v, out, l, B, Sq, Sk, H,
-                                                                 qscale, st);
-    case 160:
-      return launch_fwd<160, true, attention_sm90_lse_kernel<160>>(q, k, v, out, l, B, Sq, Sk,
-                                                                   H, qscale, st);
+                                                           c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -111,11 +90,10 @@ int plan_fields(int* out, int B, int Sq, int Sk, int H) {
 
 template <int D>
 int plan_of(int kind, int* out, int B, int Sq, int Sk, int H) {
-  using namespace gmdx::attn90;
   switch (kind) {
-    case 0: return plan_fields<FwdPlan<D>>(out, B, Sq, Sk, H);
-    case 1: return plan_fields<DkvPlan<D>>(out, B, Sq, Sk, H);
-    case 2: return plan_fields<DqPlan<D>>(out, B, Sq, Sk, H);
+    case 0: return plan_fields<a9::FwdPlan<D>>(out, B, Sq, Sk, H);
+    case 1: return plan_fields<a9::DkvPlan<D>>(out, B, Sq, Sk, H);
+    case 2: return plan_fields<a9::DqPlan<D>>(out, B, Sq, Sk, H);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,11 +6,12 @@
 // here for that head dim. It writes the base-2 logsumexp as the other
 // forwards do (4 bytes a query), whether the caller keeps it or not.
 //
-// Why not the body of attention_fwd.cuh: it keeps a 16-row warp's Q
-// fragments (D/16 x 4 registers) and its whole O row block (D/8 x 4 fp32)
-// in registers, 384 registers a thread at D = 512, past the cap of 255, and
-// its five 64-row tiles would take 333 KB of shared memory, past the 227 KB
-// a block can have. So this kernel splits the work differently:
+// Why not attention_sm90.cuh's forward, which the narrow heads run: a
+// consumer warpgroup's m64 x 512 output accumulator alone is 256 fp32 a
+// thread, past the cap of 255; nor a 64-query mma.sync block whose warps keep
+// their Q fragments and O rows in registers (384 a thread at D = 512) and
+// five 64-row tiles in 333 KB of shared memory, past the 227 KB a block can
+// have. So this kernel splits the work differently:
 //   * A block (8 warps) owns 64 queries of one head. Q stays in shared memory
 //     (pre-scaled in place by scale * log2(e), rounded to bf16 as the TPU
 //     kernels do). K and V stream in tiles of 32 keys, double-buffered with

@@ -9,10 +9,12 @@
 // TPU's; the layout is not: the TPU kernels took (B*H, S, D) after an XLA
 // transpose, these kernels index the head-packed projections in place.
 //
-// Forward: attention_fwd.cuh with LSE on. lse (B, H, Sq) fp32 holds
-// m + log2(l) of the logits pre-scaled by scale * log2(e). The VAE's single
-// 512-wide head takes attention_wide.cuh's kernel instead (its header says
-// why).
+// Forward: attention_sm90.cuh's persistent forward as train_fwd_sm90_kernel,
+// the form that writes lse (B, H, Sq) fp32, m c + log2(l) of the logits
+// scaled by c = scale * log2(e) (the scale folded into exp2's FFMA; Q is not
+// pre-scaled); its plan is mirrored by kernels/flash_attention.py:
+// attention_fwd_plan. The VAE's single 512-wide head takes
+// attention_wide.cuh's kernel instead (its header says why).
 //
 // Backward, on attention_sm90.cuh's Hopper pieces (TMA ring, a producer
 // warpgroup, two wgmma consumer warpgroups; 4-D tensor maps whose
@@ -41,7 +43,6 @@
 // about 16 S H D bytes. Both kernels take one exp2 per score: 2 B H Sq Sk
 // exp2 at 16 per SM per clock (about 3.9 T/s), 0.55 ms at B 8, S 4096, H 8,
 // above the 0.434 ms operations bound at D = 40.
-#include "attention_fwd.cuh"
 #include "attention_sm90.cuh"
 #include "attention_wide.cuh"
 
@@ -395,17 +396,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // q, out: (B, Sq, H*D); k, v: (B, Sk, H*D), contiguous bf16; lse: (B, H, Sq)
-// fp32. Head dims 40, 80, 160 and 512; any other returns
-// cudaErrorInvalidValue.
+// fp32; c = scale * log2(e). Head dims 40, 80 and 160 (attention_sm90.cuh)
+// and 512 (attention_wide.cuh); any other returns cudaErrorInvalidValue, a
+// refused TMA map -1.
 extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int B, int Sq, int Sk, int H, int D, float qscale, void* stream) {
+                              int B, int Sq, int Sk, int H, int D, float c, void* stream) {
+  using a9::launch_fwd;
+  using a9::train_fwd_sm90_kernel;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (D) {
-    case 40: return gmdx_attn::launch_fwd<40, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
-    case 80: return gmdx_attn::launch_fwd<80, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
-    case 160: return gmdx_attn::launch_fwd<160, true>(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
-    case 512: return gmdx_wide::launch_wide(q, k, v, out, l, B, Sq, Sk, H, qscale, st);
+    case 40:
+      return launch_fwd<40, true, train_fwd_sm90_kernel<40>>(q, k, v, out, l, B, Sq, Sk, H, c, st);
+    case 80:
+      return launch_fwd<80, true, train_fwd_sm90_kernel<80>>(q, k, v, out, l, B, Sq, Sk, H, c, st);
+    case 160:
+      return launch_fwd<160, true, train_fwd_sm90_kernel<160>>(q, k, v, out, l, B, Sq, Sk, H, c,
+                                                               st);
+    case 512: return gmdx_wide::launch_wide(q, k, v, out, l, B, Sq, Sk, H, c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

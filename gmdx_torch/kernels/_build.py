@@ -37,7 +37,6 @@ ENTRY_POINTS = {
     "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_flash_bsc": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_xattn": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "gmdx_attention_sm90_lse": ("attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_attention_sm90_plan": ("attention", [_I, _I, _I, _I, _I, _I, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

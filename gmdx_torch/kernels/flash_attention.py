@@ -6,13 +6,13 @@ Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
 ``cross_attention_shortk`` (``_xattn_forward_bsc``), over the port's
 head-packed (B, S, H*D) layout instead of the JAX package's (B*H, S, D).
 Kernels: ``csrc/flash_attention.cu`` (the forward at head dims 40/80/160
-and, through ``csrc/attention_wide.cuh``, at the VAE's 512; the backward at
-40/80/160: a dd pre-pass, then the dK/dV and dQ kernels on
-``csrc/attention_sm90.cuh``) and ``csrc/attention.cu`` (``gmdx_flash_bsc``
-on ``csrc/attention_sm90.cuh``, and ``gmdx_xattn`` from
-``csrc/attention_xattn.cuh``). :func:`flash_bsc_plan` and
-:func:`flash_bwd_plan` lay out the Hopper kernels' launches as their
-``*Plan`` structs do.
+on ``csrc/attention_sm90.cuh``'s Hopper forward and, through
+``csrc/attention_wide.cuh``, at the VAE's 512; the backward at 40/80/160: a
+dd pre-pass, then the dK/dV and dQ kernels on ``csrc/attention_sm90.cuh``)
+and ``csrc/attention.cu`` (``gmdx_flash_bsc`` on the same Hopper forward,
+and ``gmdx_xattn`` from ``csrc/attention_xattn.cuh``).
+:func:`attention_fwd_plan` and :func:`flash_bwd_plan` lay out the Hopper
+kernels' launches as their ``*Plan`` structs do.
 
 The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
 at 16384 tokens the whole fp32 score matrix of one call would take tens of
@@ -34,8 +34,8 @@ import torch
 from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, refuse_grad
 
 _LOG2_E = 1.0 / math.log(2.0)
-# SD-1.5's head dims: the instances of csrc/attention_fwd.cuh's forward in
-# attention.cu and flash_attention.cu, and of the backward kernels.
+# SD-1.5's head dims: the instances of csrc/attention_sm90.cuh's forward and
+# backward kernels.
 _KERNEL_HEAD_DIMS = (40, 80, 160)
 # The flash forward also has the VAE's single 512-wide head.
 _FWD_HEAD_DIMS = _KERNEL_HEAD_DIMS + (512,)
@@ -48,6 +48,8 @@ XATTN_MAX_KEYS = 128
 SMEM_BUDGET = 232448
 BOX_COLS = 64
 MAX_STAGES = 4
+# The H100's SMs: the persistent forward runs one block on each at most.
+SMS = 132
 
 
 @dataclass(frozen=True)
@@ -79,18 +81,28 @@ def _stages(fixed: int, stage: int) -> int:
     return min(MAX_STAGES, (SMEM_BUDGET - 1024 - fixed - 256) // stage)
 
 
-def flash_bsc_plan(b: int, sq: int, sk: int, heads: int, d: int) -> AttentionPlan:
-    """The forward's plan (``FwdPlan``): 64 queries for each consumer
-    warpgroup, three at d = 40 and two above, whose accumulators need more
-    registers; K and V in tiles of 128 keys (64 at d = 160, where a 128-key
-    stage would leave room for one)."""
+def attention_fwd_plan(b: int, sq: int, sk: int, heads: int, d: int) -> AttentionPlan:
+    """The forward's plan (``FwdPlan``) for ``attention_kv_resident``,
+    ``flash_attention_fwd`` and ``flash_attention_bsc`` at head dims
+    40/80/160: 64 queries for each consumer warpgroup, three at d = 40 (the
+    loop is bound by each warpgroup's latency chain, so a third gained 22 %)
+    and two above, whose accumulators need more registers; key tiles of 128
+    rows (64 at d = 160, where a 128-key stage would leave room for one); as
+    many stages as fit, then the epilogue's staging tiles (64 x (d + 8) bf16
+    a consumer) where they fit too (d = 40); a persistent grid of one block
+    an SM at most over the (query tile, head, batch) tiles."""
     nch, bq = _chunks(d), 192 if d == 40 else 128
     bkv = 64 if d > 80 else 128
     q_bytes, stage = nch * bq * 128, 2 * nch * bkv * 128
     stages = _stages(q_bytes, stage)
+    smem = 1024 + q_bytes + stages * stage + 256
+    staging = bq * (d + 8) * 2
+    if smem + staging <= SMEM_BUDGET:
+        smem += staging
+    tiles = -(-sq // bq) * heads * b
     return AttentionPlan(
-        owned=bq, tile=bkv, stages=stages, smem_bytes=1024 + q_bytes + stages * stage + 256,
-        grid=(-(-sq // bq), heads, b), boxes=(bq, bkv),
+        owned=bq, tile=bkv, stages=stages, smem_bytes=smem,
+        grid=(min(tiles, SMS), 1, 1), boxes=(bq, bkv),
     )
 
 
@@ -349,6 +361,6 @@ __all__ = [
     "flash_attention_bwd_dd",
     "flash_attention_bwd_dd_plain",
     "flash_attention_bwd_plain",
-    "flash_bsc_plan",
+    "attention_fwd_plan",
     "flash_bwd_plan",
 ]

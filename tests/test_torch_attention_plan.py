@@ -1,12 +1,15 @@
 """The launch plans of the Hopper attention kernels, on the CPU.
 
-``csrc/attention_sm90.cuh`` runs the forward of ``flash_attention_bsc`` and
-the two kernels of ``flash_attention_bwd`` as
-``gmdx_torch/kernels/flash_attention.py:flash_bsc_plan`` and
+``csrc/attention_sm90.cuh`` runs the forward of ``attention_kv_resident``,
+``flash_attention_fwd`` and ``flash_attention_bsc`` and the two kernels of
+``flash_attention_bwd`` as
+``gmdx_torch/kernels/flash_attention.py:attention_fwd_plan`` and
 ``flash_bwd_plan`` lay them out (``tests/test_torch_card.py`` holds the
 plans to the kernels' own structs on the card). These tests hold the plans
-at every self-attention shape of the SD-1.5 paths and walk the kernels'
-tiles in numpy, as the plans cut them: columns past D and rows past S as
+at every self-attention shape of the SD-1.5 paths, check that the dispatch
+sends those shapes to the kernels whose plans they are, and walk the
+kernels' tiles in numpy, as the plans cut them: the forward's persistent
+blocks over (query tile, head, batch), columns past D and rows past S as
 TMA's zeros, keys past Sk masked, the scale folded into exp2. Plain numpy
 and torch: no JAX, no card.
 """
@@ -15,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from gmdx_torch.kernels.attention import attention_route
 from gmdx_torch.kernels.flash_attention import (
-    BOX_COLS, SMEM_BUDGET, flash_attention_bsc_plain, flash_attention_bwd_dd_plain,
-    flash_attention_bwd_plain, flash_attention_fwd_plain, flash_bsc_plan, flash_bwd_plan,
+    BOX_COLS, SMEM_BUDGET, SMS, attention_fwd_plan, flash_attention_bsc_plain,
+    flash_attention_bwd_dd_plain, flash_attention_bwd_plain, flash_attention_fwd_plain,
+    flash_bwd_plan,
 )
 
 LOG2_E = 1.0 / np.log(2.0)
@@ -26,10 +31,20 @@ LOG2_E = 1.0 / np.log(2.0)
 PATH_LEVELS = [(4096, 40), (1024, 80), (256, 160), (16384, 40), (4096, 80), (1024, 160)]
 # The paths' batches: hdrtv's 1 and CFG 2, training's 8, serving's CFG 16.
 BATCHES = (1, 2, 8, 16)
+# Every (batch, tokens, head dim) that reaches the KV-resident kernel or the
+# training forward on a path: the 512^2 UNet levels at the smoke's and the
+# headline's CFG batches 4 and 16 and the GM UNet's headline batch 8, the
+# 1024^2 levels below the first at the up-conversion's batches 1 and 2, the
+# Stage-2 step's levels at batches 2 and 8.
+UNET_512 = [(4096, 40), (1024, 80), (256, 160)]
+UNET_1024 = [(4096, 80), (1024, 160), (256, 160)]
+KVRES_SHAPES = sorted({(b, s, d) for b in (4, 8, 16) for s, d in UNET_512}
+                      | {(b, s, d) for b in (1, 2) for s, d in UNET_1024})
+TRAIN_SHAPES = [(b, s, d) for b in (2, 8) for s, d in UNET_512]
 
 
 def _plans(b, s, d):
-    return (flash_bsc_plan(b, s, s, 8, d), *flash_bwd_plan(b, s, s, 8, d))
+    return (attention_fwd_plan(b, s, s, 8, d), *flash_bwd_plan(b, s, s, 8, d))
 
 
 def _cols(d):
@@ -53,31 +68,72 @@ def test_plans_fit_the_card(b, s, d):
     # The k16 loop covers D inside the chunk tiles.
     assert d <= _k16(d) <= _cols(d)
     assert BOX_COLS * 2 == 128
-    for plan in _plans(b, s, d):
+    fwd, dkv, dq = _plans(b, s, d)
+    for plan in (fwd, dkv, dq):
         assert plan.smem_bytes <= SMEM_BUDGET, plan
         assert plan.stages >= 2, plan
         # TMA: boxes of (64, 1, rows, 1), each dim at most 256.
         assert all(1 <= rows <= 256 for rows in plan.boxes), plan
         # 64 rows for each consumer warpgroup, two or three of them.
         assert plan.owned in (128, 192), plan
+    for plan in (dkv, dq):
         assert plan.grid[1] == heads and plan.grid[2] == b and max(plan.grid[1:]) <= 65535
+    # The forward is persistent: one block an SM at most, over every
+    # (query tile, head, batch).
+    assert fwd.grid == (min(-(-s // fwd.owned) * heads * b, SMS), 1, 1), fwd
 
 
 @pytest.mark.parametrize("sq,sk", [(16384, 16384), (300, 16300), (16300, 300), (1, 1)])
 @pytest.mark.parametrize("d", [40, 80, 160])
 def test_grids_cover_every_row(sq, sk, d):
-    fwd = flash_bsc_plan(2, sq, sk, 8, d)
+    fwd = attention_fwd_plan(2, sq, sk, 8, d)
     dkv, dq = flash_bwd_plan(2, sq, sk, 8, d)
-    for plan, rows in ((fwd, sq), (dkv, sk), (dq, sq)):
+    for plan, rows in ((dkv, sk), (dq, sq)):
         assert (plan.grid[0] - 1) * plan.owned < rows <= plan.grid[0] * plan.owned, plan
+    tiles = -(-sq // fwd.owned)
+    assert (tiles - 1) * fwd.owned < sq <= tiles * fwd.owned
+    assert fwd.grid[0] == min(tiles * 8 * 2, SMS)
 
 
 def test_d40_forward_takes_three_consumers():
     """The d = 40 forward runs three consumer warpgroups (192 queries a
     block); the wider heads keep two for their accumulators."""
-    assert flash_bsc_plan(2, 16384, 16384, 8, 40).owned == 192
-    assert flash_bsc_plan(2, 4096, 4096, 8, 80).owned == 128
+    assert attention_fwd_plan(2, 16384, 16384, 8, 40).owned == 192
+    assert attention_fwd_plan(2, 4096, 4096, 8, 80).owned == 128
     assert flash_bwd_plan(8, 256, 256, 8, 160)[0].tile == 32
+
+
+@pytest.mark.parametrize("b,s,d", KVRES_SHAPES + TRAIN_SHAPES)
+def test_path_shapes_route_to_the_planned_forward(b, s, d):
+    """Every path shape of the KV-resident kernel and the training forward
+    takes the KV-resident route (under autograd, the training forward) and
+    not the long-sequence one, and its forward plan fits the card."""
+    assert attention_route(s, d, sq=s) == "kv_resident"
+    assert attention_route(s, d, sq=s, xattn_kernel=True) == "kv_resident"
+    plan = attention_fwd_plan(b, s, s, 8, d)
+    assert plan.smem_bytes <= SMEM_BUDGET and plan.stages >= 2
+    assert plan.owned == (192 if d == 40 else 128) and plan.tile == (64 if d == 160 else 128)
+    assert attention_route(4 * s, d, sq=4 * s) == ("flash_bsc" if 4 * s > 4096 else "kv_resident")
+
+
+@pytest.mark.parametrize("b,sq,heads,d", [(16, 4096, 8, 40), (2, 256, 8, 160), (1, 300, 3, 80),
+                                          (3, 16384, 8, 40), (1, 1, 1, 40)])
+def test_persistent_walk_takes_every_tile_once(b, sq, heads, d):
+    """Block i of the forward's grid takes tiles i, i + grid, ...; the query
+    tile is the fastest index, then the head, then the batch: every (query
+    tile, head, batch) is taken once, and no block takes two tiles more
+    than another."""
+    plan = attention_fwd_plan(b, sq, sq, heads, d)
+    q_tiles = -(-sq // plan.owned)
+    taken, per_block = {}, []
+    for blk in range(plan.grid[0]):
+        mine = range(blk, q_tiles * heads * b, plan.grid[0])
+        per_block.append(len(mine))
+        for t in mine:
+            key = (t % q_tiles, t // q_tiles % heads, t // q_tiles // heads)
+            taken[key] = taken.get(key, 0) + 1
+    assert len(taken) == q_tiles * heads * b and set(taken.values()) == {1}
+    assert max(per_block) - min(per_block) <= 1
 
 
 def _heads(x, heads, rows, cols):
@@ -101,16 +157,16 @@ def _inputs(b, sq, sk, heads, d, seed):
     return q, k, v
 
 
-def emulate_bsc(q, k, v, heads, scale):
-    """The forward's tile walk: blocks of ``owned`` queries, key tiles of
+def emulate_fwd(q, k, v, heads, scale):
+    """The forward's tile walk: query tiles of ``owned`` rows, key tiles of
     ``tile`` rows, online softmax with exp2(S c - m c). Returns the output
     and the base-2 logsumexp m c + log2(l) of the form with LSE."""
     b, sq, c = q.shape
     sk, d = k.shape[1], c // heads
-    plan = flash_bsc_plan(b, sq, sk, heads, d)
+    plan = attention_fwd_plan(b, sq, sk, heads, d)
     cols = _cols(d)
     nkv = -(-sk // plan.tile)
-    qp = _heads(q, heads, plan.grid[0] * plan.owned, cols)[..., :_k16(d)]
+    qp = _heads(q, heads, -(-sq // plan.owned) * plan.owned, cols)[..., :_k16(d)]
     kp = _heads(k, heads, nkv * plan.tile, cols)[..., :_k16(d)]
     vp = _heads(v, heads, nkv * plan.tile, cols)
     cf = np.float32(scale * LOG2_E)
@@ -183,17 +239,35 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("sq,sk,d", [(300, 16300, 40), (400, 1000, 80), (200, 300, 160),
-                                     (130, 70, 40)])
-def test_forward_tiles_are_the_plain_function(sq, sk, d):
-    heads = 2
+def _check_forward_walk(sq, sk, d, heads, plan=None):
     q, k, v = _inputs(1, sq, sk, heads, d, seed=sq + d)
-    got, lse = emulate_bsc(q, k, v, heads, d**-0.5)
+    if plan is not None:  # the walk at one batch takes the full shape's tiles
+        walk = attention_fwd_plan(1, sq, sk, heads, d)
+        assert (walk.owned, walk.tile, walk.stages) == (plan.owned, plan.tile, plan.stages)
+    got, lse = emulate_fwd(q, k, v, heads, d**-0.5)
     ref = flash_attention_bsc_plain(*(torch.from_numpy(x) for x in (q, k, v)), heads)
     assert _rel_l2(got, ref.numpy()) <= 1e-5
     _, ref_lse = flash_attention_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)), heads,
                                            d**-0.5)
     assert _rel_l2(lse, ref_lse.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("sq,sk,d", [(300, 16300, 40), (400, 1000, 80), (200, 300, 160),
+                                     (130, 70, 40), (4000, 4096, 40), (1000, 1100, 80),
+                                     (300, 256, 160), (4096, 4000, 40)])
+def test_forward_tiles_are_the_plain_function(sq, sk, d):
+    """Ragged query and key counts: the last query tile part empty, the
+    last key tile masked."""
+    _check_forward_walk(sq, sk, d, heads=2)
+
+
+@pytest.mark.parametrize("b,s,d", sorted({(b, s, d) for b, s, d in KVRES_SHAPES + TRAIN_SHAPES
+                                          if b in (2, 8)}))
+def test_path_forward_tiles_are_the_plain_function(b, s, d):
+    """The tile walk of each path shape's plan, out and lse, on one batch
+    and two heads of it (the walk of one (batch, head) is the same at
+    every batch)."""
+    _check_forward_walk(s, s, d, heads=2, plan=attention_fwd_plan(b, s, s, 8, d))
 
 
 @pytest.mark.parametrize("sq,sk,d", [(300, 1000, 40), (300, 260, 80), (100, 200, 160),
@@ -208,3 +282,37 @@ def test_backward_tiles_sum_to_the_plain_gradients(sq, sk, d):
     ref = flash_attention_bwd_plain(*t, out, lse, torch.from_numpy(dout), heads, scale)
     for g, r in zip(got, ref):
         assert _rel_l2(g, r.numpy()) <= 1e-5
+
+
+def _c_entry_points():
+    """{name: (source stem, [parameters])} of every ``extern "C"`` entry
+    point in gmdx_torch/csrc/*.cu, read from the sources."""
+    import re
+    from pathlib import Path
+
+    from gmdx_torch.kernels import _build
+
+    found = {}
+    for path in Path(_build.CSRC).glob("*.cu"):
+        text = path.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = (path.stem, [p.strip() for p in params.split(",")])
+    return found
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each entry point's library and ctypes argtypes (_build.ENTRY_POINTS)
+    match its source and C parameters one for one: a pointer or the stream
+    as c_void_p, an int as c_int, a float as c_float, so that no argument is
+    cut or shifted (the kernels build only on the card)."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+
+    found = _c_entry_points()
+    assert set(found) == set(_build.ENTRY_POINTS)
+    for name, (lib, argtypes) in _build.ENTRY_POINTS.items():
+        source, params = found[name]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float")
+                else ctypes.c_int for p in params]
+        assert (lib, argtypes) == (source, want), name

@@ -17,9 +17,9 @@ import torch
 from gmdx_torch.kernels import attention as tk_attention
 from gmdx_torch.kernels import launch_counts
 from gmdx_torch.kernels.flash_attention import (
-    flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd, flash_attention_bwd_dd,
-    flash_attention_bwd_dd_plain, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain, flash_bsc_plan, flash_bwd_plan,
+    attention_fwd_plan, flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd,
+    flash_attention_bwd_dd, flash_attention_bwd_dd_plain, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain, flash_bwd_plan,
 )
 from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
 from gmdx_torch.kernels.groupnorm import (
@@ -400,7 +400,7 @@ def test_flash_bwd_dd_prepass_on_card(card, s, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [40, 80, 160])
 @pytest.mark.parametrize("b,sq,sk", [(2, 16384, 16384), (8, 4096, 4096), (1, 300, 16300),
-                                     (16, 16300, 256)])
+                                     (16, 16300, 256), (16, 1024, 1024), (2, 256, 256)])
 def test_attention_plans_match_kernels_on_card(card, d, b, sq, sk):
     """The Python plans are the C structs the Hopper attention kernels launch
     with, field for field: rows owned, tile rows, stages, shared-memory
@@ -411,7 +411,7 @@ def test_attention_plans_match_kernels_on_card(card, d, b, sq, sk):
     from gmdx_torch.kernels import _build
 
     lib = _build.library("attention")
-    plans = (flash_bsc_plan(b, sq, sk, 8, d), *flash_bwd_plan(b, sq, sk, 8, d))
+    plans = (attention_fwd_plan(b, sq, sk, 8, d), *flash_bwd_plan(b, sq, sk, 8, d))
     for kind, plan in enumerate(plans):
         got = (ctypes.c_int * 9)()
         assert lib.gmdx_attention_sm90_plan(kind, b, sq, sk, 8, d, got) == 0
@@ -425,24 +425,59 @@ def test_attention_plans_match_kernels_on_card(card, d, b, sq, sk):
     (300, 256, 1280),
 ])
 def test_attention_sm90_lse_on_card(card, sq, sk, c):
-    """attention_sm90.cuh's forward with the base-2 logsumexp
-    (gmdx_attention_sm90_lse): out and lse against the fp32 plain forward,
-    ragged query and key counts included, at the bounds of the training
-    forward's test."""
-    from gmdx_torch.kernels import _build
-
+    """attention_sm90.cuh's forward with the base-2 logsumexp, as the
+    training forward (flash_attention_fwd) launches it: out and lse against
+    the fp32 plain forward, ragged query and key counts included (an lse
+    row written past Sq would land on the next head's rows)."""
     heads, d = 8, c // 8
     q = _bf16(card, 2, sq, c)
     k, v = _bf16(card, 2, sk, c), _bf16(card, 2, sk, c)
-    out = torch.empty_like(q)
-    lse = torch.full((2, heads, sq), float("nan"), device="cuda")
-    _build.call("gmdx_attention_sm90_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), 2, sq, sk, heads, d,
-                float(d**-0.5 / np.log(2.0)), torch.cuda.current_stream().cuda_stream)
+    before = launch_counts()["flash_attention_fwd"]
+    out, lse = flash_attention_fwd(q, k, v, heads)
+    assert launch_counts()["flash_attention_fwd"] == before + 1
+    assert lse.shape == (2, heads, sq)
     ref_out, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), heads,
                                                  d**-0.5)
     assert _rel_l2(out, ref_out) <= 1e-2
     assert float((lse - ref_lse).abs().max()) <= 2e-2
+    assert _rel_l2(lse, ref_lse) <= 1e-2
+
+
+# The (batch, tokens, width) of every self-attention that reaches the
+# KV-resident kernel on a path (the 512^2 UNet levels at the CFG batches 8
+# and 16, the 1024^2 levels below the first at the up-conversion's 1 and 2)
+# and of the training forward (the Stage-2 levels at batches 2 and 8).
+KVRES_PATH = [(b, s, c) for b in (8, 16) for s, c in ((4096, 320), (1024, 640), (256, 1280))] + [
+    (b, s, c) for b in (1, 2) for s, c in ((4096, 640), (1024, 1280), (256, 1280))]
+TRAIN_PATH = [(b, s, c) for b in (2, 8) for s, c in ((4096, 320), (1024, 640), (256, 1280))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", KVRES_PATH + [(3, 4000, 320), (2, 1000, 640), (1, 300, 1280)])
+def test_kv_resident_path_shapes_on_card(card, b, s, c):
+    """The KV-resident kernel at every path shape and at ragged ones,
+    against its fp32 plain version; the launch is counted."""
+    q, k, v = (_bf16(card, b, s, c) for _ in range(3))
+    before = launch_counts()["attention_kv_resident"]
+    out = tk_attention.attention_kv_resident(q, k, v, 8)
+    assert launch_counts()["attention_kv_resident"] == before + 1
+    ref = tk_attention.attention_kv_resident_plain(q.float(), k.float(), v.float(), 8)
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,sk,c", [(b, s, s, c) for b, s, c in TRAIN_PATH]
+                         + [(2, 4000, 4096, 320), (2, 1000, 900, 640), (2, 300, 257, 1280)])
+def test_training_forward_path_shapes_on_card(card, b, s, sk, c):
+    """The training forward at every Stage-2 shape and at ragged ones: out
+    and lse within 1e-2 relative L2 of the fp32 plain version."""
+    q = _bf16(card, b, s, c)
+    k, v = _bf16(card, b, sk, c), _bf16(card, b, sk, c)
+    out, lse = flash_attention_fwd(q, k, v, 8)
+    ref_out, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 8,
+                                                 (c // 8) ** -0.5)
+    assert _rel_l2(out, ref_out) <= 1e-2
+    assert _rel_l2(lse, ref_lse) <= 1e-2
 
 
 @pytest.mark.cuda
