@@ -12,10 +12,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. device: card name, power limit and capability; requires a (9, 0) card.
   2. build: compiles gmdx_torch/csrc with nvcc (seconds printed), prints
      each kernel's ptxas registers and spills, and fails unless every
-     instance of the Hopper kernels (the GEMM core's conv and FF;
-     attention_sm90.cuh's forward as the KV-resident, the long-sequence and
-     the training kernel, and the flash backward's dK/dV and dQ) issues
-     wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS and spills nothing.
+     instance of the Hopper kernels (the GEMM core's conv, both FFs and
+     F(4x4)'s products; attention_sm90.cuh's forward as the KV-resident,
+     the long-sequence and the training kernel, and the flash backward's
+     dK/dV and dQ) issues wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS
+     and spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -29,11 +30,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
      the single-UNet SDR->HDR path's shapes, batch --sdr2hdr-batch, with
      F(4x4) also held, by its max error over the output's peak, to the JAX
      package's bar against the fp32 direct conv (its relative L2 there is
-     reported: the algorithm's own bf16 error). Attention rows also give
-     their exp2 count and the SFU's floor for it; the four kernels on
-     attention_sm90.cuh (attention_kv_resident, flash_attention_fwd,
-     flash_attention_bsc, flash_attention_bwd) their launch plans, each
-     held to the kernel's own (gmdx_attention_sm90_plan).
+     reported: the algorithm's own bf16 error), its rows timing the
+     implicit-GEMM conv3x3 on the same input beside F.conv2d and carrying
+     its launch plan, held to the kernel's own (gmdx_wino4_plan).
+     Attention rows also give their exp2 count and the SFU's floor for it;
+     the four kernels on attention_sm90.cuh (attention_kv_resident,
+     flash_attention_fwd, flash_attention_bsc, flash_attention_bwd) their
+     launch plans, each held to the kernel's own (gmdx_attention_sm90_plan).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -78,8 +81,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
      decoded and the original SDR, .hdr read back; first with the three
      kernel opt-ins (short-K cross-attention, fused add + LayerNorm, F(4x4))
      on the UNet and the VAE, each kernel's launches checked exactly, then
-     with the default kernels. img/s, s/iteration, encode and decode
-     seconds and peak memory for both.
+     with the same opt-ins but F(4x4) off (winograd_m=2: the implicit-GEMM
+     conv), then with the default kernels. img/s, s/iteration, encode and
+     decode seconds and peak memory for each.
  12. sdr2hdr_e2e: batch 1, 3 steps, kernels against plain versions with the
      three opt-ins and with F(4x4) off: decoded GM and HDR >= 40 dB; the
      opt-in kernels against the default kernels, report only.
@@ -175,6 +179,9 @@ SDR2HDR_E2E_STEPS = 3
 # JAX package's own bar (tests/test_kernels.py:1192-1219).
 WINO4_BAR_FACTOR, WINO4_BAR_FLOOR = 10.0, 5e-2
 OPT_INS = {"xattn_kernel": True, "fused_addln": True, "winograd_m": 4}
+# The same with the convs on the default F(2x2) route (the implicit-GEMM
+# conv3x3): sdr2hdr's third run, to read what F(4x4) itself buys.
+OPT_INS_WINO2 = dict(OPT_INS, winograd_m=2)
 
 
 def emit(obj) -> None:
@@ -271,13 +278,14 @@ def phase_build() -> None:
 
 
 # The Hopper kernels, by library: every instance of each must issue wgmma
-# (HGMMA) and TMA loads (UTMALDG) in its SASS. The conv and FF kernels run
-# on the GEMM core (gemm_sm90.cuh); the KV-resident attention and
-# flash_attention_bsc (libattention), the training forward and the flash
-# backward (libflash_attention) on attention_sm90.cuh.
+# (HGMMA) and TMA loads (UTMALDG) in its SASS. The conv, both FF kernels and
+# F(4x4)'s products run on the GEMM core (gemm_sm90.cuh); the KV-resident
+# attention and flash_attention_bsc (libattention), the training forward and
+# the flash backward (libflash_attention) on attention_sm90.cuh.
 SM90_KERNELS = {
     "conv3x3": ("ws_gemm_kernel",),
     "geglu_ff": ("ws_gemm_kernel",),
+    "winograd4": ("ws_gemm_kernel",),
     "attention": ("flash_bsc_kernel", "kvres_sm90_kernel"),
     "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
 }
@@ -404,6 +412,25 @@ def _fwd_plan_keys(b, s, heads, d) -> dict:
     p = attention_fwd_plan(b, s, s, heads, d)
     return {"plan": _attention_plan(0, p, b, s, s, heads, d),
             "l2_kv_bytes": -(-s // p.owned) * b * heads * 2 * s * d * 2}
+
+
+def _wino4_plan_keys(b, hw, c, o) -> dict:
+    """The F(4x4) plan at this shape, held to the C plan the kernel
+    launches with (gmdx_wino4_plan) field for field."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.winograd import winograd4_plan
+
+    p = winograd4_plan(b, hw, hw, c, o, True)
+    got = (ctypes.c_int * 12)()
+    if _build.library("winograd4").gmdx_wino4_plan(b, hw, hw, c, o, got) \
+            or list(got) != p.c_fields():
+        raise SystemExit(f"chip_smoke: F(4x4) plan at {[b, hw, c, o]}: kernel {list(got)}, "
+                         f"Python {p.c_fields()}")
+    keys = ("bn", "units", "grid", "stages", "smem_bytes", "in_cgt", "in_tx", "in_ty", "in_grid",
+            "out_grid")
+    return {"plan": {k: getattr(p, k) for k in keys}}
 
 
 def _ff_plan_keys(m, dim) -> dict:
@@ -784,7 +811,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
         add_layer_norm, add_layer_norm_plain, geglu_ff, geglu_ff_plain,
     )
     from gmdx_torch.kernels.winograd import (
-        pack_weight4, winograd4_conv3x3, winograd4_conv3x3_plain,
+        conv3x3, pack_weight, pack_weight4, winograd4_conv3x3, winograd4_conv3x3_plain,
     )
 
     cfg_b, sk, heads = 2 * batch, 77, 8
@@ -838,6 +865,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             lambda: geglu_ff_plain(x.float(), res.float(), *(t.float() for t in ff)),
             lib, 24.0 * m * dim * dim,
             (3 * m * dim + ff[0].numel() + ff[2].numel() + 2 * inner + dim) * 2, results,
+            extra=_ff_plan_keys(m, dim),
         )
 
     for bb, hw, c, o in ((cfg_b, 64, 320, 320), (cfg_b, 32, 640, 640),
@@ -846,9 +874,13 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
         w = _randn(gen, o, c, 3, 3, scale=(9 * c) ** -0.5)
         bias = _randn(gen, o, scale=0.1)
         u = pack_weight4(w, torch.bfloat16)
+        wp = pack_weight(w)
         x_nchw = x[:, 1:-1, 1:-1].permute(0, 3, 1, 2)
         tiles = bb * (hw // 4) ** 2
         shape = [bb, hw, hw, c, o, "pre_padded"]
+        # Beside F.conv2d: the implicit-GEMM conv3x3 kernel on the same
+        # input, the default route of the same conv.
+        conv_ms = time_ms(lambda: conv3x3(x, wp, bias, pre_padded=True))
         _check(
             "winograd4_conv3x3", shape,
             lambda: winograd4_conv3x3(x, u, bias, pre_padded=True),
@@ -856,6 +888,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             lambda: winograd4_conv3x3_plain(x, u, bias, pre_padded=True),
             lambda: F.conv2d(x_nchw, w, bias, padding=1),
             2.0 * 36 * tiles * c * o, (x.numel() + u.numel() + o + bb * hw * hw * o) * 2, results,
+            library="F.conv2d", extra={"conv3x3_ms": conv_ms, **_wino4_plan_keys(bb, hw, c, o)},
         )
         ref = F.conv2d(x_nchw.float(), w.float(), bias.float(), padding=1)
         out = winograd4_conv3x3(x, u, bias, pre_padded=True).permute(0, 3, 1, 2)
@@ -946,10 +979,10 @@ PROFILE_CATEGORIES = (
     ("group_norm_silu_bwd", ("gn_bwd_",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),
-    ("geglu_ff", ("geglu_gemm", "ff_gemm2")),
+    ("geglu_ff", ("NoLnGegluOp", "NoLnOutOp")),
     ("cross_attention_shortk", ("xattn_kernel",)),
     ("add_layer_norm", ("add_ln_kernel",)),
-    ("winograd4_conv3x3", ("wino4_",)),
+    ("winograd4_conv3x3", ("wino4_", "Wino4Op")),
     ("conv3x3", ("ConvOp", "splitk_reduce_kernel")),
     ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
     ("cudnn conv dgrad", ("xmma_dgrad", "dgrad")),
@@ -1533,7 +1566,8 @@ def phase_sdr2hdr(args) -> dict[str, int]:
                             for p in m.parameters()) / 1e9})
     n_iter = pipe.scheduler.num_steps(steps)
     opt_in_counts = None
-    for name, options in (("opt_ins", OPT_INS), ("defaults", {})):
+    for name, options in (("opt_ins", OPT_INS), ("opt_ins_wino2", OPT_INS_WINO2),
+                          ("defaults", {})):
         set_options(pipe, **options)
         run_sdr2hdr(pipe, sdr, cond, uncond, 1, args.seed + 42)  # warm-up: weight caches, plans
         if args.profile:
@@ -1582,6 +1616,13 @@ def phase_sdr2hdr(args) -> dict[str, int]:
             if wrong:
                 raise SystemExit(f"chip_smoke: sdr2hdr launches (got, want): {wrong}")
             opt_in_counts = counts
+        elif name == "opt_ins_wino2":
+            want = {k: SDR2HDR_PER_UNET_CALL[k] * n_iter
+                    for k in ("cross_attention_shortk", "add_layer_norm")}
+            want["winograd4_conv3x3"] = 0
+            wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+            if wrong:
+                raise SystemExit(f"chip_smoke: sdr2hdr ({name}) launches (got, want): {wrong}")
         elif any(counts[k] for k in ("cross_attention_shortk", "add_layer_norm",
                                      "winograd4_conv3x3")):
             raise SystemExit(f"chip_smoke: sdr2hdr with the default kernels launched an "
@@ -1602,10 +1643,10 @@ def phase_sdr2hdr_e2e(args) -> None:
 
     pipe = build_gm_pipeline(args.seed + 40)
     sdr, cond, uncond = sdr2hdr_inputs(1, args.seed + 44)
-    no_wino4 = dict(OPT_INS, winograd_m=2)
     outs = {}
     for name, flag, options in (("opt_ins", True, OPT_INS), ("opt_ins_plain", False, OPT_INS),
-                                ("no_wino4", True, no_wino4), ("no_wino4_plain", False, no_wino4),
+                                ("no_wino4", True, OPT_INS_WINO2),
+                                ("no_wino4_plain", False, OPT_INS_WINO2),
                                 ("defaults", True, {})):
         set_options(pipe, **options)
         for m in (pipe.unet, pipe.vae):

@@ -14,7 +14,7 @@
 // Bound on the H100: bytes, two bf16 reads and two bf16 writes an element
 // (8 bytes against ~10 operations). 16-byte loads and stores, one row a
 // warp, 8 rows a block.
-#include "gemm_tile.cuh"
+#include "bf16x8.cuh"
 
 using namespace gmdx;
 

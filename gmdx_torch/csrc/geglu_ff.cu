@@ -22,11 +22,12 @@
 //
 // gmdx_geglu_ff replaces gmdx/kernels/geglu_ff.py:geglu_ff (TPU kernel
 // _ff_kernel, pallas_call in _ff_pallas): the same two GEMMs without the
-// LayerNorm, out = GEGLU(x) @ W2 + b2 + residual, still on the shared tile
-// GEMM of gemm_tile.cuh (WMMA, cp.async double buffering). GEMM1 reads x
-// with a plain cp.async loader; GEMM2 adds the residual in its epilogue.
-// Same bound: 24 * M * dim^2 operations, tensor-core bound at dims 320 and
-// 640, the dims the JAX rule gives it.
+// LayerNorm, out = GEGLU(x) @ W2 + b2 (+ residual), on the same core and
+// the same launch plan (kernels/geglu_ff.py:geglu_ff_ln_plan). GEMM1's A
+// map is over x itself: with no LayerNorm there is no row pre-pass. The
+// residual add of GEMM2's epilogue is skipped where residual is null. The
+// two instances are types of their own (NoLnGegluOp, NoLnOutOp), so that a
+// profile tells their launches from the LN-fused FF's.
 //
 // Bound on the H100: 2 * M * dim * 12 * dim operations on about
 // (3 * dim + 4 * dim) * 2 bytes a token plus the weights, some 1000
@@ -34,75 +35,8 @@
 // round trip of act (and h, s) through device memory is what remains
 // between the kernel and its bound: keeping act on chip, as the TPU kernel
 // keeps it in VMEM, is later work.
-#include "gemm_tile.cuh"
+#include "bf16x8.cuh"
 #include "gemm_sm90.cuh"
-
-using namespace gmdx;
-
-namespace {
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// GEMM1's epilogue: act = (hidden + b1a) * gelu_erf(gate + b1b) for the
-// tile's 64 hidden columns and their 64 gate columns.
-__device__ __forceinline__ void geglu_epilogue(const float* ct, const __nv_bfloat16* b1,
-                                               __nv_bfloat16* act, int m0, int nh0, int M,
-                                               int inner) {
-  for (int c = threadIdx.x; c < BM * (BN / 16); c += GEMM_THREADS) {
-    const int r = c / (BN / 16);
-    const int j = (c % (BN / 16)) * 8;
-    const int m = m0 + r;
-    const int n = nh0 + j;
-    if (m >= M || n >= inner) continue;
-    float bh[8], bg[8], v[8];
-    load8(b1 + n, bh);
-    load8(b1 + inner + n, bg);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float hid = ct[r * LDC + j + e] + bh[e];
-      const float gate = ct[r * LDC + BN / 2 + j + e] + bg[e];
-      v[e] = hid * gelu_erf(gate);
-    }
-    *reinterpret_cast<uint4*>(act + (size_t)m * inner + n) = pack8(v);
-  }
-}
-
-// GEMM1 of the LN-free feed-forward (gmdx_geglu_ff): x straight from memory.
-__global__ void __launch_bounds__(GEMM_THREADS)
-geglu_gemm1_kernel(RowALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b1,
-                   __nv_bfloat16* __restrict__ act, int M, int inner) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int m0 = blockIdx.x * BM;
-  const int nh0 = blockIdx.y * (BN / 2);
-  geglu_epilogue(gemm_tile(al, bl, m0, nh0, al.K, smem), b1, act, m0, nh0, M, inner);
-}
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-ff_gemm2_kernel(RowALoader al, WeightLoader bl, const __nv_bfloat16* __restrict__ b2,
-                const __nv_bfloat16* __restrict__ residual, __nv_bfloat16* __restrict__ out,
-                int M, int dim) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const float* ct = gemm_tile(al, bl, m0, n0, al.K, smem);
-  for (int c = threadIdx.x; c < BM * (BN / 8); c += GEMM_THREADS) {
-    const int r = c / (BN / 8);
-    const int j = (c % (BN / 8)) * 8;
-    const int m = m0 + r;
-    const int n = n0 + j;
-    if (m >= M || n >= dim) continue;
-    float bv[8], rv[8] = {}, v[8];
-    load8(b2 + n, bv);
-    if (residual != nullptr) load8(residual + (size_t)m * dim + n, rv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = ct[r * LDC + j + e] + bv[e] + rv[e];
-    *reinterpret_cast<uint4*>(out + (size_t)m * dim + n) = pack8(v);
-  }
-}
-
-}  // namespace
 
 namespace ffln {
 namespace s9 = gmdx::sm90;
@@ -225,7 +159,7 @@ struct Gemm1Op {
   }
 };
 
-// GEMM2: out = act @ W2^T + b2 + s.
+// GEMM2: out = act @ W2^T + b2 + res (res may be null: nothing added).
 template <int BN>
 struct Gemm2Op {
   static constexpr int kBN = BN;
@@ -262,7 +196,8 @@ struct Gemm2Op {
       float v0 = 0.0f, v1 = 0.0f;
       if (m < M && n < dim) {
         const float2 bv = s9::load_bf16x2(b2 + n);
-        const float2 sv = s9::load_bf16x2(res + (size_t)m * dim + n);
+        const float2 sv = res != nullptr ? s9::load_bf16x2(res + (size_t)m * dim + n)
+                                         : make_float2(0.0f, 0.0f);
         v0 = acc[i] + bv.x + sv.x;
         v1 = acc[i + 1] + bv.y + sv.y;
       }
@@ -273,20 +208,53 @@ struct Gemm2Op {
   }
 };
 
+// The LN-free FF's instances: the same ops under names of their own.
+struct NoLnGegluOp : Gemm1Op {};
 template <int BN>
-int gemm2(const CUtensorMap& ta, const void* w2, const void* b2, const void* res, void* out,
-          int M, int dim, int inner, cudaStream_t st) {
-  CUtensorMap tb{};
-  if (!s9::make_map_2d(&tb, w2, dim, inner, BN)) return s9::TMA_MAP_REFUSED;
-  Gemm2Op<BN> op;
-  op.units = {(M + s9::BM - 1) / s9::BM, (dim + BN - 1) / BN, 1, (inner + s9::BK - 1) / s9::BK,
-              (inner + s9::BK - 1) / s9::BK};
+struct NoLnOutOp : Gemm2Op<BN> {};
+
+// GEMM1 of either FF: act = GEGLU(a @ W1^T + b1), a (M, dim) = h or x.
+template <class Op>
+int gemm1(const void* a, const void* w1, const void* b1, void* act, int M, int dim, int inner,
+          cudaStream_t st) {
+  CUtensorMap ta{}, tb{};
+  if (!s9::make_map_2d(&ta, a, M, dim, s9::BM) || !s9::make_map_2d(&tb, w1, 2 * inner, dim, 64))
+    return s9::TMA_MAP_REFUSED;
+  Op op;
+  const int k1 = (dim + s9::BK - 1) / s9::BK;
+  op.units = {(M + s9::BM - 1) / s9::BM, (inner + 63) / 64, 1, k1, k1};
+  op.M = M;
+  op.inner = inner;
+  op.b1 = static_cast<const __nv_bfloat16*>(b1);
+  op.act = static_cast<__nv_bfloat16*>(act);
+  return s9::launch(ta, tb, op, st);
+}
+
+template <class Op>
+int gemm2_bn(const void* act, const void* w2, const void* b2, const void* res, void* out, int M,
+             int dim, int inner, cudaStream_t st) {
+  constexpr int BN = Op::kBN;
+  CUtensorMap ta{}, tb{};
+  if (!s9::make_map_2d(&ta, act, M, inner, s9::BM) || !s9::make_map_2d(&tb, w2, dim, inner, BN))
+    return s9::TMA_MAP_REFUSED;
+  Op op;
+  const int k2 = (inner + s9::BK - 1) / s9::BK;
+  op.units = {(M + s9::BM - 1) / s9::BM, (dim + BN - 1) / BN, 1, k2, k2};
   op.M = M;
   op.dim = dim;
   op.b2 = static_cast<const __nv_bfloat16*>(b2);
   op.res = static_cast<const __nv_bfloat16*>(res);
   op.out = static_cast<__nv_bfloat16*>(out);
   return s9::launch(ta, tb, op, st);
+}
+
+// GEMM2 of either FF: out = act @ W2^T + b2 (+ res), tile width bn2.
+template <template <int> class Op>
+int gemm2(const void* act, const void* w2, const void* b2, const void* res, void* out, int M,
+          int dim, int inner, int bn2, cudaStream_t st) {
+  if (bn2 == 160) return gemm2_bn<Op<160>>(act, w2, b2, res, out, M, dim, inner, st);
+  if (bn2 == 128) return gemm2_bn<Op<128>>(act, w2, b2, res, out, M, dim, inner, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace ffln
@@ -298,63 +266,27 @@ extern "C" int gmdx_geglu_ff_ln(const void* x, const void* a, const void* gamma,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 void* h, void* s, void* act, void* out, int M, int dim, int inner,
                                 float eps, int bn2, void* stream) {
-  namespace s9 = gmdx::sm90;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* ab = static_cast<const __nv_bfloat16*>(a);
   __nv_bfloat16* sb = ab != nullptr ? static_cast<__nv_bfloat16*>(s) : nullptr;
   ffln::ln_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
-      xb, ab, static_cast<const __nv_bfloat16*>(gamma), static_cast<const __nv_bfloat16*>(beta),
-      sb, static_cast<__nv_bfloat16*>(h), M, dim, eps);
+      static_cast<const __nv_bfloat16*>(x), ab, static_cast<const __nv_bfloat16*>(gamma),
+      static_cast<const __nv_bfloat16*>(beta), sb, static_cast<__nv_bfloat16*>(h), M, dim, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  CUtensorMap ta1{}, tb1{}, ta2{};
-  if (!s9::make_map_2d(&ta1, h, M, dim, s9::BM) || !s9::make_map_2d(&tb1, w1, 2 * inner, dim, 64) ||
-      !s9::make_map_2d(&ta2, act, M, inner, s9::BM))
-    return s9::TMA_MAP_REFUSED;
-  ffln::Gemm1Op op1;
-  const int k1 = (dim + s9::BK - 1) / s9::BK;
-  op1.units = {(M + s9::BM - 1) / s9::BM, (inner + 63) / 64, 1, k1, k1};
-  op1.M = M;
-  op1.inner = inner;
-  op1.b1 = static_cast<const __nv_bfloat16*>(b1);
-  op1.act = static_cast<__nv_bfloat16*>(act);
-  int e = s9::launch(ta1, tb1, op1, st);
+  const int e = ffln::gemm1<ffln::Gemm1Op>(h, w1, b1, act, M, dim, inner, st);
   if (e != 0) return e;
   const void* res = sb != nullptr ? static_cast<const void*>(sb) : x;
-  if (bn2 == 160) return ffln::gemm2<160>(ta2, w2, b2, res, out, M, dim, inner, st);
-  if (bn2 == 128) return ffln::gemm2<128>(ta2, w2, b2, res, out, M, dim, inner, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return ffln::gemm2<ffln::Gemm2Op>(act, w2, b2, res, out, M, dim, inner, bn2, st);
 }
 
 // The LN-free feed-forward: x, residual (may be null), out: (M, dim); w1, b1,
-// w2, b2 and the (M, inner) scratch act as for gmdx_geglu_ff_ln.
+// w2, b2, the (M, inner) scratch act and bn2 as for gmdx_geglu_ff_ln.
 extern "C" int gmdx_geglu_ff(const void* x, const void* residual, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* act, void* out, int M, int dim,
-                             int inner, void* stream) {
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(geglu_gemm1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         GEMM_SMEM_BYTES);
-    cudaFuncSetAttribute(ff_gemm2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         GEMM_SMEM_BYTES);
-    attr = true;
-  }
+                             int inner, int bn2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RowALoader al1{static_cast<const __nv_bfloat16*>(x), M, dim};
-  WeightLoader bl1{static_cast<const __nv_bfloat16*>(w1), inner, dim, inner};
-  dim3 g1((M + BM - 1) / BM, (inner + BN / 2 - 1) / (BN / 2));
-  geglu_gemm1_kernel<<<g1, GEMM_THREADS, GEMM_SMEM_BYTES, st>>>(
-      al1, bl1, static_cast<const __nv_bfloat16*>(b1), static_cast<__nv_bfloat16*>(act), M, inner);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  RowALoader al2{static_cast<const __nv_bfloat16*>(act), M, inner};
-  WeightLoader bl2{static_cast<const __nv_bfloat16*>(w2), dim, inner, 0};
-  dim3 g2((M + BM - 1) / BM, (dim + BN - 1) / BN);
-  ff_gemm2_kernel<<<g2, GEMM_THREADS, GEMM_SMEM_BYTES, st>>>(
-      al2, bl2, static_cast<const __nv_bfloat16*>(b2),
-      static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out), M, dim);
-  return static_cast<int>(cudaGetLastError());
+  const int e = ffln::gemm1<ffln::NoLnGegluOp>(x, w1, b1, act, M, dim, inner, st);
+  if (e != 0) return e;
+  return ffln::gemm2<ffln::NoLnOutOp>(act, w2, b2, residual, out, M, dim, inner, bn2, st);
 }

@@ -1,6 +1,6 @@
-// Hopper GEMM core for the conv and feed-forward kernels: TMA loads into a
-// ring of swizzled shared-memory stages, wgmma from shared memory, and a
-// warp-specialised, persistent block.
+// Hopper GEMM core for the conv, feed-forward and Winograd kernels: TMA
+// loads into a ring of swizzled shared-memory stages, wgmma from shared
+// memory, and a warp-specialised, persistent block.
 //
 // C[M, N] = A[M, K] @ B[N, K]^T, bf16 operands, fp32 accumulators. A block
 // has three warpgroups (384 threads):
@@ -23,18 +23,22 @@
 // where a unit is (row tile, column tile, K split). The producer runs ahead
 // across units, so one unit's epilogue overlaps the next unit's loads.
 //
-// Hooks a kernel supplies, as in gemm_tile.cuh: the A producer (TMA box
-// coordinates or a gather) and the epilogue. The epilogue runs on the
-// accumulator registers (no fp32 C tile in shared memory): it writes its
-// bf16 result into a small padded staging tile per consumer warpgroup and
-// stores that with 16-byte stores, or writes fp32 split-K partials straight
-// from the registers.
+// Hooks a kernel supplies: the A producer (TMA box coordinates or a
+// gather), the epilogue and, for K loops cut in segments, a fold between
+// them. The epilogue runs on the accumulator registers (no fp32 C tile in
+// shared memory): it writes its bf16 result into a small padded staging
+// tile per consumer warpgroup and stores that with 16-byte stores, or
+// writes fp32 results (split-K partials, Winograd products) straight from
+// the registers.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace gmdx {
 namespace sm90 {
@@ -122,6 +126,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -193,6 +206,22 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// m64n64k16: 32 fp32 accumulators a thread.
+__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // m64n128k16: 64 fp32 accumulators a thread.
 __device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -242,8 +271,10 @@ __device__ __forceinline__ void wgmma_m64n160(float* d, uint64_t da, uint64_t db
 
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db, int accumulate) {
-  static_assert(BN == 128 || BN == 160, "wgmma instance");
-  if constexpr (BN == 128) {
+  static_assert(BN == 64 || BN == 128 || BN == 160, "wgmma instance");
+  if constexpr (BN == 64) {
+    wgmma_m64n64(d, da, db, accumulate);
+  } else if constexpr (BN == 128) {
     wgmma_m64n128(d, da, db, accumulate);
   } else {
     wgmma_m64n160(d, da, db, accumulate);
@@ -364,6 +395,26 @@ __device__ __forceinline__ void store_staged(const __nv_bfloat16* stg, __nv_bflo
   }
 }
 
+// A segmented unit's K loop: runs of n slices, each folded into z by
+// op.fold<g> (g a constant, so the fold's coefficients are immediates).
+template <class Op, class R, class P, int... G>
+__device__ __forceinline__ void consume_segments(const Op& op, float* z, float* acc,
+                                                 const R& ring, P& pipe, int n, int wg,
+                                                 std::integer_sequence<int, G...>) {
+  ((consume_unit<Op::kBN, Op::kOutW, 1>(acc, ring, pipe, n, wg), op.template fold<G>(z, acc)),
+   ...);
+}
+
+// An op's K segments (Op::kSegments where it declares one, else 1).
+template <class Op, class = void>
+struct Segments {
+  static constexpr int value = 1;
+};
+template <class Op>
+struct Segments<Op, std::void_t<decltype(Op::kSegments)>> {
+  static constexpr int value = Op::kSegments;
+};
+
 // The warp-specialised persistent kernel. `Op` supplies:
 //   Units units; static constexpr int kBN, kOutW;
 //   static constexpr bool kGather, kPingPong;
@@ -374,6 +425,13 @@ __device__ __forceinline__ void store_staged(const __nv_bfloat16* stg, __nv_bflo
 //     (gather route: the whole producer warpgroup runs its own loop)
 //   __device__ void epilogue(float* acc, const Ring&, int wg, int m0, int nt, int split) const;
 //     (64 rows from m0: the accumulators of one wgmma row block)
+// and, for a cooperative op whose units fold their K loop in segments:
+//   static constexpr int kSegments, kFoldRegs;
+//   template <int G> __device__ void fold(float* z, const float* acc) const;
+// Each unit's K loop is then kSegments equal runs of slices; after run g
+// the consumer hands its accumulators to fold (z: kFoldRegs floats a
+// thread, zero at the unit's start) and the next run starts afresh; the
+// epilogue receives z in place of the accumulators.
 // Cooperative (kPingPong false): both consumer warpgroups work on every
 // unit, 64 rows each. Ping-pong (kPingPong, units of one split): each
 // warpgroup takes every other unit of the block whole, so that one
@@ -454,8 +512,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int u = blockIdx.x; u < op.units.count(); u += gridDim.x) {
       int mt, nt, s0, s1;
       op.units.decode(u, mt, nt, s0, s1);
-      consume_unit<BN, OUTW, 1>(acc, ring, pipe, s1 - s0, wg);
-      op.epilogue(acc, ring, wg, mt * BM + wg * 64, nt, u % op.units.split);
+      if constexpr (Segments<Op>::value == 1) {
+        consume_unit<BN, OUTW, 1>(acc, ring, pipe, s1 - s0, wg);
+        op.epilogue(acc, ring, wg, mt * BM + wg * 64, nt, u % op.units.split);
+      } else {
+        float z[Op::kFoldRegs];
+#pragma unroll
+        for (int i = 0; i < Op::kFoldRegs; ++i) z[i] = 0.0f;
+        consume_segments(op, z, acc, ring, pipe, (s1 - s0) / Segments<Op>::value, wg,
+                         std::make_integer_sequence<int, Segments<Op>::value>{});
+        op.epilogue(z, ring, wg, mt * BM + wg * 64, nt, 0);
+      }
     }
   }
 }
@@ -526,7 +593,10 @@ inline int num_sms() {
 // Error code of a launch whose tensor map cuTensorMapEncodeTiled refused.
 constexpr int TMA_MAP_REFUSED = -1;
 
-// Launches ws_gemm_kernel<Op> persistently: one block per SM at most.
+// The persistent grid of `units` units: one block per SM at most.
+inline int persistent_grid(int units) { return units < num_sms() ? units : num_sms(); }
+
+// Launches ws_gemm_kernel<Op> persistently.
 template <class Op>
 inline int launch(const CUtensorMap& ta, const CUtensorMap& tb, const Op& op, cudaStream_t st) {
   using S = Smem<Op::kBN, Op::kOutW>;
@@ -537,8 +607,7 @@ inline int launch(const CUtensorMap& ta, const CUtensorMap& tb, const Op& op, cu
   }
   const int units = op.units.count();
   if (units == 0) return 0;
-  const int grid = units < num_sms() ? units : num_sms();
-  ws_gemm_kernel<Op><<<grid, THREADS, S::BYTES, st>>>(ta, tb, op);
+  ws_gemm_kernel<Op><<<persistent_grid(units), THREADS, S::BYTES, st>>>(ta, tb, op);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,32 +46,14 @@
 // its border, a constant of the forward, carries no gradient.
 // Bound: bytes; x and g read twice, dx written once, ~30 operations an
 // element.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bf16x8.cuh"
+
+using gmdx::load8;
+using gmdx::pack8;
 
 namespace {
 
 constexpr int MAXG = 64;
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
 
 struct GnArgs {
   const __nv_bfloat16* x;

@@ -40,6 +40,7 @@ ENTRY_POINTS = {
     "gmdx_attention_sm90_plan": ("attention", [_I, _I, _I, _I, _I, _I, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "gmdx_wino4_plan": ("winograd4", [_I, _I, _I, _I, _I, _P]),
     "gmdx_conv3x3": (
         "conv3x3",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -57,7 +58,7 @@ ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     ),
     "gmdx_geglu_ff": (
-        "geglu_ff", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "geglu_ff", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
     "gmdx_flash_fwd": (
         "flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

@@ -9,7 +9,8 @@
 * :func:`geglu_ff`: the same FF + residual without the LayerNorm, the
   counterpart of ``geglu_ff`` (``_ff_pallas``), which ``GEGLUFeedForward``
   reaches when called without LayerNorm parameters. Kernel
-  ``gmdx_geglu_ff`` in the same source. The JAX package's rule gives it
+  ``gmdx_geglu_ff`` in the same source: the two GEMMs on the same core,
+  with the same plan, and no pre-pass. The JAX package's rule gives it
   dims 320 and 640 (:func:`geglu_ff_uses_kernel`); other dims take
   :func:`geglu_ff_reference`, as the JAX package takes jnp.
 * :func:`add_layer_norm`: (x + y, LayerNorm(x + y)), the counterpart of
@@ -47,7 +48,8 @@ FF_GEMM1_COLS = 64
 
 
 def geglu_ff_ln_plan(m: int, dim: int, inner: int) -> dict:
-    """The kernel's launch layout for ``m`` tokens: GEMM2's tile width
+    """The launch layout of both FF kernels (``gmdx_geglu_ff_ln`` and the
+    LN-free ``gmdx_geglu_ff``) for ``m`` tokens: GEMM2's tile width
     (160 where it divides dim, as at 320/640/1280, so no tile is padding;
     else 128) and each GEMM's (row tiles, column tiles, K slices)."""
     bn2 = 160 if dim % 160 == 0 else 128
@@ -205,13 +207,15 @@ def geglu_ff(
     stream = check_kernel_operands("geglu_ff", x, residual, w1, b1, w2, b2)
     from gmdx_torch.kernels import _build
 
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("geglu_ff kernel needs 16-byte aligned operands")
     m = x.numel() // dim
     act = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.call(
         "gmdx_geglu_ff", x.data_ptr(), residual.data_ptr() if residual is not None else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), act.data_ptr(),
-        out.data_ptr(), m, dim, inner, stream,
+        out.data_ptr(), m, dim, inner, geglu_ff_ln_plan(m, dim, inner)["bn2"], stream,
     )
     LAUNCHES["geglu_ff"] += 1
     return out

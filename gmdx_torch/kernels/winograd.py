@@ -13,7 +13,11 @@ Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``.
   kernel the JAX package runs under ``GMDX_WINOGRAD_M=4`` (``_wino4_forward``),
   with its Cook-Toom matrices over the points {0, 1, -1, 2, -1/2}. Its
   weight operand is the transformed weight U (36, O, C) made by
-  :func:`pack_weight4`, once per weight.
+  :func:`pack_weight4`, once per weight. Its three launches (input
+  transform; the 36 products on the GEMM core with the xi half of the
+  output transform folded in; output transform) are laid out as
+  :func:`winograd4_plan` says; the C side computes the same plan and
+  reports it (``gmdx_wino4_plan``).
 :func:`conv_route` says which of the two a conv takes.
 
 Under autograd the conv is :func:`conv3x3_direct`, ``F.conv2d`` in both
@@ -286,6 +290,117 @@ def winograd4_conv3x3_plain(
     return y.reshape(b, h, w, o).to(x.dtype)
 
 
+# csrc/winograd4.cu: threads of a transform block, the products' tile
+# width, and the staging width its GEMM instance is built with.
+WINO4_THREADS = 128
+WINO4_BLOCK_N = 64
+WINO4_OUTW = 8
+SMEM_BUDGET = 232448
+
+
+def gemm_smem(bn: int, outw: int, block_m: int = CONV_BLOCK_M,
+              block_k: int = CONV_BLOCK_K) -> tuple[int, int]:
+    """(stages, bytes) of ``gemm_sm90.cuh``'s ``Smem<BN, OUTW>``: the ring
+    of A and B stages, the epilogue's staging tiles and the mbarriers."""
+    stage = (block_m + bn) * block_k * 2
+    staging = 2 * 64 * (outw + 8) * 2
+    stages = min(6, (SMEM_BUDGET - 1024 - staging - 256) // stage)
+    return stages, 1024 + stages * stage + staging + (2 * stages + 2) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Wino4Plan:
+    """How ``csrc/winograd4.cu`` runs one F(4x4) conv of T = B*H/4*W/4
+    tiles. The input transform: blocks of ``in_ty`` x ``in_tx`` tiles and
+    8 * ``in_cgt`` channels, ``in_grid`` blocks. The products: units (nu,
+    row tile, ``bn``-wide column tile), each a K loop over 6 * C / block_k
+    slices (xi, then channels), the xi half of the output transform folded
+    in, writing 24 fp32 planes z. The output transform: one thread per tile
+    and 8 channels, ``out_grid`` blocks."""
+
+    b: int
+    h: int
+    w: int
+    c: int
+    o: int
+    halo: int
+    tiles: int
+    t_tiles: int
+    c_slices: int
+    n_tiles: int
+    stages: int
+    smem_bytes: int
+    in_cgt: int
+    in_tx: int
+    in_ty: int
+    in_smem: int
+    in_grid: tuple[int, int]
+    out_grid: int
+    bn: int = WINO4_BLOCK_N
+    block_m: int = CONV_BLOCK_M
+    block_k: int = CONV_BLOCK_K
+
+    @property
+    def units(self) -> int:
+        return 6 * self.t_tiles * self.n_tiles
+
+    @property
+    def slices(self) -> int:
+        return 6 * self.c_slices
+
+    @property
+    def grid(self) -> int:
+        return min(self.units, SMS)
+
+    @property
+    def v_box(self) -> tuple[int, int, int]:
+        """TMA box of V, whose map is (C, T, 36)."""
+        return (self.block_k, self.block_m, 1)
+
+    @property
+    def u_box(self) -> tuple[int, int, int]:
+        """TMA box of U, whose map is (C, O, 36)."""
+        return (self.block_k, self.bn, 1)
+
+    def c_fields(self) -> list[int]:
+        """The fields ``gmdx_wino4_plan`` reports, in its order."""
+        return [self.units, self.grid, self.stages, self.smem_bytes, self.in_cgt, self.in_tx,
+                self.in_ty, self.in_smem, *self.in_grid, self.out_grid, self.bn]
+
+    def unit(self, u: int) -> tuple[int, int, int]:
+        """Unit ``u``'s (nu, row tile, column tile): ``Units::decode``,
+        column tile fastest."""
+        mt, nt = divmod(u, self.n_tiles)
+        nu, tt = divmod(mt, self.t_tiles)
+        return nu, tt, nt
+
+    def slice(self, nu: int, s: int) -> tuple[int, int]:
+        """Slice ``s`` of a unit on ``nu``: (p = 6 xi + nu, first channel),
+        as ``Wino4Op::load`` places its TMA boxes."""
+        xi, cs = divmod(s, self.c_slices)
+        return 6 * xi + nu, cs * self.block_k
+
+
+def winograd4_plan(b: int, h: int, w: int, c: int, o: int,
+                   pre_padded: bool = False) -> Wino4Plan:
+    """The launch plan of a (B, H, W, C) -> O F(4x4) conv."""
+    th, tw = h // 4, w // 4
+    tiles = b * th * tw
+    stages, smem = gemm_smem(WINO4_BLOCK_N, WINO4_OUTW)
+    cgt = next(k for k in (8, 4, 2, 1) if (c // 8) % k == 0)
+    in_tx = 8 if tw >= 8 else 4
+    in_ty = WINO4_THREADS // cgt // in_tx
+    return Wino4Plan(
+        b=b, h=h, w=w, c=c, o=o, halo=0 if pre_padded else 1, tiles=tiles,
+        t_tiles=-(-tiles // CONV_BLOCK_M), c_slices=-(-c // CONV_BLOCK_K),
+        n_tiles=-(-o // WINO4_BLOCK_N), stages=stages, smem_bytes=smem,
+        in_cgt=cgt, in_tx=in_tx, in_ty=in_ty,
+        in_smem=(4 * in_ty + 2) * (4 * in_tx + 2) * cgt * 16,
+        in_grid=(b * -(-th // in_ty) * -(-tw // in_tx), c // (8 * cgt)),
+        out_grid=-(-tiles * (o // 8) // WINO4_THREADS),
+    )
+
+
 def winograd4_conv3x3(
     x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor, *, pre_padded: bool = False,
 ) -> torch.Tensor:
@@ -308,15 +423,17 @@ def winograd4_conv3x3(
     if not x.is_cuda:
         return winograd4_conv3x3_plain(x, u, bias, pre_padded=pre_padded)
     stream = check_kernel_operands("winograd4_conv3x3", x, u, bias)
+    if x.data_ptr() % 16 or u.data_ptr() % 16:
+        raise ValueError("winograd4_conv3x3 kernel needs 16-byte aligned operands")
     from gmdx_torch.kernels import _build
 
     tiles = b * (h // 4) * (w // 4)
     v = torch.empty((36, tiles, c), dtype=x.dtype, device=x.device)
-    m = torch.empty((36, tiles, o), dtype=torch.float32, device=x.device)
+    z = torch.empty((24, tiles, o), dtype=torch.float32, device=x.device)
     out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
     _build.call(
         "gmdx_wino4", x.data_ptr(), u.data_ptr(), bias.data_ptr(), v.data_ptr(),
-        m.data_ptr(), out.data_ptr(), b, h, w, c, o, int(pre_padded), stream,
+        z.data_ptr(), out.data_ptr(), b, h, w, c, o, int(pre_padded), stream,
     )
     LAUNCHES["winograd4_conv3x3"] += 1
     return out
@@ -326,4 +443,5 @@ __all__ = [
     "conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight", "conv_route",
     "ConvPlan", "conv3x3_box", "conv3x3_plan",
     "pack_weight4", "winograd4_conv3x3", "winograd4_conv3x3_plain",
+    "Wino4Plan", "winograd4_plan",
 ]

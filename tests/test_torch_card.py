@@ -579,7 +579,8 @@ def test_add_layer_norm_kernel_on_card(card, tokens, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,tokens,residual", [(320, 4096, True), (640, 1000, True),
-                                                 (320, 300, False)])
+                                                 (320, 300, False), (640, 1000, False),
+                                                 (320, 1000, True), (640, 4096, False)])
 def test_geglu_ff_no_ln_kernel_on_card(card, dim, tokens, residual):
     from gmdx_torch.kernels.geglu_ff import geglu_ff, geglu_ff_plain
 
@@ -608,6 +609,50 @@ def test_winograd4_kernel_on_card(card, hw, c, o, pre):
     bias = _bf16(card, o, scale=0.1)
     out = winograd4_conv3x3(x, u, bias, pre_padded=pre)
     assert _rel_l2(out, winograd4_conv3x3_plain(x, u, bias, pre_padded=pre)) <= 1e-2
+
+
+# F(4x4) on the card: ragged cases (T = 16 < one row tile, C = 8, O = 24,
+# raw and pre-padded) and one path shape a level (the UNet's three at CFG
+# batch 2, the VAE decoder's 512^2 x 128 at batch 2).
+WINO4_CASES = [
+    (1, 16, 8, 24, True), (1, 16, 8, 24, False), (2, 24, 72, 40, False), (1, 32, 16, 136, True),
+    (2, 64, 320, 320, True), (2, 32, 640, 640, True), (2, 16, 1280, 1280, False),
+    (2, 512, 128, 128, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,o,pre", WINO4_CASES)
+def test_winograd4_ragged_and_path_cases_on_card(card, b, hw, c, o, pre):
+    """F(4x4) against its plain version at relative L2 <= 1e-2, and two
+    calls bit-identical (no atomics; the fold sums in a fixed order)."""
+    from gmdx_torch.kernels.winograd import pack_weight4, winograd4_conv3x3, winograd4_conv3x3_plain
+
+    x = _bf16(card, b, hw, hw, c)
+    if pre:
+        x = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    u = pack_weight4(_bf16(card, o, c, 3, 3, scale=(9 * c) ** -0.5), torch.bfloat16)
+    bias = _bf16(card, o, scale=0.1)
+    out = winograd4_conv3x3(x, u, bias, pre_padded=pre)
+    torch.cuda.synchronize()
+    assert _rel_l2(out, winograd4_conv3x3_plain(x, u, bias, pre_padded=pre)) <= 1e-2
+    assert torch.equal(out, winograd4_conv3x3(x, u, bias, pre_padded=pre))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,o", [(b, hw, c, o) for b, hw, c, o, _ in WINO4_CASES]
+                         + [(16, 64, 320, 320), (16, 16, 1280, 1280), (16, 512, 128, 128)])
+def test_winograd4_plans_match_kernel_on_card(card, b, hw, c, o):
+    """winograd4_plan field for field against gmdx_wino4_plan, the C plan
+    the kernel launches with."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.winograd import winograd4_plan
+
+    got = (ctypes.c_int * 12)()
+    assert _build.library("winograd4").gmdx_wino4_plan(b, hw, hw, c, o, got) == 0
+    assert list(got) == winograd4_plan(b, hw, hw, c, o).c_fields()
 
 
 @pytest.mark.cuda
