@@ -14,8 +14,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      each kernel's ptxas registers and spills, and fails unless every
      instance of the Hopper kernels (the GEMM core's conv, both FFs and
      F(4x4)'s products; attention_sm90.cuh's forward as the KV-resident,
-     the long-sequence and the training kernel, and the flash backward's
-     dK/dV and dQ) issues wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS
+     the long-sequence and the training kernel, the flash backward's dK/dV
+     and dQ, and the short-K cross-attention) issues wgmma (HGMMA) and TMA
+     loads (UTMALDG) in its SASS and spills nothing, and unless the
+     GroupNorm forward's cluster kernel crosses the cluster barrier
+     (UCGABAR_ARV, UCGABAR_WAIT), loads its slice by bulk copy (UBLKCP)
      and spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
@@ -36,7 +39,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
      Attention rows also give their exp2 count and the SFU's floor for it;
      the four kernels on attention_sm90.cuh (attention_kv_resident,
      flash_attention_fwd, flash_attention_bsc, flash_attention_bwd) their
-     launch plans, each held to the kernel's own (gmdx_attention_sm90_plan).
+     launch plans, each held to the kernel's own (gmdx_attention_sm90_plan),
+     and the short-K cross-attention its plan (gmdx_xattn_plan).
+     GroupNorm rows (among them 64^2 x 640 and 32^2 x 1920, the images of
+     the UNet too large for one cluster) carry their plan's form, cluster
+     size and the clusters resident at once, held to gmdx_group_norm_plan
+     (which reports cudaOccupancyMaxActiveClusters) and to the plan's
+     RESIDENT_CLUSTERS.
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -280,24 +289,38 @@ def phase_build() -> None:
 # The Hopper kernels, by library: every instance of each must issue wgmma
 # (HGMMA) and TMA loads (UTMALDG) in its SASS. The conv, both FF kernels and
 # F(4x4)'s products run on the GEMM core (gemm_sm90.cuh); the KV-resident
-# attention and flash_attention_bsc (libattention), the training forward and
-# the flash backward (libflash_attention) on attention_sm90.cuh.
+# attention, flash_attention_bsc and the short-K cross-attention
+# (libattention), the training forward and the flash backward
+# (libflash_attention) on attention_sm90.cuh.
 SM90_KERNELS = {
     "conv3x3": ("ws_gemm_kernel",),
     "geglu_ff": ("ws_gemm_kernel",),
     "winograd4": ("ws_gemm_kernel",),
-    "attention": ("flash_bsc_kernel", "kvres_sm90_kernel"),
+    "attention": ("flash_bsc_kernel", "kvres_sm90_kernel", "xattn_sm90_kernel"),
     "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
 }
 SM90_SASS = ("HGMMA", "UTMALDG")
+# The GroupNorm forward's cluster kernel must cross the cluster barrier
+# (barrier.cluster.arrive / wait, which cuobjdump prints as UCGABAR_ARV /
+# UCGABAR_WAIT) and load its slice with the 1-D bulk copy (cp.async.bulk:
+# UBLKCP).
+CLUSTER_KERNEL = ("groupnorm", "gn_cluster_kernel")
+CLUSTER_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT", "UBLKCP")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
+def _no_spill_kernels() -> dict:
+    kernels = {lib: list(names) for lib, names in SM90_KERNELS.items()}
+    kernels.setdefault(CLUSTER_KERNEL[0], []).append(CLUSTER_KERNEL[1])
+    return kernels
+
+
 def check_spills(reports: dict) -> None:
-    """No instance of the Hopper kernels of SM90_KERNELS may spill: their
-    wgmma accumulators live in the registers setmaxnreg gives a consumer
-    thread, and ptxas alone decides whether they fit (``-Xptxas -v``)."""
-    for lib, kernels in SM90_KERNELS.items():
+    """No instance of the Hopper kernels of SM90_KERNELS, nor of the
+    GroupNorm cluster kernel, may spill: their wgmma accumulators live in
+    the registers setmaxnreg gives a consumer thread, and ptxas alone
+    decides whether they fit (``-Xptxas -v``)."""
+    for lib, kernels in _no_spill_kernels().items():
         func, bad = None, {}
         for ln in reports.get(lib, "").splitlines():
             hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
@@ -330,6 +353,18 @@ def check_sass(build_dir, nvcc: str) -> None:
             if not inst or any(min(c.values()) == 0 for c in inst.values()):
                 raise SystemExit(f"chip_smoke: lib{lib}.so lacks {SM90_SASS} in its "
                                  f"{kernel} instances: {inst}")
+    lib, kernel = CLUSTER_KERNEL
+    sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
+                          check=True, capture_output=True, text=True).stdout
+    inst = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        if kernel in name:
+            inst[name.strip()] = {op: body.count(op) for op in CLUSTER_SASS}
+    emit({"phase": "build", "sass": f"lib{lib}.so", "kernel": kernel, "instances": inst})
+    if not inst or any(min(c.values()) == 0 for c in inst.values()):
+        raise SystemExit(f"chip_smoke: lib{lib}.so's {kernel} lacks the cluster barrier or the "
+                         f"bulk copy {CLUSTER_SASS}: {inst}")
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +468,47 @@ def _wino4_plan_keys(b, hw, c, o) -> dict:
     return {"plan": {k: getattr(p, k) for k in keys}}
 
 
+def _gn_plan_keys(b, h, w, c) -> dict:
+    """The GroupNorm forward's plan at this shape, held to the C plan the
+    kernel launches with (gmdx_group_norm_plan) field for field, with the
+    clusters that can be resident at once (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.groupnorm import RESIDENT_CLUSTERS, group_norm_plan
+
+    p = group_norm_plan(b, h, w, c)
+    got = (ctypes.c_int * 8)()
+    if _build.library("groupnorm").gmdx_group_norm_plan(b, h, w, c, got) \
+            or list(got)[:7] != p.c_fields():
+        raise SystemExit(f"chip_smoke: GroupNorm plan at {[b, h, w, c]}: kernel {list(got)}, "
+                         f"Python {p.c_fields()}")
+    if p.form != "pair" and got[7] != RESIDENT_CLUSTERS[p.cluster]:
+        raise SystemExit(f"chip_smoke: {got[7]} GroupNorm clusters of {p.cluster} CTAs resident "
+                         f"at {[b, h, w, c]} ({p.smem_bytes} bytes of shared memory), the plan "
+                         f"counts {RESIDENT_CLUSTERS[p.cluster]}")
+    return {"form": p.form, "cluster": p.cluster, "active_clusters": got[7],
+            "plan": {"pixels": p.pixels, "smem_bytes": p.smem_bytes, "grid": p.grid,
+                     "threads": p.threads}}
+
+
+def _xattn_plan_keys(b, sq, sk, heads, d) -> dict:
+    """The short-K kernel's plan, held to gmdx_xattn_plan field for field."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.flash_attention import xattn_plan
+
+    p = xattn_plan(b, sq, sk, heads, d)
+    got = (ctypes.c_int * 8)()
+    if _build.library("attention").gmdx_xattn_plan(b, sq, sk, heads, d, got) \
+            or list(got) != p.c_fields():
+        raise SystemExit(f"chip_smoke: short-K plan at {[b, sq, sk, heads, d]}: kernel "
+                         f"{list(got)}, Python {p.c_fields()}")
+    return {"plan": dataclasses.asdict(p)}
+
+
 def _ff_plan_keys(m, dim) -> dict:
     from gmdx_torch.kernels.geglu_ff import geglu_ff_ln_plan
 
@@ -501,12 +577,16 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
         )
 
     # C. GroupNorm(+temb)+SiLU: resnet norm1 (padded), norm2 (temb, padded),
-    # the transformer's GN (no SiLU, eps 1e-6), the VAE's widest level.
+    # the transformer's GN (no SiLU, eps 1e-6), two UNet images too large for
+    # one cluster (64^2 x 640, 32^2 x 1920: the pair), the VAE's widest
+    # level. Each row carries its plan's form and cluster size.
     for bb, hw, c, temb_on, act, pad, eps in (
         (cfg_b, 64, 320, False, True, True, 1e-5),
         (cfg_b, 64, 320, True, True, True, 1e-5),
         (cfg_b, 32, 640, False, False, False, 1e-6),
         (cfg_b, 16, 1280, True, True, True, 1e-5),
+        (cfg_b, 64, 640, True, True, True, 1e-5),
+        (cfg_b, 32, 1920, False, True, True, 1e-5),
         (2 * batch, 512, 128, False, True, True, 1e-5),
     ):
         x = _randn(gen, bb, hw, hw, c, scale=2.0)
@@ -535,7 +615,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
             None if temb_on else lib,
             10.0 * x.numel(),
             (x.numel() + bb * hp * hp * c + (bb * c if temb_on else 0) + 2 * c) * 2,
-            results, peak=FP32_FLOPS,
+            results, peak=FP32_FLOPS, extra=_gn_plan_keys(bb, hw, hw, c),
         )
 
     # D. LN -> GEGLU FF -> residual at the three transformer widths.
@@ -766,7 +846,7 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
                                       activate=True, pad_output=True),
         lambda: F.silu(F.group_norm(x_nchw, 32, g, be, 1e-5)),
         10.0 * x.numel(), (x.numel() + bb * (hw + 2) ** 2 * c + 2 * c) * 2, results,
-        peak=FP32_FLOPS,
+        peak=FP32_FLOPS, extra=_gn_plan_keys(bb, hw, hw, c),
     )
     del x, x_nchw
 
@@ -827,7 +907,8 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             lambda: cross_attention_shortk_plain(q, k, v, heads),
             lambda: F.scaled_dot_product_attention(qh, kh, vh),
             4.0 * cfg_b * heads * s * sk * d, (2 * cfg_b * s * c + 2 * cfg_b * sk * c) * 2,
-            results, extra=exp2_keys(cfg_b * heads * s * sk),
+            results,
+            extra={**exp2_keys(cfg_b * heads * s * sk), **_xattn_plan_keys(cfg_b, s, sk, heads, d)},
         )
 
     for s, c in ((4096, 320), (1024, 640), (256, 1280)):
@@ -977,10 +1058,10 @@ PROFILE_CATEGORIES = (
     ("flash_attention_fwd", ("train_fwd_sm90_kernel",)),
     ("attention_kv_resident", ("kvres_sm90_kernel",)),
     ("group_norm_silu_bwd", ("gn_bwd_",)),
-    ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("group_norm_silu", ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")),
     ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),
     ("geglu_ff", ("NoLnGegluOp", "NoLnOutOp")),
-    ("cross_attention_shortk", ("xattn_kernel",)),
+    ("cross_attention_shortk", ("xattn_sm90_kernel",)),
     ("add_layer_norm", ("add_ln_kernel",)),
     ("winograd4_conv3x3", ("wino4_", "Wino4Op")),
     ("conv3x3", ("ConvOp", "splitk_reduce_kernel")),

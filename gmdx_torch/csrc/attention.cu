@@ -25,7 +25,8 @@
 //
 // gmdx_xattn replaces gmdx/kernels/flash_attention.py:cross_attention_shortk
 // (TPU kernel _xattn_kernel): the short-K cross-attention of
-// attention_xattn.cuh, whose note gives its design and bound.
+// attention_xattn.cuh (xattn_sm90_kernel, on the same core's pieces), whose
+// note gives its design and bound; gmdx_xattn_plan reports its plan.
 #include "attention_sm90.cuh"
 #include "attention_xattn.cuh"
 
@@ -107,16 +108,30 @@ extern "C" int gmdx_attention_sm90_plan(int kind, int B, int Sq, int Sk, int H, 
   }
 }
 
-// Same operands and head dims as gmdx_attention, with 1 <= Sk <= 128 keys.
+// Same operands and head dims as gmdx_attention, with 1 <= Sk <= 128 keys;
+// c = scale * log2(e).
 extern "C" int gmdx_xattn(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                          int Sk, int H, int D, float qscale, void* stream) {
-  using gmdx_attn::launch_xattn;
-  if (Sk < 1 || Sk > gmdx_attn::XATTN_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+                          int Sk, int H, int D, float c, void* stream) {
+  using a9::launch_xattn_keys;
+  if (Sk < 1 || Sk > a9::XATTN_MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return launch_xattn<40>(q, k, v, out, B, Sq, Sk, H, qscale, st);
-    case 80: return launch_xattn<80>(q, k, v, out, B, Sq, Sk, H, qscale, st);
-    case 160: return launch_xattn<160>(q, k, v, out, B, Sq, Sk, H, qscale, st);
+    case 40: return launch_xattn_keys<40>(q, k, v, out, B, Sq, Sk, H, c, st);
+    case 80: return launch_xattn_keys<80>(q, k, v, out, B, Sq, Sk, H, c, st);
+    case 160: return launch_xattn_keys<160>(q, k, v, out, B, Sq, Sk, H, c, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The short-K kernel's plan at (B, Sq, Sk, H, D), for
+// kernels/flash_attention.py:xattn_plan to be held to; out[8] as
+// xattn_plan_fields (attention_xattn.cuh) lays it out.
+extern "C" int gmdx_xattn_plan(int B, int Sq, int Sk, int H, int D, int* out) {
+  if (Sk < 1 || Sk > a9::XATTN_MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 40: a9::xattn_plan_keys<40>(out, B, Sq, Sk, H); return 0;
+    case 80: a9::xattn_plan_keys<80>(out, B, Sq, Sk, H); return 0;
+    case 160: a9::xattn_plan_keys<160>(out, B, Sq, Sk, H); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

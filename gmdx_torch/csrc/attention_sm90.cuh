@@ -278,6 +278,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// SS m64n80k16, A and B K-major from shared memory: 40 accumulators (the
+// short-K cross-attention's 77 keys, rounded up to 80).
+__device__ __forceinline__ void wgmma_ss_n80(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // RS m64n40k16, A (four bf16x2 a thread) from registers, B MN-major from
 // shared memory (transposed): 20 accumulators.
 __device__ __forceinline__ void wgmma_rs_n40(float* d, const uint32_t* a, uint64_t db) {
@@ -345,11 +365,13 @@ __device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t* a, uint6
 // S-shaped products (SS, N = the tile's rows) and D-wide products (RS, MN-major B).
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma SS instance");
+  static_assert(N == 32 || N == 64 || N == 80 || N == 128, "wgmma SS instance");
   if constexpr (N == 32) {
     wgmma_ss_n32(d, da, db, accumulate);
   } else if constexpr (N == 64) {
     wgmma_ss_n64(d, da, db, accumulate);
+  } else if constexpr (N == 80) {
+    wgmma_ss_n80(d, da, db, accumulate);
   } else {
     sm90::wgmma_m64n128(d, da, db, accumulate);
   }

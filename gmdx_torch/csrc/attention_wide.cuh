@@ -38,6 +38,10 @@
 // operations-bound. The design reads every Q and K operand from shared memory
 // for each product (Q cannot stay in registers beside O), which caps the
 // tensor-core rate well below the peak.
+//
+// The mma.sync helpers of attention_fwd.cuh serve this kernel alone: the
+// short-K cross-attention, which shared them, runs on attention_sm90.cuh's
+// pieces (attention_xattn.cuh).
 #pragma once
 
 #include "attention_fwd.cuh"

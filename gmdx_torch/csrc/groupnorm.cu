@@ -8,32 +8,64 @@
 //
 // y = act(((x + t[b, c]) - mean[b, g]) * rstd[b, g] * gamma[c] + beta[c]).
 //
-// The TPU ran its grid in order and could carry a whole image's sums in VMEM
-// from one grid step to the next. Blocks on the H100 run in no order, so the
-// reduction across blocks takes two launches:
-//   1. stats: grid (splits, B); a block sums its slice of pixels into
-//      per-group partial (sum, sum of squares) written to a scratch buffer;
-//   2. apply: grid (splits, B); each block folds the partials of its image
-//      into mean and rstd, then normalises its slice of (output) pixels,
-//      writing zeros on the border when the output is padded.
-// A block has (C / 8) * r threads, so each thread owns a fixed 8-channel
-// chunk (one 16-byte load) and walks the pixels with stride r: its channels,
-// scale, shift and temb stay in registers. The sums are taken about a
-// per-group shift (the group's first element) to keep E[x^2] - E[x]^2 away
-// from cancellation; statistics are fp32, combined in fp64.
+// The forward is one launch in either of two forms, as the plan picks:
+//   * gn_cluster_kernel, wherever an image fits the shared memory of 16 SMs
+//     (the TPU kernel's one-pass form, whose whole image sat in VMEM, spread
+//     over a cluster): one image per thread-block cluster of n CTAs (n <= 16;
+//     16 is a non-portable cluster size). CTA r owns the contiguous pixel
+//     slice [r P, (r + 1) P) (P = ceil(HW / n)), one byte range of NHWC,
+//     which arrives by 1-D bulk copies (cp.async.bulk ... mbarrier::
+//     complete_tx) in four pieces with an mbarrier each, so that the sums
+//     start on the first piece while the others land. x is read from device
+//     memory once.
+//       - Sums: each thread owns an 8-channel chunk (16-byte accesses) and
+//         walks the slice's pixels with stride R (R pixel rows in parallel),
+//         four loads in flight, summing x + t - shift and its square in fp32
+//         about each group's first element (the shift keeps E[x^2] - E[x]^2
+//         away from cancellation). The block folds them in a fixed order
+//         (rows per channel, then channels per group) into (G, 2) partials
+//         in its own shared memory; no atomics, so a repeated call is
+//         bit-identical.
+//       - Cluster reduce: barrier.cluster, then every CTA reads all n
+//         partials over distributed shared memory (mapa +
+//         ld.shared::cluster, all n loads in flight) in rank order, in fp64:
+//         the same mean and rstd in every CTA. Rank 0 writes the (mean,
+//         rstd) stats the backward reads. A second cluster barrier keeps each
+//         CTA's partials alive until every CTA has read them.
+//       - Output: normalised from shared memory with 16-byte stores; with a
+//         padded output the CTA that owns an image row's first (last) pixel
+//         writes the left (right) border pixel, rank 0 the top row and rank
+//         n - 1 the bottom row.
+//   * The pair (gn_stats_kernel, then gn_apply_kernel), where it does not:
+//     grid (splits, B) at about 528 blocks, two an SM; per-block partials
+//     (the same fixed-order fold) in device memory, folded by every apply
+//     block in fp64; x read twice, the second time mostly from L2.
+// Measured on the H100 (PERF.md): only 7 clusters of 16 are resident at once
+// (15 of 8, 30 of 4: cudaOccupancyMaxActiveClusters, one CTA an SM), so a
+// batch of 16 runs in three waves; the cluster kernel's time is its CTAs'
+// own rate (load, then sums, then stores, about 10 us each a wave at 160 KB
+// a slice), not the card's memory rate. A two-read cluster form for the
+// images that do not fit lost to the pair at every path shape at batch 8
+// and 16 and was removed.
+// The plan (gn_plan; kernels/groupnorm.py:group_norm_plan mirrors it, and
+// gmdx_group_norm_plan reports it): the cluster kernel at the n of 1, 2, 4,
+// 8, 16 whose slice fits and whose cost, ceil(B / RESIDENT_CLUSTERS[n]) *
+// (slice bytes + WAVE_BYTES), is least, the smaller n on a tie: waves of the
+// clusters the card holds at once, each as long as a CTA takes over its
+// slice plus the wave's fixed cost (so one wave of 4-CTA clusters for the
+// small images at batch 16, of 8-CTA clusters at batch 8); the pair where no
+// slice fits.
 //
-// Bound on the H100: bytes. Two reads of x and one write of y, against ~10
-// operations an element; the design moves 16 bytes per access and fills the
-// card with splits x B blocks. The second read of x mostly hits L2 at the
-// UNet's sizes (<= 21 MB per tensor at batch 4). When asked, the apply pass
-// also writes each image's final per-group (mean, rstd) for the backward.
+// Bound on the H100: bytes. One read of x and one write of y, against ~10
+// operations an element; the cluster kernel moves exactly that, the pair
+// reads x twice.
 //
 // Backward (gmdx_group_norm_silu_bwd) replaces gmdx/kernels/groupnorm.py:
 // _gn_backward (TPU kernels _gn_bwd_reduce_kernel, _gn_bwd_apply_kernel).
 // It recomputes xhat = (x + t - mean) * rstd from the statistics the forward
 // saved (not recomputed in another order), and dy from the cotangent g
-// through the SiLU derivative when the forward activated. Two launches, for
-// the same reason as the forward:
+// through the SiLU derivative when the forward activated. Two launches, as
+// the forward's pair (the backward keeps that scheme):
 //   1. reduce: grid (splits, B); a block sums over its pixels, per channel,
 //      dy and dy * xhat (the partials of dbeta and dgamma, written as
 //      (B, splits, 2, C)), and from those per group dxhat = dy * gamma and
@@ -47,13 +79,28 @@
 // Bound: bytes; x and g read twice, dx written once, ~30 operations an
 // element.
 #include "bf16x8.cuh"
+#include "gemm_sm90.cuh"
 
 using gmdx::load8;
 using gmdx::pack8;
+namespace sm90 = gmdx::sm90;
 
 namespace {
 
 constexpr int MAXG = 64;
+constexpr int MAX_THREADS = 512;  // C <= 4096: an 8-channel chunk a thread
+constexpr int UNROLL = 4;          // 16-byte loads a cluster-kernel thread keeps in flight
+constexpr int LOAD_PIECES = 4;     // bulk copies (and mbarriers) of a resident slice
+constexpr int CLUSTER_MAX = 16;    // non-portable above 8
+// Clusters of 1, 2, 4, 8, 16 CTAs the H100 holds resident at once (one CTA
+// an SM), as cudaOccupancyMaxActiveClusters reports them.
+constexpr int RESIDENT_CLUSTERS[5] = {132, 66, 30, 15, 7};
+// A wave's fixed cost (the fold and the cluster barriers, about 4 us) as the
+// slice bytes a CTA loads and stores in that time (about 17 GB/s each way).
+constexpr int WAVE_BYTES = 32768;
+constexpr int PAIR_TARGET_BLOCKS = 528;  // about four blocks an SM
+
+enum GnForm { GN_PAIR = 0, GN_RESIDENT = 1 };
 
 struct GnArgs {
   const __nv_bfloat16* x;
@@ -61,149 +108,456 @@ struct GnArgs {
   const __nv_bfloat16* beta;
   const __nv_bfloat16* temb;  // (B, C) or null
   __nv_bfloat16* out;
-  float* partials;  // (B, splits, G, 2)
+  float* partials;  // the pair's (B, splits, G, 2)
   float* stats;     // (B, 2, G) final (mean, rstd), or null
-  int HW, W, C, G, splits, pad;
+  int HW, W, C, G, pixels, pad;  // pixels: a CTA's (or pair block's) slice
   float eps;
   int activate;
 };
+
+// ---------------------------------------------------------------------------
+// The plan
+// ---------------------------------------------------------------------------
+
+struct GnPlan {
+  int form, cluster, pixels, smem, grid_x, grid_y, threads;
+};
+
+// (C / 8) * R threads: an 8-channel chunk each, R pixel rows in parallel.
+int gn_threads(int C) {
+  const int chunks = C / 8;
+  return chunks * (chunks >= 512 ? 1 : 512 / chunks);
+}
+
+// Shared memory beside the slice: the fold's [2][R][C] fp32 sums, the (G, 2)
+// partials, the (mean, rstd) of each group, the mbarriers.
+int gn_fixed_bytes(int C) { return 64 * gn_threads(C) + 4 * MAXG * 4 + LOAD_PIECES * 8; }
+
+int gn_pair_splits(int B, int hw, int C) {
+  const int rows = (C / 8) >= 512 ? 1 : 512 / (C / 8);
+  const int by_batch = (PAIR_TARGET_BLOCKS + B - 1) / B;
+  const int by_rows = (hw + rows - 1) / rows;
+  const int s = by_batch < by_rows ? by_batch : by_rows;
+  return s > 1 ? s : 1;
+}
+
+// The plan's rule (see the note above).
+GnPlan gn_plan(int B, int H, int W, int C) {
+  const int hw = H * W, fixed = gn_fixed_bytes(C);
+  GnPlan p{GN_PAIR, 1, 0, 0, 0, B, gn_threads(C)};
+  int fit = 0;
+  long long best = 0;
+  for (int i = 0, n = 1; n <= CLUSTER_MAX && n <= hw; ++i, n *= 2) {
+    const long long pixels = (hw + n - 1) / n;
+    if (pixels * C * 2 + fixed > sm90::SMEM_BUDGET) continue;
+    const int waves = (B + RESIDENT_CLUSTERS[i] - 1) / RESIDENT_CLUSTERS[i];
+    const long long cost = waves * (pixels * C * 2 + WAVE_BYTES);
+    if (!fit || cost < best) {
+      fit = n;
+      best = cost;
+    }
+  }
+  if (!fit) {
+    p.grid_x = gn_pair_splits(B, hw, C);
+    p.pixels = (hw + p.grid_x - 1) / p.grid_x;
+    p.smem = 64 * p.threads;
+    return p;
+  }
+  p.form = GN_RESIDENT;
+  p.cluster = fit;
+  p.pixels = (hw + fit - 1) / fit;
+  p.smem = fixed + p.pixels * C * 2;
+  p.grid_x = fit;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// Device helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two floats at p (this CTA's shared memory, 8-byte aligned) in the
+// shared memory of cluster CTA `rank`.
+__device__ __forceinline__ float2 ld_cluster2(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(sm90::smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+
+// `bytes` (a multiple of 16) from device memory into this CTA's shared
+// memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(sm90::smem_u32(dst)), "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+// Per-thread constants of the forward for channels [c0, c0 + 8) of image b:
+// the temb and each channel's shift (its group's first element, pixel 0).
+struct GnChan {
+  float t[8], shift[8];
+};
+
+__device__ __forceinline__ float group_shift(const GnArgs& a, int b, int g) {
+  const int first = g * (a.C / a.G);
+  return __bfloat162float(a.x[(size_t)b * a.HW * a.C + first]) +
+         (a.temb != nullptr ? __bfloat162float(a.temb[(size_t)b * a.C + first]) : 0.0f);
+}
+
+__device__ __forceinline__ void fwd_chan(const GnArgs& a, int b, int c0, GnChan& ch) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ch.t[e] = 0.0f;
+  if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, ch.t);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ch.shift[e] = group_shift(a, b, (c0 + e) / (a.C / a.G));
+}
+
+__device__ __forceinline__ void add_pixel(const float* v, const GnChan& ch, float* s1, float* s2) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float d = v[e] + ch.t[e] - ch.shift[e];
+    s1[e] += d;
+    s2[e] += d * d;
+  }
+}
+
+// Adds the shifted sums of rows p, p + r, ... < p1 of `src` (pixels of C
+// channels) to s1 and s2, in that order; U loads are issued before their
+// sums, so that each thread keeps that many in flight (the pair runs two
+// blocks an SM at U = 1, which a larger U's registers would halve).
+template <int U>
+__device__ __forceinline__ void accumulate(const __nv_bfloat16* src, int C, int c0, int p, int p1,
+                                           int r, const GnChan& ch, float* s1, float* s2) {
+  for (; p + (U - 1) * r < p1; p += U * r) {
+    float v[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load8(src + (size_t)(p + u * r) * C + c0, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) add_pixel(v[u], ch, s1, s2);
+  }
+  for (; p < p1; p += r) {
+    float v[8];
+    load8(src + (size_t)p * C + c0, v);
+    add_pixel(v, ch, s1, s2);
+  }
+}
+
+// The block's per-group (sum, sum of squares) into part[2 g], part[2 g + 1]
+// in a fixed order: every thread's 8 channel sums go to red ([2][R][C]:
+// thread tid's chunk sits at tid * 8), are summed over the R rows per
+// channel, then over each group's channels.
+__device__ __forceinline__ void block_group_sums(const float* s1, const float* s2, float* red,
+                                                 float* part, int C, int G, int rows) {
+  const int T = blockDim.x;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[threadIdx.x * 8 + e] = s1[e];
+    red[T * 8 + threadIdx.x * 8 + e] = s2[e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += T) {
+    float* r = red + (i / C) * T * 8 + i % C;
+    float acc = r[0];
+    for (int k = 1; k < rows; ++k) acc += r[k * C];
+    r[0] = acc;
+  }
+  __syncthreads();
+  const int cg = C / G;
+  for (int i = threadIdx.x; i < 2 * G; i += T) {
+    const float* r = red + (i / G) * T * 8 + (i % G) * cg;
+    float acc = 0.0f;
+    for (int k = 0; k < cg; ++k) acc += r[k];
+    part[2 * (i % G) + i / G] = acc;
+  }
+  __syncthreads();
+}
+
+// Mean and rstd of group g from its shifted sums over the image.
+__device__ __forceinline__ void group_moments(const GnArgs& a, int b, int g, double s1, double s2,
+                                              float& mean, float& rstd) {
+  const double n = (double)a.HW * (a.C / a.G);
+  const double md = s1 / n;
+  double var = s2 / n - md * md;
+  var = var > 0.0 ? var : 0.0;
+  mean = (float)md + group_shift(a, b, g);
+  rstd = rsqrtf((float)var + a.eps);
+}
+
+// y of pixel gp (its 8 channels v) into the (padded) output `ob`, with the
+// left (right) border pixel where gp is its row's first (last).
+__device__ __forceinline__ void store_pixel(const GnArgs& a, __nv_bfloat16* ob, const float* sc,
+                                            const float* sh, const float* v, int gp) {
+  float y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float z = v[e] * sc[e] + sh[e];
+    y[e] = a.activate ? __fdividef(z, 1.0f + __expf(-z)) : z;
+  }
+  const int py = gp / a.W;
+  const int px = gp - py * a.W;
+  __nv_bfloat16* o = ob + ((size_t)(py + a.pad) * (a.W + 2 * a.pad) + px + a.pad) * a.C;
+  *reinterpret_cast<uint4*>(o) = pack8(y);
+  if (a.pad) {
+    if (px == 0) *reinterpret_cast<uint4*>(o - a.C) = make_uint4(0, 0, 0, 0);
+    if (px == a.W - 1) *reinterpret_cast<uint4*>(o + a.C) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// y of pixels p, p + r, ... < p1 of `src` (local index; `gp0` the first
+// pixel's index in the image), U loads in flight as in accumulate.
+template <int U>
+__device__ __forceinline__ void apply_rows(const GnArgs& a, int b, int c0, const float* sc,
+                                           const float* sh, const __nv_bfloat16* src, int gp0,
+                                           int p, int p1, int r) {
+  const int H = a.HW / a.W;
+  __nv_bfloat16* ob = a.out + (size_t)b * (H + 2 * a.pad) * (a.W + 2 * a.pad) * a.C + c0;
+  for (; p + (U - 1) * r < p1; p += U * r) {
+    float v[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load8(src + (size_t)(p + u * r) * a.C + c0, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) store_pixel(a, ob, sc, sh, v[u], gp0 + p + u * r);
+  }
+  for (; p < p1; p += r) {
+    float v[8];
+    load8(src + (size_t)p * a.C + c0, v);
+    store_pixel(a, ob, sc, sh, v, gp0 + p);
+  }
+}
+
+// Zeros on output row `row` of a padded image, pixels q, q + r, ... < W + 2.
+__device__ __forceinline__ void border_row(const GnArgs& a, int b, int c0, int row, int q, int r) {
+  const int H = a.HW / a.W;
+  const int Wo = a.W + 2;
+  __nv_bfloat16* ob = a.out + ((size_t)b * (H + 2) + row) * Wo * a.C + c0;
+  for (; q < Wo; q += r) *reinterpret_cast<uint4*>(ob + (size_t)q * a.C) = make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ void scale_shift(const GnArgs& a, int c0, const float* t,
+                                            const float* mean, const float* rstd, float* sc,
+                                            float* sh) {
+  float gm[8], bt[8];
+  load8(a.gamma + c0, gm);
+  load8(a.beta + c0, bt);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int g = (c0 + e) / (a.C / a.G);
+    sc[e] = rstd[g] * gm[e];
+    sh[e] = (t[e] - mean[g]) * sc[e] + bt[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The cluster forward
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MAX_THREADS, 1) gn_cluster_kernel(GnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.y;
+  const int rank = static_cast<int>(cluster_rank());
+  const int n = static_cast<int>(cluster_size());
+  const int chunks = a.C / 8;
+  const int rows = blockDim.x / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int row = threadIdx.x / chunks;
+  const int p0 = min(rank * a.pixels, a.HW);
+  const int np = min(p0 + a.pixels, a.HW) - p0;
+  auto* slice = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + (size_t)a.pixels * a.C * 2);
+  float* part = red + 16 * blockDim.x;
+  float* mean = part + 2 * MAXG;
+  float* rstd = mean + MAXG;
+  auto* bar = reinterpret_cast<uint64_t*>(rstd + MAXG);
+  const __nv_bfloat16* xs = a.x + ((size_t)b * a.HW + p0) * a.C;  // the slice in device memory
+  const int piece = (np + LOAD_PIECES - 1) / LOAD_PIECES;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < LOAD_PIECES; ++k) sm90::mbar_init(&bar[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < LOAD_PIECES; ++k) {
+      const int q0 = min(k * piece, np);
+      const int q1 = min(q0 + piece, np);
+      const uint32_t bytes = (uint32_t)(q1 - q0) * a.C * 2;
+      sm90::mbar_expect_tx(&bar[k], bytes);
+      if (bytes > 0) bulk_load(slice + (size_t)q0 * a.C, xs + (size_t)q0 * a.C, bytes, &bar[k]);
+    }
+  }
+  __syncthreads();
+
+  GnChan ch;
+  fwd_chan(a, b, c0, ch);
+  float s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.0f;
+  for (int k = 0; k < LOAD_PIECES; ++k) {
+    const int q0 = min(k * piece, np);
+    sm90::mbar_wait(&bar[k], 0);
+    accumulate<UNROLL>(slice, a.C, c0, q0 + row, min(q0 + piece, np), rows, ch, s1, s2);
+  }
+  block_group_sums(s1, s2, red, part, a.C, a.G, rows);
+
+  cluster_arrive();  // this CTA's partials are published
+  cluster_wait();
+  if (threadIdx.x < a.G) {
+    const int g = threadIdx.x;
+    float2 pr[CLUSTER_MAX];  // every rank's loads issued before the first sum
+#pragma unroll
+    for (int r = 0; r < CLUSTER_MAX; ++r)
+      if (r < n) pr[r] = ld_cluster2(&part[2 * g], r);
+    double t1 = 0.0, t2 = 0.0;
+#pragma unroll
+    for (int r = 0; r < CLUSTER_MAX; ++r) {
+      if (r < n) {
+        t1 += pr[r].x;
+        t2 += pr[r].y;
+      }
+    }
+    group_moments(a, b, g, t1, t2, mean[g], rstd[g]);
+    if (a.stats != nullptr && rank == 0) {
+      a.stats[(size_t)b * 2 * a.G + g] = mean[g];
+      a.stats[((size_t)b * 2 + 1) * a.G + g] = rstd[g];
+    }
+  }
+  cluster_arrive();  // done reading the other CTAs' partials
+  __syncthreads();
+
+  float sc[8], sh[8];
+  scale_shift(a, c0, ch.t, mean, rstd, sc, sh);
+  apply_rows<UNROLL>(a, b, c0, sc, sh, slice, p0, row, np, rows);
+  if (a.pad) {
+    if (rank == 0) border_row(a, b, c0, 0, row, rows);
+    if (rank == n - 1) border_row(a, b, c0, a.HW / a.W + 1, row, rows);
+  }
+  cluster_wait();  // no CTA leaves while another may still read its partials
+}
+
+// ---------------------------------------------------------------------------
+// The pair: per-block partials in device memory, folded by every apply block
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MAX_THREADS, 2) gn_stats_kernel(GnArgs a) {
+  extern __shared__ float red[];
+  const int b = blockIdx.y;
+  const int chunks = a.C / 8;
+  const int rows = blockDim.x / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  __shared__ float part[2 * MAXG];
+  GnChan ch;
+  fwd_chan(a, b, c0, ch);
+  float s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.0f;
+  const int p0 = min((int)blockIdx.x * a.pixels, a.HW);
+  const int p1 = min(p0 + a.pixels, a.HW);
+  accumulate<1>(a.x + (size_t)b * a.HW * a.C, a.C, c0, p0 + threadIdx.x / chunks, p1, rows, ch,
+                s1, s2);
+  block_group_sums(s1, s2, red, part, a.C, a.G, rows);
+  float* out = a.partials + ((size_t)b * gridDim.x + blockIdx.x) * a.G * 2;
+  for (int i = threadIdx.x; i < 2 * a.G; i += blockDim.x) out[i] = part[i];
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 2) gn_apply_kernel(GnArgs a) {
+  __shared__ float mean[MAXG], rstd[MAXG];
+  const int b = blockIdx.y;
+  const int chunks = a.C / 8;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
+    const float* part = a.partials + (size_t)b * gridDim.x * a.G * 2;
+    double s1 = 0.0, s2 = 0.0;
+    for (unsigned s = 0; s < gridDim.x; ++s) {
+      s1 += part[(size_t)s * a.G * 2 + 2 * g];
+      s2 += part[(size_t)s * a.G * 2 + 2 * g + 1];
+    }
+    group_moments(a, b, g, s1, s2, mean[g], rstd[g]);
+    if (a.stats != nullptr && blockIdx.x == 0) {
+      a.stats[(size_t)b * 2 * a.G + g] = mean[g];
+      a.stats[((size_t)b * 2 + 1) * a.G + g] = rstd[g];
+    }
+  }
+  __syncthreads();
+  float t[8], sc[8], sh[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t[e] = 0.0f;
+  if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, t);
+  scale_shift(a, c0, t, mean, rstd, sc, sh);
+  const int p0 = min((int)blockIdx.x * a.pixels, a.HW);
+  const int p1 = min(p0 + a.pixels, a.HW);
+  const int rows = blockDim.x / chunks;
+  apply_rows<1>(a, b, c0, sc, sh, a.x + (size_t)b * a.HW * a.C, 0, p0 + threadIdx.x / chunks, p1,
+                rows);
+  if (a.pad) {
+    if (blockIdx.x == 0) border_row(a, b, c0, 0, threadIdx.x / chunks, rows);
+    if (blockIdx.x == gridDim.x - 1)
+      border_row(a, b, c0, a.HW / a.W + 1, threadIdx.x / chunks, rows);
+  }
+}
+
+// The launch configuration of the cluster kernel for plan p (the function's
+// attributes set first, as the occupancy query needs them too).
+cudaLaunchConfig_t cluster_config(const GnPlan& p, cudaLaunchAttribute* attr, cudaStream_t st) {
+  static bool set = false;
+  if (!set) {
+    cudaFuncSetAttribute(gn_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         sm90::SMEM_BUDGET);
+    cudaFuncSetAttribute(gn_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid_x, p.grid_y);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of plan p that can be resident at once (0 for the pair).
+int active_clusters(const GnPlan& p) {
+  if (p.form == GN_PAIR) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, &attr, nullptr);
+  int n = 0;
+  cudaOccupancyMaxActiveClusters(&n, gn_cluster_kernel, &cfg);
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
 
 // Pixel range [p0, p1) of this block over `npix` pixels.
 __device__ __forceinline__ void block_range(int npix, int splits, int& p0, int& p1) {
   const int per = (npix + splits - 1) / splits;
   p0 = blockIdx.x * per;
   p1 = min(npix, p0 + per);
-}
-
-__global__ void gn_stats_kernel(GnArgs a) {
-  __shared__ float gsum[MAXG], gsq[MAXG];
-  const int b = blockIdx.y;
-  const int chunks = a.C / 8;
-  const int r = blockDim.x / chunks;
-  const int c0 = (threadIdx.x % chunks) * 8;
-  const int cg = a.C / a.G;
-  for (int i = threadIdx.x; i < a.G; i += blockDim.x) gsum[i] = gsq[i] = 0.0f;
-  __syncthreads();
-
-  const __nv_bfloat16* xb = a.x + (size_t)b * a.HW * a.C;
-  float t[8], shift[8], s1[8], s2[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    t[e] = 0.0f;
-    s1[e] = s2[e] = 0.0f;
-  }
-  if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, t);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int c = c0 + e;
-    const int gfirst = (c / cg) * cg;  // the group's first channel, pixel 0
-    shift[e] = __bfloat162float(xb[gfirst]) + (a.temb != nullptr ? __bfloat162float(a.temb[(size_t)b * a.C + gfirst]) : 0.0f);
-  }
-  int p0, p1;
-  block_range(a.HW, a.splits, p0, p1);
-  if (threadIdx.x < chunks * r) {
-    for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
-      float v[8];
-      load8(xb + (size_t)p * a.C + c0, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = v[e] + t[e] - shift[e];
-        s1[e] += d;
-        s2[e] += d * d;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int g = (c0 + e) / cg;
-      atomicAdd(&gsum[g], s1[e]);
-      atomicAdd(&gsq[g], s2[e]);
-    }
-  }
-  __syncthreads();
-  float* part = a.partials + ((size_t)b * a.splits + blockIdx.x) * a.G * 2;
-  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
-    part[2 * g] = gsum[g];
-    part[2 * g + 1] = gsq[g];
-  }
-}
-
-__global__ void gn_apply_kernel(GnArgs a) {
-  __shared__ float gmean[MAXG], grstd[MAXG];
-  const int b = blockIdx.y;
-  const int chunks = a.C / 8;
-  const int r = blockDim.x / chunks;
-  const int c0 = (threadIdx.x % chunks) * 8;
-  const int cg = a.C / a.G;
-  const __nv_bfloat16* xb = a.x + (size_t)b * a.HW * a.C;
-
-  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
-    const float* part = a.partials + (size_t)b * a.splits * a.G * 2;
-    double s1 = 0.0, s2 = 0.0;
-    for (int s = 0; s < a.splits; ++s) {
-      s1 += part[(size_t)s * a.G * 2 + 2 * g];
-      s2 += part[(size_t)s * a.G * 2 + 2 * g + 1];
-    }
-    const double n = (double)a.HW * cg;
-    const double md = s1 / n;
-    double var = s2 / n - md * md;
-    var = var > 0.0 ? var : 0.0;
-    const int gfirst = g * cg;
-    const float shift = __bfloat162float(xb[gfirst]) +
-                        (a.temb != nullptr ? __bfloat162float(a.temb[(size_t)b * a.C + gfirst]) : 0.0f);
-    gmean[g] = (float)md + shift;
-    grstd[g] = rsqrtf((float)var + a.eps);
-    if (a.stats != nullptr && blockIdx.x == 0) {
-      a.stats[(size_t)b * 2 * a.G + g] = gmean[g];
-      a.stats[((size_t)b * 2 + 1) * a.G + g] = grstd[g];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x >= chunks * r) return;
-
-  // y = x * scale + shift_c, with the temb folded into the shift.
-  float sc[8], sh[8], gm[8], bt[8], t[8];
-  load8(a.gamma + c0, gm);
-  load8(a.beta + c0, bt);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) t[e] = 0.0f;
-  if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, t);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int g = (c0 + e) / cg;
-    sc[e] = grstd[g] * gm[e];
-    sh[e] = (t[e] - gmean[g]) * sc[e] + bt[e];
-  }
-
-  const int H = a.HW / a.W;
-  const int Wo = a.W + 2 * a.pad;
-  const int npix = (H + 2 * a.pad) * Wo;
-  __nv_bfloat16* ob = a.out + (size_t)b * npix * a.C;
-  int p0, p1;
-  block_range(npix, a.splits, p0, p1);
-  for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
-    float y[8];
-    int src = p;
-    bool border = false;
-    if (a.pad) {
-      const int py = p / Wo - 1;
-      const int px = p % Wo - 1;
-      border = py < 0 || py >= H || px < 0 || px >= a.W;
-      src = py * a.W + px;
-    }
-    if (border) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = 0.0f;
-    } else {
-      float v[8];
-      load8(xb + (size_t)src * a.C + c0, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float z = v[e] * sc[e] + sh[e];
-        y[e] = a.activate ? z / (1.0f + __expf(-z)) : z;
-      }
-    }
-    *reinterpret_cast<uint4*>(ob + (size_t)p * a.C + c0) = pack8(y);
-  }
 }
 
 struct GnBwdArgs {
@@ -353,13 +707,18 @@ __global__ void gn_bwd_apply_kernel(GnBwdArgs a) {
 
 }  // namespace
 
-// x: (B, H, W, C); out: (B, H + 2 pad, W + 2 pad, C); partials: B * splits *
-// G * 2 floats of scratch; stats: (B, 2, G) fp32 or null. All other tensors
-// bf16. C % 8 == 0, C % G == 0, G <= 64, C / 8 <= 1024.
+// x: (B, H, W, C); out: (B, H + 2 pad, W + 2 pad, C); partials: the pair's
+// B * splits * G * 2 floats of scratch (splits = the plan's grid_x; null for
+// the cluster kernel); stats: (B, 2, G) fp32 or null. All other tensors
+// bf16. C % 8 == 0, C % G == 0, G <= 64, C <= 4096.
 extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void* beta,
                                     const void* temb, void* out, void* partials, void* stats,
-                                    int B, int H, int W, int C, int G, int splits, float eps,
-                                    int activate, int pad, void* stream) {
+                                    int B, int H, int W, int C, int G, float eps, int activate,
+                                    int pad, void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GnPlan p = gn_plan(B, H, W, C);
+  if (B == 0 || H * W == 0) return 0;
   GnArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.gamma = static_cast<const __nv_bfloat16*>(gamma);
@@ -372,18 +731,43 @@ extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void
   a.W = W;
   a.C = C;
   a.G = G;
-  a.splits = splits;
+  a.pixels = p.pixels;
   a.pad = pad;
   a.eps = eps;
   a.activate = activate;
-  const int chunks = C / 8;
-  const int threads = chunks * (chunks >= 512 ? 1 : 512 / chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(splits, B);
-  gn_stats_kernel<<<grid, threads, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
+  if (p.form == GN_PAIR) {
+    static bool attr = false;
+    if (!attr) {
+      cudaFuncSetAttribute(gn_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           64 * MAX_THREADS);
+      attr = true;
+    }
+    const dim3 grid(p.grid_x, p.grid_y);
+    gn_stats_kernel<<<grid, p.threads, p.smem, st>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gn_apply_kernel<<<grid, p.threads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, &attr, st);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gn_apply_kernel<<<grid, threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's plan at (B, H, W, C), for kernels/groupnorm.py:group_norm_plan
+// to be held to: out[8] = form (0 the pair, 1 the cluster kernel), cluster
+// size, pixels a CTA (pair block) takes, dynamic shared-memory bytes, grid x
+// and y, threads a block, and the clusters that can be resident at once
+// (cudaOccupancyMaxActiveClusters; 0 for the pair).
+extern "C" int gmdx_group_norm_plan(int B, int H, int W, int C, int* out) {
+  if (C % 8 || C / 8 > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const GnPlan p = gn_plan(B, H, W, C);
+  const int fields[8] = {p.form, p.cluster, p.pixels, p.smem, p.grid_x, p.grid_y, p.threads,
+                         active_clusters(p)};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
   return static_cast<int>(cudaGetLastError());
 }
 

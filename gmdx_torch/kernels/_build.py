@@ -37,6 +37,7 @@ ENTRY_POINTS = {
     "gmdx_attention": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_flash_bsc": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "gmdx_xattn": ("attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "gmdx_xattn_plan": ("attention", [_I, _I, _I, _I, _I, _P]),
     "gmdx_attention_sm90_plan": ("attention", [_I, _I, _I, _I, _I, _I, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -47,8 +48,9 @@ ENTRY_POINTS = {
     ),
     "gmdx_group_norm_silu": (
         "groupnorm",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
+    "gmdx_group_norm_plan": ("groupnorm", [_I, _I, _I, _I, _P]),
     "gmdx_group_norm_silu_bwd": (
         "groupnorm",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

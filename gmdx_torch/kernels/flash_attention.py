@@ -10,9 +10,10 @@ on ``csrc/attention_sm90.cuh``'s Hopper forward and, through
 ``csrc/attention_wide.cuh``, at the VAE's 512; the backward at 40/80/160: a
 dd pre-pass, then the dK/dV and dQ kernels on ``csrc/attention_sm90.cuh``)
 and ``csrc/attention.cu`` (``gmdx_flash_bsc`` on the same Hopper forward,
-and ``gmdx_xattn`` from ``csrc/attention_xattn.cuh``).
-:func:`attention_fwd_plan` and :func:`flash_bwd_plan` lay out the Hopper
-kernels' launches as their ``*Plan`` structs do.
+and ``gmdx_xattn`` from ``csrc/attention_xattn.cuh``, built from the same
+core's pieces). :func:`attention_fwd_plan`, :func:`flash_bwd_plan` and
+:func:`xattn_plan` lay out the Hopper kernels' launches as their ``*Plan``
+structs do.
 
 The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
 at 16384 tokens the whole fp32 score matrix of one call would take tens of
@@ -130,6 +131,58 @@ def flash_bwd_plan(
         grid=(-(-sq // 128), heads, b), boxes=(128, nk),
     )
     return dkv, dq
+
+
+@dataclass(frozen=True)
+class XattnPlan:
+    """The short-K kernel's launch (``XattnPlan`` in
+    ``csrc/attention_xattn.cuh``), field for field what ``gmdx_xattn_plan``
+    reports: ``grid`` = B * H * ``splits`` blocks, each one (batch, head)'s
+    K and V resident in ``key_tile`` rows (TMA's zeros past Sk) and one of
+    its ``splits`` contiguous runs of at most ``tiles_per_block`` 64-query
+    tiles; S over ``ksteps`` k16 steps of D; a ring of ``stages`` Q tiles
+    feeding ``consumers`` warpgroups; ``smem_bytes`` of dynamic shared
+    memory."""
+
+    grid: int
+    key_tile: int
+    ksteps: int
+    stages: int
+    smem_bytes: int
+    splits: int
+    consumers: int
+    tiles_per_block: int
+
+    def c_fields(self) -> list[int]:
+        return [self.grid, self.key_tile, self.ksteps, self.stages, self.smem_bytes,
+                self.splits, self.consumers, self.tiles_per_block]
+
+
+def xattn_key_tile(sk: int) -> int:
+    """The S product's N: the key count rounded up to an instance (32, 80 or
+    128; 80 for the 77 CLIP tokens)."""
+    return 32 if sk <= 32 else 80 if sk <= 80 else 128
+
+
+def xattn_plan(b: int, sq: int, sk: int, heads: int, d: int) -> XattnPlan:
+    """The plan of :func:`cross_attention_shortk` at head dims 40/80/160:
+    three consumer warpgroups at d = 40 and two above (as the long-key
+    forward); one head's K and V and two 64-row Q stages a consumer (one
+    where two do not fit), so that each stage serves one consumer, beside
+    the staging tiles (64 x (d + 8) bf16 a consumer), 1024 bytes of
+    alignment slack and 256 of mbarriers; each
+    head's query tiles split into ``SMS // (b * heads)`` runs (at least one,
+    at most the tiles), a block each."""
+    nch, kt = _chunks(d), xattn_key_tile(sk)
+    nc = 3 if d == 40 else 2
+    q_stage = nch * 64 * 128
+    fixed = 1024 + 2 * nch * kt * 128 + nc * 64 * (d + 8) * 2 + 256
+    stages = nc * min(2, (SMEM_BUDGET - fixed) // q_stage // nc)
+    q_tiles = -(-sq // 64)
+    splits = max(1, min(SMS // (b * heads), q_tiles))
+    return XattnPlan(grid=b * heads * splits, key_tile=kt, ksteps=-(-d // 16), stages=stages,
+                     smem_bytes=fixed + stages * q_stage, splits=splits, consumers=nc,
+                     tiles_per_block=-(-q_tiles // splits))
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -325,7 +378,9 @@ def cross_attention_shortk(
 ) -> torch.Tensor:
     """Exact-softmax attention over head-packed (B, S, H*D) q/k/v with at
     most :data:`XATTN_MAX_KEYS` keys (the 77 CLIP tokens): every key of a
-    head is resident at once, so nothing is online. Inference only."""
+    head is resident at once, so nothing is online. Inference only. The
+    kernel scales the fp32 scores by ``scale * log2(e)`` where the plain
+    version rounds the pre-scaled Q to bf16 (the TPU kernel's rounding)."""
     d = _check_shapes(q, k, v, heads)
     if not 1 <= k.shape[1] <= XATTN_MAX_KEYS:
         raise ValueError(f"short-K attention takes 1 to {XATTN_MAX_KEYS} keys, got {k.shape[1]}")
@@ -351,6 +406,7 @@ __all__ = [
     "AttentionPlan",
     "PLAIN_CHUNK",
     "XATTN_MAX_KEYS",
+    "XattnPlan",
     "cross_attention_shortk",
     "cross_attention_shortk_plain",
     "flash_attention_bsc",
@@ -363,4 +419,6 @@ __all__ = [
     "flash_attention_bwd_plain",
     "attention_fwd_plan",
     "flash_bwd_plan",
+    "xattn_key_tile",
+    "xattn_plan",
 ]

@@ -3,7 +3,10 @@
 Counterpart of ``gmdx/kernels/groupnorm.py``: one function covers both
 ``fused_group_norm_silu`` (plain, optionally padded) and
 ``parity_gn_pad_silu`` (temb added before the statistics), without the
-Winograd parity layout. Kernel: ``csrc/groupnorm.cu``.
+Winograd parity layout. Kernel: ``csrc/groupnorm.cu``: the forward is one
+launch of ``gn_cluster_kernel``, one thread-block cluster an image whose
+slices are resident in shared memory, wherever :func:`group_norm_plan` finds
+that they fit, and the stats + apply pair elsewhere.
 
 The backward (``_gn_backward``, two passes from the statistics the forward
 saved) is :func:`group_norm_silu_bwd`; :class:`GroupNormSiLU` ties the two
@@ -13,12 +16,52 @@ are (B, 2, G) fp32: each group's mean (of ``x + temb``) and rstd.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
 from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands
 
-_TARGET_BLOCKS = 528  # about four blocks per SM of the H100's 132
+_TARGET_BLOCKS = 528  # the pair's and the backward's blocks: about four an SM of 132
+# csrc/groupnorm.cu's plan constants: the dynamic shared memory a block may
+# use, the most groups, the resident slice's bulk copies (an mbarrier each),
+# the cluster sizes and, for each, the clusters the H100 holds resident at
+# once (one CTA an SM; cudaOccupancyMaxActiveClusters, which
+# gmdx_group_norm_plan reports and the card tests hold to this table).
+SMEM_BUDGET = 232448
+MAX_GROUPS = 64
+LOAD_PIECES = 4
+CLUSTERS = (1, 2, 4, 8, 16)
+RESIDENT_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# A wave's fixed cost (the fold and the cluster barriers, about 4 us on the
+# H100) as the slice bytes a CTA loads and stores in that time (about 17 GB/s
+# each way, PERF.md).
+WAVE_BYTES = 32768
+# The plan's forms, as gmdx_group_norm_plan numbers them: the stats + apply
+# pair and the cluster kernel, each image's slices resident.
+FORMS = ("pair", "resident")
+
+
+@dataclass(frozen=True)
+class GroupNormPlan:
+    """The forward's launch (``gn_plan`` in ``csrc/groupnorm.cu``): its
+    ``form``, ``cluster`` CTAs an image (1 for the pair), the ``pixels`` a
+    CTA (a pair block) takes, ``smem_bytes`` of dynamic shared memory (the
+    slice and the fold's scratch; the pair's stats kernel's scratch),
+    ``grid`` (x, images) and ``threads`` a block."""
+
+    form: str
+    cluster: int
+    pixels: int
+    smem_bytes: int
+    grid: tuple[int, int]
+    threads: int
+
+    def c_fields(self) -> list[int]:
+        """The first seven fields of ``gmdx_group_norm_plan``'s report."""
+        return [FORMS.index(self.form), self.cluster, self.pixels, self.smem_bytes, *self.grid,
+                self.threads]
 
 
 def group_norm_silu_plain(
@@ -57,10 +100,48 @@ def group_norm_silu_plain(
 
 
 def _splits(b: int, hw: int, c: int) -> int:
-    """Blocks per image of both passes: about _TARGET_BLOCKS in all, and no
-    more than a block's walk of ``rows`` pixels each."""
+    """Blocks per image of the pair and of the backward: about _TARGET_BLOCKS
+    in all, and no more than a block's walk of ``rows`` pixels each."""
     rows = max(1, 512 // (c // 8))  # pixels a block walks in parallel
     return max(1, min(-(-_TARGET_BLOCKS // b), -(-hw // rows)))
+
+
+def _threads(c: int) -> int:
+    """(C / 8) * R threads: an 8-channel chunk each, R pixel rows in parallel."""
+    chunks = c // 8
+    return chunks * max(1, 512 // chunks)
+
+
+def _pair_plan(b: int, hw: int, c: int) -> GroupNormPlan:
+    """The stats + apply pair: grid (splits, b), the stats kernel's fold
+    scratch as its dynamic shared memory."""
+    splits, threads = _splits(b, hw, c), _threads(c)
+    return GroupNormPlan("pair", 1, -(-hw // splits), 64 * threads, (splits, b), threads)
+
+
+def group_norm_plan(b: int, h: int, w: int, c: int) -> GroupNormPlan:
+    """The forward's plan for ``b`` images of (h, w, c): the cluster kernel
+    (each CTA's slice of ceil(HW / n) pixels resident in shared memory
+    beside ``64 * threads + 4 * MAX_GROUPS * 4 + LOAD_PIECES * 8`` bytes of
+    scratch) at the cluster size n of :data:`CLUSTERS` whose slice fits and
+    whose cost ``ceil(b / RESIDENT_CLUSTERS[n]) * (slice bytes + WAVE_BYTES)``
+    is least, the smaller n on a tie: the waves of clusters the card holds
+    at once, each as long as a CTA takes over its slice plus the wave's
+    fixed cost. The pair where no slice fits."""
+    hw, threads = h * w, _threads(c)
+    fixed = 64 * threads + 4 * MAX_GROUPS * 4 + LOAD_PIECES * 8
+    fit, best = 0, 0
+    for n in CLUSTERS:
+        pixels = -(-hw // n)
+        if n > hw or pixels * c * 2 + fixed > SMEM_BUDGET:
+            continue
+        cost = -(-b // RESIDENT_CLUSTERS[n]) * (pixels * c * 2 + WAVE_BYTES)
+        if not fit or cost < best:
+            fit, best = n, cost
+    if not fit:
+        return _pair_plan(b, hw, c)
+    pixels = -(-hw // fit)
+    return GroupNormPlan("resident", fit, pixels, fixed + pixels * c * 2, (fit, b), threads)
 
 
 def group_norm_silu(
@@ -91,24 +172,26 @@ def group_norm_silu(
             x, scale, bias, temb, num_groups=num_groups, eps=eps,
             activate=activate, pad_output=pad_output, return_stats=return_stats,
         )
-    if c % 8 or c > 8192 or num_groups > 64:
+    if c % 8 or c > 4096 or num_groups > MAX_GROUPS:
         raise ValueError(f"group_norm_silu kernel: unsupported C={c}, G={num_groups}")
     if temb is not None and temb.shape != (b, c):
         raise ValueError(f"temb must be ({b}, {c}), got {tuple(temb.shape)}")
     stream = check_kernel_operands("group_norm_silu", x, scale, bias, temb)
     from gmdx_torch.kernels import _build
 
+    plan = group_norm_plan(b, h, w, c)
     pad = 1 if pad_output else 0
     out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
-    splits = _splits(b, h * w, c)
-    partials = torch.empty((b, splits, num_groups, 2), dtype=torch.float32, device=x.device)
+    partials = (torch.empty((b, plan.grid[0], num_groups, 2), dtype=torch.float32,
+                            device=x.device) if plan.form == "pair" else None)
     stats = (torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
              if return_stats else None)
     _build.call(
         "gmdx_group_norm_silu", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         temb.data_ptr() if temb is not None else None, out.data_ptr(),
-        partials.data_ptr(), stats.data_ptr() if stats is not None else None,
-        b, h, w, c, num_groups, splits, float(eps), int(activate), pad, stream,
+        partials.data_ptr() if partials is not None else None,
+        stats.data_ptr() if stats is not None else None,
+        b, h, w, c, num_groups, float(eps), int(activate), pad, stream,
     )
     LAUNCHES["group_norm_silu"] += 1
     return (out, stats) if return_stats else out
@@ -237,6 +320,8 @@ class GroupNormSiLU(torch.autograd.Function):
 
 
 __all__ = [
+    "GroupNormPlan",
+    "group_norm_plan",
     "group_norm_silu",
     "group_norm_silu_plain",
     "group_norm_silu_bwd",

@@ -17,6 +17,10 @@ over 5 launches (torch.profiler) and the card's name and power limit:
   * ``flash_attention_bsc`` at the 1024^2 path's first level (16384 tokens, 8
     heads of 40) at batches 2 and 1;
   * ``flash_attention_bwd`` at the Stage-2 step's three levels at batch 8;
+  * ``cross_attention_shortk`` (77 keys) at the 512^2 GM UNet's three
+    levels at the sdr2hdr CFG batch 16, and its 64^2 and 32^2 levels at the
+    smoke's CFG batch 4, each with its plan (``xattn_plan``, where the copy
+    has it);
   * ``host_us``: the host time of one ``attention_kv_resident`` and one
     ``flash_attention_fwd`` call (launches queued without a synchronise, at
     a small shape the card finishes faster than the host issues it).
@@ -49,6 +53,7 @@ from gmdx_torch.kernels.attention import (  # noqa: E402
 KVRES_SHAPES = [(16, 4096, 40), (16, 1024, 80), (16, 256, 160), (2, 4096, 80), (2, 1024, 160),
                 (2, 256, 160), (1, 4096, 80), (1, 1024, 160), (1, 256, 160)]
 TRAIN_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
+XATTN_SHAPES = [(16, 4096, 40), (16, 1024, 80), (16, 256, 160), (4, 4096, 40), (4, 1024, 80)]
 
 
 def kernels_ms(fn) -> dict:
@@ -139,6 +144,20 @@ def main() -> None:
         emit("flash_attention_bwd", [8, s, heads, d], rel,
              lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, heads),
              lambda: torch.autograd.grad(out_l, (qh, kh, vh), dout_h, retain_graph=True))
+
+    xplan_of = getattr(fa, "xattn_plan", None)
+    for b, s, d in XATTN_SHAPES if keep("cross_attention_shortk") else ():
+        q = rnd(b, s, heads * d)
+        k, v = rnd(b, 77, heads * d), rnd(b, 77, heads * d)
+        ref = fa.cross_attention_shortk_plain(q, k, v, heads)
+        qh = q.view(b, s, heads, d).transpose(1, 2)
+        kh, vh = (t.view(b, 77, heads, d).transpose(1, 2) for t in (k, v))
+        extra = {"plan": xplan_of(b, s, 77, heads, d).__dict__} if xplan_of else {}
+        emit("cross_attention_shortk", [b, s, 77, heads, d],
+             cs.compare(fa.cross_attention_shortk(q, k, v, heads), ref)[1],
+             lambda: fa.cross_attention_shortk(q, k, v, heads),
+             lambda: F.scaled_dot_product_attention(qh, kh, vh), **extra)
+        del q, k, v, ref, qh, kh, vh
 
     q, k, v = (rnd(1, 256, 320) for _ in range(3))
     print(json.dumps({

@@ -4,7 +4,8 @@
 ``flash_attention_fwd`` and ``flash_attention_bsc`` and the two kernels of
 ``flash_attention_bwd`` as
 ``gmdx_torch/kernels/flash_attention.py:attention_fwd_plan`` and
-``flash_bwd_plan`` lay them out (``tests/test_torch_card.py`` holds the
+``flash_bwd_plan`` lay them out, and ``csrc/attention_xattn.cuh`` the
+short-K cross-attention as ``xattn_plan`` does (``tests/test_torch_card.py`` holds the
 plans to the kernels' own structs on the card). These tests hold the plans
 at every self-attention shape of the SD-1.5 paths, check that the dispatch
 sends those shapes to the kernels whose plans they are, and walk the
@@ -20,9 +21,9 @@ import torch
 
 from gmdx_torch.kernels.attention import attention_route
 from gmdx_torch.kernels.flash_attention import (
-    BOX_COLS, SMEM_BUDGET, SMS, attention_fwd_plan, flash_attention_bsc_plain,
-    flash_attention_bwd_dd_plain, flash_attention_bwd_plain, flash_attention_fwd_plain,
-    flash_bwd_plan,
+    BOX_COLS, SMEM_BUDGET, SMS, attention_fwd_plan, cross_attention_shortk_plain,
+    flash_attention_bsc_plain, flash_attention_bwd_dd_plain, flash_attention_bwd_plain,
+    flash_attention_fwd_plain, flash_bwd_plan, xattn_plan,
 )
 
 LOG2_E = 1.0 / np.log(2.0)
@@ -316,3 +317,116 @@ def test_ctypes_signatures_match_the_c_entry_points():
         want = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float")
                 else ctypes.c_int for p in params]
         assert (lib, argtypes) == (source, want), name
+
+
+# The short-K cross-attention's path shapes: the 512^2 GM UNet's 64^2 and
+# 32^2 levels (4096 x 40, 1024 x 80; 8 heads) against the 77 CLIP tokens,
+# and the 16^2 level's head dim, at the paths' batches.
+XATTN_LEVELS = [(4096, 40), (1024, 80), (256, 160)]
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("s,d", XATTN_LEVELS)
+def test_xattn_plan_at_path_shapes(b, s, d):
+    plan = xattn_plan(b, s, 77, 8, d)
+    # The key tile is the 77 keys rounded up to 80, not 128, and the S
+    # product's depth is D in k16 steps (3 at D = 40), not the 64-column box.
+    assert plan.key_tile == 80 and plan.ksteps == -(-d // 16) == _k16(d) // 16
+    assert plan.consumers == (3 if d == 40 else 2)
+    # Two Q stages a consumer: a stage always serves the same consumer.
+    assert plan.stages == 2 * plan.consumers and plan.smem_bytes <= SMEM_BUDGET
+    # One block a (batch, head) run; the runs of a head fill the SMs in one
+    # wave where B H alone would not.
+    q_tiles = -(-s // 64)
+    assert plan.splits == max(1, min(SMS // (b * 8), q_tiles))
+    assert plan.grid == b * 8 * plan.splits and (plan.grid <= SMS or plan.splits == 1)
+    assert plan.tiles_per_block == -(-q_tiles // plan.splits)
+    # TMA boxes (64, 1, 64, 1) for Q and (64, 1, 80, 1) for K and V.
+    assert max(64, plan.key_tile) <= 256
+
+
+def test_xattn_plan_sizes_the_key_tile_to_sk():
+    assert [xattn_plan(2, 1000, sk, 8, 40).key_tile for sk in (1, 8, 32, 33, 77, 80, 81, 128)] \
+        == [32, 32, 32, 80, 80, 80, 128, 128]
+    assert [xattn_plan(b, 4096, 77, 8, 40).grid for b in (16, 4, 2, 1)] == [128, 128, 128, 128]
+    # One stage a consumer where two do not fit beside 128 keys of d = 160.
+    assert xattn_plan(2, 1000, 128, 8, 160).stages == 2
+
+
+def _xattn_runs(plan, q_tiles, bh_count):
+    """Block i's (batch-head, [first tile, end)): run i % splits of head
+    i // splits, each head's tiles cut at q_tiles * k // splits."""
+    s = plan.splits
+    return [(i // s, q_tiles * (i % s) // s, q_tiles * (i % s + 1) // s)
+            for i in range(bh_count * s)]
+
+
+@pytest.mark.parametrize("b,s,d", [(16, 4096, 40), (16, 1024, 80), (2, 4096, 40), (4, 1024, 80),
+                                   (3, 300, 160)])
+def test_xattn_blocks_take_every_tile_once(b, s, d):
+    """The runs cover every (query tile, head, batch) once, with one head a
+    block (K and V loaded once a block) and a head's runs balanced within
+    one tile."""
+    plan = xattn_plan(b, s, 77, 8, d)
+    q_tiles = -(-s // 64)
+    runs = _xattn_runs(plan, q_tiles, b * 8)
+    assert len(runs) == plan.grid
+    taken = sorted((bh, t) for bh, t0, t1 in runs for t in range(t0, t1))
+    assert taken == [(bh, t) for bh in range(b * 8) for t in range(q_tiles)]
+    sizes = [t1 - t0 for _, t0, t1 in runs]
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) == plan.tiles_per_block
+
+
+def emulate_xattn(q, k, v, heads, scale):
+    """The short-K kernel's walk: each block's run of 64-query tiles of one
+    head, whose K and V it holds in key_tile rows and 64-column chunks
+    (TMA's zeros past Sk and D); S over ksteps k16 steps, keys past Sk
+    masked, P = exp2(S c - m c), the fp32 row sum, O = P V over the key
+    tile."""
+    b, sq, c = q.shape
+    sk, d = k.shape[1], c // heads
+    plan = xattn_plan(b, sq, sk, heads, d)
+    kt, depth = plan.key_tile, 16 * plan.ksteps
+    q_tiles = -(-sq // 64)
+    qp = _heads(q, heads, q_tiles * 64, _cols(d))
+    kp, vp = _heads(k, heads, kt, _cols(d)), _heads(v, heads, kt, _cols(d))
+    cf = np.float32(scale * LOG2_E)
+    out = np.zeros_like(qp)
+    for bh, t0, t1 in _xattn_runs(plan, q_tiles, b * heads):
+        kh, vh = kp[bh // heads, bh % heads], vp[bh // heads, bh % heads]
+        for t in range(t0, t1):
+            rows = slice(t * 64, t * 64 + 64)
+            s = qp[bh // heads, bh % heads, rows, :depth] @ kh[:, :depth].T
+            s[:, np.arange(kt) >= sk] = -np.inf
+            p = np.exp2(s * cf - (s.max(-1) * cf)[:, None])
+            out[bh // heads, bh % heads, rows] = (p @ vh) / p.sum(-1)[:, None]
+    return _packed(out, sq, d)
+
+
+@pytest.mark.parametrize("sq,sk,d", [(4096, 77, 40), (1000, 77, 80), (300, 128, 160),
+                                     (130, 1, 40), (700, 8, 80), (64, 33, 160)])
+def test_xattn_tiles_are_the_plain_function(sq, sk, d):
+    """Ragged query counts, each key tile; 3 heads, each split into runs.
+    fp32, where the plain version's two roundings to the operands' dtype
+    are no-ops."""
+    heads = 3
+    q, k, v = _inputs(1, sq, sk, heads, d, seed=sq + sk)
+    got = emulate_xattn(q, k, v, heads, d**-0.5)
+    ref = cross_attention_shortk_plain(*(torch.from_numpy(x) for x in (q, k, v)), heads)
+    assert _rel_l2(got, ref.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["gmdx_xattn", "gmdx_xattn_plan", "gmdx_group_norm_silu",
+                                  "gmdx_group_norm_plan"])
+def test_rebuilt_kernels_ctypes_signatures_match_the_c_sources(name):
+    """The ctypes argtypes of the short-K and GroupNorm entry points
+    (_build.ENTRY_POINTS) against their C parameters one for one."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+
+    lib, argtypes = _build.ENTRY_POINTS[name]
+    source, params = _c_entry_points()[name]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float")
+            else ctypes.c_int for p in params]
+    assert (lib, argtypes) == (source, want)

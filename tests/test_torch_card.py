@@ -696,3 +696,130 @@ def test_unet_with_options_launches_per_call_counts(card):
     want = {"cross_attention_shortk": 10, "add_layer_norm": 16, "winograd4_conv3x3": 30,
             "conv3x3": 14, "attention_kv_resident": 15, "geglu_ff_ln": 16, "geglu_ff": 0}
     assert {k: counts[k] for k in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("sk", [1, 8, 77, 128])
+def test_xattn_sm90_kernel_on_card(card, d, sk):
+    """xattn_sm90_kernel at every key tile (32, 80, 128) and head dim, with
+    ragged query counts: 1000 and 300 queries end in part-empty tiles, each
+    head's tiles split into 8 and 5 runs of a block each."""
+    from gmdx_torch.kernels.flash_attention import (
+        cross_attention_shortk, cross_attention_shortk_plain,
+    )
+
+    for b, sq in ((2, 1000), (3, 300)):
+        q = _bf16(card, b, sq, 8 * d)
+        k, v = _bf16(card, b, sk, 8 * d), _bf16(card, b, sk, 8 * d)
+        out = cross_attention_shortk(q, k, v, 8)
+        assert _rel_l2(out, cross_attention_shortk_plain(q, k, v, 8)) <= 1e-2, (b, sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("b,sq,sk", [(16, 4096, 77), (16, 1024, 77), (16, 256, 77), (2, 1000, 1),
+                                     (3, 300, 128), (1, 64, 8)])
+def test_xattn_plan_matches_kernel_on_card(card, d, b, sq, sk):
+    """xattn_plan field for field against gmdx_xattn_plan, the C plan the
+    short-K kernel launches with."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.flash_attention import xattn_plan
+
+    got = (ctypes.c_int * 8)()
+    assert _build.library("attention").gmdx_xattn_plan(b, sq, sk, 8, d, got) == 0
+    assert list(got) == xattn_plan(b, sq, sk, 8, d).c_fields()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,c,sk", [(16, 4096, 320, 77), (4, 4096, 320, 77),
+                                      (16, 1024, 640, 77), (16, 300, 1280, 128)])
+def test_xattn_repeat_is_bit_identical_on_card(card, b, sq, c, sk):
+    """50 calls give the same bits: the Q ring's stages are handed to the
+    consumers without a race (a stage read before its fill landed would
+    change the output or fault)."""
+    from gmdx_torch.kernels.flash_attention import cross_attention_shortk
+
+    q = _bf16(card, b, sq, c)
+    k, v = _bf16(card, b, sk, c), _bf16(card, b, sk, c)
+    first = cross_attention_shortk(q, k, v, 8)
+    for _ in range(49):
+        assert torch.equal(cross_attention_shortk(q, k, v, 8), first)
+
+
+# GroupNorm cases for each form and cluster size the plan takes: (B, H, W,
+# C, form, cluster). Batches of tiny images reach n = 1 and 2; the small
+# images of the 512^2 UNet run in one wave, at batch 16 of n = 4, at the
+# Stage-2 batch 8 of n = 8; its larger ones take n = 16, and those that do
+# not fit (64^2 x 640, 32^2 x 1920) the pair, as does a 128^2 x 320 image
+# at batch 2 (the 1024^2 UNet's first level).
+GN_FORM_CASES = [
+    (132, 8, 8, 64, "resident", 1), (60, 8, 8, 64, "resident", 2),
+    (16, 8, 8, 1280, "resident", 4), (16, 16, 16, 1280, "resident", 4),
+    (8, 8, 8, 1280, "resident", 8), (8, 32, 32, 640, "resident", 8),
+    (2, 64, 64, 320, "resident", 16), (16, 32, 32, 640, "resident", 16),
+    (16, 64, 64, 640, "pair", 1), (16, 32, 32, 1920, "pair", 1),
+    (2, 128, 128, 320, "pair", 1),
+]
+
+
+def _gn_inputs(gen, b, h, w, c):
+    x = (_bf16(gen, b, h, w, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+    g = (1.0 + _bf16(gen, c, scale=0.2).float()).to(torch.bfloat16)
+    return x, g, _bf16(gen, c, scale=0.2), _bf16(gen, b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,form,cluster", GN_FORM_CASES)
+@pytest.mark.parametrize("temb,act,pad", [(False, True, True), (True, True, True),
+                                          (True, False, False)])
+def test_group_norm_forms_on_card(card, b, h, w, c, form, cluster, temb, act, pad):
+    """Every form the plan takes against the plain version: output within
+    1e-2 relative L2, the (mean, rstd) stats within 1e-3 relative."""
+    from gmdx_torch.kernels.groupnorm import group_norm_plan
+
+    plan = group_norm_plan(b, h, w, c)
+    assert (plan.form, plan.cluster) == (form, cluster)
+    x, g, be, t = _gn_inputs(card, b, h, w, c)
+    t = t if temb else None
+    out, stats = group_norm_silu(x, g, be, t, activate=act, pad_output=pad, return_stats=True)
+    ref, ref_stats = group_norm_silu_plain(
+        x.float(), g.float(), be.float(), t.float() if temb else None, activate=act,
+        pad_output=pad, return_stats=True,
+    )
+    assert _rel_l2(out, ref) <= 1e-2
+    for i in range(2):  # mean, then rstd
+        assert _rel_l2(stats[:, i], ref_stats[:, i]) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", [(b, h, w, c) for b, h, w, c, _, _ in GN_FORM_CASES]
+                         + [(16, 512, 512, 128), (2, 512, 512, 128), (8, 256, 256, 256),
+                            (2, 1024, 1024, 128)])
+def test_group_norm_plan_matches_kernel_on_card(card, b, h, w, c):
+    """group_norm_plan field for field against gmdx_group_norm_plan, the C
+    plan the forward launches with; the clusters resident at once
+    (cudaOccupancyMaxActiveClusters) are those the plan counts its waves by."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.groupnorm import RESIDENT_CLUSTERS, group_norm_plan
+
+    got = (ctypes.c_int * 8)()
+    assert _build.library("groupnorm").gmdx_group_norm_plan(b, h, w, c, got) == 0
+    plan = group_norm_plan(b, h, w, c)
+    assert list(got)[:7] == plan.c_fields()
+    assert got[7] == (RESIDENT_CLUSTERS[plan.cluster] if plan.form != "pair" else 0), list(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", [(16, 64, 64, 320), (16, 64, 64, 640), (2, 128, 128, 320)])
+def test_group_norm_repeat_is_bit_identical_on_card(card, b, h, w, c):
+    """No atomics in the forward's sums: a repeated call gives the same
+    bits, stats included (the cluster kernel and the pair)."""
+    x, g, be, t = _gn_inputs(card, b, h, w, c)
+    one = group_norm_silu(x, g, be, t, pad_output=True, return_stats=True)
+    two = group_norm_silu(x, g, be, t, pad_output=True, return_stats=True)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
