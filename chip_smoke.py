@@ -16,10 +16,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      F(4x4)'s products; attention_sm90.cuh's forward as the KV-resident,
      the long-sequence and the training kernel, the flash backward's dK/dV
      and dQ, and the short-K cross-attention) issues wgmma (HGMMA) and TMA
-     loads (UTMALDG) in its SASS and spills nothing, and unless the
+     loads (UTMALDG) in its SASS and spills nothing, unless the
      GroupNorm forward's cluster kernel crosses the cluster barrier
      (UCGABAR_ARV, UCGABAR_WAIT), loads its slice by bulk copy (UBLKCP)
-     and spills nothing.
+     and spills nothing, unless the add + LayerNorm ring issues bulk
+     copies (UBLKCP) and spills nothing, and unless the GroupNorm
+     backward spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -45,7 +47,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      the UNet too large for one cluster) carry their plan's form, cluster
      size and the clusters resident at once, held to gmdx_group_norm_plan
      (which reports cudaOccupancyMaxActiveClusters) and to the plan's
-     RESIDENT_CLUSTERS.
+     RESIDENT_CLUSTERS; GroupNorm-backward rows their plan, held to
+     gmdx_group_norm_bwd_plan (blocks an SM by
+     cudaOccupancyMaxActiveBlocksPerMultiprocessor), and each runs twice
+     and must give the same bits; add + LayerNorm rows their plan, held to
+     gmdx_add_ln_plan.
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -62,13 +68,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
   7. train_e2e: batch 1, one loss and gradient with the kernels and with
      the plain versions on the same latents, noise and timesteps: losses
      within 1e-3 relative, flattened gradients at cosine >= 0.9995, and the
-     gradient of every attention projection (to_q/to_k/to_v) and norm
-     parameter within relative L2 TRAIN_LEAF_REL_L2_MAX of the plain one
+     gradient of every attention projection (to_q/to_k/to_v), norm
+     parameter and resnet time_emb_proj (which takes the GroupNorm
+     backward's dtemb) within relative L2 TRAIN_LEAF_REL_L2_MAX of the
+     plain one
      and, per kind of parameter, the gradients' norm ratio within
      TRAIN_NORM_RATIO_TOL of 1, so that an error confined to one backward
      kernel cannot hide in the global cosine.
   8. train_e2e_controls: the same check with each output of the two
-     backward kernels scaled by 0.95 in turn; fails unless every one is
+     backward kernels scaled by 0.95 in turn (dQ, dK, dV; the GroupNorm
+     backward's dx, dgamma, dbeta and dtemb); fails unless every one is
      caught.
   9. hdrtv: ControlNet SDR->HDRTV up-conversion (upconvert_sdr_to_hdrtv) of
      one random 1024^2 frame at full SD-1.5 width with seeded random bf16
@@ -133,6 +142,10 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_COS_MIN = 0.9995
 TRAIN_LEAF_REL_L2_MAX = 1e-1
 TRAIN_NORM_RATIO_TOL = 3e-3
+# train_e2e's per-leaf and per-kind checks: the parameters whose gradient
+# flows straight out of the attention and GroupNorm backward kernels (the
+# resnets' time_emb_proj takes the GroupNorm backward's dtemb).
+TRAIN_WATCHED = (".to_q.", ".to_k.", ".to_v.", "norm", ".time_emb_proj.")
 CLIP_VOCAB = 49408
 
 # Each ported kernel's source and the TPU kernel function (whose
@@ -300,26 +313,34 @@ SM90_KERNELS = {
     "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
 }
 SM90_SASS = ("HGMMA", "UTMALDG")
-# The GroupNorm forward's cluster kernel must cross the cluster barrier
-# (barrier.cluster.arrive / wait, which cuobjdump prints as UCGABAR_ARV /
-# UCGABAR_WAIT) and load its slice with the 1-D bulk copy (cp.async.bulk:
-# UBLKCP).
-CLUSTER_KERNEL = ("groupnorm", "gn_cluster_kernel")
-CLUSTER_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT", "UBLKCP")
+# The bulk-copy kernels, (library, kernel) -> what every instance's SASS
+# must hold: the GroupNorm forward's cluster kernel crosses the cluster
+# barrier (barrier.cluster.arrive / wait, which cuobjdump prints as
+# UCGABAR_ARV / UCGABAR_WAIT) and loads its slice with the 1-D bulk copy
+# (cp.async.bulk: UBLKCP); the add + LayerNorm ring moves its tiles by bulk
+# copy both ways.
+BULK_KERNELS = {
+    ("groupnorm", "gn_cluster_kernel"): ("UCGABAR_ARV", "UCGABAR_WAIT", "UBLKCP"),
+    ("add_ln", "add_ln_ring_kernel"): ("UBLKCP",),
+}
+# Kernels that must not spill beside those: the GroupNorm backward.
+NO_SPILL_KERNELS = (("groupnorm", "gn_bwd_kernel"),)
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
 def _no_spill_kernels() -> dict:
     kernels = {lib: list(names) for lib, names in SM90_KERNELS.items()}
-    kernels.setdefault(CLUSTER_KERNEL[0], []).append(CLUSTER_KERNEL[1])
+    for lib, kernel in (*BULK_KERNELS, *NO_SPILL_KERNELS):
+        kernels.setdefault(lib, []).append(kernel)
     return kernels
 
 
 def check_spills(reports: dict) -> None:
-    """No instance of the Hopper kernels of SM90_KERNELS, nor of the
-    GroupNorm cluster kernel, may spill: their wgmma accumulators live in
-    the registers setmaxnreg gives a consumer thread, and ptxas alone
-    decides whether they fit (``-Xptxas -v``)."""
+    """No instance of the Hopper kernels of SM90_KERNELS, of the bulk-copy
+    kernels or of the GroupNorm backward may spill: the wgmma accumulators
+    live in the registers setmaxnreg gives a consumer thread, the others
+    keep their loads in flight in registers, and ptxas alone decides whether
+    they fit (``-Xptxas -v``)."""
     for lib, kernels in _no_spill_kernels().items():
         func, bad = None, {}
         for ln in reports.get(lib, "").splitlines():
@@ -353,18 +374,17 @@ def check_sass(build_dir, nvcc: str) -> None:
             if not inst or any(min(c.values()) == 0 for c in inst.values()):
                 raise SystemExit(f"chip_smoke: lib{lib}.so lacks {SM90_SASS} in its "
                                  f"{kernel} instances: {inst}")
-    lib, kernel = CLUSTER_KERNEL
-    sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
-                          check=True, capture_output=True, text=True).stdout
-    inst = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name, _, body = chunk.partition("\n")
-        if kernel in name:
-            inst[name.strip()] = {op: body.count(op) for op in CLUSTER_SASS}
-    emit({"phase": "build", "sass": f"lib{lib}.so", "kernel": kernel, "instances": inst})
-    if not inst or any(min(c.values()) == 0 for c in inst.values()):
-        raise SystemExit(f"chip_smoke: lib{lib}.so's {kernel} lacks the cluster barrier or the "
-                         f"bulk copy {CLUSTER_SASS}: {inst}")
+    for (lib, kernel), ops in BULK_KERNELS.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
+                              check=True, capture_output=True, text=True).stdout
+        inst = {}
+        for chunk in sass.split("Function : ")[1:]:
+            name, _, body = chunk.partition("\n")
+            if kernel in name:
+                inst[name.strip()] = {op: body.count(op) for op in ops}
+        emit({"phase": "build", "sass": f"lib{lib}.so", "kernel": kernel, "instances": inst})
+        if not inst or any(min(c.values()) == 0 for c in inst.values()):
+            raise SystemExit(f"chip_smoke: lib{lib}.so's {kernel} lacks {ops}: {inst}")
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +510,43 @@ def _gn_plan_keys(b, h, w, c) -> dict:
     return {"form": p.form, "cluster": p.cluster, "active_clusters": got[7],
             "plan": {"pixels": p.pixels, "smem_bytes": p.smem_bytes, "grid": p.grid,
                      "threads": p.threads}}
+
+
+def _gn_bwd_plan_keys(b, h, w, c) -> dict:
+    """The GroupNorm backward's plan at this shape, held to the C plan the
+    kernel launches with (gmdx_group_norm_bwd_plan) field for field; its
+    blocks an SM are cudaOccupancyMaxActiveBlocksPerMultiprocessor's."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.groupnorm import group_norm_bwd_plan
+
+    p = group_norm_bwd_plan(b, h, w, c)
+    got = (ctypes.c_int * 7)()
+    if _build.library("groupnorm").gmdx_group_norm_bwd_plan(b, h, w, c, got) \
+            or list(got) != p.c_fields():
+        raise SystemExit(f"chip_smoke: GroupNorm backward plan at {[b, h, w, c]}: kernel "
+                         f"{list(got)}, Python {p.c_fields()}")
+    return {"plan": dataclasses.asdict(p)}
+
+
+def _add_ln_plan_keys(m, c) -> dict:
+    """The add + LayerNorm plan, held to gmdx_add_ln_plan field for field;
+    the card must hold the blocks an SM the plan puts on it."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm_plan
+
+    p = add_layer_norm_plan(m, c)
+    got = (ctypes.c_int * 7)()
+    if _build.library("add_ln").gmdx_add_ln_plan(m, c, got) or list(got)[:6] != p.c_fields() \
+            or got[6] < p.per_sm:
+        raise SystemExit(f"chip_smoke: add + LayerNorm plan at {[m, c]}: kernel {list(got)}, "
+                         f"Python {p.c_fields()} ({p.per_sm} an SM)")
+    return {"plan": dataclasses.asdict(p), "resident": got[6]}
 
 
 def _xattn_plan_keys(b, sq, sk, heads, d) -> dict:
@@ -657,7 +714,8 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
     """E. flash attention forward and backward at the three differentiated
     self-attention levels of the Stage-2 step; F. the GroupNorm backward at
     a resnet norm2 (temb, SiLU, padded), the transformer's GN (no SiLU, eps
-    1e-6) and the 16^2 level. Batch ``tb``: training has no CFG doubling."""
+    1e-6), the 16^2 level and the widest norm1 (16^2 x 2560), each run twice
+    for the same bits. Batch ``tb``: training has no CFG doubling."""
     import torch
     import torch.nn.functional as F
 
@@ -713,6 +771,7 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
         (64, 320, True, True, True, 1e-5),
         (32, 640, False, False, False, 1e-6),
         (16, 1280, True, True, True, 1e-5),
+        (16, 2560, False, True, True, 1e-5),
     ):
         x = (_randn(gen, tb, hw, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
         gam = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
@@ -735,10 +794,14 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
         yl = F.silu(yl) if act else yl
         cot_l = (cot[:, 1:-1, 1:-1] if pad else cot).permute(0, 3, 1, 2)
         n = tb * hw * hw * c
+        shape = [tb, hw, hw, c] + (["temb"] if temb_on else []) + (["silu"] if act else []) \
+            + (["pad"] if pad else [])
+        one, two = (group_norm_silu_bwd(x, gam, bet, t, stats, cot, activate=act, pad_output=pad)
+                    for _ in range(2))
+        if not all(a is b is None or torch.equal(a, b) for a, b in zip(one, two)):
+            raise SystemExit(f"chip_smoke: group_norm_silu_bwd {shape}: two calls differ")
         _check(
-            "group_norm_silu_bwd",
-            [tb, hw, hw, c] + (["temb"] if temb_on else []) + (["silu"] if act else [])
-            + (["pad"] if pad else []),
+            "group_norm_silu_bwd", shape,
             lambda: group_norm_silu_bwd(x, gam, bet, t, stats, cot, activate=act, pad_output=pad),
             lambda: group_norm_silu_bwd_plain(*f32, ref_stats, cot.float(), activate=act,
                                               pad_output=pad),
@@ -749,6 +812,7 @@ def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
             (n + tb * hp * hp * c + n) * 2 + 2 * c * 2 + tb * 2 * 32 * 4
             + (tb * c * (2 + 4) if temb_on else 0) + 2 * c * 4,
             results, peak=FP32_FLOPS,
+            extra={**_gn_bwd_plan_keys(tb, hw, hw, c), "repeat_identical": True},
         )
         del yl, xl
 
@@ -911,7 +975,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             extra={**exp2_keys(cfg_b * heads * s * sk), **_xattn_plan_keys(cfg_b, s, sk, heads, d)},
         )
 
-    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+    for s, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         x, y = _randn(gen, cfg_b, s, c), _randn(gen, cfg_b, s, c)
         gam = _randn(gen, c, scale=0.2).float() + 1.0
         bet = _randn(gen, c, scale=0.2).float()
@@ -927,6 +991,7 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
             lambda: add_layer_norm_plain(x, y, gam, bet),
             lib, 10.0 * n, 4 * n * 2 + 2 * c * 4, results, peak=FP32_FLOPS,
             library="x + y, then F.layer_norm (two calls: no single call gives both outputs)",
+            extra=_add_ln_plan_keys(cfg_b * s, c),
         )
 
     for s, dim in ((4096, 320), (1024, 640)):
@@ -1062,7 +1127,7 @@ PROFILE_CATEGORIES = (
     ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),
     ("geglu_ff", ("NoLnGegluOp", "NoLnOutOp")),
     ("cross_attention_shortk", ("xattn_sm90_kernel",)),
-    ("add_layer_norm", ("add_ln_kernel",)),
+    ("add_layer_norm", ("add_ln_",)),
     ("winograd4_conv3x3", ("wino4_", "Wino4Op")),
     ("conv3x3", ("ConvOp", "splitk_reduce_kernel")),
     ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
@@ -1327,14 +1392,14 @@ def phase_train_e2e(args) -> None:
     cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
     # The parameters whose gradient flows straight out of the attention and
     # GroupNorm backward kernels, per leaf (rel-L2) and per kind (the norm
-    # ratio, which a wrong scale of dQ, dK, dV, dgamma or dbeta moves while
-    # bf16 rounding leaves it at 1).
+    # ratio, which a wrong scale of dQ, dK, dV, dgamma, dbeta or dtemb
+    # moves while bf16 rounding leaves it at 1).
     diff = torch.split(gk - gp, [p.numel() for p in params])
     ref = torch.split(gp, [p.numel() for p in params])
     kern = torch.split(gk, [p.numel() for p in params])
     watched = {}
     for i, n in enumerate(names):
-        for key in (".to_q.", ".to_k.", ".to_v.", "norm"):
+        for key in TRAIN_WATCHED:
             if key in n:
                 watched.setdefault(key.strip(".") + "." + n.rsplit(".", 1)[1], []).append(i)
                 break
@@ -1361,16 +1426,19 @@ def phase_train_e2e(args) -> None:
 
 def phase_train_e2e_controls(args) -> None:
     """train_e2e with one output of a backward kernel scaled by 0.95 (dQ,
-    dK, dV; GroupNorm dx, dgamma, dbeta): each must fail the check."""
+    dK, dV; GroupNorm dx, dgamma, dbeta and, wherever a temb was added,
+    dtemb): each must fail the check."""
     import gmdx_torch.kernels.attention as attention
     import gmdx_torch.kernels.groupnorm as groupnorm
 
-    for mod, fn_name in ((attention, "flash_attention_bwd"), (groupnorm, "group_norm_silu_bwd")):
+    for mod, fn_name, n_out in ((attention, "flash_attention_bwd", 3),
+                                (groupnorm, "group_norm_silu_bwd", 4)):
         orig = getattr(mod, fn_name)
-        for i in range(3):
+        for i in range(n_out):
             def scaled(*a, _orig=orig, _i=i, **kw):
                 outs = list(_orig(*a, **kw))
-                outs[_i] = outs[_i] * 0.95
+                if outs[_i] is not None:
+                    outs[_i] = outs[_i] * 0.95
                 return tuple(outs)
 
             setattr(mod, fn_name, scaled)

@@ -61,28 +61,31 @@
 // reads x twice.
 //
 // Backward (gmdx_group_norm_silu_bwd) replaces gmdx/kernels/groupnorm.py:
-// _gn_backward (TPU kernels _gn_bwd_reduce_kernel, _gn_bwd_apply_kernel).
-// It recomputes xhat = (x + t - mean) * rstd from the statistics the forward
-// saved (not recomputed in another order), and dy from the cotangent g
-// through the SiLU derivative when the forward activated. Two launches, as
-// the forward's pair (the backward keeps that scheme):
-//   1. reduce: grid (splits, B); a block sums over its pixels, per channel,
-//      dy and dy * xhat (the partials of dbeta and dgamma, written as
-//      (B, splits, 2, C)), and from those per group dxhat = dy * gamma and
-//      dxhat * xhat (written as (B, splits, 2, G));
-//   2. apply: grid (splits, B); each block folds its image's group partials
-//      into m1 = mean(dxhat), m2 = mean(dxhat * xhat) and writes
-//      dx = rstd * (dxhat - m1 - xhat * m2).
-// The wrapper sums the channel partials over (B, splits) into dgamma and
-// dbeta. A padded cotangent (the forward's pad_output) is read in place:
+// _gn_backward (TPU kernels _gn_bwd_reduce_kernel, _gn_bwd_apply_kernel,
+// whose sequential grid axis carried the sums). It recomputes
+// xhat = (x + t - mean) * rstd from the statistics the forward saved, and dy
+// from the cotangent g through the SiLU derivative when the forward
+// activated; dx = rstd (dy gamma - m1 - xhat m2) with m1, m2 the group means
+// of dy gamma and dy gamma xhat; dgamma, dbeta the sums of dy xhat and dy;
+// dtemb the sum of dx over each image's pixels. One cooperative launch of
+// gn_bwd_kernel (its note below), every block resident, with one grid
+// barrier between the sums and dx, and every sum - the block's, the
+// image's, the parameters' - folded in a fixed order: no atomics in any
+// sum, so a repeated call is bit-identical, and no reduction is left to the
+// caller. A padded cotangent (the forward's pad_output) is read in place:
 // its border, a constant of the forward, carries no gradient.
-// Bound: bytes; x and g read twice, dx written once, ~30 operations an
-// element.
+// Bound: bytes; x and g read once and dx written once, ~30 operations an
+// element. The kernel reads x and g a second time after the barrier, newest
+// pixels first so that what the first pass left in the 50 MB L2 serves it;
+// where x + g exceed L2 (at batch 8: 64^2 x 640 84 MB, 64^2 x 960 126 MB,
+// 32^2 x 1920 63 MB) up to that excess comes from device memory again, at
+// most 5/3 of the bound's bytes.
 #include "bf16x8.cuh"
 #include "gemm_sm90.cuh"
 
 using gmdx::load8;
 using gmdx::pack8;
+using gmdx::unpack8;
 namespace sm90 = gmdx::sm90;
 
 namespace {
@@ -550,15 +553,18 @@ int active_clusters(const GnPlan& p) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward
+// The backward: one cooperative launch
 // ---------------------------------------------------------------------------
 
-// Pixel range [p0, p1) of this block over `npix` pixels.
-__device__ __forceinline__ void block_range(int npix, int splits, int& p0, int& p1) {
-  const int per = (npix + splits - 1) / splits;
-  p0 = blockIdx.x * per;
-  p1 = min(npix, p0 + per);
-}
+// 16-byte loads of x and of g a thread keeps in flight: in the first walk,
+// from device memory, and in the second, mostly from L2 (fewer, so that its
+// larger set of per-channel constants fits 128 registers without a spill).
+constexpr int BWD_UNROLL = 4;
+constexpr int BWD_UNROLL_L2 = 2;
+constexpr int FOLD_LOADS = 8;  // loads a lane keeps in flight in fold8
+// Spins of a grid barrier (64 ns sleeps, seconds in all) after which a block
+// traps rather than hang the card.
+constexpr unsigned BARRIER_SPINS = 1u << 26;
 
 struct GnBwdArgs {
   const __nv_bfloat16* x;
@@ -568,141 +574,369 @@ struct GnBwdArgs {
   const __nv_bfloat16* temb;  // (B, C) or null
   const float* stats;         // (B, 2, G) (mean, rstd) of the forward
   __nv_bfloat16* dx;
-  float* chpart;  // (B, splits, 2, C): sum dy, sum dy * xhat
-  float* grpart;  // (B, splits, 2, G): sum dxhat, sum dxhat * xhat
-  int HW, W, C, G, splits, gpad, activate;
+  float* dparams;  // (2, C): dbeta, then dgamma
+  float* dtemb;    // (B, C), or null without temb
+  float* chpart;   // (tiles, 2, C): a tile's sum dy, sum dy * xhat
+  float* grpart;   // (tiles, 2, G): a tile's sum dxhat, sum dxhat * xhat
+  float* tpart;    // (tiles, C): a tile's sum dx, or null without temb
+  unsigned* sync;  // [0]: the grid barrier and exit count; [1 + b]: image b's tiles arrived
+  int B, HW, W, C, G, splits, pixels, gpad, activate;
 };
 
-// Per-thread constants of the backward for channels [c0, c0 + 8) of image b:
-// the forward's shift (t - mean) and rstd, gamma and beta.
+struct GnBwdPlan {
+  int splits, images, pixels, threads, smem, resident;
+};
+
+// Dynamic shared memory: the fold's [2][R][C] fp32 sums, the (2, G) group
+// means of the image in hand.
+int gn_bwd_smem(int C) { return 64 * gn_threads(C) + 2 * MAXG * 4; }
+
+// The plan's rule: as many blocks as the card holds at once (`resident` an
+// SM on `sms` SMs), shared out over the B images as equal contiguous pixel
+// ranges (splits an image, each of at least a pixel a row of threads), none
+// of them empty; with more images than that, each block row takes images
+// y, y + images, ...
+GnBwdPlan gn_bwd_plan(int B, int H, int W, int C, int resident, int sms) {
+  GnBwdPlan p;
+  p.threads = gn_threads(C);
+  p.smem = gn_bwd_smem(C);
+  p.resident = resident;
+  const int rows = p.threads / (C / 8);
+  const int hw = H * W;
+  const int cap = resident * sms;
+  const int by_batch = B > 0 ? cap / B : cap;
+  const int by_rows = (hw + rows - 1) / rows;
+  const int splits = by_batch < by_rows ? by_batch : by_rows;
+  p.pixels = splits > 1 ? (hw + splits - 1) / splits : hw;
+  p.splits = p.pixels > 0 ? (hw + p.pixels - 1) / p.pixels : 1;
+  p.images = B < cap / p.splits ? B : cap / p.splits;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const unsigned* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A grid-wide barrier among co-resident blocks: each block publishes its
+// writes and adds one to *counter, then waits until `count` blocks have.
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned spins = 0;
+    while (ld_acquire(counter) < count) {
+      __nanosleep(64);
+      if (++spins == BARRIER_SPINS) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// A thread's walk over pixels first, first + step, ... (step < 0 walks
+// back) with each pixel's row and column, for the padded cotangent's
+// address, kept without a division a pixel.
+struct PixWalk {
+  int p, py, px, dq, dr;
+  __device__ PixWalk(int first, int step, int W)
+      : p(first), py(first / W), px(first % W), dq(step / W), dr(step % W) {}
+  __device__ void next(int step, int W) {
+    p += step;
+    py += dq;
+    px += dr;
+    if (px >= W) {
+      px -= W;
+      ++py;
+    } else if (px < 0) {
+      px += W;
+      --py;
+    }
+  }
+};
+
+// Per-thread constants of the backward for channels [c0, c0 + 8) of image
+// b, as affine maps of x: xhat = x rs + shr (shr = (t - mean) rstd) and the
+// forward's pre-activation y = xhat gamma + beta = x ya + yb.
 struct GnBwdChan {
-  float sh[8], rs[8], gm[8], bt[8];
+  float rs[8], shr[8], ya[8], yb[8];
 };
 
 __device__ __forceinline__ void bwd_chan(const GnBwdArgs& a, int b, int c0, GnBwdChan& ch) {
   const int cg = a.C / a.G;
-  float t[8];
-  load8(a.gamma + c0, ch.gm);
-  load8(a.beta + c0, ch.bt);
+  float t[8], gm[8], bt[8];
+  load8(a.gamma + c0, gm);
+  load8(a.beta + c0, bt);
 #pragma unroll
   for (int e = 0; e < 8; ++e) t[e] = 0.0f;
   if (a.temb != nullptr) load8(a.temb + (size_t)b * a.C + c0, t);
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int g = (c0 + e) / cg;
-    ch.sh[e] = t[e] - a.stats[(size_t)b * 2 * a.G + g];
     ch.rs[e] = a.stats[((size_t)b * 2 + 1) * a.G + g];
+    ch.shr[e] = (t[e] - a.stats[(size_t)b * 2 * a.G + g]) * ch.rs[e];
+    ch.ya[e] = ch.rs[e] * gm[e];
+    ch.yb[e] = fmaf(ch.shr[e], gm[e], bt[e]);
   }
 }
 
-// xhat and dL/dy (through the SiLU when the forward activated) of pixel p.
-__device__ __forceinline__ void bwd_pixel(const GnBwdArgs& a, int b, int p, int c0,
-                                          const GnBwdChan& ch, float* xh, float* dy) {
-  float v[8], gv[8];
-  load8(a.x + ((size_t)b * a.HW + p) * a.C + c0, v);
-  size_t gp = (size_t)b * a.HW + p;
-  if (a.gpad) {
-    const int H = a.HW / a.W;
-    gp = ((size_t)b * (H + 2) + p / a.W + 1) * (a.W + 2) + p % a.W + 1;
-  }
-  load8(a.g + gp * a.C + c0, gv);
+// dL/dy of one pixel's 8 channels x: the cotangent dy (in place) through
+// the SiLU's derivative when the forward activated.
+__device__ __forceinline__ void bwd_dy(const GnBwdArgs& a, const GnBwdChan& ch, const float* x,
+                                       float* dy) {
+  if (!a.activate) return;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    xh[e] = (v[e] + ch.sh[e]) * ch.rs[e];
-    if (a.activate) {
-      const float y = xh[e] * ch.gm[e] + ch.bt[e];
-      const float sig = 1.0f / (1.0f + __expf(-y));
-      dy[e] = gv[e] * sig * (1.0f + y * (1.0f - sig));
-    } else {
-      dy[e] = gv[e];
-    }
+    const float y = fmaf(x[e], ch.ya[e], ch.yb[e]);
+    const float sig = __fdividef(1.0f, 1.0f + __expf(-y));
+    dy[e] *= sig * fmaf(y, 1.0f - sig, 1.0f);
   }
 }
 
-__global__ void gn_bwd_reduce_kernel(GnBwdArgs a) {
-  extern __shared__ float cs[];  // [2][C]
-  const int b = blockIdx.y;
-  const int chunks = a.C / 8;
-  const int r = blockDim.x / chunks;
-  const int c0 = (threadIdx.x % chunks) * 8;
-  const int cg = a.C / a.G;
-  for (int i = threadIdx.x; i < 2 * a.C; i += blockDim.x) cs[i] = 0.0f;
-  __syncthreads();
-
-  GnBwdChan ch;
-  bwd_chan(a, b, c0, ch);
-  float s1[8], s2[8];
+// f(p, x, g) for the n pixels first, first + step, ... of image b: the
+// 16-byte chunks at channel c0 of x and of the cotangent, U loads of each
+// issued before the first f. LAST_USE reads them as the last use (evict
+// first), else through the read-only path.
+template <int U, bool LAST_USE, class F>
+__device__ __forceinline__ void bwd_walk(const GnBwdArgs& a, int b, int c0, int first, int n,
+                                         int step, F&& f) {
+  const int H = a.HW / a.W;
+  const __nv_bfloat16* xb = a.x + (size_t)b * a.HW * a.C + c0;
+  const __nv_bfloat16* gb =
+      a.g + (size_t)b * (a.gpad ? (H + 2) * (a.W + 2) : a.HW) * a.C + c0;
+  auto ld = [](const __nv_bfloat16* q) {
+    const uint4* u = reinterpret_cast<const uint4*>(q);
+    if constexpr (LAST_USE) return __ldcs(u);
+    else return __ldg(u);
+  };
+  // The padded cotangent holds pixel p at p + 2 py + W + 3.
+  auto gpix = [&](const PixWalk& w) { return a.gpad ? w.p + 2 * w.py + a.W + 3 : w.p; };
+  PixWalk w(first, step, a.W);
+  for (; n >= U; n -= U) {
+    uint4 xr[U], gr[U];
+    int ps[U];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.0f;
-  int p0, p1;
-  block_range(a.HW, a.splits, p0, p1);
-  for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
-    float xh[8], dy[8];
-    bwd_pixel(a, b, p, c0, ch, xh, dy);
+    for (int u = 0; u < U; ++u) {
+      ps[u] = w.p;
+      xr[u] = ld(xb + (size_t)w.p * a.C);
+      gr[u] = ld(gb + (size_t)gpix(w) * a.C);
+      w.next(step, a.W);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) f(ps[u], xr[u], gr[u]);
+  }
+  for (; n > 0; --n) {
+    f(w.p, ld(xb + (size_t)w.p * a.C), ld(gb + (size_t)gpix(w) * a.C));
+    w.next(step, a.W);
+  }
+}
+
+// The block's per-channel sums of nq quantities, each thread's 8 at
+// red[q][row][c0..c0 + 8) ([nq][R][C] fp32), folded over the R rows in a
+// fixed order into red[q][0][c] and written to out[q * C + c].
+__device__ __forceinline__ void fold_rows(float* red, float* out, int nq, int C, int rows) {
+  const int T = blockDim.x;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nq * C; i += T) {
+    float* r = red + (i / C) * T * 8 + i % C;
+    float acc = r[0];
+    for (int k = 1; k < rows; ++k) acc += r[k * C];
+    r[0] = acc;
+    out[i] = acc;
+  }
+  __syncthreads();
+}
+
+// out[o] = scale * (the sum over parts p of src[p * stride + o]) for the
+// outputs o0 .. o0 + 7 (< n), in fp64 and in a fixed order, by one warp:
+// lane (j, k) = (lane % 8, lane / 8) sums output o0 + j over parts k, k + 4,
+// ... (FOLD_LOADS loads in flight, 8 lanes reading 32 contiguous bytes),
+// then two shuffle steps add the four k: (S0 + S1) + (S2 + S3). Every
+// caller gets the same bits from the same partials.
+__device__ __forceinline__ void fold8(const float* src, size_t stride, int parts, int n, int o0,
+                                      double scale, float* out) {
+  const int lane = threadIdx.x % 32;
+  const int o = o0 + lane % 8;
+  double acc = 0.0;
+  if (o < n) {
+    int p = lane / 8;
+    for (; p + 4 * (FOLD_LOADS - 1) < parts; p += 4 * FOLD_LOADS) {
+      float v[FOLD_LOADS];
+#pragma unroll
+      for (int u = 0; u < FOLD_LOADS; ++u) v[u] = __ldcg(src + (size_t)(p + 4 * u) * stride + o);
+#pragma unroll
+      for (int u = 0; u < FOLD_LOADS; ++u) acc += v[u];
+    }
+    for (; p < parts; p += 4) acc += __ldcg(src + (size_t)p * stride + o);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+  if (lane < 8 && o < n) out[o] = (float)(acc * scale);
+}
+
+// One launch: block (s, y) owns pixel range s of images y, y + images, ...
+//   1. per tile (image, range): sum dy and dy * xhat per channel over its
+//      pixels (each thread an 8-channel chunk, R pixel rows in parallel,
+//      BWD_UNROLL loads of x and of g in flight), folded in a fixed order,
+//      written as the tile's channel partials and, weighted by gamma, its
+//      group partials (dxhat, dxhat * xhat);
+//   2. the grid barrier;
+//   3. per tile: the image's group partials folded over its splits (fold8:
+//      every block of the image the same bits); the range walked again,
+//      newest first (mostly from L2), dx = rstd (dy gamma - m1 - xhat m2)
+//      written with 16-byte evict-first stores; with a temb, the tile's sum
+//      of dx per channel, and its arrival counted on the image's counter;
+//   4. the parameters, 8 outputs a warp over all the grid's warps: dbeta and
+//      dgamma from every tile's channel partials, and with a temb dtemb from
+//      each image's tile sums, a warp first waiting for all of that image's
+//      tiles to arrive.
+// No atomics in any sum, so a repeated call is bit-identical. The last
+// block out resets the barrier and the images' counters.
+__global__ void __launch_bounds__(MAX_THREADS, 1) gn_bwd_kernel(GnBwdArgs a) {
+  extern __shared__ __align__(16) float bsm[];
+  float* red = bsm;                  // [2][R][C]
+  float* m = bsm + 16 * blockDim.x;  // [2][G]: the image's m1, m2 of each group
+  const int T = blockDim.x;
+  const int warps = T / 32;  // full warps: a partial last one takes no fold job
+  const int chunks = a.C / 8;
+  const int rows = T / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int row = threadIdx.x / chunks;
+  const int cg = a.C / a.G;
+  const unsigned nb = gridDim.x * gridDim.y;
+  const int p0 = blockIdx.x * a.pixels;
+  const int p1 = min(p0 + a.pixels, a.HW);
+  const int n = p0 + row < p1 ? (p1 - p0 - row - 1) / rows + 1 : 0;  // this thread's pixels
+
+  for (int b = blockIdx.y; b < a.B; b += gridDim.y) {
+    const size_t tile = (size_t)b * a.splits + blockIdx.x;
+    GnBwdChan ch;
+    bwd_chan(a, b, c0, ch);
+    float s0[8] = {}, s1[8] = {};
+    bwd_walk<BWD_UNROLL, false>(a, b, c0, p0 + row, n, rows,
+                                [&](int, const uint4& xr, const uint4& gr) {
+                                  float v[8], dy[8];
+                                  unpack8(xr, v);
+                                  unpack8(gr, dy);
+                                  bwd_dy(a, ch, v, dy);
+#pragma unroll
+                                  for (int e = 0; e < 8; ++e) {
+                                    s0[e] += dy[e];
+                                    s1[e] = fmaf(dy[e], fmaf(v[e], ch.rs[e], ch.shr[e]), s1[e]);
+                                  }
+                                });
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      s1[e] += dy[e];
-      s2[e] += dy[e] * xh[e];
+      red[threadIdx.x * 8 + e] = s0[e];
+      red[T * 8 + threadIdx.x * 8 + e] = s1[e];
+    }
+    fold_rows(red, a.chpart + tile * 2 * a.C, 2, a.C, rows);
+    for (int i = threadIdx.x; i < 2 * a.G; i += T) {
+      const float* r = red + (i / a.G) * T * 8 + (i % a.G) * cg;
+      const __nv_bfloat16* gm = a.gamma + (i % a.G) * cg;
+      float acc = 0.0f;
+      for (int k = 0; k < cg; ++k) acc = fmaf(__bfloat162float(gm[k]), r[k], acc);
+      a.grpart[tile * 2 * a.G + i] = acc;
+    }
+    __syncthreads();  // red is rewritten for the next image
+  }
+
+  grid_barrier(a.sync, nb);
+
+  for (int b = blockIdx.y; b < a.B; b += gridDim.y) {
+    const size_t tile = (size_t)b * a.splits + blockIdx.x;
+    if (threadIdx.x < warps * 32) {
+      for (int o0 = threadIdx.x / 32 * 8; o0 < 2 * a.G; o0 += warps * 8)
+        fold8(a.grpart + (size_t)b * a.splits * 2 * a.G, 2 * a.G, a.splits, 2 * a.G, o0,
+              1.0 / ((double)a.HW * cg), m);
+    }
+    __syncthreads();
+    GnBwdChan ch;
+    bwd_chan(a, b, c0, ch);
+    // dx = rstd (dy gamma - m1 - xhat m2) = dy ya - (x dp + dq), with
+    // dp = rstd^2 m2 and dq = rstd (m1 + shr m2).
+    float dp[8], dq[8], dt[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float m1 = m[(c0 + e) / cg], m2 = m[a.G + (c0 + e) / cg];
+      dp[e] = ch.rs[e] * ch.rs[e] * m2;
+      dq[e] = ch.rs[e] * fmaf(ch.shr[e], m2, m1);
+      dt[e] = 0.0f;
+    }
+    __nv_bfloat16* dxb = a.dx + (size_t)b * a.HW * a.C + c0;
+    bwd_walk<BWD_UNROLL_L2, true>(a, b, c0, p0 + row + (n - 1) * rows, n, -rows,
+                               [&](int p, const uint4& xr, const uint4& gr) {
+                                 float v[8], dy[8];
+                                 unpack8(xr, v);
+                                 unpack8(gr, dy);
+                                 bwd_dy(a, ch, v, dy);
+#pragma unroll
+                                 for (int e = 0; e < 8; ++e) {
+                                   dy[e] = fmaf(dy[e], ch.ya[e], -fmaf(v[e], dp[e], dq[e]));
+                                   dt[e] += dy[e];
+                                 }
+                                 __stcs(reinterpret_cast<uint4*>(dxb + (size_t)p * a.C), pack8(dy));
+                               });
+    if (a.temb == nullptr) {
+      __syncthreads();  // m is rewritten for the next image
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[threadIdx.x * 8 + e] = dt[e];
+    fold_rows(red, a.tpart + tile * a.C, 1, a.C, rows);  // ends in __syncthreads
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(a.sync + 1 + b, 1u);
     }
   }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    atomicAdd(&cs[c0 + e], s1[e]);
-    atomicAdd(&cs[a.C + c0 + e], s2[e]);
+
+  // The parameters' jobs of 8 outputs: dbeta and dgamma's, then each
+  // image's dtemb's.
+  if (threadIdx.x < warps * 32) {
+    const int pjobs = (2 * a.C + 7) / 8, tjobs = (a.C + 7) / 8;
+    const int jobs = pjobs + (a.temb != nullptr ? a.B * tjobs : 0);
+    for (int j = (blockIdx.y * gridDim.x + blockIdx.x) * warps + threadIdx.x / 32; j < jobs;
+         j += nb * warps) {
+      if (j < pjobs) {
+        fold8(a.chpart, 2 * a.C, a.B * a.splits, 2 * a.C, 8 * j, 1.0, a.dparams);
+        continue;
+      }
+      const int b = (j - pjobs) / tjobs;
+      unsigned spins = 0;
+      while (ld_acquire(a.sync + 1 + b) < (unsigned)a.splits) {  // image b's tiles arrived
+        __nanosleep(64);
+        if (++spins == BARRIER_SPINS) __trap();
+      }
+      fold8(a.tpart + (size_t)b * a.splits * a.C, a.C, a.splits, a.C, 8 * ((j - pjobs) % tjobs),
+            1.0, a.dtemb + (size_t)b * a.C);
+    }
   }
   __syncthreads();
-  const size_t part = (size_t)b * a.splits + blockIdx.x;
-  float* cp = a.chpart + part * 2 * a.C;
-  for (int i = threadIdx.x; i < 2 * a.C; i += blockDim.x) cp[i] = cs[i];
-  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int c = g * cg; c < (g + 1) * cg; ++c) {
-      const float gm = __bfloat162float(a.gamma[c]);
-      t1 += gm * cs[c];
-      t2 += gm * cs[a.C + c];
-    }
-    a.grpart[part * 2 * a.G + g] = t1;
-    a.grpart[(part * 2 + 1) * a.G + g] = t2;
+  if (threadIdx.x == 0 && atomicAdd(a.sync, 1u) == 2 * nb - 1) {  // every block is done
+    a.sync[0] = 0;
+    for (int b = 0; b < a.B; ++b) a.sync[1 + b] = 0;
   }
 }
 
-__global__ void gn_bwd_apply_kernel(GnBwdArgs a) {
-  __shared__ float gm1[MAXG], gm2[MAXG];
-  const int b = blockIdx.y;
-  const int chunks = a.C / 8;
-  const int r = blockDim.x / chunks;
-  const int c0 = (threadIdx.x % chunks) * 8;
-  const int cg = a.C / a.G;
-  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
-    double t1 = 0.0, t2 = 0.0;
-    for (int s = 0; s < a.splits; ++s) {
-      const size_t part = (size_t)b * a.splits + s;
-      t1 += a.grpart[part * 2 * a.G + g];
-      t2 += a.grpart[(part * 2 + 1) * a.G + g];
-    }
-    const double n = (double)a.HW * cg;
-    gm1[g] = (float)(t1 / n);
-    gm2[g] = (float)(t2 / n);
-  }
-  __syncthreads();
+// Blocks of the backward at C channels that the card holds on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the card's SMs.
+int bwd_resident(int C) {
+  static int cached[MAX_THREADS + 1] = {};
+  int& n = cached[C / 8];
+  if (n == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gn_bwd_kernel, gn_threads(C), gn_bwd_smem(C));
+  return n;
+}
 
-  GnBwdChan ch;
-  bwd_chan(a, b, c0, ch);
-  float m1[8], m2[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    m1[e] = gm1[(c0 + e) / cg];
-    m2[e] = gm2[(c0 + e) / cg];
+int device_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
-  int p0, p1;
-  block_range(a.HW, a.splits, p0, p1);
-  for (int p = p0 + threadIdx.x / chunks; p < p1; p += r) {
-    float xh[8], dy[8], dx[8];
-    bwd_pixel(a, b, p, c0, ch, xh, dy);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dx[e] = ch.rs[e] * (dy[e] * ch.gm[e] - m1[e] - xh[e] * m2[e]);
-    *reinterpret_cast<uint4*>(a.dx + ((size_t)b * a.HW + p) * a.C + c0) = pack8(dx);
-  }
+  return n;
 }
 
 }  // namespace
@@ -772,14 +1006,26 @@ extern "C" int gmdx_group_norm_plan(int B, int H, int W, int C, int* out) {
 }
 
 // x, dx: (B, H, W, C); g: the same, or (B, H+2, W+2, C) with gpad; stats:
-// (B, 2, G) fp32 from the forward; chpart: B * splits * 2 * C and grpart:
-// B * splits * 2 * G floats, written here (chpart is the caller's to sum
-// into dbeta, dgamma). Other tensors bf16. The limits of the forward hold.
+// (B, 2, G) fp32 from the forward; dparams: (2, C) (dbeta, then dgamma) and
+// dtemb: (B, C) fp32, written here (dtemb null without temb); chpart,
+// grpart, tpart: tiles * 2 * C, tiles * 2 * G and tiles * C floats of
+// scratch, tiles = B * splits (tpart null without temb); sync: 1 + B zeroed
+// uint32, which the kernel leaves zeroed. splits and images are the caller's plan
+// (kernels/groupnorm.py:group_norm_bwd_plan), which must be this one: the
+// scratch is sized by it. Other tensors bf16. C % 8 == 0, C % G == 0,
+// G <= 64, C <= 4096, else cudaErrorInvalidValue.
 extern "C" int gmdx_group_norm_silu_bwd(const void* x, const void* g, const void* gamma,
                                         const void* beta, const void* temb, const void* stats,
-                                        void* dx, void* chpart, void* grpart, int B, int H, int W,
-                                        int C, int G, int splits, int activate, int gpad,
-                                        void* stream) {
+                                        void* dx, void* dparams, void* dtemb, void* chpart,
+                                        void* grpart, void* tpart, void* sync, int B,
+                                        int H, int W, int C, int G, int splits, int images,
+                                        int activate, int gpad, void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H * W == 0) return 0;
+  const GnBwdPlan p = gn_bwd_plan(B, H, W, C, bwd_resident(C), device_sms());
+  if (p.splits != splits || p.images != images || p.images == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   GnBwdArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.g = static_cast<const __nv_bfloat16*>(g);
@@ -788,29 +1034,40 @@ extern "C" int gmdx_group_norm_silu_bwd(const void* x, const void* g, const void
   a.temb = static_cast<const __nv_bfloat16*>(temb);
   a.stats = static_cast<const float*>(stats);
   a.dx = static_cast<__nv_bfloat16*>(dx);
+  a.dparams = static_cast<float*>(dparams);
+  a.dtemb = static_cast<float*>(dtemb);
   a.chpart = static_cast<float*>(chpart);
   a.grpart = static_cast<float*>(grpart);
+  a.tpart = static_cast<float*>(tpart);
+  a.sync = static_cast<unsigned*>(sync);
+  a.B = B;
   a.HW = H * W;
   a.W = W;
   a.C = C;
   a.G = G;
-  a.splits = splits;
+  a.splits = p.splits;
+  a.pixels = p.pixels;
   a.gpad = gpad;
   a.activate = activate;
-  const int chunks = C / 8;
-  const int threads = chunks * (chunks >= 512 ? 1 : 512 / chunks);
-  const int smem = 2 * C * static_cast<int>(sizeof(float));
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(gn_bwd_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         2 * 8192 * static_cast<int>(sizeof(float)));
-    attr = true;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(splits, B);
-  gn_bwd_reduce_kernel<<<grid, threads, smem, st>>>(a);
-  cudaError_t err = cudaGetLastError();
+  void* args[] = {&a};
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gn_bwd_kernel),
+                                  dim3(p.splits, p.images), dim3(p.threads), args, p.smem,
+                                  static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gn_bwd_apply_kernel<<<grid, threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's plan at (B, H, W, C), for kernels/groupnorm.py:
+// group_norm_bwd_plan to be held to: out[7] = splits (blocks an image),
+// images (block rows), pixels a block, threads a block, dynamic shared-memory
+// bytes, blocks resident an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and the card's SMs.
+extern "C" int gmdx_group_norm_bwd_plan(int B, int H, int W, int C, int* out) {
+  if (C % 8 || C / 8 > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = device_sms();
+  const GnBwdPlan p = gn_bwd_plan(B, H, W, C, bwd_resident(C), sms);
+  const int fields[7] = {p.splits, p.images, p.pixels, p.threads, p.smem, p.resident, sms};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
   return static_cast<int>(cudaGetLastError());
 }

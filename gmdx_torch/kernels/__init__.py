@@ -20,6 +20,12 @@ from __future__ import annotations
 
 import torch
 
+# The H100 SXM's SMs, and what one SM holds: registers, shared memory (each
+# block also reserves 1 KiB of it), warps, blocks. The kernels' Python plans
+# count resident blocks with them.
+NUM_SMS = 132
+SM_REGISTERS, SM_SMEM, SM_WARPS, SM_BLOCKS = 65536, 233472, 64, 32
+
 LAUNCHES = {
     "attention_kv_resident": 0,
     "conv3x3": 0,
@@ -91,6 +97,7 @@ def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
 
 
 __all__ = [
+    "NUM_SMS", "SM_REGISTERS", "SM_SMEM", "SM_WARPS", "SM_BLOCKS",
     "LAUNCHES", "reset_launch_counts", "launch_counts", "needs_grad", "check_fp32",
     "check_kernel_operands", "refuse_grad",
 ]

@@ -40,6 +40,7 @@ ENTRY_POINTS = {
     "gmdx_xattn_plan": ("attention", [_I, _I, _I, _I, _I, _P]),
     "gmdx_attention_sm90_plan": ("attention", [_I, _I, _I, _I, _I, _I, _P]),
     "gmdx_add_ln": ("add_ln", [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+    "gmdx_add_ln_plan": ("add_ln", [_I, _I, _P]),
     "gmdx_wino4": ("winograd4", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gmdx_wino4_plan": ("winograd4", [_I, _I, _I, _I, _I, _P]),
     "gmdx_conv3x3": (
@@ -51,10 +52,8 @@ ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
     "gmdx_group_norm_plan": ("groupnorm", [_I, _I, _I, _I, _P]),
-    "gmdx_group_norm_silu_bwd": (
-        "groupnorm",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    ),
+    "gmdx_group_norm_silu_bwd": ("groupnorm", [*[_P] * 13, *[_I] * 9, _P]),
+    "gmdx_group_norm_bwd_plan": ("groupnorm", [_I, _I, _I, _I, _P]),
     "gmdx_geglu_ff_ln": (
         "geglu_ff",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],

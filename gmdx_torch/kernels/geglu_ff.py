@@ -16,7 +16,9 @@
 * :func:`add_layer_norm`: (x + y, LayerNorm(x + y)), the counterpart of
   ``add_layer_norm`` (``_add_ln_pallas``), the attn1-residual / norm2 pair
   of the transformer block under the ``fused_addln`` option. Kernel
-  ``csrc/add_ln.cu``.
+  ``csrc/add_ln.cu``: persistent blocks over tiles of whole rows, fed and
+  drained by 1-D bulk copies through a shared-memory ring, as
+  :func:`add_layer_norm_plan` lays them out.
 
 Weights are the torch Linear layouts: ``w1`` (2*inner, dim) with rows
 ``[hidden | gate]``, ``w2`` (dim, inner).
@@ -30,16 +32,27 @@ so the port writes none. :func:`add_layer_norm` is inference-only.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, refuse_grad
+from gmdx_torch.kernels import (
+    LAUNCHES, NUM_SMS, SM_SMEM, check_fp32, check_kernel_operands, refuse_grad,
+)
 
 _SQRT_HALF = 0.7071067811865476
 # ``_TOKEN_BLOCK``: the dims the JAX package gives its LN-free FF kernel.
 GEGLU_FF_KERNEL_DIMS = (320, 640)
-# csrc/add_ln.cu keeps a row in registers: 8 chunks of 8 channels per lane.
+# csrc/add_ln.cu: a lane keeps up to 8 chunks of 8 channels of a row; four
+# consumer warps and a producer warp a block; a ring of 3 input stages (an x
+# and a y tile each) and 2 output stages (s and h); tiles of about
+# ADD_LN_TILE_BYTES a tensor; two blocks an SM where shared memory holds them.
 ADD_LN_MAX_DIM = 2048
+ADD_LN_WARPS = 4
+ADD_LN_STAGES, ADD_LN_OUT_STAGES = 3, 2
+ADD_LN_TILE_BYTES = 10240
+ADD_LN_BLOCKS_PER_SM = 2
 # csrc/gemm_sm90.cuh's row tile and K slice; GEMM1's tile holds 64 hidden
 # and their 64 gate columns.
 FF_BLOCK_M = 128
@@ -241,6 +254,39 @@ class GegluFF(torch.autograd.Function):
         return tuple(next(grads) if t is not None else None for t in leaves)
 
 
+@dataclass(frozen=True)
+class AddLayerNormPlan:
+    """``add_ln_plan`` in ``csrc/add_ln.cu``: ``rows`` a tile, the input
+    ring's ``stages``, persistent ``blocks``, ``threads`` a block and
+    ``smem_bytes`` of dynamic shared memory; ``per_sm`` blocks an SM."""
+
+    rows: int
+    stages: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+    per_sm: int
+
+    def c_fields(self) -> list[int]:
+        """The first six fields of ``gmdx_add_ln_plan``'s report."""
+        return [self.rows, self.stages, self.blocks, self.threads, self.smem_bytes, NUM_SMS]
+
+
+def add_layer_norm_plan(m: int, c: int) -> AddLayerNormPlan:
+    """The kernel's launch for ``m`` rows of ``c`` channels: tiles of
+    ``rows`` = 4 * max(1, 1280 // c) whole rows (a row a consumer warp at
+    least, ``ADD_LN_TILE_BYTES`` a tensor at c = 320, 640, 1280), over as
+    many persistent blocks as the tiles need and shared memory holds, two an
+    SM at most."""
+    rows = ADD_LN_WARPS * max(1, ADD_LN_TILE_BYTES // (ADD_LN_WARPS * c * 2))
+    tile = rows * c * 2
+    smem = (2 * (ADD_LN_STAGES + ADD_LN_OUT_STAGES) * tile + 2 * c * 4
+            + (2 * ADD_LN_STAGES + 1) * 8)
+    per_sm = min(ADD_LN_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+    return AddLayerNormPlan(rows, ADD_LN_STAGES, min(-(-m // rows), per_sm * NUM_SMS),
+                            (ADD_LN_WARPS + 1) * 32, smem, per_sm)
+
+
 def add_layer_norm_plain(
     x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     eps: float = 1e-5,
@@ -274,6 +320,8 @@ def add_layer_norm(
                          f"got {c}")
     stream = check_kernel_operands("add_layer_norm", x, y)
     check_fp32("add_layer_norm", gamma, beta)
+    if any(t.data_ptr() % 16 for t in (x, y, gamma, beta)):
+        raise ValueError("add_layer_norm kernel needs 16-byte aligned operands (bulk copies)")
     from gmdx_torch.kernels import _build
 
     s, h = torch.empty_like(x), torch.empty_like(x)
@@ -289,5 +337,5 @@ __all__ = [
     "GEGLU_FF_KERNEL_DIMS",
     "geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "geglu_ff_ln_plan", "GegluFFLN",
     "geglu_ff", "geglu_ff_plain", "geglu_ff_reference", "geglu_ff_uses_kernel", "GegluFF",
-    "add_layer_norm", "add_layer_norm_plain",
+    "add_layer_norm", "add_layer_norm_plain", "add_layer_norm_plan", "AddLayerNormPlan",
 ]

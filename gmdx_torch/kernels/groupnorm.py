@@ -8,10 +8,12 @@ launch of ``gn_cluster_kernel``, one thread-block cluster an image whose
 slices are resident in shared memory, wherever :func:`group_norm_plan` finds
 that they fit, and the stats + apply pair elsewhere.
 
-The backward (``_gn_backward``, two passes from the statistics the forward
-saved) is :func:`group_norm_silu_bwd`; :class:`GroupNormSiLU` ties the two
-together for autograd, as ``_gn_silu_pallas``'s custom VJP does. Statistics
-are (B, 2, G) fp32: each group's mean (of ``x + temb``) and rstd.
+The backward (``_gn_backward``: the sums, then dx, from the statistics the
+forward saved) is :func:`group_norm_silu_bwd`, one cooperative launch of
+``gn_bwd_kernel`` as :func:`group_norm_bwd_plan` lays it out, which also
+folds dgamma, dbeta and dtemb; :class:`GroupNormSiLU` ties the two together
+for autograd, as ``_gn_silu_pallas``'s custom VJP does. Statistics are
+(B, 2, G) fp32: each group's mean (of ``x + temb``) and rstd.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands
+from gmdx_torch.kernels import (
+    LAUNCHES, NUM_SMS, SM_BLOCKS, SM_REGISTERS, SM_SMEM, SM_WARPS, check_fp32,
+    check_kernel_operands,
+)
 
-_TARGET_BLOCKS = 528  # the pair's and the backward's blocks: about four an SM of 132
+_TARGET_BLOCKS = 528  # the pair's blocks: about four an SM of 132
 # csrc/groupnorm.cu's plan constants: the dynamic shared memory a block may
 # use, the most groups, the resident slice's bulk copies (an mbarrier each),
 # the cluster sizes and, for each, the clusters the H100 holds resident at
@@ -41,6 +46,13 @@ WAVE_BYTES = 32768
 # The plan's forms, as gmdx_group_norm_plan numbers them: the stats + apply
 # pair and the cluster kernel, each image's slices resident.
 FORMS = ("pair", "resident")
+# Both kernels take an 8-channel chunk a thread, at most 512 threads.
+MAX_CHANNELS = 4096
+# Registers a thread of gn_bwd_kernel as ptxas builds it for sm_90a (the
+# build phase of chip_smoke.py prints them): with the threads and shared
+# memory of a plan they give the blocks an SM holds at once, which the card
+# tests hold to cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+BWD_REGISTERS = 128
 
 
 @dataclass(frozen=True)
@@ -62,6 +74,25 @@ class GroupNormPlan:
         """The first seven fields of ``gmdx_group_norm_plan``'s report."""
         return [FORMS.index(self.form), self.cluster, self.pixels, self.smem_bytes, *self.grid,
                 self.threads]
+
+
+@dataclass(frozen=True)
+class GroupNormBwdPlan:
+    """The backward's launch (``gn_bwd_plan`` in ``csrc/groupnorm.cu``):
+    ``grid`` (splits an image, image rows; a block row takes images y,
+    y + rows, ...), the ``pixels`` of a block's contiguous range,
+    ``threads`` a block, ``smem_bytes`` of dynamic shared memory and the
+    blocks ``resident`` on an SM at once."""
+
+    grid: tuple[int, int]
+    pixels: int
+    threads: int
+    smem_bytes: int
+    resident: int
+
+    def c_fields(self) -> list[int]:
+        """``gmdx_group_norm_bwd_plan``'s report."""
+        return [*self.grid, self.pixels, self.threads, self.smem_bytes, self.resident, NUM_SMS]
 
 
 def group_norm_silu_plain(
@@ -100,7 +131,7 @@ def group_norm_silu_plain(
 
 
 def _splits(b: int, hw: int, c: int) -> int:
-    """Blocks per image of the pair and of the backward: about _TARGET_BLOCKS
+    """Blocks per image of the pair: about _TARGET_BLOCKS
     in all, and no more than a block's walk of ``rows`` pixels each."""
     rows = max(1, 512 // (c // 8))  # pixels a block walks in parallel
     return max(1, min(-(-_TARGET_BLOCKS // b), -(-hw // rows)))
@@ -144,6 +175,36 @@ def group_norm_plan(b: int, h: int, w: int, c: int) -> GroupNormPlan:
     return GroupNormPlan("resident", fit, pixels, fixed + pixels * c * 2, (fit, b), threads)
 
 
+def _bwd_resident(threads: int) -> int:
+    """Blocks of ``threads`` threads of ``gn_bwd_kernel`` one SM holds:
+    registers (allocated 256 a warp), warps, shared memory and blocks."""
+    warps = -(-threads // 32)
+    warp_regs = -(-BWD_REGISTERS * 32 // 256) * 256
+    smem = 64 * threads + 2 * MAX_GROUPS * 4
+    return min(SM_REGISTERS // warp_regs // warps, SM_WARPS // warps,
+               SM_SMEM // (smem + 1024), SM_BLOCKS)
+
+
+def group_norm_bwd_plan(b: int, h: int, w: int, c: int) -> GroupNormBwdPlan:
+    """The backward's plan for ``b`` images of (h, w, c): every block the
+    card holds at once (``resident`` an SM on :data:`NUM_SMS`), shared out
+    over the images as equal contiguous pixel ranges of at least a pixel a
+    row of threads, none empty; beyond that many images a block row takes
+    several. The threads are the forward's (an 8-channel chunk each, R pixel
+    rows in parallel); the shared memory the fold's [2][R][C] fp32 sums and
+    the image's (2, G) group means."""
+    threads = _threads(c)
+    rows = threads // (c // 8)
+    hw = h * w
+    resident = _bwd_resident(threads)
+    cap = resident * NUM_SMS
+    splits = min(cap // b if b else cap, -(-hw // rows))
+    pixels = -(-hw // splits) if splits > 1 else hw
+    splits = -(-hw // pixels) if pixels else 1
+    return GroupNormBwdPlan((splits, min(b, cap // splits)), pixels, threads,
+                            64 * threads + 2 * MAX_GROUPS * 4, resident)
+
+
 def group_norm_silu(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -172,7 +233,7 @@ def group_norm_silu(
             x, scale, bias, temb, num_groups=num_groups, eps=eps,
             activate=activate, pad_output=pad_output, return_stats=return_stats,
         )
-    if c % 8 or c > 4096 or num_groups > MAX_GROUPS:
+    if c % 8 or c > MAX_CHANNELS or num_groups > MAX_GROUPS:
         raise ValueError(f"group_norm_silu kernel: unsupported C={c}, G={num_groups}")
     if temb is not None and temb.shape != (b, c):
         raise ValueError(f"temb must be ({b}, {c}), got {tuple(temb.shape)}")
@@ -244,6 +305,19 @@ def group_norm_silu_bwd_plain(
     return dx.to(x.dtype), dscale, dbias, dtemb
 
 
+# Per device: the backward's grid barrier and per-image arrival counters
+# (uint32, zeroed once; each launch leaves them zeroed, so that a call needs
+# no memset launch). Calls on one stream share it.
+_SYNC: dict[torch.device, torch.Tensor] = {}
+
+
+def _sync_counters(device: torch.device, b: int) -> torch.Tensor:
+    buf = _SYNC.get(device)
+    if buf is None or buf.numel() < 1 + b:
+        buf = _SYNC[device] = torch.zeros(1 + b, dtype=torch.int32, device=device)
+    return buf
+
+
 def group_norm_silu_bwd(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -258,7 +332,8 @@ def group_norm_silu_bwd(
     """Backward of :func:`group_norm_silu` for the cotangent ``g`` of its
     output (padded when ``pad_output``; its border carries no gradient), from
     the forward's ``stats``. Returns (dx, dscale, dbias, dtemb) as
-    :func:`group_norm_silu_bwd_plain` does."""
+    :func:`group_norm_silu_bwd_plain` does; on the card all four come from
+    the one launch."""
     if not x.is_cuda:
         return group_norm_silu_bwd_plain(
             x, scale, bias, temb, stats, g, activate=activate, pad_output=pad_output,
@@ -268,26 +343,34 @@ def group_norm_silu_bwd(
     pad = 1 if pad_output else 0
     if g.shape != (b, h + 2 * pad, w + 2 * pad, c) or stats.shape != (b, 2, groups):
         raise ValueError(f"GN backward: g {tuple(g.shape)}, stats {tuple(stats.shape)} vs x {tuple(x.shape)}")
-    if c % 8 or c > 8192 or groups > 64 or c % groups:
+    if c % 8 or c > MAX_CHANNELS or groups > MAX_GROUPS or c % groups:
         raise ValueError(f"group_norm_silu_bwd kernel: unsupported C={c}, G={groups}")
     stream = check_kernel_operands("group_norm_silu_bwd", x, g, scale, bias, temb)
     check_fp32("group_norm_silu_bwd", stats)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    if x.numel() == 0:
+        return (torch.empty_like(x), torch.zeros(c, **f32), torch.zeros(c, **f32),
+                torch.zeros((b, c), **f32) if temb is not None else None)
     from gmdx_torch.kernels import _build
 
-    splits = _splits(b, h * w, c)
-    chpart = torch.empty((b, splits, 2, c), dtype=torch.float32, device=x.device)
-    grpart = torch.empty((b, splits, 2, groups), dtype=torch.float32, device=x.device)
+    plan = group_norm_bwd_plan(b, h, w, c)
+    tiles = b * plan.grid[0]
     dx = torch.empty_like(x)
+    dparams = torch.empty((2, c), **f32)  # dbias, dscale
+    dtemb = torch.empty((b, c), **f32) if temb is not None else None
+    chpart = torch.empty((tiles, 2, c), **f32)
+    grpart = torch.empty((tiles, 2, groups), **f32)
+    tpart = torch.empty((tiles, c), **f32) if temb is not None else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     _build.call(
         "gmdx_group_norm_silu_bwd", x.data_ptr(), g.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), temb.data_ptr() if temb is not None else None,
-        stats.data_ptr(), dx.data_ptr(), chpart.data_ptr(), grpart.data_ptr(),
-        b, h, w, c, groups, splits, int(activate), pad, stream,
+        bias.data_ptr(), ptr(temb), stats.data_ptr(), dx.data_ptr(), dparams.data_ptr(),
+        ptr(dtemb), chpart.data_ptr(), grpart.data_ptr(), ptr(tpart),
+        _sync_counters(x.device, b).data_ptr(), b, h, w, c, groups, *plan.grid,
+        int(activate), pad, stream,
     )
     LAUNCHES["group_norm_silu_bwd"] += 1
-    sums = chpart.sum(dim=(0, 1))
-    dtemb = dx.sum(dim=(1, 2), dtype=torch.float32) if temb is not None else None
-    return dx, sums[1], sums[0], dtemb
+    return dx, dparams[1], dparams[0], dtemb
 
 
 class GroupNormSiLU(torch.autograd.Function):
@@ -322,6 +405,8 @@ class GroupNormSiLU(torch.autograd.Function):
 __all__ = [
     "GroupNormPlan",
     "group_norm_plan",
+    "GroupNormBwdPlan",
+    "group_norm_bwd_plan",
     "group_norm_silu",
     "group_norm_silu_plain",
     "group_norm_silu_bwd",

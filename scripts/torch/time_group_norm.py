@@ -1,6 +1,7 @@
-"""Time gmdx_torch's GroupNorm forward on one H100 at every path shape.
+"""Time gmdx_torch's GroupNorm forward (or backward) on one H100.
 
     python scripts/torch/time_group_norm.py [TAG] [--paths=NAME,...]
+    python scripts/torch/time_group_norm.py [TAG] --bwd
 
 Run from the root of a checkout (or of a copy, such as the parent commit
 unpacked under ``build/``: each copy builds its own kernels; the script
@@ -22,6 +23,20 @@ the sdr2hdr encode at 8; ``unet1024`` the 1024^2 UNet and ControlNet at the
 CFG batch 2; ``dec1024`` the 1024^2 decode at 2. ``--paths`` keeps those
 named. TAG is copied into every line, to tell copies apart when several
 run in turns in one call.
+
+``--bwd`` times ``group_norm_silu_bwd`` instead, at every GroupNorm shape of
+the Stage-2 step at batch 8: a resnet norm2's form (temb, SiLU, padded
+cotangent) at each shape, and the transformer's (neither) at its four. Each
+line has three means of 20 calls by CUDA events (host and device), the
+device time a call by torch.profiler (every kernel the call launches,
+summed: the wrapper's own reductions too, where it has them) and by kernel
+name, the same for ``F.group_norm`` (+ ``F.silu``) differentiated by
+autograd (on x + temb; dtemb is not in it) as the yardstick, the largest
+relative L2 error of the four outputs against the fp32 plain version, the
+bound (x and g read once, dx written once, at 3.35 TB/s), the plan where the
+copy has one, and the card's name and power limit. Run this file from the
+root of each copy (``cd COPY && python /path/to/time_group_norm.py TAG
+--bwd``): it imports ``chip_smoke`` and ``gmdx_torch`` from there.
 """
 
 import json
@@ -32,6 +47,8 @@ sys.path.insert(0, os.getcwd())
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from gmdx_torch.kernels import _build  # noqa: E402
@@ -51,6 +68,67 @@ ENC_512 = [(64, 64, 512), (128, 128, 256), (128, 128, 512), (256, 256, 128), (25
 DEC_128 = [(2 * h, 2 * w, c) for h, w, c in DEC_64]
 PATHS = {"unet512": (16, UNET_64), "train": (8, UNET_64), "dec512": (16, DEC_64),
          "enc512": (8, ENC_512), "unet1024": (2, UNET_128), "dec1024": (2, DEC_128)}
+# The backward's cases at the Stage-2 batch: (H, W, C, temb, SiLU, pad).
+TRAIN_BATCH = 8
+BWD_CASES = [(h, w, c, True, True, True) for h, w, c in UNET_64] + [
+    (h, w, c, False, False, False) for h, w, c in ((64, 64, 320), (32, 32, 640), (16, 16, 1280),
+                                                     (8, 8, 1280))]
+
+
+def device_ms(fn, iters: int = 10) -> tuple[float, dict[str, float]]:
+    """Device time of one call of ``fn`` (every kernel it launches, by
+    torch.profiler over ``iters`` calls) and the same by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {ev.key[:60]: ev.self_device_time_total / iters / 1e3 for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+    return sum(by_name.values()), by_name
+
+
+def time_bwd(tag: str, smi: str, gen) -> None:
+    b = TRAIN_BATCH
+    plan_of = getattr(gn, "group_norm_bwd_plan", None)
+    for h, w, c, temb, act, pad in BWD_CASES:
+        x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+        gam = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        bet = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        t = (torch.randn(b, c, generator=gen, device="cuda").to(torch.bfloat16)
+             if temb else None)
+        cot = torch.randn(b, h + 2 * pad, w + 2 * pad, c, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        _, stats = gn.group_norm_silu(x, gam, bet, t, activate=act, pad_output=pad,
+                                      return_stats=True)
+        ref = gn.group_norm_silu_bwd_plain(
+            x.float(), gam.float(), bet.float(), t.float() if temb else None, stats, cot.float(),
+            activate=act, pad_output=pad)
+        xin = x if t is None else (x.float() + t.float()[:, None, None, :]).to(torch.bfloat16)
+        xl = xin.permute(0, 3, 1, 2).detach().requires_grad_()
+        gl, bl = gam.detach().requires_grad_(), bet.detach().requires_grad_()
+        yl = F.group_norm(xl, 32, gl, bl, 1e-5)
+        yl = F.silu(yl) if act else yl
+        cot_l = (cot[:, 1:-1, 1:-1] if pad else cot).permute(0, 3, 1, 2)
+        fns = {
+            "default": lambda: gn.group_norm_silu_bwd(x, gam, bet, t, stats, cot, activate=act,
+                                                      pad_output=pad),
+            "library": lambda: torch.autograd.grad(yl, (xl, gl, bl), cot_l, retain_graph=True),
+        }
+        row = {"tag": tag, "kind": "bwd", "shape": [b, h, w, c], "temb": temb, "silu": act,
+               "pad": pad, "device": smi}
+        if plan_of is not None:
+            row["plan"] = plan_of(b, h, w, c).__dict__
+        got = fns["default"]()
+        row["rel_l2"] = max(cs.compare(a, r)[1] for a, r in zip(got, ref) if r is not None)
+        for name, fn in fns.items():
+            row[f"{name}_ms"] = [cs.time_ms(fn, iters=20) for _ in range(3)]
+            row[f"{name}_device_ms"], row[f"{name}_kernels_ms"] = device_ms(fn)
+        nbytes = (2 * x.numel() + cot.numel()) * 2
+        row["bound_ms"] = nbytes / cs.HBM_BYTES_S * 1e3
+        print(json.dumps(row), flush=True)
+        del x, cot, ref, xl, yl
 
 
 def main() -> None:
@@ -62,6 +140,9 @@ def main() -> None:
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(1)
     smi = cs.nvidia_smi_line()
+    if "--bwd" in sys.argv:
+        time_bwd(tag, smi, gen)
+        return
     plan_of = getattr(gn, "group_norm_plan", None)
     for path, (b, shapes) in PATHS.items():
         if only and path not in only[0]:

@@ -823,3 +823,162 @@ def test_group_norm_repeat_is_bit_identical_on_card(card, b, h, w, c):
     one = group_norm_silu(x, g, be, t, pad_output=True, return_stats=True)
     two = group_norm_silu(x, g, be, t, pad_output=True, return_stats=True)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+# The GroupNorm backward at the Stage-2 step's shapes, batch 8: (H = W, C,
+# temb, activate, pad) of a resnet norm2 at each level (temb, SiLU, padded),
+# the transformer's GN at 32^2 x 640 and the widest norm1 (16^2 x 2560).
+GN_BWD_CASES = [(64, 320, True, True, True), (32, 640, True, True, True),
+                (16, 1280, True, True, True), (8, 1280, True, True, True),
+                (32, 640, False, False, False), (16, 2560, False, True, True)]
+
+
+def _c_ints(n):
+    import ctypes
+
+    return (ctypes.c_int * n)()
+
+
+def _gn_bwd_operands(gen, b, hw, c, temb, act, pad):
+    x, gam, bet, t = _gn_inputs(gen, b, hw, hw, c)
+    t = t if temb else None
+    g = _bf16(gen, b, hw + 2 * pad, hw + 2 * pad, c)
+    _, stats = group_norm_silu(x, gam, bet, t, activate=act, pad_output=pad, return_stats=True)
+    return x, gam, bet, t, stats, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,temb,act,pad", GN_BWD_CASES)
+def test_group_norm_bwd_repeat_is_bit_identical_on_card(card, hw, c, temb, act, pad):
+    """50 calls give the same bits in all four outputs: every sum of the
+    backward is folded in a fixed order (no atomics), and the grid barrier
+    and the images' arrival counters are left zeroed for the next call."""
+    ops = _gn_bwd_operands(card, 8, hw, c, temb, act, pad)
+    first = group_norm_silu_bwd(*ops, activate=act, pad_output=pad)
+    for _ in range(49):
+        again = group_norm_silu_bwd(*ops, activate=act, pad_output=pad)
+        for a, b in zip(first, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,temb,act,pad", GN_BWD_CASES)
+def test_group_norm_bwd_outputs_and_dtemb_on_card(card, hw, c, temb, act, pad):
+    """dx, dgamma, dbeta and, with a temb, dtemb (the kernel's own fold of
+    dx over each image's pixels) against the fp32 plain version from the
+    same statistics, relative L2 <= 1e-2; one device kernel a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, gam, bet, t, stats, g = _gn_bwd_operands(card, 8, hw, c, temb, act, pad)
+    got = group_norm_silu_bwd(x, gam, bet, t, stats, g, activate=act, pad_output=pad)
+    ref = group_norm_silu_bwd_plain(
+        x.float(), gam.float(), bet.float(), t.float() if temb else None, stats, g.float(),
+        activate=act, pad_output=pad,
+    )
+    assert (got[3] is None) == (not temb)
+    for a, b in zip(got, ref):
+        if b is not None:
+            assert _rel_l2(a, b) <= 1e-2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        group_norm_silu_bwd(x, gam, bet, t, stats, g, activate=act, pad_output=pad)
+        torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert kernels and all("gn_bwd_kernel" in k for k in kernels), kernels
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.cuda
+def test_group_norm_bwd_channel_limit_on_card(card):
+    """C <= 4096 (an 8-channel chunk a thread, 512 threads): the widest
+    runs, one more chunk raises in the wrapper and the C entry refuses it
+    (cudaErrorInvalidValue)."""
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.groupnorm import MAX_CHANNELS
+
+    assert MAX_CHANNELS == 4096
+    x, gam, bet, t, stats, g = _gn_bwd_operands(card, 2, 4, MAX_CHANNELS, True, True, False)
+    got = group_norm_silu_bwd(x, gam, bet, t, stats, g, activate=True)
+    ref = group_norm_silu_bwd_plain(x.float(), gam.float(), bet.float(), t.float(), stats,
+                                    g.float(), activate=True)
+    for a, b in zip(got, ref):
+        assert _rel_l2(a, b) <= 1e-2
+    c = MAX_CHANNELS + 8
+    wide = torch.zeros(2, 4, 4, c, dtype=torch.bfloat16, device="cuda")
+    one = torch.ones(c, dtype=torch.bfloat16, device="cuda")
+    st = torch.ones(2, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="unsupported C"):
+        group_norm_silu_bwd(wide, one, one, None, st, wide)
+    lib = _build.library("groupnorm")
+    assert lib.gmdx_group_norm_silu_bwd(*[None] * 13, 2, 4, 4, c, 8, 1, 2, 1, 0, None) == 1
+    assert lib.gmdx_group_norm_bwd_plan(2, 4, 4, c, _c_ints(7)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_group_norm_bwd_plan_matches_kernel_on_card(card, b):
+    """group_norm_bwd_plan field for field against gmdx_group_norm_bwd_plan
+    at every GroupNorm shape of the Stage-2 step, and the blocks an SM the
+    plan counts (from BWD_REGISTERS) against
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, which the C plan takes."""
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.groupnorm import group_norm_bwd_plan
+
+    shapes = [(8, 8, 1280), (8, 8, 2560), (16, 16, 640), (16, 16, 1280), (16, 16, 1920),
+              (16, 16, 2560), (32, 32, 320), (32, 32, 640), (32, 32, 960), (32, 32, 1280),
+              (32, 32, 1920), (64, 64, 320), (64, 64, 640), (64, 64, 960), (8, 8, 4096)]
+    lib = _build.library("groupnorm")
+    for h, w, c in shapes:
+        got = _c_ints(7)
+        assert lib.gmdx_group_norm_bwd_plan(b, h, w, c, got) == 0
+        assert list(got) == group_norm_bwd_plan(b, h, w, c).c_fields(), (h, w, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(65536, 320), (16384, 640), (4096, 1280), (1024, 1280),
+                                 (1, 320), (15, 320), (1, 8), (639, 8), (3, 2048), (9, 24)])
+def test_add_layer_norm_plan_matches_kernel_on_card(card, m, c):
+    """add_layer_norm_plan field for field against gmdx_add_ln_plan; the card
+    holds at least the blocks an SM the plan puts on it."""
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm_plan
+
+    got = _c_ints(7)
+    assert _build.library("add_ln").gmdx_add_ln_plan(m, c, got) == 0
+    plan = add_layer_norm_plan(m, c)
+    assert list(got)[:6] == plan.c_fields() and got[6] >= plan.per_sm, list(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(1, 320), (15, 320), (17, 640), (3, 1280), (1, 8), (639, 8),
+                                 (641, 8), (3, 2048), (9, 24), (1000, 1280), (5000, 640)])
+def test_add_layer_norm_tails_on_card(card, m, c):
+    """Short last tiles (one row, one short of a tile, one past), C = 8 and
+    2048 and a generic C, a row count that leaves blocks one tile more than
+    others; against the plain version, s bit for bit."""
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm, add_layer_norm_plain
+
+    x, y = _bf16(card, 1, m, c), _bf16(card, 1, m, c)
+    g = 1.0 + _bf16(card, c, scale=0.2).float()
+    b = _bf16(card, c, scale=0.2).float()
+    s, h = add_layer_norm(x, y, g, b)
+    ref_s, ref_h = add_layer_norm_plain(x, y, g, b)
+    assert torch.equal(s, ref_s)
+    assert _rel_l2(h, ref_h) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_add_layer_norm_refuses_a_misaligned_view_on_card(card):
+    """The bulk copies need 16-byte aligned rows: a contiguous view two
+    bytes into its buffer raises, and nothing falls back."""
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm
+
+    x = torch.zeros(4 * 320 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 4, 320)
+    y = torch.zeros(1, 4, 320, dtype=torch.bfloat16, device="cuda")
+    one, zero = torch.ones(320, device="cuda"), torch.zeros(320, device="cuda")
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        add_layer_norm(x, y, one, zero)
+    with pytest.raises(ValueError, match="16-byte"):
+        add_layer_norm(y, x, one, zero)

@@ -1,4 +1,4 @@
-"""The GroupNorm forward's launch plan and its cluster walk, on the CPU.
+"""The GroupNorm kernels' launch plans and their walks, on the CPU.
 
 ``csrc/groupnorm.cu`` runs the forward as ``gmdx_torch/kernels/groupnorm.py:
 group_norm_plan`` lays it out: one thread-block cluster an image, each CTA a
@@ -10,6 +10,14 @@ per-thread strided sums about each group's first element, the fixed-order
 fold of each block, the rank-order fp64 combine, the apply with its border.
 The replay is held to the plain version and to the JAX package's Pallas
 kernels in interpret mode.
+
+The backward (``group_norm_bwd_plan``, one cooperative launch of
+``gn_bwd_kernel``) is held the same way: its plan at every GroupNorm shape
+of the Stage-2 step at batches 1, 2 and 8, and a numpy replay of its walk -
+per-thread strided sums, the block's fixed-order fold, the group fold over
+the ranges, dx walked back, the dtemb fold over each image's ranges and the
+dgamma / dbeta fold over every tile (each in fold8's fixed order) - against
+``group_norm_silu_bwd_plain`` and ``_gn_backward`` in interpret mode.
 """
 
 import functools
@@ -19,8 +27,9 @@ import pytest
 import torch
 
 from gmdx_torch.kernels.groupnorm import (
-    CLUSTERS, FORMS, LOAD_PIECES, MAX_GROUPS, RESIDENT_CLUSTERS, SMEM_BUDGET, WAVE_BYTES,
-    _pair_plan, _splits, group_norm_plan, group_norm_silu_plain,
+    CLUSTERS, FORMS, LOAD_PIECES, MAX_GROUPS, NUM_SMS, RESIDENT_CLUSTERS, SMEM_BUDGET, WAVE_BYTES,
+    GroupNormBwdPlan, _bwd_resident, _pair_plan, _splits, _threads, group_norm_bwd_plan,
+    group_norm_plan, group_norm_silu_bwd_plain, group_norm_silu_plain,
 )
 
 BATCHES = (1, 2, 8, 16)
@@ -245,3 +254,196 @@ def test_cluster_walk_is_the_plain_function_and_the_jax_kernels(case, form):
     assert float(np.abs(got - want.numpy()).max()) <= 1e-4
     assert float(np.abs(stats - want_stats.numpy()).max()) <= 1e-4
     assert float(np.abs(got - _jax_reference(case)).max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _stage2_shapes() -> tuple[tuple[int, int, int], ...]:
+    """(H, W, C) of the GroupNorms of the Stage-2 step: the 512^2 UNet's."""
+    return tuple(sorted(set(_gn_calls(64, decoder=False, encoder=False))))
+
+
+@pytest.mark.parametrize("b", (1, 2, 8))
+def test_bwd_plan_at_every_stage2_shape(b):
+    """Every block resident at once (the grid barrier's condition), the
+    image's pixels cut into equal contiguous ranges, none empty, no more
+    ranges than the rows of threads need, and as many blocks as the card
+    holds where the pixels allow."""
+    shapes = _stage2_shapes()
+    assert (16, 16, 2560) in shapes and (64, 64, 320) in shapes
+    for h, w, c in shapes:
+        plan = group_norm_bwd_plan(b, h, w, c)
+        splits, images = plan.grid
+        hw, rows = h * w, plan.threads // (c // 8)
+        cap = plan.resident * NUM_SMS
+        assert plan.threads == _threads(c) <= 512 and plan.resident == _bwd_resident(plan.threads)
+        assert plan.resident >= 1 and splits * images <= cap, (h, w, c, plan)
+        assert images == b
+        assert (splits - 1) * plan.pixels < hw <= splits * plan.pixels
+        assert splits <= -(-hw // rows)
+        want = min(cap // b, -(-hw // rows))
+        assert splits == -(-hw // -(-hw // want))  # the rule's split count, trimmed of empties
+        assert plan.smem_bytes == 64 * plan.threads + 2 * MAX_GROUPS * 4 <= 48 * 1024
+        assert plan.c_fields() == [splits, images, plan.pixels, plan.threads, plan.smem_bytes,
+                                   plan.resident, NUM_SMS]
+
+
+@pytest.mark.parametrize("b,h,w,c", [(300, 8, 8, 1280), (2, 1, 1, 8), (1, 3, 5, 4096)])
+def test_bwd_plan_tails(b, h, w, c):
+    """More images than blocks: one range an image, each block row takes
+    several images; a one-pixel image; the widest C."""
+    plan = group_norm_bwd_plan(b, h, w, c)
+    splits, images = plan.grid
+    assert splits * images <= plan.resident * NUM_SMS and images <= b
+    assert (splits - 1) * plan.pixels < h * w <= splits * plan.pixels
+    if b > plan.resident * NUM_SMS:
+        assert splits == 1 and images == plan.resident * NUM_SMS
+
+
+def _fold8(vals: np.ndarray) -> np.ndarray:
+    """The kernel's fold of partials vals[0..n) in fp64 (fold8): four
+    lanes sum parts k, k + 4, ... in order, then two shuffle steps add
+    them as (S0 + S1) + (S2 + S3)."""
+    lanes = np.zeros((4,) + vals.shape[1:], np.float64)
+    for p in range(vals.shape[0]):
+        lanes[p % 4] += vals[p]
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def emulate_group_norm_bwd(x, scale, bias, temb, stats, g, num_groups, activate, pad, plan):
+    """The backward kernel's arithmetic in numpy as ``plan`` cuts it, tile by
+    tile (image b, range s): thread row k of R sums dy and dy * xhat over
+    pixels k, k + R, ... of the range in fp32 (xhat and the pre-activation y
+    as affine maps of x, and dx = dy ya - (x dp + dq), as the kernel takes
+    them); the block folds those over
+    the rows per channel, then gamma-weighted over each group's channels;
+    after the barrier each image's group partials are folded over its
+    ranges; dx is walked back from each row's last pixel, its per-channel
+    sum folded over the rows and, once all its ranges arrived, over them;
+    dgamma and dbeta fold every tile (each cross-block fold as fold8
+    takes it: four strided lane sums in fp64, then two shuffle steps)."""
+    f32 = np.float32
+    b, h, w, c = x.shape
+    hw, cg = h * w, c // num_groups
+    splits, rows = plan.grid[0], plan.threads // (c // 8)
+    grp = np.arange(c) // cg
+    t = np.zeros((b, c), f32) if temb is None else temb.astype(f32)
+    rs = stats[:, 1][:, grp].astype(f32)
+    shr = ((t - stats[:, 0][:, grp]) * rs).astype(f32)
+    xs = x.reshape(b, hw, c).astype(f32)
+    gs = (g[:, 1:-1, 1:-1] if pad else g).reshape(b, hw, c).astype(f32)
+    ya, yb = rs * scale, shr * scale + bias  # y = x ya + yb, the forward's pre-activation
+    xh = xs * rs[:, None] + shr[:, None]
+    dy = gs
+    if activate:
+        y = xs * ya[:, None] + yb[:, None]
+        sig = f32(1.0) / (f32(1.0) + np.exp(-y))
+        dy = gs * (sig * (y * (f32(1.0) - sig) + f32(1.0)))
+    ranges = [(s * plan.pixels, min(s * plan.pixels + plan.pixels, hw)) for s in range(splits)]
+    chpart = np.zeros((b, splits, 2, c), f32)
+    grpart = np.zeros((b, splits, 2, num_groups), f32)
+    for bi in range(b):
+        for s, (p0, p1) in enumerate(ranges):
+            acc = np.zeros((2, rows, c), f32)
+            for k in range(rows):
+                for p in range(p0 + k, p1, rows):
+                    acc[0, k] += dy[bi, p]
+                    acc[1, k] += dy[bi, p] * xh[bi, p]
+            chan = acc[:, 0].copy()
+            for k in range(1, rows):
+                chan += acc[:, k]
+            chpart[bi, s] = chan
+            for j in range(cg):
+                grpart[bi, s] += scale[j::cg] * chan[:, j::cg]
+    dx = np.zeros((b, hw, c), f32)
+    dtemb = np.zeros((b, c), f32)
+    for bi in range(b):
+        m = (_fold8(grpart[bi]) * (1.0 / (hw * cg))).astype(f32)
+        m1, m2 = m[0][grp], m[1][grp]
+        dp, dq = rs[bi] * rs[bi] * m2, rs[bi] * (shr[bi] * m2 + m1)
+        tpart = np.zeros((splits, c), f32)
+        for s, (p0, p1) in enumerate(ranges):
+            dt = np.zeros((rows, c), f32)
+            for k in range(rows):
+                for p in reversed(range(p0 + k, p1, rows)):
+                    d = dy[bi, p] * ya[bi] - (xs[bi, p] * dp + dq)
+                    dx[bi, p] = d
+                    dt[k] += d
+            tpart[s] = dt[0]
+            for k in range(1, rows):
+                tpart[s] += dt[k]
+        dtemb[bi] = _fold8(tpart)
+    sums = _fold8(chpart.reshape(b * splits, 2, c)).astype(f32)
+    return dx.reshape(b, h, w, c), sums[1], sums[0], dtemb if temb is not None else None
+
+
+# (temb, activate, pad) at B = 2, 8^2 x 64: the resnet norm2 (temb, SiLU,
+# padded), norm1 (SiLU, padded), the transformer's GN (neither).
+BWD_CASES = [(False, True, False), (False, False, False), (True, True, True),
+             (False, True, True)]
+
+
+def _bwd_inputs(temb, seed=7):
+    rng = np.random.default_rng(seed)
+    x, scale, bias, t = _inputs(2, 8, 8, 64, temb, seed)
+    return x, scale, bias, t, rng.standard_normal((2, 10, 10, 64)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd_reference(temb, activate):
+    """_gn_backward in interpret mode from the JAX forward's statistics; the
+    JAX package adds temb outside its kernels, so it normalises x + temb and
+    dtemb is its dx summed over the pixels."""
+    import jax
+    import jax.numpy as jnp
+
+    from gmdx.kernels.groupnorm import _gn_backward, _gn_forward
+
+    x, scale, bias, t, gp = _bwd_inputs(temb)
+    xs = x + t[:, None, None, :] if temb else x
+    with jax.default_matmul_precision("highest"):
+        args = (jnp.asarray(xs), jnp.asarray(scale), jnp.asarray(bias))
+        _, jstats = _gn_forward(*args, 32, 1e-5, activate, True)
+        dx, dscale, dbias = _gn_backward(*args, jstats, jnp.asarray(gp[:, 1:-1, 1:-1]), 32, 1e-5,
+                                         activate, True)
+    dx = np.asarray(dx)
+    return dx, np.asarray(dscale), np.asarray(dbias), dx.sum(axis=(1, 2)) if temb else None
+
+
+def _close(got, want, tol=1e-4):
+    """Max abs error within tol of the larger of 1 and the reference's peak."""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()) <= tol * max(
+        1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("cut", ["plan", "split"])
+@pytest.mark.parametrize("temb,activate,pad", BWD_CASES)
+def test_bwd_walk_is_the_plain_function_and_the_jax_kernels(temb, activate, pad, cut):
+    """The replay as the plan cuts 2 x 8^2 x 64 (one range an image: 512
+    threads, 64 rows) and as a five-range cut with three rows of threads
+    (ranges of 13 pixels, the last 12, rows with 4 or 5 pixels each), held
+    to the plain version and to _gn_backward, max abs error 1e-4 of the
+    peak (fp32 on every side, sums in other orders)."""
+    x, scale, bias, t, gp = _bwd_inputs(temb)
+    g = gp if pad else np.ascontiguousarray(gp[:, 1:-1, 1:-1])
+    plan = group_norm_bwd_plan(2, 8, 8, 64)
+    if cut == "split":
+        plan = GroupNormBwdPlan((5, 2), 13, 24, 64 * 24 + 2 * MAX_GROUPS * 4, 1)
+    else:
+        assert plan.grid == (1, 2) and plan.threads == 512
+    tt = [torch.from_numpy(a) if a is not None else None for a in (x, scale, bias, t)]
+    _, stats = group_norm_silu_plain(*tt, eps=1e-5, activate=activate, pad_output=pad,
+                                     return_stats=True)
+    got = emulate_group_norm_bwd(x, scale, bias, t, stats.numpy(), g, 32, activate, pad, plan)
+    want = group_norm_silu_bwd_plain(*tt, stats, torch.from_numpy(g), activate=activate,
+                                     pad_output=pad)
+    jax_want = _jax_bwd_reference(temb, activate)
+    for a, p, j in zip(got, want, jax_want):
+        assert (a is None) == (p is None) == (j is None)
+        if a is not None:
+            assert _close(a, p.numpy()) and _close(a, j)
