@@ -35,6 +35,8 @@
 //        dP = dO V^T, P = exp2(c S - lse) (0 past Sk), dS = P (dP - dd),
 //        dQ += dS K; at the end dQ *= scale.
 // No atomics: each gradient row has one writer, so a repeat is bit-identical.
+// The VAE's single 512-wide head takes attention_wide_bwd.cuh's two kernels
+// after the same dd pre-pass (its header says why).
 // Within a consumer, the exp2 of P overlaps the dP^T product (dkv) and the
 // two consumers' products overlap each other's softmax.
 //
@@ -45,6 +47,7 @@
 // above the 0.434 ms operations bound at D = 40.
 #include "attention_sm90.cuh"
 #include "attention_wide.cuh"
+#include "attention_wide_bwd.cuh"
 
 namespace {
 
@@ -419,7 +422,9 @@ extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void*
 }
 
 // q, dout, dq: (B, Sq, H*D); k, v, dk, dv: (B, Sk, H*D), contiguous bf16;
-// lse, dd: (B, H, Sq) fp32. Launches the dK/dV kernel, then the dQ kernel.
+// lse, dd: (B, H, Sq) fp32. Launches the dK/dV kernel, then the dQ kernel
+// (attention_sm90.cuh's at head dims 40/80/160, attention_wide_bwd.cuh's at
+// 512).
 extern "C" int gmdx_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* dd, void* dq, void* dk, void* dv, int B,
                               int Sq, int Sk, int H, int D, float scale, float qscale,
@@ -432,6 +437,9 @@ extern "C" int gmdx_flash_bwd(const void* q, const void* k, const void* v, const
     case 80: return launch_bwd<80>(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale, qscale, st);
     case 160:
       return launch_bwd<160>(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale, qscale, st);
+    case 512:
+      return gmdx_wide::launch_wide_bwd(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale,
+                                        qscale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,13 +2,15 @@
 
 A port-local copy of the export mapping of ``gmdx/io/torch_import.py``
 (``export_unet_state_dict``, ``export_vae_state_dict``,
-``export_clip_text_state_dict``): Flax param trees
+``export_clip_text_state_dict``, ``export_vgg19_state_dict``): Flax param trees
 (nested dicts of numpy arrays) become state dicts in diffusers key naming,
 with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW.
 Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
 same modules unchanged. The ControlNet's mapping is the port's own (the JAX
 package exports none): the UNet's rules for the shared encoder, diffusers'
-names for the embedder and the zero convs.
+names for the embedder and the zero convs. So are the Stage-1
+discriminator's (its parameters and spectral-norm state) and the LoRA
+factors' (keyed by the diffusers name of the weight they adapt).
 """
 
 from __future__ import annotations
@@ -174,44 +176,98 @@ def _vae_attention(rest: str, value: np.ndarray, prefix: str) -> tuple[str, np.n
     return f"{prefix}.{tail}.{p}", v
 
 
+def _vae_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """One gmdx ``AutoencoderKL`` param (``/``-joined path) -> its diffusers
+    name and value."""
+    top, rest = path.split("/", 1)
+    last = rest.split("/")[-1]
+    if top in ("quant_conv", "post_quant_conv"):
+        p, v = _param(last, value, _inv_conv)
+        return f"{top}.{p}", v
+    if top not in ("encoder", "decoder"):
+        raise KeyError(f"unhandled VAE path {path}")
+    sub, rest2 = rest.split("/", 1)
+    if sub in ("conv_in", "conv_out"):
+        p, v = _param(last, value, _inv_conv)
+        return f"{top}.{sub}.{p}", v
+    if sub == "conv_norm_out":
+        return f"{top}.conv_norm_out.{_norm_param(last)}", value
+    if sub.startswith(("down_", "up_")):
+        side, i, kind, *j = sub.split("_")  # down_0_resnet_1 / up_0_upsample
+        tp = f"{top}.{side}_blocks.{i}"
+        if kind == "resnet":
+            return _resnet(rest2, value, f"{tp}.resnets.{j[0]}")
+        samp = "downsamplers" if kind == "downsample" else "upsamplers"
+        p, v = _param(last, value, _inv_conv)
+        return f"{tp}.{samp}.0.conv.{p}", v
+    if sub.startswith("mid_resnet_"):
+        return _resnet(rest2, value, f"{top}.mid_block.resnets.{sub.split('_')[-1]}")
+    if sub == "mid_attn":
+        return _vae_attention(rest2, value, f"{top}.mid_block.attentions.0")
+    raise KeyError(f"unhandled VAE path {path}")
+
+
 def vae_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
     """gmdx ``AutoencoderKL`` params -> diffusers-named state dict
     (``encoder.*``, ``quant_conv``, ``decoder.*``, ``post_quant_conv``)."""
+    return dict(_vae_key(path, value) for path, value in _flatten(params).items())
+
+
+# torchvision's VGG19 ``features`` index of each of the 16 convs.
+_VGG19_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+
+
+def vgg19_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``VGG19Features`` params (``conv_<i>``) -> torchvision names
+    (``features.<idx>.weight|bias``), as ``export_vgg19_state_dict``."""
     out = {}
     for path, value in _flatten(params).items():
-        top, rest = path.split("/", 1)
-        last = rest.split("/")[-1]
-        if top in ("quant_conv", "post_quant_conv"):
-            p, v = _param(last, value, _inv_conv)
-            out[f"{top}.{p}"] = v
-            continue
-        if top not in ("encoder", "decoder"):
-            raise KeyError(f"unhandled VAE path {path}")
-        sub, rest2 = rest.split("/", 1)
-        if sub in ("conv_in", "conv_out"):
-            p, v = _param(last, value, _inv_conv)
-            out[f"{top}.{sub}.{p}"] = v
-        elif sub == "conv_norm_out":
-            out[f"{top}.conv_norm_out.{_norm_param(last)}"] = value
-        elif sub.startswith(("down_", "up_")):
-            side, i, kind, *j = sub.split("_")  # down_0_resnet_1 / up_0_upsample
-            tp = f"{top}.{side}_blocks.{i}"
-            if kind == "resnet":
-                k, v = _resnet(rest2, value, f"{tp}.resnets.{j[0]}")
-            else:
-                samp = "downsamplers" if kind == "downsample" else "upsamplers"
-                p, v = _param(last, value, _inv_conv)
-                k = f"{tp}.{samp}.0.conv.{p}"
-            out[k] = v
-        elif sub.startswith("mid_resnet_"):
-            k, v = _resnet(rest2, value, f"{top}.mid_block.resnets.{sub.split('_')[-1]}")
-            out[k] = v
-        elif sub == "mid_attn":
-            k, v = _vae_attention(rest2, value, f"{top}.mid_block.attentions.0")
-            out[k] = v
-        else:
-            raise KeyError(f"unhandled VAE path {path}")
+        name, last = path.split("/")
+        idx = _VGG19_CONV_INDICES[int(name.split("_")[1])]
+        p, v = _param(last, value, _inv_conv)
+        out[f"features.{idx}.{p}"] = v
     return out
+
+
+def discriminator_state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, np.ndarray]:
+    """gmdx ``Discriminator`` params and spectral-norm state (its variables
+    but ``params``, or their ``batch_stats`` collection) -> the
+    port's own names (the JAX package exports none): ``convs.<i>.weight|
+    bias`` for ``conv_<i>``, ``convs.<i>.u|sigma`` from
+    ``SpectralNorm_*/conv_<i>/kernel/{u,sigma}``, ``shuffle.weight|bias``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        name, last = path.split("/")
+        p, v = _param(last, value, _inv_conv)
+        prefix = "shuffle" if name == "shuffle" else f"convs.{name.split('_')[1]}"
+        out[f"{prefix}.{p}"] = v
+    for path, value in _flatten(batch_stats).items():
+        parts = path.split("/")  # [batch_stats/]SpectralNorm_<j>/conv_<i>/kernel/{u,sigma}
+        out[f"convs.{parts[-3].split('_')[1]}.{parts[-1]}"] = value
+    return out
+
+
+def lora_from_flax(lora: dict) -> dict[str, dict[str, np.ndarray]]:
+    """gmdx VAE LoRA factors {(path...): {"a", "b"}} -> the port's
+    {diffusers weight name: {"a", "b"}} (``gmdx_torch.models.lora``'s
+    layout: each factor transposed as the kernel it adapts)."""
+    out = {}
+    for path, f in lora.items():
+        key, a = _vae_key("/".join(path), f["a"])
+        _, b = _vae_key("/".join(path), f["b"])
+        out[key] = {"a": a, "b": b}
+    return out
+
+
+def stage1_trainables_from_flax(trainables: dict) -> dict:
+    """gmdx ``Stage1State.trainables`` {"lora", "conv_out": {"kernel",
+    "bias"}} -> the port's {"lora", "conv_out": {"weight", "bias"}}."""
+    co = trainables["conv_out"]
+    return {
+        "lora": lora_from_flax(trainables["lora"]),
+        "conv_out": {"weight": _inv_conv(np.asarray(co["kernel"])),
+                     "bias": np.asarray(co["bias"])},
+    }
 
 
 def clip_text_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
@@ -284,6 +340,10 @@ def load_clip_text(
 
 
 __all__ = [
+    "discriminator_state_dict_from_flax",
+    "lora_from_flax",
+    "stage1_trainables_from_flax",
+    "vgg19_state_dict_from_flax",
     "controlnet_state_dict_from_flax",
     "controlnet_state_dict_from_unet",
     "load_controlnet",

@@ -35,6 +35,7 @@ LAUNCHES = {
     "flash_attention_fwd_d512": 0,
     "flash_attention_bsc": 0,
     "flash_attention_bwd": 0,
+    "flash_attention_bwd_d512": 0,
     "group_norm_silu_bwd": 0,
     "cross_attention_shortk": 0,
     "add_layer_norm": 0,

@@ -7,8 +7,9 @@ Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
 head-packed (B, S, H*D) layout instead of the JAX package's (B*H, S, D).
 Kernels: ``csrc/flash_attention.cu`` (the forward at head dims 40/80/160
 on ``csrc/attention_sm90.cuh``'s Hopper forward and, through
-``csrc/attention_wide.cuh``, at the VAE's 512; the backward at 40/80/160: a
-dd pre-pass, then the dK/dV and dQ kernels on ``csrc/attention_sm90.cuh``)
+``csrc/attention_wide.cuh``, at the VAE's 512; the backward: a dd pre-pass,
+then the dK/dV and dQ kernels, on ``csrc/attention_sm90.cuh`` at 40/80/160
+and ``csrc/attention_wide_bwd.cuh`` at 512)
 and ``csrc/attention.cu`` (``gmdx_flash_bsc`` on the same Hopper forward,
 and ``gmdx_xattn`` from ``csrc/attention_xattn.cuh``, built from the same
 core's pieces). :func:`attention_fwd_plan`, :func:`flash_bwd_plan` and
@@ -38,7 +39,7 @@ _LOG2_E = 1.0 / math.log(2.0)
 # SD-1.5's head dims: the instances of csrc/attention_sm90.cuh's forward and
 # backward kernels.
 _KERNEL_HEAD_DIMS = (40, 80, 160)
-# The flash forward also has the VAE's single 512-wide head.
+# The flash forward and backward also have the VAE's single 512-wide head.
 _FWD_HEAD_DIMS = _KERNEL_HEAD_DIMS + (512,)
 PLAIN_CHUNK = 1024
 # The short-K kernel holds every key of a head in shared memory.
@@ -329,8 +330,10 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_fwd` for the cotangent
     ``dout`` of ``out``. On the card: a pre-pass kernel computes
-    dd = rowsum(dout * out), then the dK/dV and the dQ kernels run."""
-    d = _check_shapes(q, k, v, heads)
+    dd = rowsum(dout * out), then the dK/dV and the dQ kernels run. Head dim
+    512 takes the wide kernels (``csrc/attention_wide_bwd.cuh``), counted as
+    ``flash_attention_bwd_d512``."""
+    d = _check_shapes(q, k, v, heads, _FWD_HEAD_DIMS)
     if scale is None:
         scale = d**-0.5
     if not q.is_cuda:
@@ -349,7 +352,7 @@ def flash_attention_bwd(
         lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, k.shape[1], heads, d, float(scale), float(scale * _LOG2_E), stream,
     )
-    LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES["flash_attention_bwd_d512" if d == 512 else "flash_attention_bwd"] += 1
     return dq, dk, dv
 
 

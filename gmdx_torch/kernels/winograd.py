@@ -73,12 +73,62 @@ AT4 = (
 )
 
 
-def conv_route(h: int, w: int, c: int, o: int, winograd_m: int = 2) -> str:
-    """``"wino4"`` where the JAX package takes F(4x4) under
-    ``GMDX_WINOGRAD_M=4`` (``winograd.py:1079, 1193-1196``), else
-    ``"conv3x3"``. The JAX rule's VMEM budget (``_pick_tiling4``) is a TPU
-    limit and is not part of it."""
-    if winograd_m == 4 and h == w and h % 4 == 0 and h >= 16 and c % 8 == 0 and o % 8 == 0:
+# The JAX package's F(4x4) tiling budget (``winograd.py:126``, ``:157``):
+# a working-set estimate times Mosaic's measured overshoot must stay under
+# 100 MB of VMEM.
+_VMEM_CAP = 100 * 1024 * 1024
+_MOSAIC_FUDGE = 1.7
+
+
+def _vmem_estimate4(h: int, w: int, c: int, o: int, itemsize: int, split: int,
+                    g_itemsize: int) -> int:
+    """``gmdx/kernels/winograd.py:_vmem_estimate4``: the bytes one grid step
+    of the TPU's F(4x4) kernel holds, for 1/``split`` of the tile rows and
+    ``o`` output channels."""
+    t = (h // 4) * (w // 4) // split
+    trs = h // 4 // split
+    hp = h + 4
+    return (hp * hp * c * itemsize + 5 * (trs + 1) * hp * c * itemsize
+            + 36 * t * c * itemsize + 8 * t * c * 4 + 24 * t * o * 4 + 2 * t * o * 4
+            + 36 * c * o * itemsize + 9 * c * o * g_itemsize + 16 * t * o * itemsize)
+
+
+def _pick_tiling4(h: int, w: int, c: int, o: int, itemsize: int,
+                  g_itemsize: int) -> tuple[int, int]:
+    """``gmdx/kernels/winograd.py:_pick_tiling4``: (tile-row split, output
+    chunks) of the first tiling whose estimate fits the budget, or (0, 0)."""
+    t_rows = h // 4
+    for ochunks in (1, 2, 4, 5, 8, 10):
+        if o % ochunks or (ochunks > 1 and (o // ochunks) % 128):
+            continue
+        for split in (1, 2, 4, 8):
+            if t_rows % split:
+                continue
+            if t_rows // split < 4:
+                break
+            est = _vmem_estimate4(h, w, c, o // ochunks, itemsize, split, g_itemsize)
+            if est * _MOSAIC_FUDGE <= _VMEM_CAP:
+                return split, ochunks
+    return 0, 0
+
+
+def _wino4_shape_ok(h: int, w: int, c: int, o: int) -> bool:
+    """The shapes the F(4x4) kernel takes: square, H % 4 == 0, H >= 16, C
+    and O multiples of 8."""
+    return h == w and h % 4 == 0 and h >= 16 and c % 8 == 0 and o % 8 == 0
+
+
+def conv_route(h: int, w: int, c: int, o: int, winograd_m: int = 2, itemsize: int = 2) -> str:
+    """``"wino4"`` exactly where the JAX package takes F(4x4) under
+    ``GMDX_WINOGRAD_M=4``: ``winograd_conv3x3``'s shape gate, then
+    ``_select_tiling`` (``winograd.py:1078-1082``) with its tiling budget
+    (``_pick_tiling4``); else ``"conv3x3"``, the port's counterpart of both
+    F(2x2) and the direct conv. ``itemsize`` is the activations' (2 for
+    bf16): the JAX package decides m from ``tiling_x``, where the image and
+    the weights both count at the activations' itemsize (``:1204-1215``;
+    the weights' own dtype only decides a cast)."""
+    if winograd_m == 4 and _wino4_shape_ok(h, w, c, o) \
+            and _pick_tiling4(h, w, c, o, itemsize, itemsize)[0]:
         return "wino4"
     return "conv3x3"
 
@@ -416,7 +466,7 @@ def winograd4_conv3x3(
     o = u.shape[1]
     if u.shape != (36, o, c) or bias.shape != (o,):
         raise ValueError(f"transformed weight {tuple(u.shape)} does not match C={c}")
-    if conv_route(h, w, c, o, 4) != "wino4":
+    if not _wino4_shape_ok(h, w, c, o):
         raise ValueError(f"F(4x4) takes square H % 4 == 0 >= 16 and C, O % 8 == 0, "
                          f"got {h}x{w}, {c} -> {o}")
     refuse_grad("winograd4_conv3x3", x, u, bias)

@@ -1,5 +1,5 @@
-"""UNet, ControlNet, VAE, CLIP text and tokenizer modules of the port
-(counterpart of ``gmdx.models``)."""
+"""UNet, ControlNet, VAE, CLIP text, tokenizer, and Stage-1's LoRA, VGG19
+and discriminator modules of the port (counterpart of ``gmdx.models``)."""
 
 from gmdx_torch.models.clip_text import (
     CLIP_VIT_L_CONFIG,
@@ -14,7 +14,9 @@ from gmdx_torch.models.controlnet import (
     ControlNetConfig,
     ControlNetModel,
 )
+from gmdx_torch.models.discriminator import Discriminator
 from gmdx_torch.models.layers import set_kernel_options, set_use_kernels
+from gmdx_torch.models.lora import LoRAConfig, init_lora_params, lora_targets, merge_lora
 from gmdx_torch.models.tokenizer import CLIPTokenizer
 from gmdx_torch.models.unet2d import (
     SD15_GM_UNET_CONFIG,
@@ -30,8 +32,15 @@ from gmdx_torch.models.vae import (
     AutoencoderKL,
     VAEConfig,
 )
+from gmdx_torch.models.vgg import VGG19Features
 
 __all__ = [
+    "Discriminator",
+    "LoRAConfig",
+    "init_lora_params",
+    "lora_targets",
+    "merge_lora",
+    "VGG19Features",
     "set_use_kernels",
     "set_kernel_options",
     "CLIPTextModel",

@@ -33,6 +33,7 @@ under AD).
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -191,7 +192,8 @@ class Conv3x3(nn.Conv2d):
     says so. Each kernel's weight operand (the (O, 9*C) packing, the
     transformed (36, O, C) U) is made from ``weight`` on first use and again
     whenever the weight changes: an optimizer's in-place update bumps the
-    weight's version, which the caches are keyed on. Under autograd the
+    weight's version, and a weight swapped in for the call is another
+    tensor object; the caches are keyed on both. Under autograd the
     conv is :func:`conv3x3_direct` with the weight itself."""
 
     def __init__(self, in_ch: int, out_ch: int):
@@ -200,15 +202,18 @@ class Conv3x3(nn.Conv2d):
             raise ValueError(f"conv kernel needs widths % 8 == 0, got {in_ch}, {out_ch}")
         self.use_kernels = True
         self.winograd_m = 2
-        self._cached: dict[str, tuple[tuple, torch.Tensor]] = {}
+        self._cached: dict[str, tuple] = {}
 
     def _weight_operand(self, kind: str, dtype: torch.dtype, make) -> torch.Tensor:
+        # A hit needs the same live tensor object at the same version: a
+        # weight swapped in by torch.func.functional_call (the merged LoRA
+        # weights of Stage 1, new tensors every step) never matches a freed
+        # one whose storage the allocator handed on.
         w = self.weight
-        key = (w._version, w.data_ptr(), w.dtype, w.device, dtype)
         hit = self._cached.get(kind)
-        if hit is None or hit[0] != key:
-            hit = self._cached[kind] = (key, make(w.detach(), dtype))
-        return hit[1]
+        if hit is None or hit[0]() is not w or hit[1] != (w._version, dtype):
+            hit = self._cached[kind] = (weakref.ref(w), (w._version, dtype), make(w.detach(), dtype))
+        return hit[2]
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         return self._weight_operand("packed", dtype, lambda w, dt: pack_weight(w.to(dt)))
@@ -222,7 +227,8 @@ class Conv3x3(nn.Conv2d):
         if needs_grad(x, self.weight, self.bias):
             return conv3x3_direct(x, _cast(self.weight, x), bias, pre_padded=pre_padded)
         h, w = x.shape[1] - 2 * pre_padded, x.shape[2] - 2 * pre_padded
-        if conv_route(h, w, self.in_channels, self.out_channels, self.winograd_m) == "wino4":
+        if conv_route(h, w, self.in_channels, self.out_channels, self.winograd_m,
+                      x.element_size()) == "wino4":
             fn = winograd4_conv3x3 if self.use_kernels else winograd4_conv3x3_plain
             return fn(x, self.wino4_weight(x.dtype), bias, pre_padded=pre_padded)
         fn = conv3x3 if self.use_kernels else conv3x3_plain

@@ -484,7 +484,8 @@ def test_training_forward_path_shapes_on_card(card, b, s, sk, c):
 @pytest.mark.parametrize("sk", [16384, 16300])
 def test_flash_fwd_d512_kernel_on_card(card, sk):
     """The 1024^2 VAE mid block's single 512-wide head, output and
-    logsumexp; the backward has no instance at 512."""
+    logsumexp; the backward at 512 launches the wide kernels (their own
+    tests check its gradients)."""
     q = _bf16(card, 2, 16384, 512)
     k, v = _bf16(card, 2, sk, 512), _bf16(card, 2, sk, 512)
     before = launch_counts()["flash_attention_fwd_d512"]
@@ -493,8 +494,10 @@ def test_flash_fwd_d512_kernel_on_card(card, sk):
     ref, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 1, 512**-0.5)
     assert _rel_l2(out, ref) <= 1e-2
     assert float((lse - ref_lse).abs().max()) <= 2e-2
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q, k, v, out, lse, q, 1)
+    before = launch_counts()["flash_attention_bwd_d512"]
+    grads = flash_attention_bwd(q, k, v, out, lse, q, 1)
+    assert launch_counts()["flash_attention_bwd_d512"] == before + 1
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.cuda
@@ -982,3 +985,110 @@ def test_add_layer_norm_refuses_a_misaligned_view_on_card(card):
         add_layer_norm(x, y, one, zero)
     with pytest.raises(ValueError, match="16-byte"):
         add_layer_norm(y, x, one, zero)
+
+
+# The flash backward at the VAE's 512-wide head: Stage 1 at 1024^2, batch 1,
+# and at 768^2, batch 4.
+WIDE_BWD_SHAPES = [(1, 16384), (4, 9216)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", WIDE_BWD_SHAPES)
+def test_flash_bwd_d512_on_card(card, b, s):
+    """The 512-wide backward against the fp32 plain version (dq, dk, dv each
+    within relative L2 1e-2), counted as flash_attention_bwd_d512, and 20
+    repeats bit-identical to the first."""
+    q, k, v, dout = (_bf16(card, b, s, 512) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    before = launch_counts()["flash_attention_bwd_d512"]
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
+    assert launch_counts()["flash_attention_bwd_d512"] == before + 1
+    refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                     dout.float(), 1, 512 ** -0.5)
+    for got, ref in zip(grads, refs):
+        assert _rel_l2(got, ref) <= 1e-2
+    del refs
+    for _ in range(20):
+        again = flash_attention_bwd(q, k, v, out, lse, dout, 1)
+        assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(100, 77), (4096, 4000), (33, 16400)])
+def test_flash_bwd_d512_ragged_on_card(card, sq, sk):
+    """Query and key counts that leave ragged 32-row tiles."""
+    q, dout = _bf16(card, 2, sq, 512), _bf16(card, 2, sq, 512)
+    k, v = _bf16(card, 2, sk, 512), _bf16(card, 2, sk, 512)
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
+    refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                     dout.float(), 1, 512 ** -0.5)
+    for got, ref in zip(grads, refs):
+        assert _rel_l2(got, ref) <= 1e-2
+
+
+# The GroupNorm backward at the VAE's shapes under Stage 1 (eps 1e-6 for the
+# conv_norm_out and attention norms; 1e-5 in the resnets), no temb: 512^2
+# at batch 4, 1024^2 at batch 1.
+VAE_GN_BWD_SHAPES = [(4, 512, 128), (4, 256, 256), (4, 128, 512), (4, 64, 512), (1, 1024, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("b,hw,c", VAE_GN_BWD_SHAPES)
+def test_group_norm_bwd_vae_shapes_on_card(card, b, hw, c, eps):
+    x = _bf16(card, b, hw, hw, c, scale=2.0)
+    gam = (1.0 + _bf16(card, c, scale=0.2).float()).to(torch.bfloat16)
+    bet = _bf16(card, c, scale=0.2)
+    g = _bf16(card, b, hw + 2, hw + 2, c)
+    _, stats = group_norm_silu(x, gam, bet, None, eps=eps, pad_output=True, return_stats=True)
+    _, ref_stats = group_norm_silu_plain(x.float(), gam.float(), bet.float(), None, eps=eps,
+                                         pad_output=True, return_stats=True)
+    got = group_norm_silu_bwd(x, gam, bet, None, stats, g, pad_output=True)
+    ref = group_norm_silu_bwd_plain(x.float(), gam.float(), bet.float(), None, ref_stats,
+                                    g.float(), pad_output=True)
+    for a, r in zip(got, ref):
+        if r is not None:
+            assert _rel_l2(a, r) <= 1e-2
+    again = group_norm_silu_bwd(x, gam, bet, None, stats, g, pad_output=True)
+    assert all(a is r is None or torch.equal(a, r) for a, r in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_stage1_steps_at_1024_on_card(card):
+    """A Stage-1 gen step and disc step at full SD-1.5 VAE width, batch 1,
+    1024^2, bf16 compute: finite losses, and the kernel path taken (the
+    512-wide flash forward and backward, the GroupNorm backward, the conv
+    in the disc step's no-grad VAE forward)."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.models import SD15_VAE_CONFIG, AutoencoderKL
+    from gmdx_torch.models.discriminator import Discriminator
+    from gmdx_torch.models.vgg import VGG19Features
+    from gmdx_torch.ops import fix_mulog_tmo
+    from gmdx_torch.train import stage1
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        vae = AutoencoderKL(SD15_VAE_CONFIG, dtype=torch.bfloat16)
+        vgg = VGG19Features(dtype=torch.bfloat16)
+        disc = Discriminator(dtype=torch.bfloat16)
+    config = stage1.Stage1Config()
+    trainables = stage1.init_trainables(card, vae, config)
+    state = stage1.init_state(config, trainables, disc)
+    gen = stage1.make_gen_step(config, vae=vae, discriminator=disc, vgg=vgg,
+                               tmo_fn=fix_mulog_tmo)
+    dstep = stage1.make_disc_step(config, vae=vae, discriminator=disc, tmo_fn=fix_mulog_tmo)
+    batch = {k: torch.rand(1, 3, 1024, 1024, generator=card, device="cuda") * 2 - 1
+             for k in ("pixel_values", "miss_pixel_values")}
+    reset_launch_counts()
+    state, gm = gen(state, batch, card)
+    counts = launch_counts()
+    state, dm = dstep(state, batch, card)
+    both = launch_counts()
+    for m in (gm, dm):
+        for k, v in m.items():
+            if k != "module_grad_norms":
+                assert bool(torch.isfinite(v)), (k, v)
+    assert counts["flash_attention_fwd_d512"] == 2 and counts["flash_attention_bwd_d512"] == 2
+    assert counts["group_norm_silu_bwd"] > 0 and counts["conv3x3"] == 0
+    assert both["flash_attention_fwd_d512"] == 4 and both["conv3x3"] > 0

@@ -275,7 +275,9 @@ def _wino4_path_shapes():
 
 def test_wino4_path_shapes_take_the_route():
     shapes = _wino4_path_shapes()
-    assert (64, 320, 320) in shapes and (512, 128, 128) in shapes
+    # The VAE's 512^2 level is past the JAX package's F(4x4) tiling budget.
+    assert (64, 320, 320) in shapes and (256, 128, 256) in shapes
+    assert (512, 128, 128) not in shapes
     assert {hw for hw, _, _ in shapes} <= set(WINO4_LEVELS)
 
 

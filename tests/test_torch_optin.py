@@ -24,7 +24,7 @@ import gmdx.kernels.attention as jax_attention
 from gmdx.kernels.flash_attention import cross_attention_shortk as jax_xattn
 from gmdx.kernels.geglu_ff import add_layer_norm as jax_add_layer_norm
 from gmdx.kernels.geglu_ff import geglu_ff as jax_geglu_ff
-from gmdx.kernels.winograd import _conv3x3_reference, _pick_tiling4, _select_tiling, _wino_conv
+from gmdx.kernels.winograd import _conv3x3_reference, _select_tiling, _wino_conv
 from gmdx_torch.io.convert import _flatten, _transformer2d
 from gmdx_torch.kernels.attention import attention_route
 from gmdx_torch.kernels.flash_attention import cross_attention_shortk
@@ -212,26 +212,17 @@ _CONV_SHAPES = sorted(
 
 @pytest.mark.parametrize("m", [2, 4])
 def test_conv_route_matches_jax_rule(monkeypatch, m):
-    """Where the JAX package takes F(4x4) the port does too. The port also
-    takes it where only the TPU's VMEM budget (``_pick_tiling4``) stops the
-    JAX package: the VAE's 256^2 and 512^2 levels at 512^2 and the widest
-    levels at 1024^2, a route difference that yields the same function."""
+    """The port takes F(4x4) exactly where the JAX package does: its shape
+    gate, then ``_select_tiling`` with the TPU's tiling budget
+    (``_pick_tiling4``), at bf16 and fp32 activations."""
     monkeypatch.setenv("GMDX_WINOGRAD_M", str(m))
-    vmem_only = set()
-    for h, c, o in _CONV_SHAPES:
-        # winograd_conv3x3's shape gate, then the tiling choice (bf16).
-        jax_m = _select_tiling(h, h, c, o, 2, 2)[0] if h % 2 == 0 and h >= 16 else 0
-        got = conv_route(h, h, c, o, m)
-        if jax_m == 4:
-            assert got == "wino4", (h, c, o)
-        elif got == "wino4":
-            assert m == 4 and _pick_tiling4(h, h, c, o, 2, 2) == (0, 0), (h, c, o)
-            vmem_only.add((h, c, o))
-        else:
-            assert m == 2 or h < 16, (h, c, o)
-    # Every conv of the 512^2 UNet (C <= 960 at 64^2) agrees with the JAX route.
-    assert not any(h <= 64 and c <= 960 for h, c, _ in vmem_only)
-    assert bool(vmem_only) == (m == 4)
+    for itemsize in (2, 4):
+        for h, c, o in _CONV_SHAPES:
+            # winograd_conv3x3's shape gate, then the tiling choice.
+            jax_m = (_select_tiling(h, h, c, o, itemsize, itemsize)[0]
+                     if h % 2 == 0 and h >= 16 else 0)
+            got = conv_route(h, h, c, o, m, itemsize)
+            assert (got == "wino4") == (jax_m == 4), (h, c, o, itemsize)
 
 
 # ---------------------------------------------------------------------------
