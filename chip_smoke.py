@@ -17,13 +17,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
      instance of the Hopper kernels (the GEMM core's conv, both FFs and
      F(4x4)'s products; attention_sm90.cuh's forward as the KV-resident,
      the long-sequence and the training kernel, the flash backward's dK/dV
-     and dQ, and the short-K cross-attention) issues wgmma (HGMMA) and TMA
-     loads (UTMALDG) in its SASS and spills nothing, unless the
+     and dQ, the short-K cross-attention; attention_wide_sm90.cuh's 512-wide
+     forward and its dV, dK and dQ kernels) issues wgmma (HGMMA) and TMA
+     loads (UTMALDG) in its SASS and spills nothing, unless no kernel of
+     any library issues mma.sync (HMMA), unless the
      GroupNorm forward's cluster kernel crosses the cluster barrier
      (UCGABAR_ARV, UCGABAR_WAIT), loads its slice by bulk copy (UBLKCP)
      and spills nothing, unless the add + LayerNorm ring issues bulk
      copies (UBLKCP) and spills nothing, and unless the GroupNorm
-     backward and the 512-wide flash backward's two kernels spill nothing.
+     backward spills nothing.
   3. kernels: each hand-written kernel at the main paths' shapes against its
      plain PyTorch version (fp32, TF32 off; relative L2 <= 1e-2, the bf16
      rounding of inputs and output), with times for the kernel, the plain
@@ -53,10 +55,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      gmdx_group_norm_bwd_plan (blocks an SM by
      cudaOccupancyMaxActiveBlocksPerMultiprocessor), and each runs twice
      and must give the same bits; add + LayerNorm rows their plan, held to
-     gmdx_add_ln_plan. Stage 1's rows: the flash backward at the VAE's
-     512-wide head at 1x16384 and 4x9216 (dq, dk, dv each against the
-     plain version, five repeats bit for bit, SDPA's backward where a
-     backend takes d = 512) and the GroupNorm backward at the VAE's shapes
+     gmdx_add_ln_plan. Stage 1's rows: the flash forward and backward at
+     the VAE's 512-wide head at 1x16384 and 4x9216 (out, or dq, dk, dv,
+     each against the plain version, five repeats bit for bit, SDPA where
+     a backend takes d = 512, the plans held to gmdx_wide_plan; the
+     backward's bound at the function's 10 B H Sq Sk D operations and the
+     design's 16 beside it) and the GroupNorm backward at the VAE's shapes
      (4x512^2x128 ... 1x1024^2x128, eps 1e-6).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
@@ -128,12 +132,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
      cosine >= 0.9995, the LoRA leaves of both mid-block attentions'
      to_q/to_k/to_v/to_out within rel-L2 0.1 and, per kind, norm ratio
      within STAGE1_NORM_RATIO_TOL of 1.
- 15. stage1_e2e_controls: stage1_e2e with the 512-wide backward's dQ, then
+ 15. stage1_e2e_d512_plain: stage1_e2e with the 512-wide attention's
+     forward and backward on their plain versions (bf16 out) and every
+     other kernel as it is; report only: it says whether the kernels'
+     LoRA norm deficit lies in the 512-wide kernels.
+ 16. stage1_e2e_controls: stage1_e2e with the 512-wide backward's dQ, then
      its dK, scaled by 0.95; each must be caught.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6) and over one Stage-1 pair at
-512^2 (phase 13).
+512^2 and one at 1024^2 (phase 13).
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -201,14 +209,14 @@ KERNELS = {
     "flash_attention_bsc": (
         "gmdx_torch/csrc/attention_sm90.cuh", "gmdx/kernels/flash_attention.py:558"),
     "flash_attention_fwd_d512": (
-        "gmdx_torch/csrc/attention_wide.cuh", "gmdx/kernels/flash_attention.py:142"),
+        "gmdx_torch/csrc/attention_wide_sm90.cuh", "gmdx/kernels/flash_attention.py:142"),
     "cross_attention_shortk": (
         "gmdx_torch/csrc/attention_xattn.cuh", "gmdx/kernels/flash_attention.py:939"),
     "add_layer_norm": ("gmdx_torch/csrc/add_ln.cu", "gmdx/kernels/geglu_ff.py:521"),
     "geglu_ff": ("gmdx_torch/csrc/geglu_ff.cu", "gmdx/kernels/geglu_ff.py:139"),
     "winograd4_conv3x3": ("gmdx_torch/csrc/winograd4.cu", "gmdx/kernels/winograd.py:693"),
     "flash_attention_bwd_d512": (
-        "gmdx_torch/csrc/attention_wide_bwd.cuh", "gmdx/kernels/flash_attention.py:348"),
+        "gmdx_torch/csrc/attention_wide_sm90.cuh", "gmdx/kernels/flash_attention.py:348"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
@@ -345,15 +353,19 @@ def phase_build() -> None:
 # F(4x4)'s products run on the GEMM core (gemm_sm90.cuh); the KV-resident
 # attention, flash_attention_bsc and the short-K cross-attention
 # (libattention), the training forward and the flash backward
-# (libflash_attention) on attention_sm90.cuh.
+# (libflash_attention) on attention_sm90.cuh; the 512-wide forward and its
+# dV, dK and dQ kernels (libflash_attention) on attention_wide_sm90.cuh.
 SM90_KERNELS = {
     "conv3x3": ("ws_gemm_kernel",),
     "geglu_ff": ("ws_gemm_kernel",),
     "winograd4": ("ws_gemm_kernel",),
     "attention": ("flash_bsc_kernel", "kvres_sm90_kernel", "xattn_sm90_kernel"),
-    "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
+    "flash_attention": ("train_fwd_sm90_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                        "flash_fwd_wide_kernel", "flash_bwd_wide_"),
 }
 SM90_SASS = ("HGMMA", "UTMALDG")
+# mma.sync's SASS opcode: no kernel of any library may issue it.
+MMA_SYNC_SASS = "HMMA"
 # The bulk-copy kernels, (library, kernel) -> what every instance's SASS
 # must hold: the GroupNorm forward's cluster kernel crosses the cluster
 # barrier (barrier.cluster.arrive / wait, which cuobjdump prints as
@@ -364,9 +376,8 @@ BULK_KERNELS = {
     ("groupnorm", "gn_cluster_kernel"): ("UCGABAR_ARV", "UCGABAR_WAIT", "UBLKCP"),
     ("add_ln", "add_ln_ring_kernel"): ("UBLKCP",),
 }
-# Kernels that must not spill beside those: the GroupNorm backward and the
-# 512-wide flash backward's two kernels.
-NO_SPILL_KERNELS = (("groupnorm", "gn_bwd_kernel"), ("flash_attention", "flash_bwd_wide_"))
+# Kernels that must not spill beside those: the GroupNorm backward.
+NO_SPILL_KERNELS = (("groupnorm", "gn_bwd_kernel"),)
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
@@ -399,16 +410,24 @@ def check_spills(reports: dict) -> None:
 
 def check_sass(build_dir, nvcc: str) -> None:
     """Every instance of the Hopper kernels of SM90_KERNELS must issue wgmma
-    (HGMMA) and TMA loads (UTMALDG) in its SASS (cuobjdump -sass)."""
+    (HGMMA) and TMA loads (UTMALDG) in its SASS (cuobjdump -sass), and no
+    function of any library mma.sync (HMMA)."""
+    from gmdx_torch.kernels import _build
+
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    for lib, kernels in SM90_KERNELS.items():
+    for lib in _build.LIBRARIES:
         sass = subprocess.run([cuobjdump, "-sass", str(build_dir / f"lib{lib}.so")],
                               check=True, capture_output=True, text=True).stdout
         funcs = {}
         for chunk in sass.split("Function : ")[1:]:
             name, _, body = chunk.partition("\n")
             funcs[name.strip()] = body
-        for kernel in kernels:
+        mma_sync = {n: body.count(MMA_SYNC_SASS) for n, body in funcs.items()
+                    if MMA_SYNC_SASS in body}
+        if mma_sync:
+            raise SystemExit(f"chip_smoke: lib{lib}.so issues mma.sync ({MMA_SYNC_SASS}): "
+                             f"{mma_sync}")
+        for kernel in SM90_KERNELS.get(lib, ()):
             inst = {n: {op: body.count(op) for op in SM90_SASS}
                     for n, body in funcs.items() if kernel in n}
             emit({"phase": "build", "sass": f"lib{lib}.so", "kernels": len(funcs),
@@ -886,17 +905,40 @@ def _sdpa_bwd_backend(q, k, v, dout):
     return "none: no backend takes d = 512", None
 
 
+def _wide_plan_keys(b: int, s: int) -> dict:
+    """The 512-wide kernels' plans at a (b, s, s, 1) self-attention, by kind
+    (fwd, dv, dk, dq), each held to the C plan (gmdx_wide_plan) field for
+    field."""
+    import ctypes
+    import dataclasses
+
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.flash_attention import WIDE_KINDS, wide_bwd_plans, wide_fwd_plan
+
+    lib = _build.library("flash_attention")
+    plans = dict(zip(WIDE_KINDS, (wide_fwd_plan(b, s, s, 1), *wide_bwd_plans(b, s, s, 1))))
+    for i, (kind, plan) in enumerate(plans.items()):
+        got = (ctypes.c_int * 8)()
+        if lib.gmdx_wide_plan(i, b, s, s, 1, got) or list(got) != plan.c_fields():
+            raise SystemExit(f"chip_smoke: wide plan {kind} at {[b, s]}: kernel {list(got)}, "
+                             f"Python {plan.c_fields()}")
+    return {kind: dataclasses.asdict(p) for kind, p in plans.items()}
+
+
 def _stage1_kernel_rows(gen, results: list[dict]) -> None:
-    """H. Stage 1's kernels at its shapes: the flash backward at the VAE's
-    512-wide head, 1x16384 (1024^2, batch 1) and 4x9216 (768^2, batch 4),
-    each output's relative L2 against the fp32 plain version, repeats bit
-    for bit, SDPA's backward where a backend takes d = 512; the GroupNorm
-    backward at the VAE's shapes (eps 1e-6, no temb), repeats bit for bit."""
+    """H. Stage 1's kernels at its shapes: the flash forward and backward at
+    the VAE's 512-wide head, 1x16384 (1024^2, batch 1) and 4x9216 (768^2,
+    batch 4), each output's relative L2 against the fp32 plain version,
+    repeats bit for bit, SDPA where a backend takes d = 512, the plans held
+    to the kernels'; the backward's bound at the function's 10 B H Sq Sk D
+    operations, with the design's 16 beside it; the GroupNorm backward at
+    the VAE's shapes (eps 1e-6, no temb), repeats bit for bit."""
     import torch
     import torch.nn.functional as F
 
     from gmdx_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain,
     )
     from gmdx_torch.kernels.groupnorm import (
         group_norm_silu, group_norm_silu_bwd, group_norm_silu_bwd_plain, group_norm_silu_plain,
@@ -905,9 +947,27 @@ def _stage1_kernel_rows(gen, results: list[dict]) -> None:
     d = 512
     for b, s in ((1, 16384), (4, 9216)):
         q, k, v, dout = (_randn(gen, b, s, d) for _ in range(4))
+        plans = _wide_plan_keys(b, s)
         out, lse = flash_attention_fwd(q, k, v, 1)
-        grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
         repeats = 5
+        if not all(all(torch.equal(a, g) for a, g in zip(flash_attention_fwd(q, k, v, 1),
+                                                         (out, lse))) for _ in range(repeats)):
+            raise SystemExit(f"chip_smoke: flash_attention_fwd_d512 {[b, s]}: repeats differ")
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        _, ref_lse = flash_attention_fwd_plain(qf, kf, vf, 1, d**-0.5)
+        qh, kh, vh = (t.view(b, s, 1, d).transpose(1, 2) for t in (q, k, v))
+        backend, lib = _sdpa_backend(qh, kh, vh)
+        _check(
+            "flash_attention_fwd_d512", [b, s, 1, d],
+            lambda: flash_attention_fwd(q, k, v, 1)[0],
+            lambda: flash_attention_fwd_plain(qf, kf, vf, 1, d**-0.5)[0],
+            lib, 4.0 * b * s * s * d, 4 * b * s * d * 2, results,
+            library=f"F.scaled_dot_product_attention ({backend} backend)",
+            extra={**exp2_keys(2 * b * s * s), "rel_l2_lse": compare(lse, ref_lse)[1],
+                   "plan": plans["fwd"], "repeat_identical": repeats},
+        )
+        del qf, kf, vf, qh, kh, vh, ref_lse, lib
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
         identical = all(all(torch.equal(a, g) for a, g in zip(
             flash_attention_bwd(q, k, v, out, lse, dout, 1), grads)) for _ in range(repeats))
         if not identical:
@@ -925,7 +985,9 @@ def _stage1_kernel_rows(gen, results: list[dict]) -> None:
                                               dout.float(), 1, d**-0.5),
             lib, 10.0 * b * s * s * d, 8 * b * s * d * 2 + 2 * b * s * 4, results,
             library=f"SDPA backward ({backend})",
-            extra={**exp2_keys(2 * b * s * s), **rels, "repeat_identical": repeats},
+            extra={**exp2_keys(3 * 2 * b * s * s), **rels, "repeat_identical": repeats,
+                   "design_floor_ms": 16.0 * b * s * s * d / BF16_FLOPS * 1e3,
+                   "plans": {k: plans[k] for k in ("dv", "dk", "dq")}},
         )
         del q, k, v, dout, out, lse, grads, lib, qh, kh, vh, dh
         torch.cuda.empty_cache()
@@ -1009,8 +1071,9 @@ def _hdrtv_kernel_rows(gen, results: list[dict]) -> None:
         qf, kf, vf = (t.float() for t in (q, k, v))
         qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
         extra = exp2_keys(b * heads * s * s)
-        if d == 512:
+        if d == 512:  # both CTAs of a pair take every exp2 of their rows
             name = "flash_attention_fwd_d512"
+            extra = {**exp2_keys(2 * b * heads * s * s), "plan": _wide_plan_keys(b, s)["fwd"]}
             backend, lib = _sdpa_backend(qh, kh, vh)
             kern = lambda: flash_attention_fwd(q, k, v, heads)[0]  # noqa: E731
             plain = lambda: flash_attention_fwd_plain(qf, kf, vf, heads, d**-0.5)[0]  # noqa: E731
@@ -2067,9 +2130,10 @@ def phase_stage1(args) -> dict[str, int]:
             raise SystemExit(f"chip_smoke: stage1 at {side}^2: metrics not finite: {bad[0]}")
     counts = launch_counts()
     if args.profile:
-        batch = stage1_batch(args.stage1_batch, 512, gen)
-        profile_fn("stage1_profile", lambda: (gen_step(state, batch, gen),
-                                              disc_step(state, batch, gen)))
+        for side, b in ((512, args.stage1_batch), (HDRTV_SIDE, 1)):
+            batch = stage1_batch(b, side, gen)
+            profile_fn(f"stage1_profile_{side}", lambda: (gen_step(state, batch, gen),
+                                                          disc_step(state, batch, gen)))
     missing = [k for k in STAGE1_KERNELS if counts[k] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels never launched on the Stage-1 path: {missing}")
@@ -2184,6 +2248,42 @@ def phase_stage1_e2e(args) -> None:
         raise SystemExit(f"chip_smoke: stage1_e2e out of bounds: {report}")
 
 
+def phase_stage1_e2e_d512_plain(args) -> None:
+    """stage1_e2e once more with the kernels, but the 512-wide attention's
+    forward and backward on their plain versions in bf16 (fp32 inside, bf16
+    out, as the kernels): which part carries the kernels' to_q / to_k norm
+    deficit. Report only."""
+    import torch
+
+    import gmdx_torch.kernels.attention as attention
+    from gmdx_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain,
+    )
+
+    fwd, bwd = attention.flash_attention_fwd, attention.flash_attention_bwd
+
+    def plain_fwd(q, k, v, heads, *, scale=None):
+        if q.shape[-1] // heads != 512:
+            return fwd(q, k, v, heads, scale=scale)
+        return flash_attention_fwd_plain(q, k, v, heads, scale or 512**-0.5)
+
+    def plain_bwd(q, k, v, out, lse, dout, heads, *, scale=None):
+        if q.shape[-1] // heads != 512:
+            return bwd(q, k, v, out, lse, dout, heads, scale=scale)
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, heads, scale or 512**-0.5)
+
+    attention.flash_attention_fwd, attention.flash_attention_bwd = plain_fwd, plain_bwd
+    try:
+        if "plain" not in _STAGE1_PLAIN:
+            _STAGE1_PLAIN["plain"] = _stage1_e2e_run(args, False)
+        report, ok = _stage1_e2e_compare(_stage1_e2e_run(args, True), _STAGE1_PLAIN["plain"])
+    finally:
+        attention.flash_attention_fwd, attention.flash_attention_bwd = fwd, bwd
+    emit({"phase": "stage1_e2e_d512_plain", "batch": 1, "resolution": STAGE1_E2E_SIDE,
+          "within_bars": ok, **report})
+    torch.cuda.empty_cache()
+
+
 def phase_stage1_e2e_controls(args) -> None:
     """stage1_e2e with the 512-wide backward's dQ, then its dK, scaled by
     0.95: each must fail the check."""
@@ -2254,6 +2354,7 @@ def main() -> int:
     phase_sdr2hdr_e2e(args)
     stage1_launches = phase_stage1(args)
     phase_stage1_e2e(args)
+    phase_stage1_e2e_d512_plain(args)
     phase_stage1_e2e_controls(args)
 
     summary = []

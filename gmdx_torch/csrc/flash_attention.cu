@@ -1,6 +1,6 @@
 // Flash attention for training over head-packed (B, S, H*D) bf16: the
 // forward that also writes the base-2 logsumexp, and the backward: a dd
-// pre-pass and two kernels that recompute the softmax blockwise from
+// pre-pass and kernels that recompute the softmax blockwise from
 // (Q, K, LSE).
 //
 // Replaces gmdx/kernels/flash_attention.py:_flash_forward (TPU kernel
@@ -14,7 +14,8 @@
 // scaled by c = scale * log2(e) (the scale folded into exp2's FFMA; Q is not
 // pre-scaled); its plan is mirrored by kernels/flash_attention.py:
 // attention_fwd_plan. The VAE's single 512-wide head takes
-// attention_wide.cuh's kernel instead (its header says why).
+// attention_wide_sm90.cuh's flash_fwd_wide_kernel instead, the head dim
+// split over a CTA pair (its header says why).
 //
 // Backward, on attention_sm90.cuh's Hopper pieces (TMA ring, a producer
 // warpgroup, two wgmma consumer warpgroups; 4-D tensor maps whose
@@ -35,8 +36,8 @@
 //        dP = dO V^T, P = exp2(c S - lse) (0 past Sk), dS = P (dP - dd),
 //        dQ += dS K; at the end dQ *= scale.
 // No atomics: each gradient row has one writer, so a repeat is bit-identical.
-// The VAE's single 512-wide head takes attention_wide_bwd.cuh's two kernels
-// after the same dd pre-pass (its header says why).
+// The VAE's single 512-wide head takes attention_wide_sm90.cuh's dV, dK and
+// dQ kernels after the same dd pre-pass, on the same rounding convention.
 // Within a consumer, the exp2 of P overlaps the dP^T product (dkv) and the
 // two consumers' products overlap each other's softmax.
 //
@@ -46,8 +47,7 @@
 // exp2 at 16 per SM per clock (about 3.9 T/s), 0.55 ms at B 8, S 4096, H 8,
 // above the 0.434 ms operations bound at D = 40.
 #include "attention_sm90.cuh"
-#include "attention_wide.cuh"
-#include "attention_wide_bwd.cuh"
+#include "attention_wide_sm90.cuh"
 
 namespace {
 
@@ -400,8 +400,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 
 // q, out: (B, Sq, H*D); k, v: (B, Sk, H*D), contiguous bf16; lse: (B, H, Sq)
 // fp32; c = scale * log2(e). Head dims 40, 80 and 160 (attention_sm90.cuh)
-// and 512 (attention_wide.cuh); any other returns cudaErrorInvalidValue, a
-// refused TMA map -1.
+// and 512 (attention_wide_sm90.cuh); any other returns cudaErrorInvalidValue,
+// a refused TMA map -1.
 extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int B, int Sq, int Sk, int H, int D, float c, void* stream) {
   using a9::launch_fwd;
@@ -416,15 +416,15 @@ extern "C" int gmdx_flash_fwd(const void* q, const void* k, const void* v, void*
     case 160:
       return launch_fwd<160, true, train_fwd_sm90_kernel<160>>(q, k, v, out, l, B, Sq, Sk, H, c,
                                                                st);
-    case 512: return gmdx_wide::launch_wide(q, k, v, out, l, B, Sq, Sk, H, c, st);
+    case 512: return gmdx::wide90::launch_fwd(q, k, v, out, l, B, Sq, Sk, H, c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // q, dout, dq: (B, Sq, H*D); k, v, dk, dv: (B, Sk, H*D), contiguous bf16;
 // lse, dd: (B, H, Sq) fp32. Launches the dK/dV kernel, then the dQ kernel
-// (attention_sm90.cuh's at head dims 40/80/160, attention_wide_bwd.cuh's at
-// 512).
+// (attention_sm90.cuh's at head dims 40/80/160), or the dV, dK and dQ
+// kernels (attention_wide_sm90.cuh's at 512).
 extern "C" int gmdx_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* dd, void* dq, void* dk, void* dv, int B,
                               int Sq, int Sk, int H, int D, float scale, float qscale,
@@ -438,8 +438,8 @@ extern "C" int gmdx_flash_bwd(const void* q, const void* k, const void* v, const
     case 160:
       return launch_bwd<160>(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale, qscale, st);
     case 512:
-      return gmdx_wide::launch_wide_bwd(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale,
-                                        qscale, st);
+      return gmdx::wide90::launch_bwd(q, k, v, dout, l, d, dq, dk, dv, B, Sq, Sk, H, scale,
+                                      qscale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -455,4 +455,18 @@ extern "C" int gmdx_flash_bwd_dd(const void* out, const void* dout, void* dd, in
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
       static_cast<float*>(dd), B, Sq, H, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of attention_wide_sm90.cuh's kernel `kind` (0 the forward, 1 dV,
+// 2 dK, 3 dQ) at (B, Sq, Sk, H), for kernels/flash_attention.py:wide_fwd_plan
+// and wide_bwd_plans to be held to; out[8] as wide90::plan_fields lays it out.
+extern "C" int gmdx_wide_plan(int kind, int B, int Sq, int Sk, int H, int* out) {
+  namespace w = gmdx::wide90;
+  switch (kind) {
+    case w::FWD: w::plan_fields<w::FWD>(out, B, Sq, Sk, H); return 0;
+    case w::DV: w::plan_fields<w::DV>(out, B, Sq, Sk, H); return 0;
+    case w::DK: w::plan_fields<w::DK>(out, B, Sq, Sk, H); return 0;
+    case w::DQ: w::plan_fields<w::DQ>(out, B, Sq, Sk, H); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -69,6 +69,7 @@ ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     ),
     "gmdx_flash_bwd_dd": ("flash_attention", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "gmdx_wide_plan": ("flash_attention", [_I, _I, _I, _I, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _ in ENTRY_POINTS.values()})
 # gemm_sm90.cuh's TMA_MAP_REFUSED: cuTensorMapEncodeTiled refused a map.

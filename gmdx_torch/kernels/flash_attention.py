@@ -6,15 +6,15 @@ Counterpart of ``gmdx/kernels/flash_attention.py:_flash_forward``,
 ``cross_attention_shortk`` (``_xattn_forward_bsc``), over the port's
 head-packed (B, S, H*D) layout instead of the JAX package's (B*H, S, D).
 Kernels: ``csrc/flash_attention.cu`` (the forward at head dims 40/80/160
-on ``csrc/attention_sm90.cuh``'s Hopper forward and, through
-``csrc/attention_wide.cuh``, at the VAE's 512; the backward: a dd pre-pass,
-then the dK/dV and dQ kernels, on ``csrc/attention_sm90.cuh`` at 40/80/160
-and ``csrc/attention_wide_bwd.cuh`` at 512)
+on ``csrc/attention_sm90.cuh``'s Hopper forward; the backward: a dd
+pre-pass, then the dK/dV and dQ kernels, on the same core; at the VAE's
+512-wide head the forward and the dV, dK and dQ kernels of
+``csrc/attention_wide_sm90.cuh``, the head dim split over a 2-CTA cluster)
 and ``csrc/attention.cu`` (``gmdx_flash_bsc`` on the same Hopper forward,
 and ``gmdx_xattn`` from ``csrc/attention_xattn.cuh``, built from the same
-core's pieces). :func:`attention_fwd_plan`, :func:`flash_bwd_plan` and
-:func:`xattn_plan` lay out the Hopper kernels' launches as their ``*Plan``
-structs do.
+core's pieces). :func:`attention_fwd_plan`, :func:`flash_bwd_plan`,
+:func:`xattn_plan`, :func:`wide_fwd_plan` and :func:`wide_bwd_plans` lay
+out the Hopper kernels' launches as their ``*Plan`` structs do.
 
 The plain versions take the queries in chunks of :data:`PLAIN_CHUNK` rows:
 at 16384 tokens the whole fp32 score matrix of one call would take tens of
@@ -24,6 +24,9 @@ GB. Chunking changes no row's arithmetic.
 ``scale * log2(e)``, exactly as the TPU kernel's ``_finish`` defines it. The
 backward recomputes the softmax from (Q, K, lse) with
 ``dd = rowsum(dO * O)``, and applies ``dK *= 1 / log2(e)``, ``dQ *= scale``.
+Every kernel, the 512-wide ones included, keeps Q as loaded and folds the
+scale into exp2 (``P = exp2(S c - lse)``), forward and backward alike, so
+that the recomputed P's rows sum to one.
 """
 
 from __future__ import annotations
@@ -132,6 +135,80 @@ def flash_bwd_plan(
         grid=(-(-sq // 128), heads, b), boxes=(128, nk),
     )
     return dkv, dq
+
+
+# csrc/attention_wide_sm90.cuh's constants: the CTAs of a cluster (each holds
+# 256 of the head's 512 columns), the rows a cluster owns (64 for each of a
+# CTA's two consumer warpgroups), the fp32 partial-product values a consumer
+# thread exchanges with its peer.
+WIDE_D = 512
+WIDE_CLUSTER = 2
+WIDE_OWNED = 128
+WIDE_XFLOATS = 32
+# The kinds of gmdx_wide_plan, in its order.
+WIDE_KINDS = ("fwd", "dv", "dk", "dq")
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """The launch of one of ``csrc/attention_wide_sm90.cuh``'s kernels,
+    field for field what ``gmdx_wide_plan`` reports of its ``WidePlan``.
+
+    A ``cluster`` of CTAs splits the 512-wide head into 256-column halves;
+    both CTAs hold the same ``owned`` rows (queries, or keys for dV and dK)
+    and stream the other side's half tiles of ``tile`` rows through a ring
+    of ``stages``, in ``smem_bytes`` of dynamic shared memory each, over
+    ``grid`` (x = cluster size times the clusters of one (head, batch))."""
+
+    cluster: int
+    owned: int
+    tile: int
+    stages: int
+    smem_bytes: int
+    grid: tuple[int, int, int]
+
+    def c_fields(self) -> list[int]:
+        return [self.cluster, self.owned, self.tile, self.stages, self.smem_bytes, *self.grid]
+
+
+def _wide_plan(kind: str, b: int, sq: int, sk: int, heads: int) -> WidePlan:
+    """One kind's plan: the resident half tiles (Q for the forward and dQ,
+    K for dV and dK; dQ also dO, dK also V) of the owned rows, ring stages
+    of two streamed half tiles with their queries' lse (dV, dK) and dd (dK)
+    rows, the two consumers' exchange buffers (16 KB each), 1024 bytes of
+    alignment slack and 256 of mbarriers. Tiles of 64 rows, 32 for dK and
+    dQ, which hold two resident operands and exchange two partials."""
+    two = kind in ("dk", "dq")
+    tile = 32 if two else 64
+    nch = WIDE_D // WIDE_CLUSTER // BOX_COLS
+    res_bytes = (2 if two else 1) * nch * WIDE_OWNED * 128
+    stage_bytes = 2 * nch * tile * 128
+    row_bytes = {"dv": 1, "dk": 2}.get(kind, 0) * tile * 4
+    xbuf = 2 * 128 * WIDE_XFLOATS * 4
+    stages = min(MAX_STAGES,
+                 (SMEM_BUDGET - 1024 - res_bytes - xbuf - 256) // (stage_bytes + row_bytes))
+    rows = sk if kind in ("dv", "dk") else sq
+    return WidePlan(
+        cluster=WIDE_CLUSTER, owned=WIDE_OWNED, tile=tile, stages=stages,
+        smem_bytes=1024 + res_bytes + stages * (stage_bytes + row_bytes) + xbuf + 256,
+        grid=(WIDE_CLUSTER * -(-rows // WIDE_OWNED), heads, b),
+    )
+
+
+def wide_fwd_plan(b: int, sq: int, sk: int, heads: int) -> WidePlan:
+    """The 512-wide forward's plan: a cluster owns 128 queries, Q resident,
+    (K, V) half tiles of 64 keys streamed."""
+    return _wide_plan("fwd", b, sq, sk, heads)
+
+
+def wide_bwd_plans(
+    b: int, sq: int, sk: int, heads: int
+) -> tuple[WidePlan, WidePlan, WidePlan]:
+    """The 512-wide backward's plans, in launch order: dV (128 keys, K
+    resident, (Q, dO) tiles of 64 queries), dK (128 keys, K and V resident,
+    tiles of 32 queries) and dQ (128 queries, Q and dO resident, (K, V)
+    tiles of 32 keys)."""
+    return tuple(_wide_plan(kind, b, sq, sk, heads) for kind in WIDE_KINDS[1:])
 
 
 @dataclass(frozen=True)
@@ -261,7 +338,7 @@ def flash_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact-softmax attention over head-packed (B, S, H*D) q/k/v, and the
     base-2 logsumexp (B, H, Sq) the backward needs. Head dim 512 takes the
-    wide kernel (``csrc/attention_wide.cuh``), counted as
+    wide kernel (``csrc/attention_wide_sm90.cuh``), counted as
     ``flash_attention_fwd_d512``."""
     d = _check_shapes(q, k, v, heads, _FWD_HEAD_DIMS)
     if scale is None:
@@ -331,7 +408,8 @@ def flash_attention_bwd(
     """(dq, dk, dv) of :func:`flash_attention_fwd` for the cotangent
     ``dout`` of ``out``. On the card: a pre-pass kernel computes
     dd = rowsum(dout * out), then the dK/dV and the dQ kernels run. Head dim
-    512 takes the wide kernels (``csrc/attention_wide_bwd.cuh``), counted as
+    512 takes the wide dV, dK and dQ kernels
+    (``csrc/attention_wide_sm90.cuh``), counted as
     ``flash_attention_bwd_d512``."""
     d = _check_shapes(q, k, v, heads, _FWD_HEAD_DIMS)
     if scale is None:
@@ -422,6 +500,9 @@ __all__ = [
     "flash_attention_bwd_plain",
     "attention_fwd_plan",
     "flash_bwd_plan",
+    "WidePlan",
+    "wide_bwd_plans",
+    "wide_fwd_plan",
     "xattn_key_tile",
     "xattn_plan",
 ]

@@ -21,6 +21,10 @@ over 5 launches (torch.profiler) and the card's name and power limit:
     levels at the sdr2hdr CFG batch 16, and its 64^2 and 32^2 levels at the
     smoke's CFG batch 4, each with its plan (``xattn_plan``, where the copy
     has it);
+  * ``flash_attention_fwd_d512`` at the VAE's 512-wide head: the HDRTV
+    decode's 2 x 16384 and Stage 1's 1 x 16384 and 4 x 9216, and
+    ``flash_attention_bwd_d512`` at Stage 1's two (each kernel of the
+    backward, dd pre-pass included, in ``kernels_ms``);
   * ``host_us``: the host time of one ``attention_kv_resident`` and one
     ``flash_attention_fwd`` call (launches queued without a synchronise, at
     a small shape the card finishes faster than the host issues it).
@@ -144,6 +148,30 @@ def main() -> None:
         emit("flash_attention_bwd", [8, s, heads, d], rel,
              lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, heads),
              lambda: torch.autograd.grad(out_l, (qh, kh, vh), dout_h, retain_graph=True))
+
+    d = 512
+    for b, s in ((2, 16384), (1, 16384), (4, 9216)) if keep("flash_attention_fwd_d512") else ():
+        q, k, v = (rnd(b, s, d) for _ in range(3))
+        ref = fa.flash_attention_fwd_plain(*(t.float() for t in (q, k, v)), 1, d**-0.5)
+        rel = max(cs.compare(g, r)[1] for g, r in zip(fa.flash_attention_fwd(q, k, v, 1), ref))
+        qh, kh, vh = (t.view(b, s, 1, d).transpose(1, 2) for t in (q, k, v))
+        emit("flash_attention_fwd_d512", [b, s, 1, d], rel,
+             lambda: fa.flash_attention_fwd(q, k, v, 1), cs._sdpa_backend(qh, kh, vh)[1])
+        del q, k, v, ref, qh, kh, vh
+    for b, s in ((1, 16384), (4, 9216)) if keep("flash_attention_bwd_d512") else ():
+        q, k, v, dout = (rnd(b, s, d) for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, 1)
+        ref = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                           dout.float(), 1, d**-0.5)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, 1)
+        rel = max(cs.compare(g, r)[1] for g, r in zip(got, ref))
+        del ref, got
+        qh, kh, vh, dh = (t.view(b, s, 1, d).transpose(1, 2) for t in (q, k, v, dout))
+        emit("flash_attention_bwd_d512", [b, s, 1, d], rel,
+             lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, 1),
+             cs._sdpa_bwd_backend(qh, kh, vh, dh)[1])
+        del q, k, v, dout, out, lse, qh, kh, vh, dh
+        torch.cuda.empty_cache()
 
     xplan_of = getattr(fa, "xattn_plan", None)
     for b, s, d in XATTN_SHAPES if keep("cross_attention_shortk") else ():

@@ -23,7 +23,7 @@ from gmdx_torch.kernels.attention import attention_route
 from gmdx_torch.kernels.flash_attention import (
     BOX_COLS, SMEM_BUDGET, SMS, attention_fwd_plan, cross_attention_shortk_plain,
     flash_attention_bsc_plain, flash_attention_bwd_dd_plain, flash_attention_bwd_plain,
-    flash_attention_fwd_plain, flash_bwd_plan, xattn_plan,
+    flash_attention_fwd_plain, flash_bwd_plan, wide_bwd_plans, wide_fwd_plan, xattn_plan,
 )
 
 LOG2_E = 1.0 / np.log(2.0)
@@ -430,3 +430,51 @@ def test_rebuilt_kernels_ctypes_signatures_match_the_c_sources(name):
     want = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float")
             else ctypes.c_int for p in params]
     assert (lib, argtypes) == (source, want)
+
+
+# The 512-wide kernels' shapes: Stage 1 at 1024^2 (batch 1) and 768^2 (batch
+# 4), the HDRTV decode's batched SDR + GM (batch 2), one head; and ragged
+# ones.
+WIDE_PATH_SHAPES = [(1, 16384, 16384), (2, 16384, 16384), (4, 9216, 9216)]
+WIDE_RAGGED_SHAPES = [(2, 100, 77), (2, 4096, 4000), (2, 33, 16400), (1, 1, 1), (3, 129, 127)]
+
+
+@pytest.mark.parametrize("b,sq,sk", WIDE_PATH_SHAPES + WIDE_RAGGED_SHAPES)
+def test_wide_plans_fit_the_card(b, sq, sk):
+    """Each 512-wide plan fits 232,448 bytes with its mbarriers, its two
+    16 KB exchange buffers and its lse/dd rows, with at least two stages;
+    its boxes are whole 64-column boxes of 128 or its tile's rows (at most
+    256), every shared-memory tile 1024-byte aligned, and its cluster pairs
+    the two 256-column halves of the head."""
+    plans = (wide_fwd_plan(b, sq, sk, 1), *wide_bwd_plans(b, sq, sk, 1))
+    assert [p.tile for p in plans] == [64, 64, 32, 32]
+    for p in plans:
+        assert p.smem_bytes <= SMEM_BUDGET and p.stages >= 2, p
+        assert p.cluster == 2 and 512 // p.cluster % BOX_COLS == 0
+        assert p.owned == 128 and 1 <= p.tile <= 256
+        assert (4 * p.owned * 128) % 1024 == 0 and (2 * 4 * p.tile * 128) % 1024 == 0
+        # Each consumer thread exchanges 32 fp32 partials: S (or S^T) of
+        # 64 columns, or S and dP of 32.
+        assert (2 if p.tile == 32 else 1) * p.tile // 2 == 32
+        assert p.grid[0] % p.cluster == 0 and p.grid[1:] == (1, b)
+
+
+@pytest.mark.parametrize("b,sq,sk", WIDE_PATH_SHAPES + WIDE_RAGGED_SHAPES)
+def test_wide_clusters_cover_every_row_once(b, sq, sk):
+    """Cluster i // 2 of each kernel owns rows [128 (i // 2), + 128) of the
+    queries (forward, dQ) or keys (dV, dK) of its (head, batch): together
+    the clusters take every row once, and the streamed tiles cover the
+    other side."""
+    plans = dict(zip(("fwd", "dv", "dk", "dq"), (wide_fwd_plan(b, sq, sk, 1),
+                                                 *wide_bwd_plans(b, sq, sk, 1))))
+    for kind, p in plans.items():
+        owned_rows, streamed = (sk, sq) if kind in ("dv", "dk") else (sq, sk)
+        taken = np.zeros(owned_rows, int)
+        for cta in range(p.grid[0]):
+            lo = cta // p.cluster * p.owned
+            if cta % p.cluster == 0:  # both CTAs of a cluster hold the same rows
+                taken[lo:lo + p.owned] += 1
+        assert taken.min() == taken.max() == 1, kind
+        assert (p.grid[0] // p.cluster - 1) * p.owned < owned_rows <= p.grid[0] // p.cluster * p.owned
+        tiles = -(-streamed // p.tile)
+        assert (tiles - 1) * p.tile < streamed <= tiles * p.tile

@@ -19,7 +19,7 @@ from gmdx_torch.kernels import launch_counts
 from gmdx_torch.kernels.flash_attention import (
     attention_fwd_plan, flash_attention_bsc, flash_attention_bsc_plain, flash_attention_bwd,
     flash_attention_bwd_dd, flash_attention_bwd_dd_plain, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain, flash_bwd_plan,
+    flash_attention_fwd, flash_attention_fwd_plain, flash_bwd_plan, wide_bwd_plans, wide_fwd_plan,
 )
 from gmdx_torch.kernels.geglu_ff import GegluFFLN, geglu_ff_ln, geglu_ff_ln_plain
 from gmdx_torch.kernels.groupnorm import (
@@ -1016,7 +1016,8 @@ def test_flash_bwd_d512_on_card(card, b, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk", [(100, 77), (4096, 4000), (33, 16400)])
 def test_flash_bwd_d512_ragged_on_card(card, sq, sk):
-    """Query and key counts that leave ragged 32-row tiles."""
+    """Query and key counts that leave ragged tiles and part-empty
+    128-row clusters."""
     q, dout = _bf16(card, 2, sq, 512), _bf16(card, 2, sq, 512)
     k, v = _bf16(card, 2, sk, 512), _bf16(card, 2, sk, 512)
     out, lse = flash_attention_fwd(q, k, v, 1)
@@ -1025,6 +1026,78 @@ def test_flash_bwd_d512_ragged_on_card(card, sq, sk):
                                      dout.float(), 1, 512 ** -0.5)
     for got, ref in zip(grads, refs):
         assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", WIDE_BWD_SHAPES)
+def test_flash_fwd_d512_stage1_shapes_on_card(card, b, s):
+    """The 512-wide forward at Stage 1's shapes: out and lse against the
+    fp32 plain version, counted as flash_attention_fwd_d512, and 20 repeats
+    bit-identical to the first."""
+    q, k, v = (_bf16(card, b, s, 512) for _ in range(3))
+    before = launch_counts()["flash_attention_fwd_d512"]
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    assert launch_counts()["flash_attention_fwd_d512"] == before + 1
+    ref, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 1, 512**-0.5)
+    assert _rel_l2(out, ref) <= 1e-2 and _rel_l2(lse, ref_lse) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    for _ in range(20):
+        again, again_lse = flash_attention_fwd(q, k, v, 1)
+        assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+# The 512-wide kernels' path shapes (Stage 1 at 1024^2 and 768^2, the HDRTV
+# decode) and ragged ones, one head.
+WIDE_PLAN_SHAPES = [(1, 16384, 16384), (2, 16384, 16384), (4, 9216, 9216), (2, 100, 77),
+                    (2, 33, 16400), (3, 129, 127)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk", WIDE_PLAN_SHAPES)
+def test_wide_plans_match_kernels_on_card(card, b, sq, sk):
+    """wide_fwd_plan and wide_bwd_plans are the WidePlan structs the 512-wide
+    kernels launch with, field for field (gmdx_wide_plan)."""
+    import ctypes
+
+    from gmdx_torch.kernels import _build
+
+    lib = _build.library("flash_attention")
+    for kind, plan in enumerate((wide_fwd_plan(b, sq, sk, 1), *wide_bwd_plans(b, sq, sk, 1))):
+        got = (ctypes.c_int * 8)()
+        assert lib.gmdx_wide_plan(kind, b, sq, sk, 1, got) == 0
+        assert list(got) == plan.c_fields(), (kind, plan)
+
+
+def _old_convention_lse(q, k, scale):
+    """The base-2 lse the 512-wide forward wrote before its rebuild, from
+    Qs = bf16(Q * scale * log2 e) rounded in place; fp32, in query chunks."""
+    qs = (q.float() * (scale / np.log(2.0))).to(torch.bfloat16).float()
+    kf = k.float()
+    return torch.cat([torch.logsumexp(torch.einsum("bqd,bkd->bqk", c, kf) * np.log(2.0), -1)
+                      / np.log(2.0) for c in qs.split(1024, dim=1)], dim=1)[:, None]
+
+
+# The dV column-sum identity's bar, between its sound reading (the kernels'
+# own forward lse) and its control (an lse under the old Qs = bf16(Q c)
+# convention).
+WIDE_COLSUM_BAR = 1.2e-4
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d512_dv_column_sums_on_card(card):
+    """Each row of P sums to one, so the sum over keys of dV equals the sum
+    over queries of dO. Held at 1x16384 with the kernels' own forward lse
+    (forward and backward on one rounding convention); the control, an lse
+    from the old convention's bf16-rounded Qs, must trip the same bar."""
+    q, k, v, dout = (_bf16(card, 1, 16384, 512) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    want = dout.float().sum(dim=1)
+    readings = {}
+    for name, l in (("sound", lse), ("control", _old_convention_lse(q, k, 512**-0.5))):
+        dv = flash_attention_bwd(q, k, v, out, l, dout, 1)[2]
+        readings[name] = _rel_l2(dv.float().sum(dim=1), want)
+    print("dv column sums, relative L2:", readings)
+    assert readings["sound"] <= WIDE_COLSUM_BAR < readings["control"], readings
 
 
 # The GroupNorm backward at the VAE's shapes under Stage 1 (eps 1e-6 for the

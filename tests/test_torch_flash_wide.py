@@ -1,9 +1,12 @@
-"""The flash backward at the VAE's 512-wide head, on the CPU.
+"""The flash attention at the VAE's 512-wide head, on the CPU.
 
 ``flash_attention_bwd_plain`` at d = 512 against the VJP of the JAX
 package's ``flash_attention`` in interpret mode (its ``_flash_backward``
-Pallas kernels), and a walk of ``csrc/attention_wide_bwd.cuh``'s arithmetic
-(its bf16 roundings of Qs, P and dS) against the plain version. The kernels
+Pallas kernels), and walks of ``csrc/attention_wide_sm90.cuh``'s forward and
+backward arithmetic against the plain versions: Q unrounded with the scale
+folded into exp2, every score product formed as two 256-column partial sums
+(the two CTAs of a cluster) added in fp32, P and dS rounded to bf16 before
+their products, the plans' tiles, TMA's zeros past S. The kernels
 themselves run only on the card (tests/test_torch_card.py).
 """
 
@@ -19,7 +22,7 @@ from gmdx_torch.kernels import LAUNCHES
 from gmdx_torch.kernels.attention import FlashAttention
 from gmdx_torch.kernels.flash_attention import (
     _LOG2_E, flash_attention_bwd, flash_attention_bwd_dd_plain, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain, wide_bwd_plans, wide_fwd_plan,
 )
 
 D = 512
@@ -80,73 +83,160 @@ def test_wrapper_and_autograd_take_d512_on_the_cpu(jax_vjp):
     assert LAUNCHES == before
 
 
-def _wide_bwd_walk(q, k, v, out, lse, dout, scale, heads=1):
-    """csrc/attention_wide_bwd.cuh's arithmetic in fp32 on the CPU: Qs
-    rounded to bf16 as the forward rounds it, P and dS rounded to bf16 before
-    their products, 32-key blocks (dK, dV) and 32-query blocks (dQ) of
-    32-row tiles, keys past Sk masked to P = 0."""
-    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
-    b, sq, c = q.shape
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _halves(a, b):
+    """a b^T over the last dim as the cluster forms it: each CTA's 256
+    columns apart, in fp32, then the two partial sums added."""
+    h = D // 2
+    return a[..., :h] @ b[..., :h].transpose(-1, -2) + a[..., h:] @ b[..., h:].transpose(-1, -2)
+
+
+def _padded(x, rows):
+    """(B, S, 512) fp32 zero-padded to ``rows`` rows: TMA's zeros past S."""
+    out = torch.zeros(x.shape[0], rows, D)
+    out[:, :x.shape[1]] = x.float()
+    return out
+
+
+def _wide_fwd_walk(q, k, v, scale):
+    """csrc/attention_wide_sm90.cuh's forward in fp32 on the CPU: clusters of
+    128 queries, key tiles of the plan's rows, the split score product,
+    keys past Sk masked to -inf, the online softmax with exp2(S c - m c), P
+    rounded to bf16 for O += P V, lse = m c + log2(l). One head."""
+    b, sq, _ = q.shape
     sk = k.shape[1]
-    cq = scale * _LOG2_E
-    split = lambda x: x.float().reshape(x.shape[0], x.shape[1], heads, D)  # noqa: E731
-    qs = bf(split(q) * cq)
-    kf, vf, g = split(k), split(v), split(dout)
-    dd = flash_attention_bwd_dd_plain(out, dout, heads)
-    dk, dv, dq = torch.zeros_like(kf), torch.zeros_like(vf), torch.zeros_like(qs)
-    for k0 in range(0, sk, 32):
-        for q0 in range(0, sq, 32):
-            qt, gt = qs[:, q0:q0 + 32], g[:, q0:q0 + 32]
-            st = torch.einsum("bkhd,bqhd->bhkq", kf[:, k0:k0 + 32], qt)
-            dpt = torch.einsum("bkhd,bqhd->bhkq", vf[:, k0:k0 + 32], gt)
-            p = torch.exp2(st - lse[:, :, None, q0:q0 + 32])
-            ds = p * (dpt - dd[:, :, None, q0:q0 + 32])
-            dv[:, k0:k0 + 32] += torch.einsum("bhkq,bqhd->bkhd", bf(p), gt)
-            dk[:, k0:k0 + 32] += torch.einsum("bhkq,bqhd->bkhd", bf(ds), qt)
-    for q0 in range(0, sq, 32):
-        for k0 in range(0, sk, 32):
-            kt = kf[:, k0:k0 + 32]
-            s = torch.einsum("bqhd,bkhd->bhqk", qs[:, q0:q0 + 32], kt)
-            dp = torch.einsum("bqhd,bkhd->bhqk", g[:, q0:q0 + 32], vf[:, k0:k0 + 32])
-            p = torch.exp2(s - lse[:, :, q0:q0 + 32, None])
-            ds = p * (dp - dd[:, :, q0:q0 + 32, None])
-            dq[:, q0:q0 + 32] += torch.einsum("bhqk,bkhd->bqhd", bf(ds), kt)
-    return (bf(dq * scale).reshape(q.shape), bf(dk * 0.6931471805599453).reshape(k.shape),
-            bf(dv).reshape(v.shape))
+    plan = wide_fwd_plan(b, sq, sk, 1)
+    t, c = plan.tile, scale * _LOG2_E
+    nkv = -(-sk // t)
+    qp = _padded(q, plan.grid[0] // plan.cluster * plan.owned)
+    kp, vp = _padded(k, nkv * t), _padded(v, nkv * t)
+    m = torch.full(qp.shape[:2], -torch.inf)
+    lsum = torch.zeros(qp.shape[:2])
+    o = torch.zeros_like(qp)
+    for j in range(nkv):
+        keys = slice(j * t, (j + 1) * t)
+        s = _halves(qp, kp[:, keys])
+        s[..., torch.arange(j * t, (j + 1) * t) >= sk] = -torch.inf
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - mx) * c)
+        p = torch.exp2(s * c - (mx * c)[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _bf(p) @ vp[:, keys]
+        m = mx
+    out = _bf(o / lsum[..., None])[:, :sq]
+    return out, (m * c + torch.log2(lsum))[:, None, :sq]
+
+
+def _wide_bwd_walk(q, k, v, out, lse, dout, scale):
+    """csrc/attention_wide_sm90.cuh's dV, dK and dQ kernels in fp32 on the
+    CPU, as their plans cut them: dV over query tiles of 64, dK over query
+    tiles of 32 (lse +inf and dd 0 past Sq, so P = 0), dQ over key tiles of
+    32 (P masked to 0 past Sk); Q unrounded, the scale in exp2, each score
+    product split in halves, P and dS rounded to bf16 before their
+    products. One head."""
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    pv, pk, pq = wide_bwd_plans(b, sq, sk, 1)
+    c = scale * _LOG2_E
+    dd = flash_attention_bwd_dd_plain(out, dout, 1)[:, 0]
+    keys = pv.grid[0] // pv.cluster * pv.owned
+    kp, vp = _padded(k, keys), _padded(v, keys)
+
+    def query_tiles(tile):
+        n = -(-sq // tile) * tile
+        lse_p = torch.full((b, n), torch.inf)
+        dd_p = torch.zeros(b, n)
+        lse_p[:, :sq], dd_p[:, :sq] = lse[:, 0], dd
+        return _padded(q, n), _padded(dout, n), lse_p, dd_p, range(0, n, tile)
+
+    qp, gp, lse_p, _, starts = query_tiles(pv.tile)
+    dv = torch.zeros_like(vp)
+    for q0 in starts:
+        rows = slice(q0, q0 + pv.tile)
+        pt = torch.exp2(_halves(kp, qp[:, rows]) * c - lse_p[:, None, rows])
+        dv += _bf(pt) @ gp[:, rows]
+    qp, gp, lse_p, dd_p, starts = query_tiles(pk.tile)
+    dk = torch.zeros_like(kp)
+    for q0 in starts:
+        rows = slice(q0, q0 + pk.tile)
+        pt = torch.exp2(_halves(kp, qp[:, rows]) * c - lse_p[:, None, rows])
+        dst = pt * (_halves(vp, gp[:, rows]) - dd_p[:, None, rows])
+        dk += _bf(dst) @ qp[:, rows]
+
+    own = pq.grid[0] // pq.cluster * pq.owned
+    nk = -(-sk // pq.tile) * pq.tile
+    qp, gp, kp, vp = _padded(q, own), _padded(dout, own), _padded(k, nk), _padded(v, nk)
+    lse_r = torch.full((b, own), torch.inf)
+    dd_r = torch.zeros(b, own)
+    lse_r[:, :sq], dd_r[:, :sq] = lse[:, 0], dd
+    dq = torch.zeros_like(qp)
+    for k0 in range(0, nk, pq.tile):
+        cols = slice(k0, k0 + pq.tile)
+        p = torch.exp2(_halves(qp, kp[:, cols]) * c - lse_r[..., None])
+        p[..., torch.arange(k0, k0 + pq.tile) >= sk] = 0.0
+        ds = p * (_halves(gp, vp[:, cols]) - dd_r[..., None])
+        dq += _bf(ds) @ kp[:, cols]
+    return (_bf(dq * scale)[:, :sq], _bf(dk * scale)[:, :sk], _bf(dv)[:, :sk])
 
 
 def _rounded_forward_lse(q, k, scale):
-    """The 512-wide forward's lse: from Qs rounded to bf16 in place."""
+    """An lse under the rounding convention the 512-wide kernels no longer
+    use: from Qs = bf16(Q * c), rounded in place before S."""
     qs = (q.float() * (scale * _LOG2_E)).to(torch.bfloat16).float()
     s2 = torch.einsum("bqd,bkd->bqk", qs, k.float())
-    return torch.logsumexp(s2 * np.log(2.0), dim=-1)[:, None] / np.log(2.0), qs
+    return torch.logsumexp(s2 * np.log(2.0), dim=-1)[:, None] / np.log(2.0)
+
+
+def _row_sums(q, k, lse, scale):
+    """Each row's sum of P = exp2(S c - lse), S from the unrounded Q, as the
+    backward recomputes it."""
+    s2 = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (scale * _LOG2_E)
+    return torch.exp2(s2 - lse[:, 0, :, None]).sum(-1)
+
+
+@pytest.mark.parametrize("b,sq,sk", [(1, 256, 200), (2, 130, 300), (1, 64, 1)])
+def test_forward_walk_matches_the_plain_version(b, sq, sk):
+    """bf16 operands: the forward walk's out and lse land within the card
+    bar (relative L2 1e-2) of the fp32 plain version, and P recomputed from
+    the walk's lse with the same unrounded Q sums to one in every row."""
+    q, k, v, _ = (torch.from_numpy(x).to(torch.bfloat16) for x in _operands(3, b, sq, sk))
+    scale = D**-0.5
+    out, lse = _wide_fwd_walk(q, k, v, scale)
+    ref, ref_lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 1, scale)
+    assert out.shape == ref.shape and lse.shape == ref_lse.shape
+    assert _rel_l2(out.numpy(), ref.numpy()) <= 1e-2
+    assert _rel_l2(lse.numpy(), ref_lse.numpy()) <= 1e-2
+    assert float((_row_sums(q, k, lse, scale) - 1).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("b,sq,sk", [(1, 256, 200), (2, 96, 130)])
 def test_kernel_walk_matches_the_plain_version(b, sq, sk):
-    """bf16 operands: the walk of the kernel's arithmetic lands within the
-    card bar (relative L2 1e-2) of the fp32 plain version, and each row of P,
-    recomputed from the forward's bf16 Qs, sums to one."""
+    """bf16 operands: the walk of the backward kernels, on the forward
+    walk's out and lse, lands within the card bar (relative L2 1e-2) of the
+    fp32 plain version, and each row of P, recomputed from the forward's lse
+    with the same unrounded Q, sums to one."""
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _operands(1, b, sq, sk))
     scale = D**-0.5
-    lse, qs = _rounded_forward_lse(q, k, scale)
-    out = flash_attention_fwd_plain(q.float(), k.float(), v.float(), 1, scale)[0]
-    out = out.to(torch.bfloat16)
-    p = torch.exp2(torch.einsum("bqd,bkd->bqk", qs, k.float()) - lse[:, 0, :, None])
-    assert float((p.sum(-1) - 1).abs().max()) <= 1e-5
+    out, lse = _wide_fwd_walk(q, k, v, scale)
+    assert float((_row_sums(q, k, lse, scale) - 1).abs().max()) <= 1e-5
     walk = _wide_bwd_walk(q, k, v, out, lse, do, scale)
     ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
                                     do.float(), 1, scale)
     for w, r, name in zip(walk, ref, ("dq", "dk", "dv")):
+        assert w.shape == r.shape, name
         assert _rel_l2(w.numpy(), r.numpy()) <= 1e-2, name
 
 
 def test_unrounded_q_biases_the_recomputed_softmax():
-    """The reason the kernel rounds Qs: P from the unrounded Q against the
-    forward's lse misses a row sum of one by about bf16 epsilon."""
+    """Why forward and backward must share one rounding convention: P from
+    the unrounded Q against an lse written from Qs = bf16(Q c), the
+    convention the 512-wide kernels used before, misses a row sum of one by
+    about bf16 epsilon."""
     q, k, _, _ = (torch.from_numpy(x).to(torch.bfloat16) for x in _operands(2))
     scale = D**-0.5
-    lse, _ = _rounded_forward_lse(q, k, scale)
-    s2 = torch.einsum("bqd,bkd->bqk", q.float() * (scale * _LOG2_E), k.float())
-    miss = float((torch.exp2(s2 - lse[:, 0, :, None]).sum(-1) - 1).abs().max())
+    lse = _rounded_forward_lse(q, k, scale)
+    miss = float((_row_sums(q, k, lse, scale) - 1).abs().max())
     assert 1e-4 < miss < 5e-2
