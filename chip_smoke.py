@@ -3,7 +3,8 @@
     python3 chip_smoke.py                    # batch 2 x 10 PNDM steps; train batch 2;
                                              # 1024^2 up-conversion, 10 steps;
                                              # SDR->HDR batch 2 x 10 steps;
-                                             # Stage 1 batch 1 x 2 pairs
+                                             # Stage 1 batch 1 x 2 pairs; the samplers;
+                                             # both CLIs on a full-width directory
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
     python3 chip_smoke.py --hdrtv-steps 50 --profile
@@ -138,10 +139,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
      LoRA norm deficit lies in the 512-wide kernels.
  16. stage1_e2e_controls: stage1_e2e with the 512-wide backward's dQ, then
      its dK, scaled by 0.95; each must be caught.
+ 17. samplers: the full-width single-UNet and dual paths at 512^2, batch 2,
+     CFG 7.5, through PNDM, DDIM (eta 0 and 0.5), DPM-Solver++ (order 2, 8
+     steps, so the last is first order) and LCM (4 steps), then PNDM and
+     DDIM once more (a row's wall against its place in the sequence): the
+     median of a few timed loops an iteration, peak memory; latents
+     finite and the launches a UNet call equal to PNDM's.
+ 18. samplers_e2e: batch 1, 3 steps of each sampler through the dual path,
+     kernels against plain versions on the same generator: decoded SDR and
+     GM >= 40 dB; the latents' dB after each step are printed.
+ 19. cli: scripts/torch/init_pipeline.py --size sd15 --dual --scheduler dpm++
+     writes a full-width directory into a temporary directory (removed at
+     the end); generate_hdr (a 512^2 and a 640x480 PNG, 4 steps) and
+     upconvert_hdrtv (one 1024^2 PNG, 2 steps) run on it in-process; every
+     PNG and .hdr they write reads back finite at its size; the write and
+     load seconds and s/image are printed, and the up-conversion launches
+     the 512-wide flash forward once and flash_attention_bsc 12 times an
+     iteration.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
-on and off), over one train step (phase 6) and over one Stage-1 pair at
-512^2 and one at 1024^2 (phase 13).
+on and off), over one train step (phase 6), over one Stage-1 pair at
+512^2 and one at 1024^2 (phase 13) and over each sampler's single-UNet
+loop (phase 17).
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -245,6 +264,10 @@ SDR2HDR_PER_UNET_CALL = {
 SDR2HDR_VAE_WINO4 = 13 + 16
 SDR2HDR_VAE_CONV3X3 = 7 + 12
 SDR2HDR_E2E_STEPS = 3
+# DDIM's steps in phase samplers, and the timed repeats of each sampler
+# (the median is reported).
+SAMPLER_STEPS = 4
+SAMPLER_REPEATS = 5
 # The F(4x4) algorithm's max error relative to the output's peak against the
 # fp32 direct conv must stay under max(10x the direct bf16 conv's, 5e-2), the
 # JAX package's own bar (tests/test_kernels.py:1192-1219).
@@ -2315,6 +2338,252 @@ def phase_stage1_e2e_controls(args) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the samplers and the inference CLIs
+# ---------------------------------------------------------------------------
+
+
+def sampler_schedulers():
+    """(tag, scheduler, eta, steps) of the samplers phase: DDIM without and
+    with noise, DPM-Solver++ order 2 at 8 steps (so the last step is first
+    order: lower_order_final), LCM at 4."""
+    from gmdx_torch.schedulers import get_scheduler
+
+    return (("ddim_eta0", get_scheduler("ddim"), 0.0, SAMPLER_STEPS),
+            ("ddim_eta05", get_scheduler("ddim"), 0.5, SAMPLER_STEPS),
+            ("dpm++", get_scheduler("dpm++"), 0.0, 8),
+            ("lcm", get_scheduler("lcm"), 0.0, 4))
+
+
+def phase_samplers(args) -> None:
+    """The full-width single-UNet and dual paths at 512^2, batch 2, through
+    each sampler after PNDM: s/iteration, peak memory, finite latents, and
+    the kernel launches per UNet call equal to PNDM's."""
+    import torch
+
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.pipelines import StableDiffusionGMPipeline
+    from gmdx_torch.schedulers import PNDMScheduler
+
+    dual = build_pipeline(args.seed)
+    single = StableDiffusionGMPipeline(dual.gm_unet, dual.vae, PNDMScheduler(), device="cuda")
+    latents, cond, uncond = make_inputs(dual, 2, args.seed + 40)
+    sdr_lat = torch.randn(latents.shape, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(args.seed + 41))
+    runs = {
+        # (pipeline, UNet calls an iteration, run(steps, eta, generator))
+        "single": (single, 1, lambda n, eta, g: single.denoise(
+            sdr_lat, cond, uncond, latents, num_inference_steps=n, guidance_scale=7.5,
+            eta=eta, generator=g)),
+        "dual": (dual, 2, lambda n, eta, g: dual.denoise_dual(
+            cond, uncond, latents, num_inference_steps=n, guidance_scale=7.5, eta=eta,
+            generator=g)),
+    }
+    for path, (pipe, calls, run) in runs.items():
+        per_call = None
+        cases = (("pndm", PNDMScheduler(), 0.0, 2),) + sampler_schedulers()
+        # PNDM and the first sampler once more at the end: whether a row's
+        # wall depends on its place in the sequence (report only).
+        cases += tuple((f"{tag}_again", sched, eta, steps) for tag, sched, eta, steps in cases[:2])
+        for tag, sched, eta, steps in cases:
+            pipe.scheduler = sched
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 42)
+            run(1 if tag == "lcm" else 2, eta, gen)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            out = run(steps, eta, gen)
+            counts = launch_counts()
+            walls = []
+            for _ in range(SAMPLER_REPEATS):  # walls swing: the median of a few
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(steps, eta, gen)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            dt = sorted(walls)[len(walls) // 2]
+            n_iter = pipe._num_steps(steps)
+            per = {k: v / (n_iter * calls) for k, v in counts.items() if v}
+            per_call = per if per_call is None else per_call
+            outs = out if isinstance(out, tuple) else (out,)
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            emit({"phase": "samplers", "path": path, "sampler": tag, "eta": eta,
+                  "batch": 2, "resolution": 512, "steps": steps, "iterations": n_iter,
+                  "denoise_s": dt, "s_per_iteration": dt / n_iter, "walls_s": walls,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches_per_unet_call": per, "finite": finite})
+            if not finite:
+                raise SystemExit(f"chip_smoke: {path} latents not finite with {tag}")
+            if per != per_call:
+                raise SystemExit(f"chip_smoke: {path} with {tag} launched {per} a UNet call, "
+                                 f"PNDM {per_call}")
+            if args.profile and path == "single" and not tag.endswith("_again"):
+                # Device time against wall: whether a sampler's wall is the
+                # device's or the host's.
+                profile_fn(f"samplers_profile_{tag}", lambda: run(steps, eta, gen))
+        pipe.scheduler = PNDMScheduler()
+    del dual, single, runs
+    torch.cuda.empty_cache()
+
+
+def phase_samplers_e2e(args) -> None:
+    """Batch 1, 3 steps of each sampler through the dual path, kernels
+    against plain versions on the same generator: decoded SDR and GM
+    >= 40 dB; the latents' dB after each step are printed, so that a miss
+    shows the step that amplifies the difference."""
+    import torch
+
+    from gmdx_torch.models import set_use_kernels
+
+    pipe = build_pipeline(args.seed)
+    latents, cond, uncond = make_inputs(pipe, 1, args.seed + 50)
+    worst = []
+    for tag, sched, eta, _ in sampler_schedulers():
+        pipe.scheduler = sched
+        outs = {}
+        for flag in (True, False):
+            for m in (pipe.unet, pipe.gm_unet, pipe.vae):
+                set_use_kernels(m, flag)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 51)
+            (sdr_lat, gm_lat), (sdr_st, gm_st) = pipe.denoise_dual(
+                cond, uncond, latents, num_inference_steps=E2E_STEPS, guidance_scale=7.5,
+                eta=eta, generator=gen, return_intermediates=True)
+            both = to01(pipe.decode_latents(torch.cat([sdr_lat, gm_lat])))
+            outs[flag] = (both[:1], both[1:], sdr_st, gm_st)
+        p_sdr, p_gm = (psnr01(a, b) for a, b in zip(outs[True][:2], outs[False][:2]))
+
+        def db(a, b):
+            return float(10 * torch.log10(b.double().abs().max() ** 2
+                                          / ((a.double() - b.double()) ** 2).mean()))
+
+        steps = [{"sdr_db": db(a, b), "gm_db": db(c, d)} for a, b, c, d in zip(
+            outs[True][2], outs[False][2], outs[True][3], outs[False][3])]
+        emit({"phase": "samplers_e2e", "sampler": tag, "eta": eta, "batch": 1,
+              "steps": E2E_STEPS, "psnr_sdr_db": p_sdr, "psnr_gm_db": p_gm,
+              "min_db": PSNR_MIN_DB, "latent_db_by_step": steps})
+        worst.append((min(p_sdr, p_gm), tag))
+    for m in (pipe.unet, pipe.gm_unet, pipe.vae):
+        set_use_kernels(m, True)
+    del pipe
+    torch.cuda.empty_cache()
+    low, tag = min(worst)
+    if not low >= PSNR_MIN_DB:
+        raise SystemExit(f"chip_smoke: {tag} kernels vs plain PSNR {low} < {PSNR_MIN_DB} dB")
+
+
+def _script(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_cli_{name}", os.path.join(REPO, "scripts", "torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_cli(args) -> None:
+    """The port's CLIs on a full-width directory: scripts/torch/init_pipeline.py
+    --size sd15 --dual --scheduler dpm++ writes one (7.70 GB, float32), then
+    generate_hdr on a 512^2 and a 640x480 PNG (resized) at 4 steps and
+    upconvert_hdrtv on one 1024^2 PNG at 2 steps read it; every PNG and
+    .hdr they write is read back, and the up-conversion's launches are
+    checked as phase hdrtv's. The directory is removed at the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import gmdx_torch.io as gio
+    from gmdx_torch.io import read_hdr
+    from gmdx_torch.io.png import read_png, write_png
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+
+    tmp = tempfile.mkdtemp(prefix="gmdx_cli_")
+    try:
+        pipe_dir, out = os.path.join(tmp, "pipe"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        _script("init_pipeline").main(["--output_dir", pipe_dir, "--size", "sd15", "--dual",
+                                       "--scheduler", "dpm++", "--seed", str(args.seed)])
+        write_s = time.perf_counter() - t0
+        dir_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(pipe_dir)
+                     for f in fs) / 1e9
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(args.seed + 60)
+        for sub, sizes in (("sdr", ((512, 512), (480, 640))), ("hdrtv", ((1024, 1024),))):
+            os.makedirs(os.path.join(tmp, sub))
+            for i, (h, w) in enumerate(sizes):
+                y, x = np.mgrid[0:h, 0:w]
+                img = np.stack([np.sin(x / (17 + 5 * c) + y / 23) * 100 + 128 for c in range(3)],
+                               -1) + rng.integers(-20, 20, (h, w, 3))
+                write_png(os.path.join(tmp, sub, f"frame{i}.png"),
+                          np.clip(img, 0, 255).astype(np.uint8))
+
+        load_s = [0.0]
+
+        def timed(fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                load_s[0] += time.perf_counter() - t
+                return out
+            return run
+
+        saved = gio.load_pipeline, gio.load_component
+        gio.load_pipeline, gio.load_component = timed(gio.load_pipeline), timed(gio.load_component)
+        try:
+            t0 = time.perf_counter()
+            _script("generate_hdr").main([
+                "--pretrained_model_name_or_path", pipe_dir, "--unet_ckpt",
+                os.path.join(pipe_dir, "gm_unet"), "--sdr_input_path", os.path.join(tmp, "sdr"),
+                "--output_dir", os.path.join(out, "gen"), "--num_inference_steps", "4",
+                "--seed", str(args.seed)])
+            torch.cuda.synchronize()
+            gen_s, gen_load_s = time.perf_counter() - t0, load_s[0]
+            torch.cuda.empty_cache()
+            load_s[0] = 0.0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _script("upconvert_hdrtv").main([
+                "--pretrained_model_name_or_path", pipe_dir, "--sdr_input_path",
+                os.path.join(tmp, "hdrtv"), "--output_dir", os.path.join(out, "hdrtv"),
+                "--num_inference_steps", "2", "--seed", str(args.seed)])
+            torch.cuda.synchronize()
+            up_s, up_load_s = time.perf_counter() - t0, load_s[0]
+            counts = launch_counts()
+        finally:
+            gio.load_pipeline, gio.load_component = saved
+        torch.cuda.empty_cache()
+
+        want = {os.path.join("gen", f"{k}_frame{i}.{e}"): (512, 512, 3)
+                for i in range(2) for k, e in (("sdr", "png"), ("gm", "png"),
+                                               ("hdr_decoded", "hdr"), ("hdr_original", "hdr"))}
+        want.update({os.path.join("hdrtv", "hdrtv_frame0.hdr"): (1024, 1024, 3),
+                     os.path.join("hdrtv", "sdr_frame0.png"): (1024, 1024, 3),
+                     os.path.join("hdrtv", "gm_frame0.png"): (1024, 1024, 3)})
+        bad = []
+        for rel, shape in want.items():
+            path = os.path.join(out, rel)
+            arr = read_hdr(path) if path.endswith(".hdr") else read_png(path)
+            if arr.shape != shape or not np.isfinite(arr).all():
+                bad.append((rel, arr.shape))
+        n_iter = 2  # DPM-Solver++: one UNet iteration a step
+        emit({"phase": "cli", "dir_gb": dir_gb, "write_s": write_s,
+              "generate_load_s": gen_load_s, "generate_s": gen_s,
+              "generate_s_per_image": (gen_s - gen_load_s) / 2,
+              "upconvert_load_s": up_load_s, "upconvert_s": up_s,
+              "upconvert_s_per_image": up_s - up_load_s, "files_checked": len(want),
+              "bad_files": bad, "upconvert_launches": counts})
+        if bad:
+            raise SystemExit(f"chip_smoke: CLI outputs missing, misshapen or not finite: {bad}")
+        if (counts["flash_attention_fwd_d512"] != 1
+                or counts["flash_attention_bsc"] != HDRTV_BSC_PER_ITERATION * n_iter):
+            raise SystemExit(f"chip_smoke: upconvert_hdrtv launched flash_attention_bsc "
+                             f"{counts['flash_attention_bsc']} times in {n_iter} iterations and "
+                             f"the 512-wide flash forward {counts['flash_attention_fwd_d512']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=2)
@@ -2356,6 +2625,9 @@ def main() -> int:
     phase_stage1_e2e(args)
     phase_stage1_e2e_d512_plain(args)
     phase_stage1_e2e_controls(args)
+    phase_samplers(args)
+    phase_samplers_e2e(args)
+    phase_cli(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():

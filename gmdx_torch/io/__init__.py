@@ -1,4 +1,6 @@
-"""I/O of the port (counterpart of ``gmdx.io``): .hdr export and weights."""
+"""I/O of the port (counterpart of ``gmdx.io``): .hdr export, PNG in and out,
+safetensors param trees, pipeline directories and weight conversion. The
+port reads safetensors and PNG itself (numpy and zlib)."""
 
 from gmdx_torch.io.convert import (
     clip_text_state_dict_from_flax,
@@ -12,6 +14,9 @@ from gmdx_torch.io.convert import (
     vae_state_dict_from_flax,
 )
 from gmdx_torch.io.hdr import read_hdr, save_hdr_image, write_hdr
+from gmdx_torch.io.image import from_model_output, load_image, save_image, to_model_input
+from gmdx_torch.io.params import load_params, save_params
+from gmdx_torch.io.pipeline import load_component, load_pipeline, save_pipeline
 
 __all__ = [
     "clip_text_state_dict_from_flax",
@@ -26,4 +31,13 @@ __all__ = [
     "read_hdr",
     "write_hdr",
     "save_hdr_image",
+    "load_image",
+    "save_image",
+    "to_model_input",
+    "from_model_output",
+    "load_params",
+    "save_params",
+    "load_component",
+    "load_pipeline",
+    "save_pipeline",
 ]

@@ -4,7 +4,9 @@ A port-local copy of the export mapping of ``gmdx/io/torch_import.py``
 (``export_unet_state_dict``, ``export_vae_state_dict``,
 ``export_clip_text_state_dict``, ``export_vgg19_state_dict``): Flax param trees
 (nested dicts of numpy arrays) become state dicts in diffusers key naming,
-with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW.
+with Dense kernels transposed to (out, in) and HWIO conv kernels to OIHW
+(numpy leaves, or torch tensors, whose layout changes then run on their
+device).
 Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
 same modules unchanged. The ControlNet's mapping is the port's own (the JAX
 package exports none): the UNet's rules for the shared encoder, diffusers'
@@ -33,15 +35,19 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
         if isinstance(v, dict) or hasattr(v, "items"):
             out.update(_flatten(v, p))
         else:
-            out[p] = np.asarray(v)
+            out[p] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
 def _inv_linear(w: np.ndarray) -> np.ndarray:
+    if isinstance(w, torch.Tensor):
+        return w.t().contiguous()
     return np.ascontiguousarray(w.T)
 
 
 def _inv_conv(w: np.ndarray) -> np.ndarray:
+    if isinstance(w, torch.Tensor):
+        return w.permute(3, 2, 0, 1).contiguous()
     return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
 
 
@@ -259,6 +265,23 @@ def lora_from_flax(lora: dict) -> dict[str, dict[str, np.ndarray]]:
     return out
 
 
+def unet_lora_from_flax(lora: dict) -> dict[str, dict[str, np.ndarray]]:
+    """gmdx UNet LoRA factors {(path...): {"a", "b"}} (``init_lora_params``
+    over a UNet's params) -> the port's {diffusers weight name: {"a", "b"}},
+    each factor laid out as the kernel it adapts."""
+    out = {}
+    for path, f in lora.items():
+        pair = {}
+        for ab in ("a", "b"):
+            tree = leaf = {}
+            for p in path[:-1]:
+                leaf = leaf.setdefault(p, {})
+            leaf[path[-1]] = f[ab]
+            (key, pair[ab]), = unet_state_dict_from_flax(tree).items()
+        out[key] = pair
+    return out
+
+
 def stage1_trainables_from_flax(trainables: dict) -> dict:
     """gmdx ``Stage1State.trainables`` {"lora", "conv_out": {"kernel",
     "bias"}} -> the port's {"lora", "conv_out": {"weight", "bias"}}."""
@@ -342,6 +365,7 @@ def load_clip_text(
 __all__ = [
     "discriminator_state_dict_from_flax",
     "lora_from_flax",
+    "unet_lora_from_flax",
     "stage1_trainables_from_flax",
     "vgg19_state_dict_from_flax",
     "controlnet_state_dict_from_flax",

@@ -33,10 +33,10 @@ class StableDiffusionControlNetHDRPipeline(StableDiffusionDualUNetPipeline):
     def __init__(
         self, unet: nn.Module, vae: nn.Module, scheduler, gm_unet: nn.Module,
         controlnet: nn.Module, *, text_encoder: nn.Module | None = None, tokenizer=None,
-        device: str | torch.device = "cuda",
+        lora: dict | None = None, device: str | torch.device = "cuda",
     ):
         super().__init__(unet, vae, scheduler, gm_unet, text_encoder=text_encoder,
-                         tokenizer=tokenizer, device=device)
+                         tokenizer=tokenizer, lora=lora, device=device)
         self.controlnet = controlnet.to(self.device)
 
     def denoise_dual(
@@ -47,20 +47,16 @@ class StableDiffusionControlNetHDRPipeline(StableDiffusionDualUNetPipeline):
         *,
         control_image: torch.Tensor | np.ndarray | None = None,
         conditioning_scale: float = 1.0,
-        num_inference_steps: int = 50,
-        guidance_scale: float = 7.5,
-        guidance_rescale: float = 0.0,
-        low_memory: bool = False,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        **kwargs,
+    ):
         """The dual loop with the ControlNet's residuals on the SDR branch;
         ``control_image`` is (B, 3, H, W) in [0, 1] at 8x the latents'
-        side."""
-        kw = dict(num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-                  guidance_rescale=guidance_rescale, low_memory=low_memory)
+        side. Other keyword arguments as the dual pipeline's
+        ``_denoise_dual``."""
         if control_image is None:
-            return super().denoise_dual(prompt_embeds, negative_prompt_embeds, latents, **kw)
+            return super().denoise_dual(prompt_embeds, negative_prompt_embeds, latents, **kwargs)
         ctrl = torch.as_tensor(control_image, device=self.device).permute(0, 2, 3, 1).contiguous()
-        if negative_prompt_embeds is not None and not low_memory:
+        if negative_prompt_embeds is not None and not kwargs.get("low_memory", False):
             ctrl = torch.cat([ctrl, ctrl])
 
         def sdr_eps(x, t, context):
@@ -69,7 +65,8 @@ class StableDiffusionControlNetHDRPipeline(StableDiffusionDualUNetPipeline):
             return self.unet(x, t, context, down_block_additional_residuals=down,
                              mid_block_additional_residual=mid, channels_last=True)
 
-        return self._denoise_dual(sdr_eps, prompt_embeds, negative_prompt_embeds, latents, **kw)
+        return self._denoise_dual(sdr_eps, prompt_embeds, negative_prompt_embeds, latents,
+                                  **kwargs)
 
 
 def upconvert_sdr_to_hdrtv(
@@ -85,19 +82,22 @@ def upconvert_sdr_to_hdrtv(
     prompt_embeds: torch.Tensor | None = None,
     negative_prompt_embeds: torch.Tensor | None = None,
     low_memory: bool = False,
+    **call_kwargs,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """SDR -> HDRTV for a (B, 3, H, W) frame batch in [0, 1]: returns the
     decoded SDR and gain map ([0, 1], NHWC) and the HDR frame (B, 3, H, W),
     numpy, from the INPUT frame and the gain map by Eq. (1), unclipped.
     ``prompt_embeds``/``negative_prompt_embeds`` bypass the tokenizer and
-    text encoder."""
+    text encoder; ``call_kwargs`` (``eta``, ``step_noise``,
+    ``cross_attention_kwargs``, the callbacks, ...) go to the pipeline's
+    ``__call__``."""
     sdr = torch.as_tensor(sdr_image01)
     b, _, h, w = sdr.shape
     sdr01, gm01 = pipe(
         [prompt] * b, control_image=sdr, conditioning_scale=conditioning_scale,
         generator=generator, height=h, width=w, num_inference_steps=num_inference_steps,
         guidance_scale=guidance_scale, prompt_embeds=prompt_embeds,
-        negative_prompt_embeds=negative_prompt_embeds, low_memory=low_memory,
+        negative_prompt_embeds=negative_prompt_embeds, low_memory=low_memory, **call_kwargs,
     )
     # The gain map at the input's resolution before Eq. (1), as the JAX
     # package does; bilinear upsampling by half-pixel centres is

@@ -1,7 +1,7 @@
 """Dual-UNet text-to-HDR pipeline: joint SDR + gain-map denoising.
 
 Counterpart of ``gmdx/pipelines/dual.py`` (``prepare_latents``,
-``denoise_dual`` and ``__call__`` with PNDM), keeping the reference
+``denoise_dual`` and ``__call__``), keeping the reference
 pipeline's subtleties:
   * separate scheduler state per branch;
   * the GM branch is conditioned on the SDR branch's x0 prediction, taken
@@ -14,9 +14,13 @@ pipeline's subtleties:
     instead of as one CFG-doubled batch.
 Latents stay NHWC fp32 across the loop; the UNets take NHWC directly.
 
-``__call__`` does not yet take step-end callbacks, ``return_intermediates``,
-custom ``timesteps``/``sigmas`` or LoRA ``cross_attention_kwargs``; each
-raises NotImplementedError.
+Every sampler serves the loop, as in the single-UNet pipeline: DPM-Solver++
+keeps its previous x0 per branch (two states), the GM branch's x0
+conditioning stays the eps formula on alphas_cumprod[t] whatever the
+sampler, and each step draws its randomness for the SDR branch first, then
+for the GM branch (the JAX package splits the step key into k_sdr, k_gm);
+explicit ``step_noise[i]`` is that (SDR, GM) pair. The callbacks see the
+SDR branch's latents, as the reference's ``latents`` local is that branch.
 """
 
 from __future__ import annotations
@@ -29,22 +33,24 @@ from torch import nn
 
 from gmdx_torch.pipelines.gm import (
     StableDiffusionGMPipeline,
-    reject_unported,
+    reject_custom_schedule,
     rescale_noise_cfg,
     scheduler_step,
 )
 
 
 class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
-    """The 4-channel SDR UNet (``unet``) beside the 8-channel ``gm_unet``."""
+    """The 4-channel SDR UNet (``unet``) beside the 8-channel ``gm_unet``.
+    It takes no ``safety_checker``: the JAX package's dual ``__call__``
+    applies none."""
 
     def __init__(
         self, unet: nn.Module, vae: nn.Module, scheduler, gm_unet: nn.Module, *,
         text_encoder: nn.Module | None = None, tokenizer=None,
-        device: str | torch.device = "cuda",
+        lora: dict | None = None, device: str | torch.device = "cuda",
     ):
         super().__init__(unet, vae, scheduler, text_encoder=text_encoder, tokenizer=tokenizer,
-                         device=device)
+                         lora=lora, device=device)
         self.gm_unet = gm_unet.to(self.device)
 
     def prepare_latents(
@@ -62,29 +68,29 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         prompt_embeds: torch.Tensor,
         negative_prompt_embeds: torch.Tensor | None,
         latents: torch.Tensor,
-        *,
-        num_inference_steps: int = 50,
-        guidance_scale: float = 7.5,
-        guidance_rescale: float = 0.0,
-        low_memory: bool = False,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns the (SDR, GM) latents, each (B, 4, h, w) fp32."""
+        **kwargs,
+    ):
+        """Returns the (SDR, GM) latents, each (B, 4, h, w) fp32, and with
+        ``return_intermediates`` also their per-step stacks. Keyword
+        arguments as :meth:`_denoise_dual`'s."""
         return self._denoise_dual(
             lambda x, t, context: self.unet(x, t, context, channels_last=True),
-            prompt_embeds, negative_prompt_embeds, latents,
-            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-            guidance_rescale=guidance_rescale, low_memory=low_memory,
+            prompt_embeds, negative_prompt_embeds, latents, **kwargs,
         )
 
     @torch.no_grad()
     def _denoise_dual(
         self, sdr_eps, prompt_embeds, negative_prompt_embeds, latents, *,
-        num_inference_steps: int, guidance_scale: float, guidance_rescale: float,
-        low_memory: bool,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        num_inference_steps: int = 50, guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0, eta: float = 0.0,
+        generator: torch.Generator | None = None,
+        step_noise: Sequence[tuple[torch.Tensor, torch.Tensor]] | None = None,
+        return_intermediates: bool = False, low_memory: bool = False, on_step=None,
+    ):
         """The joint loop; ``sdr_eps(x, t, context)`` is the SDR branch's
         prediction on NHWC ``x`` (the ControlNet pipeline adds its
-        residuals there)."""
+        residuals there). ``on_step(i, t, sdr_latents_nchw)`` runs after
+        each step."""
         dev = self.device
         sched = self.scheduler
         cond = prompt_embeds.to(dev)
@@ -96,9 +102,11 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         gm_lat = lat.clone()
         sdr_state = sched.init_state(num_inference_steps)
         gm_state = sched.init_state(num_inference_steps)
+        generator = self._default_generator(generator, step_noise)
         acp = sched.alphas_cumprod
+        inter_sdr, inter_gm = [], []
 
-        for _ in range(self._num_steps(num_inference_steps)):
+        for i in range(self._num_steps(num_inference_steps)):
             t = sdr_state.timestep
             if do_cfg and low_memory:
                 eps_uncond = sdr_eps(lat, t, uncond)
@@ -112,19 +120,29 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
                 if guidance_rescale > 0.0:
                     eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
 
-            # x0 prediction BEFORE the SDR step.
+            # x0 prediction BEFORE the SDR step, by the eps formula.
             a_t = acp[t]
             x0 = (lat - float(np.sqrt(np.float32(1.0) - a_t)) * eps) / float(np.sqrt(a_t))
-            lat = scheduler_step(sched, sdr_state, eps, lat)
+            noise_sdr, noise_gm = (None, None) if step_noise is None else step_noise[i]
+            lat = scheduler_step(sched, sdr_state, eps, lat, eta=eta, generator=generator,
+                                 noise=noise_sdr)
 
             # GM branch, conditional-only.
             gm_eps = self.gm_unet(torch.cat([x0, gm_lat], dim=-1), t, cond, channels_last=True)
-            gm_lat = scheduler_step(sched, gm_state, gm_eps, gm_lat)
+            gm_lat = scheduler_step(sched, gm_state, gm_eps, gm_lat, eta=eta,
+                                    generator=generator, noise=noise_gm)
+            if return_intermediates or on_step is not None:
+                lat_nchw = lat.permute(0, 3, 1, 2).contiguous()
+                if return_intermediates:
+                    inter_sdr.append(lat_nchw)
+                    inter_gm.append(gm_lat.permute(0, 3, 1, 2).contiguous())
+                if on_step is not None:
+                    on_step(i, t, lat_nchw)
 
-        return (
-            lat.permute(0, 3, 1, 2).contiguous(),
-            gm_lat.permute(0, 3, 1, 2).contiguous(),
-        )
+        out = (lat.permute(0, 3, 1, 2).contiguous(), gm_lat.permute(0, 3, 1, 2).contiguous())
+        if return_intermediates:
+            return out, (torch.stack(inter_sdr), torch.stack(inter_gm))
+        return out
 
     def __call__(
         self,
@@ -137,17 +155,19 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         num_inference_steps: int = 50,
         guidance_scale: float = 7.5,
         guidance_rescale: float = 0.0,
+        eta: float = 0.0,
         latents: torch.Tensor | None = None,
+        step_noise: Sequence[tuple[torch.Tensor, torch.Tensor]] | None = None,
         prompt_embeds: torch.Tensor | None = None,
         negative_prompt_embeds: torch.Tensor | None = None,
         num_images_per_prompt: int = 1,
-        clip_skip: int | None = None,
-        output_type: str = "np",
-        low_memory: bool = False,
         cross_attention_kwargs: dict | None = None,
         timesteps=None,
         sigmas=None,
+        clip_skip: int | None = None,
+        output_type: str = "np",
         return_intermediates: bool = False,
+        low_memory: bool = False,
         callback_on_step_end=None,
         callback_on_step_end_tensor_inputs=None,
         callback=None,
@@ -156,39 +176,47 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
     ):
         """Text (or ``prompt_embeds``) -> the (SDR, GM) pair: latents with
         ``output_type="latent"``, else decoded images in [0, 1], NHWC numpy
-        (one batched decode; one image at a time with ``low_memory``).
-        ``generator`` draws the initial noise unless ``latents`` is given
-        (seed 0 on the pipeline's device by default). ``denoise_kwargs`` go
-        to :meth:`denoise_dual` (the ControlNet pipeline's control image)."""
+        (one batched decode; one image at a time with ``low_memory``); with
+        ``return_intermediates`` the pair comes with the per-step (SDR, GM)
+        latent stacks, each (steps, B, 4, h, w). ``generator`` (seed 0 on the
+        pipeline's device by default) draws the initial noise unless
+        ``latents`` is given, then each step's noise in turn unless
+        ``step_noise`` gives it. ``denoise_kwargs`` go to
+        :meth:`denoise_dual` (the ControlNet pipeline's control image)."""
         self.check_inputs(prompt, height=height, width=width, guidance_rescale=guidance_rescale,
                           negative_prompt=negative_prompt, latents=latents)
-        reject_unported(
-            "dual", cross_attention_kwargs=cross_attention_kwargs, timesteps=timesteps,
-            sigmas=sigmas, return_intermediates=return_intermediates or None,
-            callback_on_step_end=callback_on_step_end,
-            callback_on_step_end_tensor_inputs=callback_on_step_end_tensor_inputs,
-            callback=callback, callback_steps=callback_steps,
-        )
+        reject_custom_schedule(timesteps, sigmas)
+        cb_inputs = self._validate_callback_args(
+            callback_on_step_end, callback_on_step_end_tensor_inputs, callback_steps)
         cond, uncond = self._resolve_embeds(
             prompt, negative_prompt, prompt_embeds, negative_prompt_embeds,
             do_cfg=guidance_scale > 1.0, clip_skip=clip_skip,
             num_images_per_prompt=num_images_per_prompt,
         )
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
         if latents is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
             latents = self.prepare_latents(generator, cond.shape[0], height, width)
-        sdr_lat, gm_lat = self.denoise_dual(
-            cond, uncond, torch.as_tensor(latents), num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
-            low_memory=low_memory, **denoise_kwargs,
-        )
+        hook = self._step_end_hook(callback_on_step_end, cb_inputs, callback, callback_steps,
+                                   cond, uncond)
+        with self._lora_scaled(cross_attention_kwargs):
+            out = self.denoise_dual(
+                cond, uncond, torch.as_tensor(latents), num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale, eta=eta,
+                generator=generator, step_noise=step_noise,
+                return_intermediates=return_intermediates, low_memory=low_memory,
+                on_step=hook, **denoise_kwargs,
+            )
+        (sdr_lat, gm_lat), inter = out if return_intermediates else (out, None)
         if output_type == "latent":
-            return sdr_lat, gm_lat
-        both = self.decode_latents(torch.cat([sdr_lat, gm_lat]), chunk=1 if low_memory else None)
-        both = (both / 2.0 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
-        b = sdr_lat.shape[0]
-        return both[:b], both[b:]
+            result = (sdr_lat, gm_lat)
+        else:
+            both = self.decode_latents(torch.cat([sdr_lat, gm_lat]),
+                                       chunk=1 if low_memory else None)
+            both = (both / 2.0 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
+            b = sdr_lat.shape[0]
+            result = (both[:b], both[b:])
+        return (result, inter) if return_intermediates else result
 
 
 __all__ = ["StableDiffusionDualUNetPipeline"]

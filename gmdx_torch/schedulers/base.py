@@ -25,6 +25,9 @@ class SchedulerConfig:
     prediction_type: str = "epsilon"  # "epsilon" | "v_prediction" | "sample"
     steps_offset: int = 1
     set_alpha_to_one: bool = False
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    timestep_spacing: str = "leading"  # "leading" | "linspace" | "trailing"
 
 
 def make_betas(config: SchedulerConfig) -> np.ndarray:
@@ -106,6 +109,32 @@ def predict_eps(
     raise ValueError(f"unknown prediction_type {prediction_type!r}")
 
 
+def x0_eps_at(
+    alpha_prod_t: np.float32, sample: torch.Tensor, model_output: torch.Tensor,
+    prediction_type: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x0, eps) from the model output at one timestep whose alpha_cumprod is
+    the host scalar ``alpha_prod_t``: the coefficients are float32 scalars,
+    as the JAX package computes them, and no table goes to the device."""
+    a = np.float32(alpha_prod_t)
+    sa, sb = float(np.sqrt(a)), float(np.sqrt(np.float32(1.0) - a))
+    if prediction_type == "epsilon":
+        return (sample - sb * model_output) / sa, model_output
+    if prediction_type == "v_prediction":
+        return sa * sample - sb * model_output, sa * model_output + sb * sample
+    if prediction_type == "sample":
+        return model_output, (sample - sa * model_output) / sb
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
+def split_kwargs(kwargs: dict) -> tuple[SchedulerConfig, dict]:
+    """JAX-style scheduler keyword arguments -> (the SchedulerConfig of its
+    fields, the constructor's other arguments)."""
+    names = {f.name for f in dataclasses.fields(SchedulerConfig)}
+    return (SchedulerConfig(**{k: v for k, v in kwargs.items() if k in names}),
+            {k: v for k, v in kwargs.items() if k not in names})
+
+
 def leading_timesteps(config: SchedulerConfig, num_inference_steps: int) -> tuple[np.ndarray, int]:
     """'leading' spacing: arange(N) * (T // N) + steps_offset, descending.
     Returns (timesteps[int64, N], step_ratio)."""
@@ -123,4 +152,6 @@ __all__ = [
     "predict_x0",
     "predict_eps",
     "leading_timesteps",
+    "x0_eps_at",
+    "split_kwargs",
 ]

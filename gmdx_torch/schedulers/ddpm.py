@@ -35,8 +35,12 @@ class DDPMScheduler:
 
     init_noise_sigma = 1.0
 
-    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+    def __init__(self, config: SchedulerConfig = SchedulerConfig(), *,
+                 variance_type: str = "fixed_small"):
+        if variance_type != "fixed_small":
+            raise NotImplementedError("only variance_type='fixed_small'")
         self.config = config
+        self.variance_type = variance_type
         self.betas = base.make_betas(config)
         self.alphas_cumprod = np.cumprod(np.float32(1.0) - self.betas, dtype=np.float32)
         self.final_alpha_cumprod = np.float32(1.0)
@@ -71,6 +75,9 @@ class DDPMScheduler:
         current_beta = np.float32(1.0) - current_alpha
 
         x0 = base.predict_x0(acp, sample, model_output, t, self.config.prediction_type)
+        if self.config.clip_sample:
+            r = self.config.clip_sample_range
+            x0 = x0.clamp(-r, r)
         x0_coeff = float(np.sqrt(alpha_prev) * current_beta / beta_t)
         xt_coeff = float(np.sqrt(current_alpha) * beta_prev / beta_t)
         prev_sample = x0_coeff * x0 + xt_coeff * sample

@@ -66,7 +66,13 @@ class PNDMScheduler:
 
     init_noise_sigma = 1.0
 
-    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+    def __init__(self, config: SchedulerConfig = SchedulerConfig(), *,
+                 skip_prk_steps: bool = True):
+        if not skip_prk_steps:
+            raise NotImplementedError(
+                "Runge-Kutta warmup (skip_prk_steps=False) is not used anywhere in the "
+                "reference; only the PLMS path is implemented."
+            )
         self.config = config
         self.alphas_cumprod = alphas_cumprod_from_config(config)
         self.final_alpha_cumprod = (

@@ -10,6 +10,8 @@ Inputs are seeded bf16 on the card; the plain versions run in fp32 with TF32
 off; the bound is relative L2 <= 1e-2 (bf16 rounding of inputs and output).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -1165,3 +1167,49 @@ def test_stage1_steps_at_1024_on_card(card):
     assert counts["flash_attention_fwd_d512"] == 2 and counts["flash_attention_bwd_d512"] == 2
     assert counts["group_norm_silu_bwd"] > 0 and counts["conv3x3"] == 0
     assert both["flash_attention_fwd_d512"] == 4 and both["conv3x3"] > 0
+
+
+def _sampler_cases():
+    from gmdx_torch.schedulers import get_scheduler
+
+    return [("ddim", dict(eta=0.0), get_scheduler("ddim"), 6),
+            ("ddim_eta", dict(eta=0.7), get_scheduler("ddim"), 6),
+            ("dpm++", {}, get_scheduler("dpm++"), 8),
+            ("dpm_karras_order1", {}, get_scheduler("dpm++", use_karras_sigmas=True,
+                                                    solver_order=1), 6),
+            ("lcm", {}, get_scheduler("lcm"), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5), ids=lambda i: ["ddim", "ddim_eta", "dpm++",
+                                                          "dpm_karras_order1", "lcm"][i])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_sampler_steps_on_card(card, case, dtype):
+    """Each new sampler's steps on CUDA tensors against the same steps on CPU
+    tensors (the same noise given as ``noise=``): the output keeps the
+    input's dtype and device, and no step synchronises with the host."""
+    name, kw, sched, steps = _sampler_cases()[case]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 64, 64, 4, generator=g).to(dtype)
+    eps = [torch.randn(2, 64, 64, 4, generator=g).to(dtype) for _ in range(steps)]
+    noise = [torch.randn(2, 64, 64, 4, generator=g).to(dtype) for _ in range(steps)]
+    takes_noise = "noise" in inspect.signature(sched.step).parameters
+    s_cpu, s_gpu = sched.init_state(steps), sched.init_state(steps)
+    x_cpu, x_gpu = x, x.cuda()
+    eps_gpu, noise_gpu = [e.cuda() for e in eps], [n.cuda() for n in noise]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(steps):
+            extra = {"noise": noise_gpu[i]} if takes_noise else {}
+            x_gpu = sched.step(s_gpu, eps_gpu[i], x_gpu, **kw, **extra)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i in range(steps):
+        extra = {"noise": noise[i]} if takes_noise else {}
+        x_cpu = sched.step(s_cpu, eps[i], x_cpu, **kw, **extra)
+    assert x_gpu.dtype == dtype and x_gpu.is_cuda
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    peak = float(x_cpu.float().abs().max())
+    err = float((x_gpu.cpu().float() - x_cpu.float()).abs().max())
+    assert err <= tol * peak, f"{name}: {err} of peak {peak}"

@@ -314,12 +314,25 @@ def test_call_from_prompts_matches_jax(tiny, port_pipe):
 
 
 def test_call_rejects_unported_options(port_pipe, tiny):
+    """The options the JAX package's dual ``__call__`` takes are taken:
+    custom schedules raise ValueError as its do; a legacy callback and a
+    LoRA scale without factors leave the output as it is;
+    ``return_intermediates`` adds the per-step (SDR, GM) stacks."""
     emb = {"prompt_embeds": torch.from_numpy(tiny["cond"]),
            "negative_prompt_embeds": torch.from_numpy(tiny["uncond"])}
-    for opt in ({"callback": print}, {"return_intermediates": True},
-                {"timesteps": [999, 500]}, {"cross_attention_kwargs": {"scale": 0.5}}):
-        with pytest.raises(NotImplementedError):
-            port_pipe(height=SIDE, width=SIDE, num_inference_steps=2, **emb, **opt)
+    kw = dict(height=SIDE, width=SIDE, num_inference_steps=2, output_type="latent", **emb)
+    with pytest.raises(ValueError, match="custom"):
+        port_pipe(timesteps=[999, 500], **kw)
+    base = port_pipe(**kw)
+    calls = []
+    for opt in ({"callback": lambda i, t, lat: calls.append(i)},
+                {"cross_attention_kwargs": {"scale": 0.5}}):
+        out = port_pipe(**kw, **opt)
+        assert all(torch.equal(a, b) for a, b in zip(out, base))
+    assert calls == list(range(port_pipe.scheduler.num_steps(2)))
+    out, inter = port_pipe(return_intermediates=True, **kw)
+    for a, b, stack in zip(out, base, inter):
+        assert torch.equal(a, b) and torch.equal(stack[-1], a)
     with pytest.raises(ValueError, match="negative_prompt_embeds"):
         port_pipe(height=SIDE, width=SIDE, prompt_embeds=emb["prompt_embeds"])
 

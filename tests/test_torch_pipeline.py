@@ -266,11 +266,16 @@ def _imported_roots(path):
 
 
 def test_port_imports_neither_jax_nor_gmdx():
+    """No runtime file of the port (the package, its scripts, the smoke)
+    imports JAX or the JAX package, nor PIL, safetensors or cv2, which the
+    card's machine lacks."""
     files = glob.glob(os.path.join(REPO, "gmdx_torch", "**", "*.py"), recursive=True)
+    files += glob.glob(os.path.join(REPO, "scripts", "torch", "*.py"))
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 15
+    banned = {"jax", "jaxlib", "flax", "gmdx", "optax", "PIL", "safetensors", "cv2"}
     for path in files:
-        bad = {r for r in _imported_roots(path)} & {"jax", "jaxlib", "flax", "gmdx", "optax"}
+        bad = {r for r in _imported_roots(path)} & banned
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
 
 

@@ -232,13 +232,32 @@ def test_call_from_prompt_embeds_equals_denoise(jax_run, port_pipe):
 
 
 @pytest.mark.parametrize("option", [
-    {"eta": 0.5}, {"callback": print}, {"callback_on_step_end": print},
+    {"eta": 0.5}, {"callback": lambda *a: None},
+    {"callback_on_step_end": lambda *a: None},
     {"return_intermediates": True}, {"timesteps": [999, 500]}, {"sigmas": [1.0]},
     {"cross_attention_kwargs": {"scale": 0.5}},
 ], ids=lambda o: next(iter(o)))
 def test_call_rejects_unported_options(jax_run, port_pipe, option):
+    """Each option the JAX package's ``__call__`` takes is taken: custom
+    ``timesteps``/``sigmas`` raise ValueError as the JAX package's do; the
+    others run, and under PNDM with no LoRA factors (eta, the observer
+    callbacks, a LoRA scale) leave the latents as they are;
+    ``return_intermediates`` adds the per-step stack."""
     _, inputs, _ = jax_run
     sdr_lat, cond, uncond = _t(inputs, "sdr_latent", "cond", "uncond")
-    with pytest.raises(NotImplementedError):
-        port_pipe(sdr_lat, prompt_embeds=cond, negative_prompt_embeds=uncond,
-                  num_inference_steps=1, **option)
+    kw = dict(prompt_embeds=cond, negative_prompt_embeds=uncond, num_inference_steps=1,
+              output_type="latent", generator=torch.Generator().manual_seed(2))
+    if "timesteps" in option or "sigmas" in option:
+        with pytest.raises(ValueError, match="custom"):
+            port_pipe(sdr_lat, **kw, **option)
+        return
+    base = port_pipe(sdr_lat, **kw)
+    kw["generator"] = torch.Generator().manual_seed(2)
+    out = port_pipe(sdr_lat, **kw, **option)
+    if option.get("return_intermediates"):
+        out, inter = out
+        n = port_pipe.scheduler.num_steps(1)
+        assert inter.shape == (n,) + tuple(base.shape) and torch.equal(inter[-1], out)
+    assert torch.equal(out, base)
+
+
