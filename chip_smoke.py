@@ -4,7 +4,8 @@
                                              # 1024^2 up-conversion, 10 steps;
                                              # SDR->HDR batch 2 x 10 steps;
                                              # Stage 1 batch 1 x 2 pairs; the samplers;
-                                             # both CLIs on a full-width directory
+                                             # both CLIs on a full-width directory;
+                                             # the Stage-2 trainer CLI on it
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
     python3 chip_smoke.py --hdrtv-steps 50 --profile
@@ -155,7 +156,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
      PNG and .hdr they write reads back finite at its size; the write and
      load seconds and s/image are printed, and the up-conversion launches
      the 512-wide flash forward once and flash_attention_bsc 12 times an
-     iteration.
+     iteration. The directory stays for phase 20.
+ 20. train_cli: the Stage-2 trainer CLI (scripts/torch/train_gm_unet.py) on
+     that directory (its 4-channel unet inflated to 8): 24 pairs of 600x800
+     PNGs in a parquet written by the port. Run A, the parquet path at
+     512^2, batch 8, random flips, EMA, 6 steps, asynchronous checkpoints
+     at 3 and 6, one validation image an epoch (PNDM 49), the final
+     pipeline directory: losses finite, both checkpoints, the saved unet
+     8-channel and the EMA shadow bit for bit, the validation PNG and .hdr
+     finite at 512^2; the loader's s/batch alone, s/step, checkpoint s and
+     GB, validation and save_pipeline s, peak memory. Then the latent cache
+     (scripts/torch/precompute_latents.py) and, on it, B (20 steps) and C
+     (10 steps, then --resume_from_checkpoint latest to 20): C restores the
+     bits it saved, B's launches a step of the flash forward and backward
+     and the GroupNorm backward equal phase train's, C's step-20 loss is
+     within 1e-3 relative of B's. Last, one step with and one without
+     --gradient_checkpointing on the same cached batch and generator: the
+     same loss, gradient norms within 1e-3; peak memory of each and of a
+     remat step at batch 16.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -1577,6 +1595,7 @@ def phase_train(args) -> dict[str, int]:
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s_step = statistics.median(times[2:])
+    args.train_samples_per_s = b / s_step  # beside phase train_cli's cached steps
     emit({
         "phase": "train", "batch": b, "resolution": 512, "timed_steps": args.train_steps,
         "pixel_step_s": times[0], "step_s": times[2:], "s_per_step": s_step,
@@ -2481,13 +2500,15 @@ def _script(name: str):
     return mod
 
 
-def phase_cli(args) -> None:
+def phase_cli(args, workdir: str | None = None) -> str:
     """The port's CLIs on a full-width directory: scripts/torch/init_pipeline.py
     --size sd15 --dual --scheduler dpm++ writes one (7.70 GB, float32), then
     generate_hdr on a 512^2 and a 640x480 PNG (resized) at 4 steps and
     upconvert_hdrtv on one 1024^2 PNG at 2 steps read it; every PNG and
     .hdr they write is read back, and the up-conversion's launches are
-    checked as phase hdrtv's. The directory is removed at the end."""
+    checked as phase hdrtv's. The directory is written under ``workdir``
+    and left there for phase train_cli (its path is returned), or, without
+    ``workdir``, under a temporary directory removed at the end."""
     import shutil
 
     import numpy as np
@@ -2498,7 +2519,7 @@ def phase_cli(args) -> None:
     from gmdx_torch.io.png import read_png, write_png
     from gmdx_torch.kernels import launch_counts, reset_launch_counts
 
-    tmp = tempfile.mkdtemp(prefix="gmdx_cli_")
+    tmp = workdir or tempfile.mkdtemp(prefix="gmdx_cli_")
     try:
         pipe_dir, out = os.path.join(tmp, "pipe"), os.path.join(tmp, "out")
         t0 = time.perf_counter()
@@ -2580,8 +2601,325 @@ def phase_cli(args) -> None:
             raise SystemExit(f"chip_smoke: upconvert_hdrtv launched flash_attention_bsc "
                              f"{counts['flash_attention_bsc']} times in {n_iter} iterations and "
                              f"the 512-wide flash forward {counts['flash_attention_fwd_d512']}")
+        shutil.rmtree(out, ignore_errors=True)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if workdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return pipe_dir
+
+
+TRAIN_CLI_PAIRS = 24
+TRAIN_CLI_BATCH = 8
+# Resume: C's step-20 window loss against B's; remat: the gradient norm.
+TRAIN_CLI_LOSS_RTOL = 1e-3
+TRAIN_CLI_REMAT_RTOL = 1e-3
+RESUME_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd")
+
+
+def _train_cli_data(root: str, seed: int) -> tuple[str, str]:
+    """24 pairs of 600x800 SDR PNGs on disk and gain-map PNG bytes with
+    captions, in one parquet written by the port; one 512^2 validation
+    PNG. Returns (parquet, validation directory)."""
+    import numpy as np
+
+    from gmdx_torch.data import write_parquet_dataset
+    from gmdx_torch.io.png import encode_png, write_png
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:600, 0:800]
+    os.makedirs(os.path.join(root, "sdr"))
+    os.makedirs(os.path.join(root, "val"))
+    paths, gms, texts = [], [], []
+    for i in range(TRAIN_CLI_PAIRS):
+        base = np.stack([np.sin(x / (13 + 3 * c + i) + y / (19 + i)) for c in range(3)], -1)
+        sdr = np.clip(base * 90 + 128 + rng.integers(-4, 4, (600, 800, 3)), 0, 255)
+        paths.append(os.path.join(root, "sdr", f"{i}.png"))
+        write_png(paths[-1], sdr.astype(np.uint8))
+        gm = np.clip(np.abs(base) * 200 + rng.integers(0, 8, (600, 800, 3)), 0, 255)
+        gms.append(encode_png(gm.astype(np.uint8)))
+        texts.append(f"a high dynamic range photograph, scene {i}")
+    write_png(os.path.join(root, "val", "v0.png"),
+              rng.integers(0, 256, (512, 512, 3)).astype(np.uint8))
+    meta = os.path.join(root, "train.parquet")
+    write_parquet_dataset(meta, paths, gms, texts)
+    return meta, os.path.join(root, "val")
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def phase_train_cli(args, pipe_dir: str, train_launches: dict[str, int]) -> None:
+    """The Stage-2 trainer CLI (scripts/torch/train_gm_unet.py) at full
+    SD-1.5 width on phase cli's sd15 directory, whose 4-channel unet takes
+    the 4->8 conv_in inflation. 24 pairs of 600x800 PNGs (resized by the
+    port's BILINEAR) in a parquet written by the port.
+      A: the parquet path, batch 8, 512^2, --random_flip --use_ema,
+         6 steps, checkpoints at 3 and 6 (asynchronous), one validation
+         image each epoch (3 steps): losses finite, checkpoint_3 and
+         checkpoint_6 written, the saved unet 8-channel and equal to the
+         EMA shadow bit for bit, the validation GM PNG and .hdr finite at
+         512^2; the loader's s/batch alone, s/step, checkpoint s and GB,
+         validation and save_pipeline s, peak memory.
+      B / C: the cached path (precompute_latents.py's npz, --center_crop),
+         batch 8: B 20 steps; C 10 steps with a checkpoint, then
+         --resume_from_checkpoint latest to 20. C restores the bits it saved
+         (parameters, moments, count, EMA, global step: the digests), B's
+         launches a step of the training kernels equal phase train's, and
+         C's step-20 window loss is within TRAIN_CLI_LOSS_RTOL of B's.
+      remat: one cached step with --gradient_checkpointing's UNet and one
+         without, same batch and generator: the same loss, gradient norms
+         within TRAIN_CLI_REMAT_RTOL; peak memory of each and of a remat
+         step at batch 16 (reported)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import gmdx_torch.io as gio
+    import gmdx_torch.train as gtrain
+    from gmdx_torch.data import ParquetImageDataset, make_dataloader
+    from gmdx_torch.io import read_hdr
+    from gmdx_torch.io.convert import unet_state_dict_from_flax
+    from gmdx_torch.io.params import load_params
+    from gmdx_torch.io.png import read_png
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.models import CLIPTokenizer
+    from gmdx_torch.train.checkpoint import state_tensors, tensor_digest
+
+    root = os.path.join(os.path.dirname(pipe_dir), "train_cli")
+    os.makedirs(root)
+    t_phase = t0 = time.perf_counter()
+    meta, val_dir = _train_cli_data(root, args.seed + 70)
+    data_s = time.perf_counter() - t0
+    tok = CLIPTokenizer.from_pretrained(os.path.join(pipe_dir, "tokenizer"))
+    loader = make_dataloader(ParquetImageDataset(meta), tok, batch_size=TRAIN_CLI_BATCH,
+                             resolution=512, random_flip=True, seed=args.seed, num_epochs=1)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    loader_s_batch = (time.perf_counter() - t0) / n_batches
+
+    trainer = _script("train_gm_unet")
+    spans: dict[str, list] = {}
+    step_losses: list[float] = []
+    originals = (gtrain.make_train_step, gtrain.save_state, gio.save_pipeline,
+                 trainer.log_validation, gtrain.restore_state, trainer.load_training_unet)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    def make_step(*a, **kw):
+        step = timed("step", originals[0](*a, **kw))
+
+        def run(state, batch, gen):
+            state, m = step(state, batch, gen)
+            step_losses.append(float(m["loss"]))
+            return state, m
+        return run
+
+    def run_cli(argv):
+        spans.clear()
+        step_losses.clear()
+        gtrain.make_train_step, gtrain.save_state = make_step, timed("checkpoint", originals[1])
+        gio.save_pipeline = timed("save_pipeline", originals[2])
+        trainer.log_validation = timed("validation", originals[3])
+        gtrain.restore_state = timed("restore", originals[4])
+        trainer.load_training_unet = timed("unet_load", originals[5])
+        try:
+            t = time.perf_counter()
+            res = trainer.main(["--pretrained_model_name_or_path", pipe_dir, "--train_metadata",
+                                meta, "--resolution", "512", "--train_batch_size",
+                                str(TRAIN_CLI_BATCH), "--seed", str(args.seed),
+                                "--report_to", "tensorboard"] + argv)
+            torch.cuda.synchronize()
+            res["wall_s"] = time.perf_counter() - t
+        finally:
+            (gtrain.make_train_step, gtrain.save_state, gio.save_pipeline,
+             trainer.log_validation, gtrain.restore_state,
+             trainer.load_training_unet) = originals
+        res["spans"], res["step_losses"] = dict(spans), list(step_losses)
+        return res
+
+    try:
+        # A: the parquet path.
+        out_a = os.path.join(root, "a")
+        torch.cuda.reset_peak_memory_stats()
+        a = run_cli(["--output_dir", out_a, "--mixed_precision", "no", "--random_flip",
+                     "--use_ema", "--max_train_steps", "6", "--checkpointing_steps", "3",
+                     "--async_checkpointing", "--validation_image_dir", val_dir,
+                     "--validation_epochs", "1"])
+        peak_a = torch.cuda.max_memory_allocated() / 1e9
+        step_s = a["spans"]["step"][1:]
+        ckpt_gb = _dir_gb(os.path.join(out_a, "checkpoint_3"))
+        saved = os.path.join(out_a, "save_pipeline", "unet")
+        with open(os.path.join(saved, "config.json")) as f:
+            in_channels = json.load(f)["in_channels"]
+        sd = unet_state_dict_from_flax(load_params(os.path.join(saved, "params.safetensors")))
+        names = [n for n, p in a["state"].unet.named_parameters() if p.requires_grad]
+        not_shadow = [n for n, s in zip(names, a["state"].ema.shadow)
+                      if not torch.equal(torch.as_tensor(sd[n]), s.cpu())]
+        val_files = {}
+        for name in ("gm_step6_0.png", "hdr_step6_0.hdr"):
+            path = os.path.join(out_a, "validation", name)
+            arr = read_hdr(path) if name.endswith(".hdr") else read_png(path)
+            val_files[name] = (list(arr.shape), bool(np.isfinite(arr).all()))
+        ckpts = sorted(n for n in os.listdir(out_a) if n.startswith("checkpoint"))
+        emit({"phase": "train_cli", "run": "A", "elapsed_s": time.perf_counter() - t_phase,
+              "pairs": TRAIN_CLI_PAIRS, "data_s": data_s,
+              "loader_s_per_batch": loader_s_batch, "wall_s": a["wall_s"],
+              "step_s": a["spans"]["step"], "s_per_step_2_6": float(np.mean(step_s)),
+              "samples_per_s": TRAIN_CLI_BATCH / float(np.mean(step_s)),
+              "unet_load_s": a["spans"]["unet_load"],
+              "checkpoint_call_s": a["spans"]["checkpoint"], "checkpoint_gb": ckpt_gb,
+              "validation_s": a["spans"]["validation"],
+              "save_pipeline_s": a["spans"]["save_pipeline"], "peak_mem_gb": peak_a,
+              "losses": a["step_losses"], "checkpoints": ckpts, "unet_in_channels": in_channels,
+              "unet_not_ema": len(not_shadow), "validation_files": val_files})
+        want_val = {k: ([512, 512, 3], True) for k in val_files}
+        if (not all(math.isfinite(v) for v in a["step_losses"]) or len(a["step_losses"]) != 6
+                or ckpts != ["checkpoint_3", "checkpoint_6"] or in_channels != 8 or not_shadow
+                or val_files != want_val):
+            raise SystemExit(f"chip_smoke: train_cli run A failed its checks: losses "
+                             f"{a['step_losses']}, checkpoints {ckpts}, in_channels "
+                             f"{in_channels}, {len(not_shadow)} tensors not the EMA shadow, "
+                             f"validation {val_files}")
+        del a, sd
+        shutil.rmtree(out_a, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # The latent cache, then B and C on it.
+        npz = os.path.join(root, "latents.npz")
+        t = time.perf_counter()
+        built = _script("precompute_latents").main([
+            "--train_metadata", meta, "--pretrained_model_name_or_path", pipe_dir,
+            "--resolution", "512", "--out", npz, "--batch", str(TRAIN_CLI_BATCH)])
+        cache_s = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        cached = ["--latent_cache_path", npz, "--center_crop", "--use_ema"]
+        reset_launch_counts()
+        b = run_cli(cached + ["--output_dir", os.path.join(root, "b"), "--max_train_steps", "20",
+                              "--checkpointing_steps", "100"])
+        per_step = {k: launch_counts()[k] / 20 for k in RESUME_KERNELS}
+        want_per_step = {k: train_launches[k] / (2 + args.train_steps) for k in RESUME_KERNELS}
+        b_loss, b_digest = b["losses"][20], tensor_digest(state_tensors(b["state"])[0])
+        b_step_s = float(np.median(b["spans"]["step"][1:]))
+        b_wall_s = b["wall_s"]
+        del b
+        torch.cuda.empty_cache()
+        out_c = os.path.join(root, "c")
+        c1 = run_cli(cached + ["--output_dir", out_c, "--max_train_steps", "10",
+                               "--checkpointing_steps", "10"])
+        c1_saved = c1["saved_digests"].get(10)
+        c1_ckpt_s, c1_wall_s = c1["spans"]["checkpoint"], c1["wall_s"]
+        del c1
+        torch.cuda.empty_cache()
+        c2 = run_cli(cached + ["--output_dir", out_c, "--max_train_steps", "20",
+                               "--checkpointing_steps", "100", "--resume_from_checkpoint",
+                               "latest"])
+        c_loss, c_restore_s = c2["losses"].get(20), c2["spans"].get("restore")
+        rel = abs(c_loss - b_loss) / abs(b_loss) if c_loss is not None else math.inf
+        c2_digest = tensor_digest(state_tensors(c2["state"])[0])
+        emit({"phase": "train_cli", "run": "B/C", "elapsed_s": time.perf_counter() - t_phase,
+              "c1_wall_s": c1_wall_s, "cache_build_s": cache_s,
+              "cache_s_per_sample": cache_s / built["samples"], "cache_mb": built["mb"],
+              "b_wall_s": b_wall_s, "b_s_per_step": b_step_s,
+              "b_samples_per_s": TRAIN_CLI_BATCH / b_step_s,
+              "train_phase_samples_per_s": args.train_samples_per_s,
+              "train_phase_batch": args.train_batch, "c_resume_wall_s": c2["wall_s"],
+              "c_checkpoint_call_s": c1_ckpt_s, "c_restore_s": c_restore_s,
+              "restored_equals_saved":
+              c2["restored_digest"] == c1_saved, "resumed_from": c2["start_step"],
+              "b_loss_20": b_loss, "c_loss_20": c_loss, "loss_rel_diff": rel,
+              "final_state_bit_identical": c2_digest == b_digest,
+              "launches_per_step": per_step, "train_phase_per_step": want_per_step})
+        if not (c1_saved is not None and c2["restored_digest"] == c1_saved
+                and c2["start_step"] == 10 and c2["global_step"] == 20):
+            raise SystemExit(f"chip_smoke: train_cli resume did not restore the saved state: "
+                             f"saved {c1_saved}, restored {c2['restored_digest']}, from step "
+                             f"{c2['start_step']}")
+        if per_step != want_per_step:
+            raise SystemExit(f"chip_smoke: train_cli launches a step {per_step}, phase train's "
+                             f"{want_per_step}")
+        if not rel <= TRAIN_CLI_LOSS_RTOL:
+            raise SystemExit(f"chip_smoke: train_cli resumed step-20 loss {c_loss} against "
+                             f"{b_loss} (rel {rel})")
+        del c2
+        torch.cuda.empty_cache()
+        phase_train_cli_remat(args, pipe_dir, npz, trainer)
+        emit({"phase": "train_cli", "elapsed_s": time.perf_counter() - t_phase})
+    finally:
+        (gtrain.make_train_step, gtrain.save_state, gio.save_pipeline,
+         trainer.log_validation, gtrain.restore_state, trainer.load_training_unet) = originals
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_cli_remat(args, pipe_dir: str, npz: str, trainer) -> None:
+    """One cached step of the trainer's UNet with and without
+    --gradient_checkpointing (train_gm_unet.load_training_unet), same batch
+    and generator seed: loss and gradient norm, peak memory over the step
+    and up to the optimizer update (forward and backward alone), and the
+    forward launches; then a remat step at batch 16 (memory reported)."""
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io import load_pipeline
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.train import Stage2Config, init_state, make_train_step
+
+    dev = torch.device("cuda")
+    bundle = load_pipeline(pipe_dir, device=dev, components=("vae", "text_encoder"))
+    with np.load(npz) as z:
+        cache = {k: z[k] for k in z.files if not k.startswith("__")}
+
+    def batch(n):
+        idx = np.arange(n) % len(cache["input_ids"])
+        return {k: torch.from_numpy(v[idx]).to(dev) for k, v in cache.items()}
+
+    rows, unet = {}, None
+    for name, remat, n in (("plain", False, 8), ("remat", True, 8), ("remat_b16", True, 16)):
+        if unet is None or unet.remat != remat:  # batch 16 reuses the remat UNet
+            unet = None
+            unet = trainer.load_training_unet(pipe_dir, dev, remat)
+        config = Stage2Config(learning_rate=1e-5)
+        step = make_train_step(config, unet=unet, vae=bundle["modules"]["vae"],
+                               text_encoder=bundle["modules"]["text_encoder"], device=dev)
+        state = init_state(config, unet)
+        data = batch(n)
+        update = state.optimizer.step
+        peaks = {}
+
+        def update_after_peak(*a, **kw):
+            peaks["fwd_bwd"] = torch.cuda.max_memory_allocated() / 1e9
+            return update(*a, **kw)
+
+        state.optimizer.step = update_after_peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 80)
+        t = time.perf_counter()
+        state, m = step(state, data, gen)
+        torch.cuda.synchronize()
+        rows[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "step_s": time.perf_counter() - t,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "fwd_bwd_peak_gb": peaks["fwd_bwd"],
+                      "launches": {k: v for k, v in launch_counts().items() if v}}
+        del step, state, data, m
+        torch.cuda.empty_cache()
+    rel = abs(rows["remat"]["grad_norm"] - rows["plain"]["grad_norm"]) / rows["plain"]["grad_norm"]
+    emit({"phase": "train_cli", "run": "remat", **{k: v for k, v in rows.items()},
+          "grad_norm_rel_diff": rel})
+    if rows["remat"]["loss"] != rows["plain"]["loss"] or not rel <= TRAIN_CLI_REMAT_RTOL:
+        raise SystemExit(f"chip_smoke: remat step {rows['remat']} against plain "
+                         f"{rows['plain']} (grad norm rel {rel})")
 
 
 def main() -> int:
@@ -2627,7 +2965,14 @@ def main() -> int:
     phase_stage1_e2e_controls(args)
     phase_samplers(args)
     phase_samplers_e2e(args)
-    phase_cli(args)
+    workdir = tempfile.mkdtemp(prefix="gmdx_cli_")
+    try:
+        pipe_dir = phase_cli(args, workdir)
+        phase_train_cli(args, pipe_dir, train_launches)
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():

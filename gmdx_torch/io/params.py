@@ -6,8 +6,9 @@ Counterpart of ``gmdx/io/params.py``, without the ``safetensors`` package
 header length, a JSON header mapping each key to its ``dtype``, ``shape``
 and ``data_offsets`` (byte range in the buffer; an optional
 ``__metadata__`` of strings), padded with spaces to a multiple of 8, then
-the raw little-endian buffer. The writer writes F32, F16, I32 and I64; the
-reader also takes BF16 (into ``torch.bfloat16``). Any other dtype raises.
+the raw little-endian buffer. The writer writes F32, F16, I32 and I64, and
+BF16 from ``torch.bfloat16`` tensors; the reader takes the same (BF16 into
+``torch.bfloat16``). Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -47,18 +48,22 @@ def unflatten_tree(flat: dict[str, Any], sep: str = "/") -> dict:
     return tree
 
 
-def _as_numpy(key: str, value) -> np.ndarray:
+def _as_numpy(key: str, value) -> tuple[np.ndarray, str]:
+    """(little-endian C-contiguous array, safetensors dtype); a bfloat16
+    tensor's bits come as uint16."""
+    name = None
     if isinstance(value, torch.Tensor):
         value = value.detach().cpu()
         if value.dtype == torch.bfloat16:
-            raise ValueError(f"{key}: write bfloat16 as float32 (the writer takes F32, F16, "
-                             f"I32, I64)")
+            value, name = value.view(torch.int16), "BF16"
         value = value.numpy()
     arr = np.asarray(value)
-    if arr.dtype not in _WRITABLE:
-        raise ValueError(f"{key}: dtype {arr.dtype} not writable (F32, F16, I32, I64)")
+    if name is None:
+        if arr.dtype not in _WRITABLE:
+            raise ValueError(f"{key}: dtype {arr.dtype} not writable (F32, F16, I32, I64, BF16)")
+        name = _WRITABLE[arr.dtype]
     out = np.asarray(arr, dtype=arr.dtype.newbyteorder("<"))
-    return out if out.flags.c_contiguous else out.copy(order="C")  # keeps 0-d shapes
+    return (out if out.flags.c_contiguous else out.copy(order="C")), name  # keeps 0-d shapes
 
 
 def save_file(tensors: dict[str, Any], path: str) -> None:
@@ -68,10 +73,10 @@ def save_file(tensors: dict[str, Any], path: str) -> None:
     # Wider dtypes first, as the safetensors package orders them, so that
     # every buffer starts aligned to its element size.
     arrays = dict(sorted(((k, _as_numpy(k, v)) for k, v in tensors.items()),
-                         key=lambda kv: (-kv[1].itemsize, kv[0])))
+                         key=lambda kv: (-kv[1][0].itemsize, kv[0])))
     offset = 0
-    for k, a in arrays.items():
-        header[k] = {"dtype": _WRITABLE[a.dtype.newbyteorder("=")], "shape": list(a.shape),
+    for k, (a, name) in arrays.items():
+        header[k] = {"dtype": name, "shape": list(a.shape),
                      "data_offsets": [offset, offset + a.nbytes]}
         offset += a.nbytes
     raw = json.dumps(header, separators=(",", ":")).encode()
@@ -79,17 +84,23 @@ def save_file(tensors: dict[str, Any], path: str) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for a in arrays.values():
+        for a, _ in arrays.values():
             f.write(a.reshape(-1).data)
 
 
-def load_file(path: str) -> dict[str, Any]:
+def load_file(path: str, pin_memory: bool = False) -> dict[str, Any]:
     """Read a safetensors file: {key: numpy array}, BF16 entries as
-    ``torch.bfloat16`` tensors. An unknown dtype raises, naming the key."""
+    ``torch.bfloat16`` tensors. An unknown dtype raises, naming the key.
+    With ``pin_memory`` the arrays are views of one pinned buffer, so that
+    copies of them to the card run at the link's rate."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        buf = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        size = os.fstat(f.fileno()).st_size - 8 - n
+        if pin_memory:
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True).numpy()
+        else:
+            buf = bytearray(size)
         f.readinto(buf)
     out = {}
     for key, info in header.items():

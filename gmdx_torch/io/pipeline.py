@@ -21,7 +21,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any
+import shutil
+from typing import Any, Sequence
 
 import torch
 from torch import nn
@@ -56,9 +57,6 @@ _COMPONENTS = {
                         convert.controlnet_state_dict_from_flax,
                         to_flax.convert_controlnet_state_dict),
 }
-# Config fields of the JAX package's dataclasses that the port's lack and
-# that inference does not read (gradient checkpointing).
-_IGNORED_FIELDS = ("remat",)
 _SCHEDULER_NAMES = {
     "DDPMScheduler": "ddpm",
     "DDIMScheduler": "ddim",
@@ -84,16 +82,13 @@ def _read_json(path: str):
 
 
 def _config(cls, cfg: dict):
-    """A config dataclass from its JSON: lists become tuples, the JAX-only
-    fields go."""
+    """A config dataclass from its JSON: lists become tuples."""
     fields = {f.name for f in dataclasses.fields(cls)}
-    unknown = set(cfg) - fields - set(_IGNORED_FIELDS)
+    unknown = set(cfg) - fields
     if unknown:
         raise ValueError(f"{cls.__name__}: unknown config fields {sorted(unknown)}")
     kw = {}
     for k, v in cfg.items():
-        if k not in fields:
-            continue
         if k == "unet":
             v = _config(UNetConfig, v)
         kw[k] = tuple(v) if isinstance(v, list) else v
@@ -147,14 +142,22 @@ def save_scheduler(dirpath: str, scheduler) -> None:
 
 def save_pipeline(
     path: str, *, components: dict[str, nn.Module], tokenizer: CLIPTokenizer | None = None,
-    scheduler=None,
+    scheduler=None, copy_from: dict[str, str] | None = None,
 ) -> None:
     """``components`` maps a subdirectory name ("unet", "gm_unet", "vae",
-    "text_encoder", "controlnet") to one of the port's models."""
+    "text_encoder", "controlnet") to one of the port's models;
+    ``copy_from`` maps further names to component directories copied as
+    they are (a frozen component keeps its stored float32 weights, which a
+    copy on the card holds only in bfloat16)."""
     os.makedirs(path, exist_ok=True)
-    index = {"components": sorted(components)}
+    copy_from = dict(copy_from or {})
+    index = {"components": sorted(set(components) | set(copy_from))}
     for name, module in components.items():
         save_component(os.path.join(path, name), module)
+    for name, src in copy_from.items():
+        dst = os.path.join(path, name)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src, dst)
     if tokenizer is not None:
         save_tokenizer(os.path.join(path, "tokenizer"), tokenizer)
         index["components"].append("tokenizer")
@@ -164,10 +167,12 @@ def save_pipeline(
     _write_json(os.path.join(path, "model_index.json"), index)
 
 
-def load_component(dirpath: str, *, device: str | torch.device = "cuda") -> nn.Module:
+def load_component(dirpath: str, *, device: str | torch.device = "cuda",
+                   dtype: torch.dtype | None = None) -> nn.Module:
     """The model of one component directory, its weights carried from the
     Flax tree (``strict=True``), in eval mode on ``device``: bfloat16 on the
-    card (the kernels' type), float32 on the CPU."""
+    card (the kernels' type), float32 on the CPU, unless ``dtype`` says
+    otherwise (a trainer's float32 master weights)."""
     dev = resolve_device(device)
     cfg = _read_json(os.path.join(dirpath, "config.json"))
     name = cfg.pop("_class_name")
@@ -178,7 +183,8 @@ def load_component(dirpath: str, *, device: str | torch.device = "cuda") -> nn.M
     if name not in _COMPONENTS:
         raise ValueError(f"unknown component class {name!r}")
     module_cls, config_cls, to_state_dict, _ = _COMPONENTS[name]
-    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     tree = load_params(os.path.join(dirpath, "params.safetensors"))
     sd = to_state_dict(_to_device(tree, dev, dtype))
     with torch.device("meta"):
@@ -192,12 +198,16 @@ def load_scheduler(dirpath: str):
     return get_scheduler(_SCHEDULER_NAMES[cfg.pop("_class_name")], **cfg)
 
 
-def load_pipeline(path: str, *, device: str | torch.device = "cuda") -> dict[str, Any]:
-    """Every component present: {"modules": {name: model}, "tokenizer":
-    ..., "scheduler": ...} (None where absent)."""
+def load_pipeline(path: str, *, device: str | torch.device = "cuda",
+                  components: Sequence[str] | None = None) -> dict[str, Any]:
+    """Every component present, or those named in ``components``:
+    {"modules": {name: model}, "tokenizer": ..., "scheduler": ...} (None
+    where absent or not asked for)."""
     index = _read_json(os.path.join(path, "model_index.json"))
     out: dict[str, Any] = {"modules": {}, "tokenizer": None, "scheduler": None}
     for name in index["components"]:
+        if components is not None and name not in components:
+            continue
         sub = os.path.join(path, name)
         if name == "tokenizer":
             out["tokenizer"] = CLIPTokenizer.from_pretrained(sub)

@@ -1,4 +1,5 @@
-"""PNG decode and encode, and PIL's BICUBIC resize, in numpy and ``zlib``.
+"""PNG decode and encode, and PIL's BICUBIC and BILINEAR resizes, in numpy
+and ``zlib``.
 
 The port reads and writes PNGs itself: the card's machine has no PIL. The
 reader takes bit depth 8 grey, grey + alpha, RGB, RGBA and palette images
@@ -8,11 +9,14 @@ grey replicated, palette looked up, and of a 16-bit sample the high byte (as
 PIL's ``RGB;16B`` unpacker keeps it), plain or Adam7-interlaced. The writer
 writes 8-bit RGB, each scanline unfiltered.
 
-:func:`resize_bicubic` is PIL's ``Image.resize(..., BICUBIC)`` on uint8
-images, bit for bit: separable with a = -0.5, the support widened by the
-downscale factor, coefficients normalised per output sample and held in
-fixed point with 22 fraction bits, each pass rounded and clipped to uint8,
-the horizontal pass first.
+:func:`resize_bicubic` and :func:`resize_bilinear` are PIL's
+``Image.resize(..., BICUBIC)`` and ``(..., BILINEAR)`` on uint8 images, bit
+for bit: separable (cubic with a = -0.5, or the triangle), the support
+widened by the downscale factor, coefficients normalised per output sample
+and held in fixed point with 22 fraction bits (``normalize_coeffs_8bpc``),
+each pass rounded and clipped to uint8, the horizontal pass first, and an
+axis whose size does not change left as it is (PIL copies an image whose
+size does not change).
 """
 
 from __future__ import annotations
@@ -155,13 +159,23 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for BICUBIC:
-    (first input index (out,), fixed-point weights (out, ksize)), the
-    weights past each sample's span 0."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# filter -> (function, support at scale 1), as PIL's ``filters`` table.
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    filter ``kind``: (first input index (out,), fixed-point weights (out,
+    ksize)), the weights past each sample's span 0."""
+    fn, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     ss = 1.0 / filterscale
@@ -170,7 +184,7 @@ def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     k = np.zeros((out_size, ksize))
     ww = np.zeros(out_size)
     for x in range(ksize):  # a running sum in tap order, as PIL's loop
-        w = np.where(x < xmax, _bicubic(((x + xmin) - center + 0.5) * ss), 0.0)
+        w = np.where(x < xmax, fn(((x + xmin) - center + 0.5) * ss), 0.0)
         k[:, x] = w
         ww = ww + w
     k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None], k)
@@ -179,12 +193,15 @@ def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     return xmin, fixed.astype(np.int64)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit pass along ``axis`` (0 rows, 1 columns) of uint8 (H, W, C)."""
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    """One 8-bit pass along ``axis`` (0 rows, 1 columns) of uint8 (H, W, C).
+    The sums fit int32, as PIL's do: at most 255 times the positive taps'
+    total (under 1.2 x 2^22) plus the rounding half."""
     in_size = img.shape[axis]
-    xmin, k = _coeffs(in_size, out_size)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    xmin, k = _coeffs(in_size, out_size, kind)
+    k = k.astype(np.int32)
+    src = np.ascontiguousarray(np.moveaxis(img, axis, 0)).astype(np.int32)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
     tail = (1,) * (src.ndim - 1)
     for x in range(k.shape[1]):
         idx = np.minimum(xmin + x, in_size - 1)
@@ -193,14 +210,24 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """uint8 (H, W, C) -> (height, width, C), as PIL's BICUBIC resize."""
+def _resize(img: np.ndarray, height: int, width: int, kind: str) -> np.ndarray:
     img = np.asarray(img, np.uint8)
     if img.shape[1] != width:
-        img = _resample_axis(img, width, 1)
+        img = _resample_axis(img, width, 1, kind)
     if img.shape[0] != height:
-        img = _resample_axis(img, height, 0)
+        img = _resample_axis(img, height, 0, kind)
     return img
 
 
-__all__ = ["decode_png", "read_png", "encode_png", "write_png", "resize_bicubic"]
+def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """uint8 (H, W, C) -> (height, width, C), as PIL's BICUBIC resize."""
+    return _resize(img, height, width, "bicubic")
+
+
+def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """uint8 (H, W, C) -> (height, width, C), as PIL's BILINEAR resize."""
+    return _resize(img, height, width, "bilinear")
+
+
+__all__ = ["decode_png", "read_png", "encode_png", "write_png", "resize_bicubic",
+           "resize_bilinear"]

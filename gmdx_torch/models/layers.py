@@ -37,6 +37,7 @@ import weakref
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gmdx_torch.kernels import needs_grad
@@ -91,6 +92,19 @@ def set_kernel_options(
                             ("winograd_m", winograd_m)):
             if hasattr(m, name):
                 setattr(m, name, value)
+
+
+def remat_call(module: nn.Module, enabled: bool, *args):
+    """``module(*args)``; with ``enabled`` and while a graph is being built,
+    its activations are not kept but recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant): the counterpart of flax's
+    ``nn.remat`` on a block. The recompute runs the block's forward again,
+    its kernels included. The blocks draw no random numbers, so the RNG
+    state is not stashed."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return module(*args)
 
 
 def timestep_embedding(

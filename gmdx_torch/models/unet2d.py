@@ -28,6 +28,7 @@ from gmdx_torch.models.layers import (
     Transformer2D,
     Upsample2D,
     conv2d_nhwc,
+    remat_call,
     timestep_embedding,
 )
 
@@ -56,6 +57,10 @@ class UNetConfig:
     sample_size: int = 64
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # Gradient checkpointing: each ResnetBlock2D and Transformer2D recomputes
+    # its activations in the backward pass, while the model is in training
+    # mode (``gmdx/models/unet2d.py:62-66``).
+    remat: bool = False
 
 
 SD15_UNET_CONFIG = UNetConfig()
@@ -124,9 +129,10 @@ class _UNetEncoder(nn.Module):
     """conv_in, the time embedding, the down blocks and the mid block: the
     part of the UNet that the ControlNet copies, under the same names."""
 
-    def __init__(self, cfg: UNetConfig, dtype: torch.dtype | None):
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype | None, remat: bool = False):
         super().__init__()
         self.compute_dtype = dtype
+        self.remat = remat
         chs = tuple(cfg.block_out_channels)
         temb_dim = chs[0] * 4
         n = len(chs)
@@ -162,6 +168,10 @@ class _UNetEncoder(nn.Module):
         ).to(dtype)
         return x, self.time_embedding(t_sin), context
 
+    def _block(self, module: nn.Module, *args):
+        """A resnet or transformer block, under remat while training."""
+        return remat_call(module, self.remat and self.training, *args)
+
     def _encode(self, h, temb, context):
         """Down blocks and mid block from ``conv_in``'s output ``h``: the mid
         state and the skips."""
@@ -169,22 +179,22 @@ class _UNetEncoder(nn.Module):
         for block in self.down_blocks:
             attns = getattr(block, "attentions", None)
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = self._block(resnet, h, temb)
                 if attns is not None:
-                    h = attns[j](h, context)
+                    h = self._block(attns[j], h, context)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
-        h = self.mid_block.resnets[1](h, temb)
+        h = self._block(self.mid_block.resnets[0], h, temb)
+        h = self._block(self.mid_block.attentions[0], h, context)
+        h = self._block(self.mid_block.resnets[1], h, temb)
         return h, skips
 
 
 class UNet2DConditionModel(_UNetEncoder):
     def __init__(self, config: UNetConfig = SD15_UNET_CONFIG, dtype: torch.dtype | None = None):
-        super().__init__(config, dtype)
+        super().__init__(config, dtype, remat=config.remat)
         cfg = self.config = config
         chs = tuple(cfg.block_out_channels)
         temb_dim = chs[0] * 4
@@ -231,9 +241,9 @@ class UNet2DConditionModel(_UNetEncoder):
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)
             for j, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = self._block(resnet, torch.cat([h, skips.pop()], dim=-1), temb)
                 if attns is not None:
-                    h = attns[j](h, context)
+                    h = self._block(attns[j], h, context)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 

@@ -25,6 +25,7 @@ from gmdx_torch.models.layers import (
     VAEAttention,
     conv1x1_nhwc,
     conv2d_nhwc,
+    remat_call,
 )
 
 
@@ -37,6 +38,9 @@ class VAEConfig:
     latent_channels: int = 4
     scaling_factor: float = 0.18215
     sample_size: int = 512
+    # Gradient checkpointing of each resnet and the mid attention while
+    # training, the UNet's granularity (``gmdx/models/vae.py:41-45``).
+    remat: bool = False
 
 
 SD15_VAE_CONFIG = VAEConfig()
@@ -73,8 +77,10 @@ class _VAEMidBlock(nn.Module):
         self.resnets = nn.ModuleList([ResnetBlock2D(ch, ch), ResnetBlock2D(ch, ch)])
         self.attentions = nn.ModuleList([VAEAttention(ch)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        for m in (self.resnets[0], self.attentions[0], self.resnets[1]):
+            x = remat_call(m, remat, x)
+        return x
 
 
 class _VAEUpBlock(nn.Module):
@@ -100,6 +106,7 @@ class _VAEDownBlock(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
+        self.remat = cfg.remat
         chs = tuple(cfg.block_out_channels)
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
@@ -114,19 +121,21 @@ class Encoder(nn.Module):
         self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NHWC in, NHWC moments out
+        remat = self.remat and self.training
         h = conv2d_nhwc(x, self.conv_in)
         for block in self.down_blocks:
             for resnet in block.resnets:
-                h = resnet(h)
+                h = remat_call(resnet, remat, h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
-        h = self.mid_block(h)
+        h = self.mid_block(h, remat)
         return conv2d_nhwc(self.conv_norm_out(h, activate=True), self.conv_out)
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
+        self.remat = cfg.remat
         rev = tuple(reversed(cfg.block_out_channels))
         n = len(rev)
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
@@ -142,10 +151,11 @@ class Decoder(nn.Module):
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:  # NHWC in, NHWC out
-        h = self.mid_block(conv2d_nhwc(z, self.conv_in))
+        remat = self.remat and self.training
+        h = self.mid_block(conv2d_nhwc(z, self.conv_in), remat)
         for block in self.up_blocks:
             for resnet in block.resnets:
-                h = resnet(h)
+                h = remat_call(resnet, remat, h)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
         return conv2d_nhwc(self.conv_norm_out(h, activate=True), self.conv_out)

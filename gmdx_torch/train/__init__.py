@@ -1,10 +1,25 @@
 """Training of the port (counterpart of ``gmdx.train``): Stage-1 VAE-LoRA +
 GAN training of the gain-map head, Stage-2 GM-UNet fine-tuning, their
-optimizer, schedules and EMA. The Stage-1 names live in
+optimizer, schedules and EMA, checkpoints (the port's own format), the
+latent cache and the metrics logger. The Stage-1 names live in
 ``gmdx_torch.train.stage1`` (``make_ema_step`` and ``init_state`` are the
 Stage-2 step's here)."""
 
+from gmdx_torch.train.checkpoint import (
+    CheckpointManager,
+    make_manager,
+    resolve_resume_step,
+    restore_state,
+    save_state,
+)
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_decay_for_step, ema_init, ema_update
+from gmdx_torch.train.latent_cache import (
+    compute_latent_cache,
+    latent_cache_fingerprint,
+    load_latent_cache,
+    save_latent_cache,
+)
+from gmdx_torch.train.metrics import MetricsLogger
 from gmdx_torch.train.optim import AdamW, MultiSteps, get_lr_schedule, make_adamw
 from gmdx_torch.train.stage2 import (
     Stage2Config,
@@ -17,6 +32,16 @@ from gmdx_torch.train.stage2 import (
 )
 
 __all__ = [
+    "CheckpointManager",
+    "make_manager",
+    "save_state",
+    "restore_state",
+    "resolve_resume_step",
+    "compute_latent_cache",
+    "save_latent_cache",
+    "load_latent_cache",
+    "latent_cache_fingerprint",
+    "MetricsLogger",
     "EMAConfig",
     "EMAState",
     "ema_decay_for_step",
