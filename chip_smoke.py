@@ -5,7 +5,8 @@
                                              # SDR->HDR batch 2 x 10 steps;
                                              # Stage 1 batch 1 x 2 pairs; the samplers;
                                              # both CLIs on a full-width directory;
-                                             # the Stage-2 trainer CLI on it
+                                             # the Stage-2, Stage-1 and ControlNet
+                                             # trainer CLIs on it
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
     python3 chip_smoke.py --hdrtv-steps 50 --profile
@@ -174,6 +175,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
      --gradient_checkpointing on the same cached batch and generator: the
      same loss, gradient norms within 1e-3; peak memory of each and of a
      remat step at batch 16.
+ 21. stage1_cli: the Stage-1 trainer CLI (scripts/torch/train_vqgan_lora.py)
+     on that directory's VAE at full width, 512^2, batch 4, --clip_pixel
+     --use_ema, on 24 pairs of 600x800 PNGs. A: 4 updates, checkpoints at
+     2 and 4, one validation PNG, --debug_mode: losses finite,
+     finetuned_VAE/vae read back equal to the EMA-merged VAE bit for bit,
+     discriminator/ read back at depth 6, hidden 512, equal to the run's,
+     the validation grid and .hdr and the debug strip finite at their
+     sizes. C: 2 updates, then --resume_from_checkpoint latest to 4: the
+     restored digest equals the saved one, C's step-4 loss within
+     TRAIN_CLI_LOSS_RTOL of A's, the resumed pair's launches equal phase
+     stage1's a pair at 512^2. Then 2 updates with
+     --gradient_accumulation_steps 2 (cadence gen, gen, discr, discr).
+     s/pair, pairs/s, the loader alone, checkpoint call and restore s and
+     GB, peak memory.
+ 22. controlnet_cli: the ControlNet trainer CLI
+     (scripts/torch/train_controlnet.py) on that directory, the ControlNet
+     copied from its UNet, 512^2, batch 4, --use_ema, the same pairs. A: 6
+     steps, asynchronous checkpoints at 3 and 6: losses finite,
+     controlnet/ read back at full width equal to the EMA shadow bit for
+     bit, every step's launches by the route rule (the frozen UNet's 6
+     down-block self-attentions on the KV-resident kernel, its 9 up-block
+     and the ControlNet's 6 on the flash forward and as many backwards;
+     conv3x3, both GroupNorm directions and the LN-fused FF launched; every
+     other kernel never). C: 3 steps, then a resume to 6: the restored
+     digest equals the saved one, C's step-6 loss within
+     TRAIN_CLI_LOSS_RTOL of A's. s/step, samples/s, checkpoint call and
+     restore s and GB, peak memory.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -2118,10 +2146,11 @@ def stage1_batch(b: int, side: int, gen):
             for k in ("pixel_values", "miss_pixel_values")}
 
 
-def phase_stage1(args) -> dict[str, int]:
+def phase_stage1(args) -> tuple[dict[str, int], dict[str, float]]:
     """Gen + disc step pairs at 512^2 (batch --stage1-batch, one warm-up and
     --stage1-steps timed pairs), then one pair at 1024^2, batch 1, the
-    shape that takes the 512-wide flash forward and backward."""
+    shape that takes the 512-wide flash forward and backward. Returns the
+    launches over the phase and those a pair at 512^2."""
     import statistics
 
     import torch
@@ -2189,7 +2218,8 @@ def phase_stage1(args) -> dict[str, int]:
                          f"at 1024^2 and none at 512^2")
     del state, vae, disc, trainables, gen_step, disc_step
     torch.cuda.empty_cache()
-    return counts
+    pairs_512 = runs[512]["timed_pairs"] + 1
+    return counts, {k: v / pairs_512 for k, v in runs[512]["launches"].items()}
 
 
 class _Recorder:
@@ -2706,14 +2736,7 @@ def phase_train_cli(args, pipe_dir: str, train_launches: dict[str, int]) -> None
                  trainer.log_validation, gtrain.restore_state, trainer.load_training_unet)
 
     def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spans.setdefault(name, []).append(time.perf_counter() - t)
-            return out
-        return run
+        return _traced(spans, name, fn)
 
     def make_step(*a, **kw):
         step = timed("step", originals[0](*a, **kw))
@@ -2922,6 +2945,364 @@ def phase_train_cli_remat(args, pipe_dir: str, npz: str, trainer) -> None:
                          f"{rows['plain']} (grad norm rel {rel})")
 
 
+# ---------------------------------------------------------------------------
+# phases 21 + 22: the Stage-1 and ControlNet trainer CLIs
+# ---------------------------------------------------------------------------
+
+TRAINER_CLI_BATCH = 4
+# Launches a ControlNet step at SD-1.5 width, by the route rule: the frozen
+# UNet's down blocks see no tensor that needs a gradient (2 self-attentions
+# at each of the 4096-, 1024- and 256-token levels: the KV-resident kernel);
+# its up blocks (3 a level) and the ControlNet's down blocks (2 a level) do
+# (the flash forward, then as many flash backwards); both mid blocks' 64
+# tokens take the plain path.
+CONTROLNET_STEP_ATTENTION = {"attention_kv_resident": 6, "flash_attention_fwd": 15,
+                             "flash_attention_bwd": 15}
+# The rest of the ControlNet step's kernels: the no-grad convs (VAE encode,
+# the UNet's down and mid blocks), both GroupNorm directions, the LN-fused
+# FF; every other kernel of the table stays off its path.
+CONTROLNET_STEP_KERNELS = ("conv3x3", "group_norm_silu", "group_norm_silu_bwd", "geglu_ff_ln")
+
+
+def _traced(spans: dict, name: str, fn, calls: list | None = None):
+    """``fn`` timed between synchronisations into ``spans[name]``; with
+    ``calls``, each call's launches are appended there too."""
+    import torch
+
+    from gmdx_torch.kernels import launch_counts
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        before, t = launch_counts(), time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spans.setdefault(name, []).append(time.perf_counter() - t)
+        if calls is not None:
+            after = launch_counts()
+            calls.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+    return run
+
+
+def _loader_s_per_batch(meta: str, pipe_dir: str, seed: int) -> float:
+    """The loader alone at 512^2, batch TRAINER_CLI_BATCH, one epoch."""
+    from gmdx_torch.data import ParquetImageDataset, make_dataloader
+    from gmdx_torch.models import CLIPTokenizer
+
+    tok = CLIPTokenizer.from_pretrained(os.path.join(pipe_dir, "tokenizer"))
+    loader = make_dataloader(ParquetImageDataset(meta), tok, batch_size=TRAINER_CLI_BATCH,
+                             resolution=512, random_flip=True, seed=seed, num_epochs=1)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n
+
+
+def phase_stage1_cli(args, pipe_dir: str, meta: str, val_dir: str, loader_s: float,
+                     per_pair_512: dict[str, float]) -> None:
+    """The Stage-1 trainer CLI (scripts/torch/train_vqgan_lora.py) at full
+    SD-1.5 VAE width on phase cli's directory (LoRA r = 64 + conv_out, the
+    Paella discriminator and VGG19 at random), 512^2, batch 4,
+    --clip_pixel --use_ema, on trainers' 24 pairs.
+      A: 4 updates (two gen + disc pairs), checkpoints at 2 and 4, one
+         validation PNG at 4, --debug_mode: losses finite; both
+         checkpoints; finetuned_VAE/vae read back at full width equal to
+         the EMA-merged VAE bit for bit; discriminator/ read back (depth 6,
+         hidden 512) equal to the run's; the validation grid and .hdr and
+         the debug strip finite at their sizes.
+      C: 2 updates, then --resume_from_checkpoint latest to 4: the restored
+         digest equals the saved one; C's step-4 loss within
+         TRAIN_CLI_LOSS_RTOL of A's; the resumed pair's launches equal phase
+         stage1's a pair at 512^2.
+      ga: 2 updates with --gradient_accumulation_steps 2: the cadence gen,
+         gen, discr, discr; losses finite.
+    Reports s/pair, pairs/s, the loader alone, checkpoint call and restore
+    s, the checkpoint's GB, peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import gmdx_torch.train as gtrain
+    import gmdx_torch.train.stage1 as gstage1
+    from gmdx_torch.io import load_component, read_hdr
+    from gmdx_torch.io.png import read_png
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.models import LoRAConfig
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(meta)
+    trainer = _script("train_vqgan_lora")
+    spans: dict[str, list] = {}
+    originals = (gstage1.make_gen_step, gstage1.make_disc_step, gtrain.save_state,
+                 gtrain.restore_state)
+
+    def run_cli(out, argv):
+        spans.clear()
+        gstage1.make_gen_step = lambda *a, **kw: _traced(spans, "gen", originals[0](*a, **kw))
+        gstage1.make_disc_step = lambda *a, **kw: _traced(spans, "disc", originals[1](*a, **kw))
+        gtrain.save_state = _traced(spans, "checkpoint", originals[2])
+        gtrain.restore_state = _traced(spans, "restore", originals[3])
+        try:
+            t = time.perf_counter()
+            res = trainer.main(["--pretrained_model_name_or_path", pipe_dir, "--train_metadata",
+                                meta, "--output_dir", out, "--resolution", "512",
+                                "--train_batch_size", str(TRAINER_CLI_BATCH), "--seed",
+                                str(args.seed), "--clip_pixel", "--use_ema", "--log_steps", "1",
+                                "--report_to", "tensorboard"] + argv)
+            torch.cuda.synchronize()
+            res["wall_s"] = time.perf_counter() - t
+        finally:
+            (gstage1.make_gen_step, gstage1.make_disc_step, gtrain.save_state,
+             gtrain.restore_state) = originals
+        res["spans"] = {k: list(v) for k, v in spans.items()}
+        return res
+
+    # A
+    out_a = os.path.join(root, "s1_a")
+    torch.cuda.reset_peak_memory_stats()
+    a = run_cli(out_a, ["--max_train_steps", "4", "--checkpointing_steps", "2",
+                        "--val_images_dir", val_dir, "--validation_steps", "4",
+                        "--debug_mode"])
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    pair_s = [g + d for g, d in zip(a["spans"]["gen"], a["spans"]["disc"])]
+    losses_a = {s: a["losses"][s] for s in sorted(a["losses"])}
+    ckpts = sorted(n for n in os.listdir(out_a) if n.startswith("checkpoint"))
+    ckpt_gb = _dir_gb(os.path.join(out_a, "checkpoint_2"))
+    state = a["state"]
+    with torch.no_grad():  # the CLI's LoRA: r = 64, alpha = 64
+        cfg = gstage1.Stage1Config(lora=LoRAConfig(rank=64, alpha=64.0))
+        want = gstage1.effective_vae_params(
+            cfg, trainer.load_training_vae(pipe_dir, torch.device("cuda"), False),
+            gstage1.trainables_like(state.trainables, state.ema.shadow))
+    saved_vae = load_component(os.path.join(out_a, "finetuned_VAE", "vae"), dtype=torch.float32)
+    not_ema = [k for k, v in saved_vae.state_dict().items()
+               if not torch.equal(v, want[k].detach().float())]
+    vae_width = list(saved_vae.config.block_out_channels)
+    disc = load_component(os.path.join(out_a, "discriminator"))
+    disc_ok = (disc.depth, disc.hidden_channels) == (6, 512) and all(
+        torch.equal(v, state.discriminator.state_dict()[k]) for k, v in disc.state_dict().items())
+    files = {}
+    for rel, shape in ((os.path.join("validation", "grid_step4_0.png"), [512, 1536, 3]),
+                       (os.path.join("validation", "hdr_step4_0.hdr"), [512, 512, 3]),
+                       (os.path.join("debug_train", "step_0_concat_image.png"),
+                        [4 * 512, 5 * 512, 3])):
+        arr = read_hdr(os.path.join(out_a, rel)) if rel.endswith(".hdr") else read_png(
+            os.path.join(out_a, rel))
+        files[rel] = (list(arr.shape) == shape and bool(np.isfinite(arr).all()), list(arr.shape))
+    emit({"phase": "stage1_cli", "run": "A", "wall_s": a["wall_s"], "batch": TRAINER_CLI_BATCH,
+          "gen_s": a["spans"]["gen"], "disc_s": a["spans"]["disc"], "pair_s": pair_s,
+          "s_per_pair": pair_s[-1], "pairs_per_s": 1.0 / pair_s[-1],
+          "loader_s_per_batch": loader_s, "checkpoint_call_s": a["spans"]["checkpoint"],
+          "checkpoint_gb": ckpt_gb, "peak_mem_gb": peak_a, "losses": losses_a,
+          "checkpoints": ckpts, "vae_width": vae_width, "vae_not_ema": len(not_ema),
+          "discriminator_ok": disc_ok, "files": files})
+    finite = all(math.isfinite(v) for row in a["metrics"] for v in row.values())
+    if not (finite and len(losses_a) == 4 and ckpts == ["checkpoint_2", "checkpoint_4"]
+            and vae_width == [128, 256, 512, 512] and not not_ema and disc_ok
+            and all(ok for ok, _ in files.values())):
+        raise SystemExit(f"chip_smoke: stage1_cli run A failed its checks: finite {finite}, "
+                         f"losses {losses_a}, checkpoints {ckpts}, VAE {vae_width} with "
+                         f"{len(not_ema)} tensors not the EMA merge, discriminator {disc_ok}, "
+                         f"files {files}")
+    del a, state, saved_vae, disc, want
+    shutil.rmtree(out_a, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # C
+    out_c = os.path.join(root, "s1_c")
+    c1 = run_cli(out_c, ["--max_train_steps", "2", "--checkpointing_steps", "2"])
+    saved = c1["saved_digests"].get(2)
+    del c1
+    reset_launch_counts()
+    c2 = run_cli(out_c, ["--max_train_steps", "4", "--checkpointing_steps", "100",
+                         "--resume_from_checkpoint", "latest"])
+    pair = launch_counts()
+    c_loss, a_loss = c2["losses"].get(4), losses_a[4]
+    rel = abs(c_loss - a_loss) / abs(a_loss) if c_loss is not None else math.inf
+    want_pair = {k: per_pair_512.get(k, 0) for k in pair}
+    emit({"phase": "stage1_cli", "run": "C", "c_resume_wall_s": c2["wall_s"],
+          "restore_s": c2["spans"].get("restore"), "restored_equals_saved":
+          c2["restored_digest"] == saved, "resumed_from": c2["start_step"],
+          "a_loss_4": a_loss, "c_loss_4": c_loss, "loss_rel_diff": rel,
+          "launches_per_pair": {k: v for k, v in pair.items() if v},
+          "stage1_phase_per_pair_512": {k: v for k, v in want_pair.items() if v}})
+    if not (saved is not None and c2["restored_digest"] == saved and c2["start_step"] == 2
+            and c2["global_step"] == 4):
+        raise SystemExit(f"chip_smoke: stage1_cli resume did not restore the saved state: "
+                         f"saved {saved}, restored {c2['restored_digest']}")
+    if not rel <= TRAIN_CLI_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: stage1_cli resumed step-4 loss {c_loss} against "
+                         f"{a_loss} (rel {rel})")
+    if pair != want_pair:
+        raise SystemExit(f"chip_smoke: stage1_cli launches a pair {pair}, phase stage1's at "
+                         f"512^2 {want_pair}")
+    del c2
+    shutil.rmtree(out_c, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # gradient accumulation
+    g = run_cli(os.path.join(root, "s1_ga"), ["--max_train_steps", "2",
+                                              "--gradient_accumulation_steps", "2",
+                                              "--checkpointing_steps", "100"])
+    cadence = [c[1] for c in g["cadence"]]
+    ga_finite = all(math.isfinite(v) for row in g["metrics"] for v in row.values())
+    emit({"phase": "stage1_cli", "run": "ga2", "wall_s": g["wall_s"], "cadence": cadence,
+          "losses": g["losses"], "global_step": g["global_step"],
+          "elapsed_s": time.perf_counter() - t_phase})
+    if cadence != ["gen", "gen", "discr", "discr"] or g["global_step"] != 2 or not ga_finite:
+        raise SystemExit(f"chip_smoke: stage1_cli ga 2 run: cadence {cadence}, global step "
+                         f"{g['global_step']}, losses {g['losses']}")
+    del g
+    shutil.rmtree(os.path.join(root, "s1_ga"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_controlnet_cli(args, pipe_dir: str, meta: str, loader_s: float) -> None:
+    """The ControlNet trainer CLI (scripts/torch/train_controlnet.py) at full
+    SD-1.5 width on phase cli's directory: the ControlNet copied from its
+    4-channel UNet, 512^2, batch 4, --use_ema, on trainers' 24 pairs.
+      A: 6 steps, asynchronous checkpoints at 3 and 6: losses finite; both
+         checkpoints; controlnet/ read back at full width equal to the EMA
+         shadow bit for bit; every step's launches by the route rule
+         (CONTROLNET_STEP_ATTENTION exactly, CONTROLNET_STEP_KERNELS each at
+         least once, every other kernel never).
+      C: 3 steps with a checkpoint, then --resume_from_checkpoint latest to
+         6: the restored digest equals the saved one; C's step-6 loss within
+         TRAIN_CLI_LOSS_RTOL of A's.
+    Reports s/step, samples/s, the loader alone, checkpoint call and restore
+    s, the checkpoint's GB, peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import gmdx_torch.train as gtrain
+    from gmdx_torch.io import load_component
+    from gmdx_torch.models import SD15_CONTROLNET_CONFIG
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(meta)
+    trainer = _script("train_controlnet")
+    spans: dict[str, list] = {}
+    calls: list[dict] = []
+    losses: list[float] = []
+    originals = (gtrain.make_controlnet_train_step, gtrain.save_state, gtrain.restore_state)
+
+    def make_step(*a, **kw):
+        step = _traced(spans, "step", originals[0](*a, **kw), calls)
+
+        def run(state, batch, gen):
+            state, m = step(state, batch, gen)
+            losses.append(float(m["loss"]))
+            return state, m
+        return run
+
+    def run_cli(out, argv):
+        spans.clear()
+        calls.clear()
+        losses.clear()
+        gtrain.make_controlnet_train_step = make_step
+        gtrain.save_state = _traced(spans, "checkpoint", originals[1])
+        gtrain.restore_state = _traced(spans, "restore", originals[2])
+        try:
+            t = time.perf_counter()
+            res = trainer.main(["--pretrained_model_name_or_path", pipe_dir, "--train_metadata",
+                                meta, "--output_dir", out, "--resolution", "512",
+                                "--train_batch_size", str(TRAINER_CLI_BATCH), "--seed",
+                                str(args.seed), "--use_ema", "--report_to", "tensorboard"]
+                               + argv)
+            torch.cuda.synchronize()
+            res["wall_s"] = time.perf_counter() - t
+        finally:
+            (gtrain.make_controlnet_train_step, gtrain.save_state,
+             gtrain.restore_state) = originals
+        res.update(spans={k: list(v) for k, v in spans.items()}, calls=list(calls),
+                   step_losses=list(losses))
+        return res
+
+    out_a = os.path.join(root, "cn_a")
+    torch.cuda.reset_peak_memory_stats()
+    a = run_cli(out_a, ["--max_train_steps", "6", "--checkpointing_steps", "3",
+                        "--async_checkpointing"])
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    step_s = a["spans"]["step"]
+    ckpts = sorted(n for n in os.listdir(out_a) if n.startswith("checkpoint"))
+    ckpt_gb = _dir_gb(os.path.join(out_a, "checkpoint_3"))
+    saved = load_component(os.path.join(out_a, "controlnet"), dtype=torch.float32)
+    state = a["state"]
+    names = [n for n, _ in state.controlnet.named_parameters()]
+    not_ema = [n for n, s in zip(names, state.ema.shadow)
+               if not torch.equal(saved.state_dict()[n], s)]
+    width_ok = saved.config == SD15_CONTROLNET_CONFIG
+    off_path = [k for k in KERNELS if k not in CONTROLNET_STEP_ATTENTION
+                and k not in CONTROLNET_STEP_KERNELS]
+    bad_calls = [c for c in a["calls"]
+                 if any(c.get(k, 0) != v for k, v in CONTROLNET_STEP_ATTENTION.items())
+                 or any(c.get(k, 0) == 0 for k in CONTROLNET_STEP_KERNELS)
+                 or any(c.get(k, 0) for k in off_path)]
+    emit({"phase": "controlnet_cli", "run": "A", "wall_s": a["wall_s"],
+          "batch": TRAINER_CLI_BATCH, "step_s": step_s,
+          "s_per_step_2_6": float(np.median(step_s[1:])),
+          "samples_per_s": TRAINER_CLI_BATCH / float(np.median(step_s[1:])),
+          "loader_s_per_batch": loader_s, "checkpoint_call_s": a["spans"]["checkpoint"],
+          "checkpoint_gb": ckpt_gb, "peak_mem_gb": peak_a, "losses": a["step_losses"],
+          "checkpoints": ckpts, "controlnet_full_width": width_ok,
+          "controlnet_not_ema": len(not_ema), "launches_per_step": a["calls"][0]})
+    if (not all(math.isfinite(v) for v in a["step_losses"]) or len(a["step_losses"]) != 6
+            or ckpts != ["checkpoint_3", "checkpoint_6"] or not width_ok or not_ema):
+        raise SystemExit(f"chip_smoke: controlnet_cli run A failed its checks: losses "
+                         f"{a['step_losses']}, checkpoints {ckpts}, full width {width_ok}, "
+                         f"{len(not_ema)} tensors not the EMA shadow")
+    if bad_calls:
+        raise SystemExit(f"chip_smoke: controlnet_cli launches a step {bad_calls[0]}, the route "
+                         f"rule {CONTROLNET_STEP_ATTENTION} and {CONTROLNET_STEP_KERNELS}")
+    a_loss = a["step_losses"][-1]
+    del a, state, saved
+    shutil.rmtree(out_a, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    out_c = os.path.join(root, "cn_c")
+    c1 = run_cli(out_c, ["--max_train_steps", "3", "--checkpointing_steps", "3"])
+    saved_digest, c1_ckpt_s = c1["saved_digests"].get(3), c1["spans"]["checkpoint"]
+    del c1
+    torch.cuda.empty_cache()
+    c2 = run_cli(out_c, ["--max_train_steps", "6", "--checkpointing_steps", "100",
+                         "--resume_from_checkpoint", "latest"])
+    c_loss = c2["step_losses"][-1] if c2["step_losses"] else math.nan
+    rel = abs(c_loss - a_loss) / abs(a_loss)
+    emit({"phase": "controlnet_cli", "run": "C", "c_resume_wall_s": c2["wall_s"],
+          "c_checkpoint_call_s": c1_ckpt_s, "restore_s": c2["spans"].get("restore"),
+          "restored_equals_saved": c2["restored_digest"] == saved_digest,
+          "resumed_from": c2["start_step"], "a_loss_6": a_loss, "c_loss_6": c_loss,
+          "loss_rel_diff": rel, "elapsed_s": time.perf_counter() - t_phase})
+    if not (saved_digest is not None and c2["restored_digest"] == saved_digest
+            and c2["start_step"] == 3 and c2["global_step"] == 6):
+        raise SystemExit(f"chip_smoke: controlnet_cli resume did not restore the saved state: "
+                         f"saved {saved_digest}, restored {c2['restored_digest']}")
+    if not rel <= TRAIN_CLI_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: controlnet_cli resumed step-6 loss {c_loss} against "
+                         f"{a_loss} (rel {rel})")
+    del c2
+    shutil.rmtree(out_c, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -> None:
+    """Phases stage1_cli and controlnet_cli on one set of 24 pairs (the
+    train_cli phase's data), removed at the end."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(pipe_dir), "trainers")
+    os.makedirs(root)
+    try:
+        meta, val_dir = _train_cli_data(root, args.seed + 90)
+        loader_s = _loader_s_per_batch(meta, pipe_dir, args.seed)
+        phase_stage1_cli(args, pipe_dir, meta, val_dir, loader_s, stage1_per_pair)
+        phase_controlnet_cli(args, pipe_dir, meta, loader_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=2)
@@ -2959,7 +3340,7 @@ def main() -> int:
     phase_hdrtv_e2e(args)
     sdr2hdr_launches = phase_sdr2hdr(args)
     phase_sdr2hdr_e2e(args)
-    stage1_launches = phase_stage1(args)
+    stage1_launches, stage1_per_pair = phase_stage1(args)
     phase_stage1_e2e(args)
     phase_stage1_e2e_d512_plain(args)
     phase_stage1_e2e_controls(args)
@@ -2969,6 +3350,7 @@ def main() -> int:
     try:
         pipe_dir = phase_cli(args, workdir)
         phase_train_cli(args, pipe_dir, train_launches)
+        phase_trainer_clis(args, pipe_dir, stage1_per_pair)
     finally:
         import shutil
 

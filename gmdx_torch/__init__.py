@@ -22,4 +22,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def stream_seed(*keys: int) -> int:
+    """A generator seed from non-negative integer keys, the counterpart of
+    ``jax.random.fold_in``: a trainer seeds each batch's generator from
+    (--seed, batch index), so that a resumed run draws what an
+    uninterrupted one would."""
+    import numpy as np
+
+    return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0]
+               & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+__all__ = ["resolve_device", "stream_seed"]

@@ -11,11 +11,15 @@ Because the naming is diffusers', real SD-1.5 torch checkpoints load into the
 same modules unchanged. The ControlNet's mapping is the port's own (the JAX
 package exports none): the UNet's rules for the shared encoder, diffusers'
 names for the embedder and the zero convs. So are the Stage-1
-discriminator's (its parameters and spectral-norm state) and the LoRA
-factors' (keyed by the diffusers name of the weight they adapt).
+discriminator's (its parameters and spectral-norm state; one table gives
+both directions) and the LoRA factors' (keyed by the diffusers name of the
+weight they adapt). A torchvision or timm VGG19 checkpoint loads into the
+perceptual loss's ``VGG19Features`` under its own names.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -235,22 +239,133 @@ def vgg19_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
+# The Discriminator's whole mapping, one row a leaf kind: (Flax path, port
+# key, transform). ``{i}`` is the conv's index on both sides; "conv" rows
+# change the kernel's layout (HWIO <-> OIHW), the others carry the value as
+# it is. Both directions derive from it.
+_DISCRIMINATOR_TABLE = (
+    ("params/conv_{i}/kernel", "convs.{i}.weight", "conv"),
+    ("params/conv_{i}/bias", "convs.{i}.bias", None),
+    ("params/shuffle/kernel", "shuffle.weight", "conv"),
+    ("params/shuffle/bias", "shuffle.bias", None),
+    ("batch_stats/SpectralNorm_{i}/conv_{i}/kernel/u", "convs.{i}.u", None),
+    ("batch_stats/SpectralNorm_{i}/conv_{i}/kernel/sigma", "convs.{i}.sigma", None),
+)
+
+
+def _template_regex(template: str) -> re.Pattern:
+    """``{i}`` as a group of digits (one group per place), the rest literal."""
+    head, *rest = template.split("{i}")
+    body = re.escape(head) + "".join(f"(?P<i{k}>\\d+)" + re.escape(p) for k, p in enumerate(rest))
+    return re.compile(body + "$")
+
+
+def _hwio(w):
+    """An OIHW conv weight in Flax's HWIO layout (the inverse of
+    ``_inv_conv``)."""
+    if isinstance(w, torch.Tensor):
+        return w.permute(2, 3, 1, 0).contiguous()
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+
+
+# Each transform of a table row: (Flax -> port, port -> Flax).
+_TRANSFORMS = {"conv": (_inv_conv, _hwio)}
+
+
+def _table_map(table, flat: dict, src: int) -> dict:
+    """Map ``flat``'s keys from column ``src`` of ``table`` (0: Flax, 1: the
+    port) to the other column, each value through the row's transform in
+    that direction; a key no row matches, or a ``{i}`` that differs
+    between its places, raises."""
+    rows = [(_template_regex(row[src]), row) for row in table]
+    out = {}
+    for key, value in flat.items():
+        for rx, row in rows:
+            m = rx.match(key)
+            if m is None:
+                continue
+            idx = set(m.groupdict().values())
+            if len(idx) > 1:
+                raise KeyError(f"{key}: indices {sorted(idx)} differ")
+            target = row[1 - src].format(i=idx.pop() if idx else "")
+            out[target] = value if row[2] is None else _TRANSFORMS[row[2]][src](value)
+            break
+        else:
+            raise KeyError(f"unhandled Discriminator key {key}")
+    return out
+
+
 def discriminator_state_dict_from_flax(params: dict, batch_stats: dict) -> dict[str, np.ndarray]:
     """gmdx ``Discriminator`` params and spectral-norm state (its variables
-    but ``params``, or their ``batch_stats`` collection) -> the
-    port's own names (the JAX package exports none): ``convs.<i>.weight|
-    bias`` for ``conv_<i>``, ``convs.<i>.u|sigma`` from
-    ``SpectralNorm_*/conv_<i>/kernel/{u,sigma}``, ``shuffle.weight|bias``."""
-    out = {}
-    for path, value in _flatten(params).items():
-        name, last = path.split("/")
-        p, v = _param(last, value, _inv_conv)
-        prefix = "shuffle" if name == "shuffle" else f"convs.{name.split('_')[1]}"
-        out[f"{prefix}.{p}"] = v
-    for path, value in _flatten(batch_stats).items():
-        parts = path.split("/")  # [batch_stats/]SpectralNorm_<j>/conv_<i>/kernel/{u,sigma}
-        out[f"convs.{parts[-3].split('_')[1]}.{parts[-1]}"] = value
+    but ``params``, or their ``batch_stats`` collection; either may be
+    empty) -> the port's names (the JAX package exports none), by
+    ``_DISCRIMINATOR_TABLE``: ``convs.<i>.weight|bias|u|sigma``,
+    ``shuffle.weight|bias``."""
+    stats = dict(batch_stats)
+    stats = stats.get("batch_stats", stats)
+    flat = {f"params/{k}": v for k, v in _flatten(params).items()}
+    flat.update({f"batch_stats/{k}": v for k, v in _flatten(stats).items()})
+    return _table_map(_DISCRIMINATOR_TABLE, flat, 0)
+
+
+def discriminator_flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's ``Discriminator`` state dict (parameters and the ``u`` /
+    ``sigma`` buffers) -> gmdx's variables ``{"params": ...,
+    "batch_stats": ...}``, the inverse of
+    :func:`discriminator_state_dict_from_flax` (the same table)."""
+    out: dict = {}
+    for path, value in _table_map(_DISCRIMINATOR_TABLE, dict(state_dict), 1).items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
     return out
+
+
+_VGG19_SKIPPED = ("classifier.", "head.", "pre_logits.")
+
+
+def vgg19_state_dict_from_checkpoint(state_dict: dict) -> dict[str, torch.Tensor]:
+    """A torchvision or timm VGG19 state dict -> the port's
+    ``VGG19Features`` state dict (float32 tensors): both name the conv
+    stack ``features.<idx>.weight|bias``, the port's names too; the
+    classifier (``classifier.*``, ``head.*``, ``pre_logits.*``) is left
+    out, as ``gmdx/io/torch_import.py:convert_vgg19_state_dict`` leaves it.
+    Any other key, or a missing conv, raises."""
+    out = {}
+    for key, value in state_dict.items():
+        if key.startswith(_VGG19_SKIPPED):
+            continue
+        parts = key.split(".")
+        if (len(parts) != 3 or parts[0] != "features" or parts[2] not in ("weight", "bias")
+                or not parts[1].isdigit()):
+            raise KeyError(f"unhandled VGG19 key: {key}")
+        if int(parts[1]) not in _VGG19_CONV_INDICES:
+            raise KeyError(f"non-conv VGG19 features index in key: {key}")
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+        out[key] = t.float()
+    missing = [i for i in _VGG19_CONV_INDICES if f"features.{i}.weight" not in out]
+    if missing:
+        raise KeyError(f"VGG19 checkpoint missing conv layers at features indices {missing}")
+    return out
+
+
+def load_vgg19_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """Read a torchvision / timm VGG19 checkpoint (``--perceptual_ckpt``):
+    ``.safetensors`` through the port's reader, ``.pth`` / ``.pt`` /
+    ``.bin`` through ``torch.load(weights_only=True)`` (a ``state_dict``
+    entry unwrapped). Returns :func:`vgg19_state_dict_from_checkpoint` of
+    it."""
+    if path.endswith(".safetensors"):
+        from gmdx_torch.io.params import load_file
+
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+    return vgg19_state_dict_from_checkpoint(sd)
 
 
 def lora_from_flax(lora: dict) -> dict[str, dict[str, np.ndarray]]:
@@ -364,6 +479,9 @@ def load_clip_text(
 
 __all__ = [
     "discriminator_state_dict_from_flax",
+    "discriminator_flax_from_state_dict",
+    "vgg19_state_dict_from_checkpoint",
+    "load_vgg19_checkpoint",
     "lora_from_flax",
     "unet_lora_from_flax",
     "stage1_trainables_from_flax",

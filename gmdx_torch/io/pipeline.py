@@ -13,7 +13,11 @@ Weights cross between the layouts through ``gmdx_torch.io.convert``
 (Flax tree -> the port's state dict) and ``gmdx_torch.io.to_flax`` (back),
 so a directory either package writes loads in the other with the same
 weights. Components load onto the card in bfloat16 unless the caller asks
-for the CPU (float32 there).
+for the CPU (float32 there). A Stage-1 ``Discriminator`` is a component
+too, in the JAX trainer's layout: ``config.json`` holds ``depth`` and
+``hidden_channels``, ``params.safetensors`` its ``params`` and the
+spectral-norm ``batch_stats``; it loads in float32 (the power-iteration
+state is float32 in both packages).
 """
 
 from __future__ import annotations
@@ -37,14 +41,15 @@ from gmdx_torch.models import (
     CLIPTokenizer,
     ControlNetConfig,
     ControlNetModel,
+    Discriminator,
     UNet2DConditionModel,
     UNetConfig,
     VAEConfig,
 )
 from gmdx_torch.schedulers import get_scheduler
 
-# class name -> (module class, config class, Flax tree -> state dict,
-# state dict -> Flax tree)
+# class name -> (module class, config class (None: keyword arguments),
+# Flax tree -> state dict, state dict -> Flax tree)
 _COMPONENTS = {
     "UNet2DConditionModel": (UNet2DConditionModel, UNetConfig,
                              convert.unet_state_dict_from_flax,
@@ -56,6 +61,10 @@ _COMPONENTS = {
     "ControlNetModel": (ControlNetModel, ControlNetConfig,
                         convert.controlnet_state_dict_from_flax,
                         to_flax.convert_controlnet_state_dict),
+    "Discriminator": (Discriminator, None,
+                      lambda tree: convert.discriminator_state_dict_from_flax(
+                          tree.get("params", {}), tree.get("batch_stats", {})),
+                      convert.discriminator_flax_from_state_dict),
 }
 _SCHEDULER_NAMES = {
     "DDPMScheduler": "ddpm",
@@ -111,7 +120,10 @@ def save_component(dirpath: str, module: nn.Module) -> None:
     if name not in _COMPONENTS:
         raise ValueError(f"no pipeline-directory layout for {name}")
     os.makedirs(dirpath, exist_ok=True)
-    cfg = dataclasses.asdict(module.config)
+    if name == "Discriminator":
+        cfg = {"depth": module.depth, "hidden_channels": module.hidden_channels}
+    else:
+        cfg = dataclasses.asdict(module.config)
     cfg["_class_name"] = name
     _write_json(os.path.join(dirpath, "config.json"), cfg)
     sd = {k: v.detach().float() for k, v in module.state_dict().items()}
@@ -171,8 +183,8 @@ def load_component(dirpath: str, *, device: str | torch.device = "cuda",
                    dtype: torch.dtype | None = None) -> nn.Module:
     """The model of one component directory, its weights carried from the
     Flax tree (``strict=True``), in eval mode on ``device``: bfloat16 on the
-    card (the kernels' type), float32 on the CPU, unless ``dtype`` says
-    otherwise (a trainer's float32 master weights)."""
+    card (the kernels' type), float32 on the CPU and for a Discriminator,
+    unless ``dtype`` says otherwise (a trainer's float32 master weights)."""
     dev = resolve_device(device)
     cfg = _read_json(os.path.join(dirpath, "config.json"))
     name = cfg.pop("_class_name")
@@ -184,11 +196,12 @@ def load_component(dirpath: str, *, device: str | torch.device = "cuda",
         raise ValueError(f"unknown component class {name!r}")
     module_cls, config_cls, to_state_dict, _ = _COMPONENTS[name]
     if dtype is None:
-        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        bf16 = dev.type == "cuda" and name != "Discriminator"
+        dtype = torch.bfloat16 if bf16 else torch.float32
     tree = load_params(os.path.join(dirpath, "params.safetensors"))
     sd = to_state_dict(_to_device(tree, dev, dtype))
     with torch.device("meta"):
-        model = module_cls(_config(config_cls, cfg))
+        model = module_cls(**cfg) if config_cls is None else module_cls(_config(config_cls, cfg))
     model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device=dev, dtype=dtype).eval()
 

@@ -72,6 +72,7 @@ class Discriminator(nn.Module):
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.compute_dtype = dtype
+        self.depth, self.hidden_channels = depth, hidden_channels
         d = max(depth - 3, 3)
         chs = [hidden_channels // 2**d] + [
             hidden_channels // 2 ** max(d - 1 - i, 0) for i in range(depth - 1)

@@ -1,6 +1,16 @@
 """HDR ops of the port (counterpart of ``gmdx.ops``): Eq. (1), the
-tone-mapping operators and the BT.2020 -> BT.709 gamut compression."""
+tone-mapping operators, the BT.2020 -> BT.709 gamut compression and the
+camera-exposure augmentation of Stage-1 training."""
 
+from gmdx_torch.ops.exposure import (
+    EXPOSURE_LEVELS,
+    RandomExposureAdjust,
+    apply_inv_sigmoid_curve,
+    discretize_to_uint16,
+    hdr_to_ldr,
+    random_exposure_adjust,
+    sample_camera_curve,
+)
 from gmdx_torch.ops.gamut import BT2020_TO_BT709, gamut_compress
 from gmdx_torch.ops.reconstruct import apply_gm_to_sdr
 from gmdx_torch.ops.tmo import (
@@ -24,4 +34,11 @@ __all__ = [
     "mulog_tmo",
     "random_tmo",
     "tmo_2446a",
+    "EXPOSURE_LEVELS",
+    "RandomExposureAdjust",
+    "apply_inv_sigmoid_curve",
+    "discretize_to_uint16",
+    "hdr_to_ldr",
+    "random_exposure_adjust",
+    "sample_camera_curve",
 ]

@@ -6,11 +6,17 @@ card's machine has no orbax): ``<output_dir>/checkpoint_<step>/`` holds
 
     state.safetensors   every tensor of the state (``gmdx_torch.io.params``),
                         each in its own dtype (bfloat16 stays bfloat16)
-    state.json          the scalars (global step, the optimizer's count,
-                        the accumulator's phase, the EMA step) and a digest
-                        of the tensors' bits
+    state.json          the state's format tag, the scalars (global step,
+                        each optimizer's count and accumulator phase, the
+                        EMA step) and a digest of the tensors' bits
 
-so ``resolve_resume_step`` resolves ``latest``, a path or a step exactly as
+for each kind of training state: Stage 2 (the UNet's trainable parameters,
+their AdamW moments, the accumulator, the EMA shadow), Stage 1 (the LoRA
+factors and ``conv_out`` with the generator's optimizer state, the
+discriminator's parameters with its own, its spectral-norm buffers, the
+EMA shadow) and ControlNet (as Stage 2, over the ControlNet's parameters).
+A restore into a state of another kind raises, naming both tags. So
+``resolve_resume_step`` resolves ``latest``, a path or a step exactly as
 the JAX package does. A save writes into a hidden temporary directory and
 renames it into place, so a kill mid-write leaves no directory that a
 resume could take; ``max_to_keep`` prunes the oldest after each save. With
@@ -39,7 +45,6 @@ from gmdx_torch.train.optim import MultiSteps
 
 _PREFIX = "checkpoint_"
 _TENSORS, _META = "state.safetensors", "state.json"
-FORMAT = "gmdx_torch.stage2.v1"
 
 
 def tensor_digest(tensors: dict[str, torch.Tensor]) -> str:
@@ -59,27 +64,69 @@ def tensor_digest(tensors: dict[str, torch.Tensor]) -> str:
     return h.hexdigest()[:32]
 
 
-def state_tensors(state) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
-    """A Stage-2 state's tensors (live references, keyed by role and the
-    parameter's name) and scalars."""
-    named = [n for n, p in state.unet.named_parameters() if p.requires_grad]
-    opt = state.optimizer
-    adam = opt.opt if isinstance(opt, MultiSteps) else opt
-    if len(named) != len(adam.params):
-        raise ValueError(f"the optimizer holds {len(adam.params)} tensors, the UNet "
-                         f"{len(named)} trainable parameters")
-    tensors = {}
+def _adam(opt):
+    return opt.opt if isinstance(opt, MultiSteps) else opt
+
+
+def _optimizer_tensors(prefix: str, names: list[str], opt) -> dict:
+    """The tensors of one optimizer, keyed ``<prefix><role>/<name>``: its
+    parameters, moments and, under accumulation, the accumulator."""
+    adam = _adam(opt)
+    if len(names) != len(adam.params):
+        raise ValueError(f"the optimizer holds {len(adam.params)} tensors, the model "
+                         f"{len(names)} trainable parameters")
     groups = {"params": adam.params, "mu": adam.mu, "nu": adam.nu}
     if isinstance(opt, MultiSteps):
         groups["acc"] = opt.acc
-    if state.ema is not None:
-        groups["ema"] = state.ema.shadow
-    for group, ts in groups.items():
-        tensors.update({f"{group}/{n}": t for n, t in zip(named, ts)})
-    scalars = {"step": state.step, "count": adam.count,
-               "mini_step": opt.mini_step if isinstance(opt, MultiSteps) else None,
+    return {f"{prefix}{g}/{n}": t for g, ts in groups.items() for n, t in zip(names, ts)}
+
+
+# Each kind of training state, its checkpoint's format tag.
+FORMATS = {
+    "Stage2State": "gmdx_torch.stage2.v1",
+    "Stage1State": "gmdx_torch.stage1.v1",
+    "ControlNetState": "gmdx_torch.controlnet.v1",
+}
+
+
+def _describe(state):
+    """(format tag, tensors, scalars, [(key prefix, optimizer)]) of a
+    Stage-2 or ControlNet state (one module's trainable parameters under
+    one optimizer, and the EMA) or a Stage-1 state (the trainables, keyed
+    by LoRA name and ``conv_out``, under the generator's optimizer, the
+    discriminator's parameters under its own and its spectral-norm
+    buffers, and the EMA of the trainables)."""
+    kind = type(state).__name__
+    if kind not in FORMATS:
+        raise TypeError(f"no checkpoint layout for {kind}")
+    tensors = {}
+    if kind == "Stage1State":
+        from gmdx_torch.train.stage1 import trainable_names
+
+        names = trainable_names(state.trainables)
+        disc = state.discriminator
+        groups = [("gen_", names, state.optimizer),
+                  ("disc_", [n for n, _ in disc.named_parameters()], state.disc_optimizer)]
+        tensors.update({f"disc_buffers/{n}": b for n, b in disc.named_buffers()})
+    else:
+        module = state.unet if kind == "Stage2State" else state.controlnet
+        names = [n for n, p in module.named_parameters() if p.requires_grad]
+        groups = [("", names, state.optimizer)]
+    scalars = {"step": state.step,
                "ema_step": None if state.ema is None else state.ema.step}
-    return tensors, scalars
+    for prefix, group_names, opt in groups:
+        tensors.update(_optimizer_tensors(prefix, group_names, opt))
+        scalars[f"{prefix}count"] = _adam(opt).count
+        scalars[f"{prefix}mini_step"] = opt.mini_step if isinstance(opt, MultiSteps) else None
+    if state.ema is not None:
+        tensors.update({f"ema/{n}": t for n, t in zip(names, state.ema.shadow)})
+    return FORMATS[kind], tensors, scalars, [(prefix, opt) for prefix, _, opt in groups]
+
+
+def state_tensors(state) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """A training state's tensors (live references, keyed by role and name)
+    and scalars: a Stage-2, Stage-1 or ControlNet state."""
+    return _describe(state)[1:3]
 
 
 class CheckpointManager:
@@ -150,11 +197,12 @@ class CheckpointManager:
             self._error = e
 
     def save(self, step: int, tensors: dict[str, torch.Tensor], scalars: dict,
-             *, wait: bool = True) -> None:
-        """Copy ``tensors`` to the host, then write them (on a thread when
-        the manager is asynchronous and ``wait`` is False)."""
+             *, fmt: str, wait: bool = True) -> None:
+        """Copy ``tensors`` to the host, then write them under the format
+        tag ``fmt`` (on a thread when the manager is asynchronous and
+        ``wait`` is False)."""
         self.wait_until_finished()
-        meta = {"format": FORMAT, "global_step": int(step), "scalars": scalars,
+        meta = {"format": fmt, "global_step": int(step), "scalars": scalars,
                 "digest": tensor_digest(tensors)}
         host = self._to_host(tensors)
         if self.async_checkpointing and not wait:
@@ -171,13 +219,17 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, step: int, into: dict[str, torch.Tensor]) -> dict:
+    def restore(self, step: int, into: dict[str, torch.Tensor], *, fmt: str) -> dict:
         """Copy the saved tensors into ``into`` (same keys, shapes and
-        dtypes, in place); returns the metadata. Raises if the bits read
-        differ from the bits saved."""
+        dtypes, in place); returns the metadata. Raises if the checkpoint's
+        format tag is not ``fmt`` (another kind of state), or if the bits
+        read differ from the bits saved."""
         path = self.path(step)
         with open(os.path.join(path, _META)) as f:
             meta = json.load(f)
+        if meta.get("format") != fmt:
+            raise ValueError(f"{path}: a {meta.get('format')!r} checkpoint; the run restores "
+                             f"a {fmt!r} state")
         saved = load_file(os.path.join(path, _TENSORS),
                           pin_memory=any(t.is_cuda for t in into.values()))
         if set(saved) != set(into):
@@ -206,26 +258,26 @@ def make_manager(output_dir: str, *, max_to_keep: int | None = None,
 
 
 def save_state(manager: CheckpointManager, step: int, state, *, wait: bool = True) -> str:
-    """Checkpoint a Stage-2 state at ``step`` (the global step: optimizer
-    updates); returns the digest of the saved tensors."""
-    tensors, scalars = state_tensors(state)
-    manager.save(step, tensors, scalars, wait=wait)
+    """Checkpoint a Stage-2, Stage-1 or ControlNet state at ``step`` (the
+    global step: optimizer updates) under its kind's format tag; returns
+    the digest of the saved tensors."""
+    fmt, tensors, scalars, _ = _describe(state)
+    manager.save(step, tensors, scalars, fmt=fmt, wait=wait)
     return tensor_digest(tensors)
 
 
 def restore_state(manager: CheckpointManager, step: int, state):
     """Load checkpoint ``step`` into ``state`` in place (the state the run
-    built: its parameters, moments, accumulator and EMA shadow are
-    overwritten) and return it."""
-    tensors, _ = state_tensors(state)
-    meta = manager.restore(step, tensors)
-    scalars = meta["scalars"]
-    opt = state.optimizer
-    adam = opt.opt if isinstance(opt, MultiSteps) else opt
+    built: its parameters, moments, accumulators, spectral-norm buffers and
+    EMA shadow are overwritten) and return it. A checkpoint of another kind
+    of state raises, naming both format tags."""
+    fmt, tensors, _, optimizers = _describe(state)
+    scalars = manager.restore(step, tensors, fmt=fmt)["scalars"]
     state.step = scalars["step"]
-    adam.count = scalars["count"]
-    if isinstance(opt, MultiSteps):
-        opt.mini_step = scalars["mini_step"]
+    for prefix, opt in optimizers:
+        _adam(opt).count = scalars[f"{prefix}count"]
+        if isinstance(opt, MultiSteps):
+            opt.mini_step = scalars[f"{prefix}mini_step"]
     if state.ema is not None:
         state.ema.step = scalars["ema_step"]
     return state
@@ -262,4 +314,5 @@ __all__ = [
     "resolve_resume_step",
     "state_tensors",
     "tensor_digest",
+    "FORMATS",
 ]

@@ -5,7 +5,9 @@ every VAE conv and Linear weight plus the decoder's ``conv_out`` (weight and
 bias); the frozen VAE's parameters are never copied. Each step merges them
 into the effective weights (the trainable ``conv_out`` replaces the base
 first, then LoRA adds on top) and runs the unchanged VAE with those weights
-through ``torch.func.functional_call``.
+swapped in (:func:`vae_weights`); the generator step holds them over its
+backward passes, where remat (``--gradient_checkpointing``) recomputes the
+VAE's blocks.
 
 * Generator step: ``sigmoid(decode(encode(miss).sample))`` is the gain map;
   Eq. (1) on the SDR input, the TMO, the gamut compression give the image
@@ -33,6 +35,7 @@ VAE's compute dtype at use.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -44,7 +47,7 @@ from gmdx_torch.models.lora import LoRAConfig, init_lora_params, merge_lora
 from gmdx_torch.models.vgg import perceptual_loss, resize_for_vgg
 from gmdx_torch.ops import apply_gm_to_sdr, gamut_compress
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
-from gmdx_torch.train.optim import AdamW, get_lr_schedule, global_norm
+from gmdx_torch.train.optim import AdamW, MultiSteps, get_lr_schedule, global_norm
 
 CONV_OUT = "decoder.conv_out"
 
@@ -65,8 +68,8 @@ class Stage1Config:
 class Stage1State:
     trainables: dict  # {"lora": {name: {"a", "b"}}, "conv_out": {"weight", "bias"}}
     discriminator: nn.Module  # its parameters and spectral-norm buffers
-    optimizer: AdamW
-    disc_optimizer: AdamW
+    optimizer: AdamW | MultiSteps
+    disc_optimizer: AdamW | MultiSteps
     ema: EMAState | None
     step: int = 0
 
@@ -77,6 +80,21 @@ def trainable_list(trainables: dict) -> list[torch.Tensor]:
     lora = trainables["lora"]
     return [lora[n][k] for n in sorted(lora) for k in ("a", "b")] + [
         trainables["conv_out"]["weight"], trainables["conv_out"]["bias"]]
+
+
+def trainable_names(trainables: dict) -> list[str]:
+    """Names of :func:`trainable_list`'s tensors, in its order:
+    ``lora/<weight name>/a|b``, ``conv_out/weight|bias``."""
+    return [f"lora/{n}/{k}" for n in sorted(trainables["lora"]) for k in ("a", "b")] + [
+        "conv_out/weight", "conv_out/bias"]
+
+
+def trainables_like(trainables: dict, tensors) -> dict:
+    """``tensors`` in :func:`trainable_list`'s order (e.g. the EMA shadow)
+    laid out as ``trainables``."""
+    it = iter(tensors)
+    return {"lora": {n: {k: next(it) for k in ("a", "b")} for n in sorted(trainables["lora"])},
+            "conv_out": {k: next(it) for k in ("weight", "bias")}}
 
 
 def init_trainables(generator: torch.Generator, vae: nn.Module, config: Stage1Config) -> dict:
@@ -105,29 +123,51 @@ def effective_vae_params(config: Stage1Config, vae: nn.Module, trainables: dict)
     return merge_lora(base, trainables["lora"], config.lora.scale)
 
 
-class _GMHead(nn.Module):
-    """encode -> sample -> decode of ``vae``, for ``functional_call``."""
+@contextlib.contextmanager
+def vae_weights(vae: nn.Module, params: dict):
+    """``vae`` computing with ``params`` (name -> tensor) in place of its
+    own parameters until the block exits. Hold it over the backward passes
+    too: remat (``--gradient_checkpointing``) recomputes the blocks there,
+    with the weights the module holds at that time."""
+    saved = {}
+    try:
+        for name, t in params.items():
+            mod_name, _, leaf = name.rpartition(".")
+            sub = vae.get_submodule(mod_name)
+            if id(sub) not in saved:
+                saved[id(sub)] = (sub, dict(sub._parameters))
+            del sub._parameters[leaf]
+            setattr(sub, leaf, t)
+        yield vae
+    finally:
+        for sub, own in saved.values():
+            for leaf in own:
+                if leaf not in sub._parameters:
+                    sub.__dict__.pop(leaf, None)
+            sub._parameters.clear()
+            sub._parameters.update(own)
 
-    def __init__(self, vae: nn.Module, scaling: float):
-        super().__init__()
-        self.vae, self.scaling = vae, scaling
 
-    def forward(self, miss, eps, generator):
-        post = self.vae.encode(miss)
-        sampled = post.sample(generator) if eps is None else post.mean + post.std * eps
-        latent = sampled * self.scaling
-        return torch.sigmoid(self.vae.decode(latent / self.scaling))
+def gm_head(config: Stage1Config, vae: nn.Module, miss_pixels: torch.Tensor,
+            eps: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """``sigmoid(decode(encode(x).sample() * s / s))`` with the VAE's
+    current weights; ``miss_pixels`` (B, 3, H, W) in [-1, 1]. ``eps``
+    replaces the posterior's draw (else one from ``generator``)."""
+    post = vae.encode(miss_pixels)
+    sampled = post.sample(generator) if eps is None else post.mean + post.std * eps
+    latent = sampled * config.scaling_factor
+    return torch.sigmoid(vae.decode(latent / config.scaling_factor))
 
 
 def gm_forward(config: Stage1Config, vae: nn.Module, params: dict, miss_pixels: torch.Tensor,
                eps: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
-    """``sigmoid(decode(encode(x).sample() * s / s))`` with the VAE's
-    weights taken from ``params``; ``miss_pixels`` (B, 3, H, W) in [-1, 1].
-    ``eps`` replaces the posterior's draw (else one from ``generator``)."""
-    head = _GMHead(vae, config.scaling_factor)
-    named = {f"vae.{k}": v for k, v in params.items()}
-    return torch.func.functional_call(head, named, (miss_pixels, eps, generator))
+    """:func:`gm_head` with the VAE's weights taken from ``params``, for a
+    caller that does not differentiate it (the generator step holds
+    :func:`vae_weights` over its backward passes instead)."""
+    with vae_weights(vae, params):
+        return gm_head(config, vae, miss_pixels, eps, generator)
 
 
 def reconstruct_and_tonemap(config: Stage1Config, gm: torch.Tensor, sdr01: torch.Tensor,
@@ -146,24 +186,53 @@ def perceptual(vgg: nn.Module, a01: torch.Tensor, b01: torch.Tensor,
     return perceptual_loss(fa, fb)
 
 
-# The CLI's learning rates (train_vqgan_lora.py:83-84); AdamW's defaults are
-# its other optimizer defaults (:93-97).
+# The CLI's learning rates (train_vqgan_lora.py:83-84).
 LEARNING_RATE = DISCR_LEARNING_RATE = 1e-4
 
 
-def make_optimizers(trainables: dict, discriminator: nn.Module) -> tuple[AdamW, AdamW]:
-    """Clipped AdamW at the CLI's defaults, constant schedules, for the
-    trainables and for the discriminator's parameters. Other settings:
-    build :class:`~gmdx_torch.train.optim.AdamW` and pass it to
-    :func:`init_state`."""
-    gen = AdamW(trainable_list(trainables), get_lr_schedule("constant", LEARNING_RATE))
-    disc = AdamW(list(discriminator.parameters()),
-                 get_lr_schedule("constant", DISCR_LEARNING_RATE))
-    return gen, disc
+def make_optimizers(
+    trainables: dict,
+    discriminator: nn.Module,
+    *,
+    learning_rate: float = LEARNING_RATE,
+    discr_learning_rate: float = DISCR_LEARNING_RATE,
+    lr_scheduler: str = "constant",
+    discr_lr_scheduler: str = "constant",
+    lr_warmup_steps: int = 500,
+    num_training_steps: int | None = None,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    weight_decay: float = 1e-2,
+    epsilon: float = 1e-8,
+    max_grad_norm: float = 1.0,
+    gradient_accumulation_steps: int = 1,
+) -> tuple[AdamW | MultiSteps, AdamW | MultiSteps]:
+    """Clipped AdamW for the trainables and for the discriminator's
+    parameters, as ``scripts/stage1/train_vqgan_lora.py:345-375`` builds
+    them (the defaults are its CLI's): each its own rate and schedule
+    (warmup and ``num_training_steps``, the updates of the run), the same
+    moments, decay, epsilon and clip; with ``gradient_accumulation_steps``
+    k > 1 each in :class:`~gmdx_torch.train.optim.MultiSteps` (the mean of
+    k micro-steps' gradients, one update every k-th call, as
+    ``optax.MultiSteps``)."""
+    adam = dict(beta1=beta1, beta2=beta2, weight_decay=weight_decay, epsilon=epsilon,
+                max_grad_norm=max_grad_norm)
+    opts = []
+    for params, name, lr in ((trainable_list(trainables), lr_scheduler, learning_rate),
+                             (list(discriminator.parameters()), discr_lr_scheduler,
+                              discr_learning_rate)):
+        schedule = get_lr_schedule(name, lr, num_warmup_steps=lr_warmup_steps,
+                                   num_training_steps=num_training_steps)
+        opt = AdamW(params, schedule, **adam)
+        opts.append(MultiSteps(opt, gradient_accumulation_steps)
+                    if gradient_accumulation_steps > 1 else opt)
+    return opts[0], opts[1]
 
 
 def init_state(config: Stage1Config, trainables: dict, discriminator: nn.Module,
-               optimizers: tuple[AdamW, AdamW] | None = None) -> Stage1State:
+               optimizers: tuple | None = None) -> Stage1State:
+    """The state; ``optimizers`` (generator's, discriminator's) default to
+    :func:`make_optimizers` at its defaults."""
     gen, disc = optimizers or make_optimizers(trainables, discriminator)
     return Stage1State(
         trainables=trainables, discriminator=discriminator, optimizer=gen, disc_optimizer=disc,
@@ -198,26 +267,26 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
         eps = batch.get("encode_eps")
         params = effective_vae_params(config, vae, state.trainables)
         kernel = params[f"{CONV_OUT}.weight"]
-        gm = gm_forward(config, vae, params, miss, None if eps is None else eps.to(dev),
-                        generator)
-        tmo = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
-        if config.vae_loss == "l2":
-            recon = torch.mean((target01 - tmo) ** 2)
-        else:
-            recon = torch.mean(torch.abs(target01 - tmo))
-        perc = perceptual(vgg, target01, tmo, config.vgg_resolution)
-        adv = -torch.mean(state.discriminator(tmo, update_sn=False))
+        with vae_weights(vae, params):
+            gm = gm_head(config, vae, miss, None if eps is None else eps.to(dev), generator)
+            tmo = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
+            if config.vae_loss == "l2":
+                recon = torch.mean((target01 - tmo) ** 2)
+            else:
+                recon = torch.mean(torch.abs(target01 - tmo))
+            perc = perceptual(vgg, target01, tmo, config.vgg_resolution)
+            adv = -torch.mean(state.discriminator(tmo, update_sn=False))
 
-        # The adaptive weight: gradient norms at the effective conv_out
-        # kernel alone, over the same forward.
-        (g_perc,) = torch.autograd.grad(perc, kernel, retain_graph=True)
-        (g_adv,) = torch.autograd.grad(adv, kernel, retain_graph=True)
-        adaptive = (torch.linalg.vector_norm(g_perc)
-                    / torch.linalg.vector_norm(g_adv).clamp(min=1e-8))
-        adaptive = adaptive.clamp(max=config.adaptive_weight_max).detach()
-        loss = recon + perc + adaptive * adv
+            # The adaptive weight: gradient norms at the effective conv_out
+            # kernel alone, over the same forward.
+            (g_perc,) = torch.autograd.grad(perc, kernel, retain_graph=True)
+            (g_adv,) = torch.autograd.grad(adv, kernel, retain_graph=True)
+            adaptive = (torch.linalg.vector_norm(g_perc)
+                        / torch.linalg.vector_norm(g_adv).clamp(min=1e-8))
+            adaptive = adaptive.clamp(max=config.adaptive_weight_max).detach()
+            loss = recon + perc + adaptive * adv
 
-        grads = torch.autograd.grad(loss, trainable_list(state.trainables))
+            grads = torch.autograd.grad(loss, trainable_list(state.trainables))
         with torch.no_grad():
             n_lora = 2 * len(state.trainables["lora"])
             lora_norm = global_norm(grads[:n_lora])
@@ -304,8 +373,12 @@ __all__ = [
     "Stage1Config",
     "Stage1State",
     "trainable_list",
+    "trainable_names",
+    "trainables_like",
     "init_trainables",
     "effective_vae_params",
+    "vae_weights",
+    "gm_head",
     "gm_forward",
     "reconstruct_and_tonemap",
     "perceptual",

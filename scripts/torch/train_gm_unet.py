@@ -148,16 +148,6 @@ def parse_args(argv=None):
     return args
 
 
-def stream_seed(*keys: int) -> int:
-    """A generator seed from non-negative integer keys: (--seed, batch
-    index) for a train step's noise, (--seed, image, stream, 1) for a
-    validation image's encode and sampling."""
-    import numpy as np
-
-    return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0]
-               & 0x7FFF_FFFF_FFFF_FFFF)
-
-
 def log_validation(args, pipe, step, val_dir, metrics_log=None):
     """PNDM 49 steps on each of the first four PNGs of
     --validation_image_dir (prompts in turn): the gain map as
@@ -166,6 +156,7 @@ def log_validation(args, pipe, step, val_dir, metrics_log=None):
     import numpy as np
     import torch
 
+    from gmdx_torch import stream_seed
     from gmdx_torch.io import load_image, save_hdr_image, save_image, to_model_input
     from gmdx_torch.ops import apply_gm_to_sdr
 
@@ -281,7 +272,7 @@ def main(argv=None) -> dict:
     import numpy as np
     import torch
 
-    from gmdx_torch import resolve_device
+    from gmdx_torch import resolve_device, stream_seed
     from gmdx_torch.data import ParquetImageDataset, device_prefetch, make_dataloader
     from gmdx_torch.io import load_pipeline, save_pipeline
     from gmdx_torch.io.params import load_params

@@ -1321,3 +1321,161 @@ def test_unet_remat_gradients_on_card(card):
     assert cr["flash_attention_bwd"] == cp["flash_attention_bwd"] > 0
     assert cr["group_norm_silu_bwd"] == cp["group_norm_silu_bwd"] > 0
     assert cr["flash_attention_fwd"] > cp["flash_attention_fwd"] > 0
+
+
+def _sd15_controlnet_pair(gen, adapter_std: float = 0.05):
+    """A seeded random SD-1.5 UNet frozen in bf16 and a ControlNet copied
+    from it (float32 masters, bf16 compute, as the trainer CLI holds it),
+    its adapters (zero convs, the embedder's conv_out) N(0, adapter_std^2)
+    so that every parameter takes gradient."""
+    from gmdx_torch.io.convert import controlnet_state_dict_from_unet
+    from gmdx_torch.models import (
+        SD15_CONTROLNET_CONFIG, SD15_UNET_CONFIG, ControlNetModel, UNet2DConditionModel,
+    )
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(SD15_UNET_CONFIG).to(torch.bfloat16).eval()
+        cnet = ControlNetModel(SD15_CONTROLNET_CONFIG, dtype=torch.bfloat16)
+    cnet.load_state_dict(controlnet_state_dict_from_unet(
+        cnet.state_dict(), {k: v.float() for k, v in unet.state_dict().items()}))
+    with torch.no_grad():
+        for name, p in cnet.named_parameters():
+            if name.startswith(("controlnet_down_blocks.", "controlnet_mid_block.",
+                                "controlnet_cond_embedding.conv_out.")):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * adapter_std)
+    return unet.requires_grad_(False), cnet.train()
+
+
+@pytest.mark.cuda
+def test_controlnet_step_kernels_against_plain_on_card(card):
+    """One ControlNet loss and gradient at SD-1.5 width, batch 1, 512^2: the
+    kernels against the plain versions (use_kernels=False) on the same
+    inputs, loss within 1e-3 relative, the ControlNet's gradient at cosine
+    >= 0.9995; the kernels' run launches as the route rule says (the frozen
+    UNet's 6 down-block self-attentions on the KV-resident kernel, the 9
+    up-block and 6 ControlNet ones on the flash forward and backward) and
+    the UNet takes no gradient."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.models import set_use_kernels
+    from gmdx_torch.train import controlnet_loss
+
+    unet, cnet = _sd15_controlnet_pair(card)
+    inputs = {
+        "noisy_latents": torch.randn(1, 4, 64, 64, generator=card, device="cuda"),
+        "timesteps": torch.tensor([437], device="cuda"),
+        "encoder_hidden_states": _bf16(card, 1, 77, 768),
+        "control_image": torch.rand(1, 3, 512, 512, generator=card, device="cuda"),
+        "noise": torch.randn(1, 4, 64, 64, generator=card, device="cuda"),
+    }
+    params = list(cnet.parameters())
+    out = {}
+    for use in (True, False):
+        set_use_kernels(unet, use)
+        set_use_kernels(cnet, use)
+        reset_launch_counts()
+        loss = controlnet_loss(cnet, unet, **inputs)
+        grads = torch.autograd.grad(loss, params)
+        out[use] = (float(loss.detach()), torch.cat([g.float().flatten() for g in grads]),
+                    launch_counts())
+    (lk, gk, ck), (lp, gp, _) = out[True], out[False]
+    cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
+    print(f"controlnet step, kernels against plain: loss {lk} / {lp} "
+          f"(rel {abs(lk - lp) / abs(lp):.3e}), gradient cosine {cos:.6f}")
+    assert abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
+    assert cos >= 0.9995, cos
+    assert (ck["attention_kv_resident"], ck["flash_attention_fwd"],
+            ck["flash_attention_bwd"]) == (6, 15, 15), ck
+    assert ck["group_norm_silu_bwd"] > 0 and ck["conv3x3"] > 0 and ck["geglu_ff_ln"] > 0
+    assert ck["flash_attention_bsc"] == ck["flash_attention_fwd_d512"] == 0
+    assert all(p.grad is None for p in unet.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stage1", "controlnet"])
+def test_stage1_and_controlnet_checkpoints_of_cuda_tensors_on_card(card, tmp_path, kind):
+    """A Stage-1 state (LoRA trainables, both optimizers under accumulation,
+    the discriminator's spectral-norm buffers, EMA) and a ControlNet state
+    on the card, saved asynchronously and restored into fresh states on
+    the card, bit for bit, while the originals move on in place."""
+    from gmdx_torch.models import (
+        TINY_CONTROLNET_CONFIG, TINY_VAE_CONFIG, AutoencoderKL, ControlNetModel, Discriminator,
+        LoRAConfig,
+    )
+    from gmdx_torch.train import (
+        ControlNetTrainConfig, init_controlnet_state, make_controlnet_ema_step, make_manager,
+        restore_state, save_state, stage1,
+    )
+    from gmdx_torch.train.checkpoint import state_tensors
+
+    def trained(seed):
+        torch.manual_seed(seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if kind == "stage1":
+            cfg = stage1.Stage1Config(lora=LoRAConfig(rank=2, alpha=2.0), use_ema=True)
+            with torch.device("cuda"):
+                vae, disc = AutoencoderKL(TINY_VAE_CONFIG), Discriminator(depth=4,
+                                                                         hidden_channels=64)
+            trainables = stage1.init_trainables(gen, vae, cfg)
+            state = stage1.init_state(cfg, trainables, disc, stage1.make_optimizers(
+                trainables, disc, gradient_accumulation_steps=2))
+            opts, ema = (state.optimizer, state.disc_optimizer), stage1.make_ema_step(cfg)
+            with torch.no_grad():
+                for b in disc.buffers():
+                    b.add_(torch.randn(b.shape, generator=gen, device="cuda"))
+        else:
+            cfg = ControlNetTrainConfig(learning_rate=1e-3, gradient_accumulation_steps=2,
+                                        use_ema=True)
+            with torch.device("cuda"):
+                cnet = ControlNetModel(TINY_CONTROLNET_CONFIG)
+            state = init_controlnet_state(cfg, cnet)
+            opts, ema = (state.optimizer,), make_controlnet_ema_step(cfg)
+        for _ in range(3):
+            for opt in opts:
+                opt.step([torch.randn(p.shape, generator=gen, device="cuda") for p in opt.params])
+            state.step += 1
+            ema(state)
+        return state
+
+    state = trained(0)
+    want, scalars = state_tensors(state)
+    want = {k: v.clone() for k, v in want.items()}
+    manager = make_manager(str(tmp_path), async_checkpointing=True)
+    save_state(manager, 3, state, wait=False)
+    with torch.no_grad():
+        for t in state_tensors(state)[0].values():
+            t.add_(1.0)
+    manager.wait_until_finished()
+    fresh = trained(1)
+    restore_state(manager, 3, fresh)
+    got, got_scalars = state_tensors(fresh)
+    assert got_scalars == scalars
+    for k, v in want.items():
+        assert got[k].is_cuda and got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_exposure_augmentation_on_card_does_not_sync(card):
+    """The exposure chain on a CUDA batch draws its scalars on the host: no
+    synchronisation (sync debug mode "error"), and the result equals the
+    chain on the same batch on the CPU with the same draws (fp32, within
+    1e-5 relative L2: the two devices' pow may differ by an ulp, which
+    moves a uint16 level where it straddles a rounding boundary)."""
+    from gmdx_torch.ops import random_exposure_adjust
+
+    img = torch.rand(4, 3, 512, 512, generator=card, device="cuda")
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for seed in range(8):
+            outs.append(random_exposure_adjust(torch.Generator().manual_seed(seed), img,
+                                               prob=0.7))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = img.cpu()
+    for seed, (out, meta) in enumerate(outs):
+        want, want_meta = random_exposure_adjust(torch.Generator().manual_seed(seed), host,
+                                                 prob=0.7)
+        assert meta == want_meta and out.is_cuda
+        assert _rel_l2(out.cpu(), want) <= 1e-5
