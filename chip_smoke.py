@@ -6,7 +6,8 @@
                                              # Stage 1 batch 1 x 2 pairs; the samplers;
                                              # both CLIs on a full-width directory;
                                              # the Stage-2, Stage-1 and ControlNet
-                                             # trainer CLIs on it
+                                             # trainer CLIs on it; its diffusers
+                                             # round trip and the safety checker
     python3 chip_smoke.py --batch 8 --steps 50 --profile
     python3 chip_smoke.py --train-batch 8 --train-steps 10 --profile
     python3 chip_smoke.py --hdrtv-steps 50 --profile
@@ -202,6 +203,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
      digest equals the saved one, C's step-6 loss within
      TRAIN_CLI_LOSS_RTOL of A's. s/step, samples/s, checkpoint call and
      restore s and GB, peak memory.
+ 23. convert: scripts/torch/convert_torch_checkpoint.py exports that
+     directory to diffusers' layout; a seeded full-width ViT-L/14 safety
+     checker (transformers' layout, position_ids included) joins it; the
+     result is imported into a second directory, whose unet, gm_unet, vae
+     and text_encoder tensors, configs, scheduler and tokenizer must equal
+     the source's bit for bit and whose checker the seeded one;
+     generate_hdr from it (4 steps, phase cli's PNGs) at >= 40 dB of a run
+     from the source (bit equality reported); the checker in float32 on
+     the card against the CPU on 8 decoded 512^2 images (cosine >= 0.9999,
+     flags equal where every score is beyond 1e-3 of 0), its ms and fp32
+     bound for the batch; a pipeline call at batch 2 with every concept
+     firing must come out black. Export and import s and GB, peak memory.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -3303,6 +3316,256 @@ def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -
         shutil.rmtree(root, ignore_errors=True)
 
 
+CONVERT_CHECKER_BATCH = 8
+# The card's checker against the CPU's: projected embeddings' cosine per
+# image; flags compared where every score is this far from 0.
+CONVERT_COS_MIN = 0.9999
+CONVERT_SCORE_MARGIN = 1e-3
+
+
+def _same_json(a: str, b: str) -> bool:
+    with open(a) as f, open(b) as g:
+        return json.load(f) == json.load(g)
+
+
+def _same_tensors(got: dict, want: dict) -> list[str]:
+    """The keys of ``want`` that ``got`` lacks or holds with another dtype,
+    shape or bits (and the keys ``got`` has beyond them)."""
+    import numpy as np
+    import torch
+
+    def arr(v):
+        if isinstance(v, torch.Tensor):
+            return (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()
+        return v
+
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        g, w = got[k], want[k]
+        if g.dtype != w.dtype or tuple(g.shape) != tuple(w.shape) or not np.array_equal(arr(g),
+                                                                                         arr(w)):
+            bad.append(k)
+    return bad
+
+
+def phase_convert(args, pipe_dir: str) -> None:
+    """The port's converter (scripts/torch/convert_torch_checkpoint.py) on
+    phase cli's full-width sd15 directory: export it to diffusers' layout,
+    add a seeded full-width ViT-L/14 safety checker (304 M parameters) in
+    transformers' layout, with its position_ids buffer, import the result
+    into a second directory. Every tensor of unet, gm_unet, vae and
+    text_encoder must equal the source bit for bit, dtype included, every
+    config.json, the scheduler and the tokenizer too, and the checker the
+    seeded one. generate_hdr from the imported directory (4 steps, phase
+    cli's PNGs) must give finite outputs at >= 40 dB of a run from the
+    source (bit equality reported). The checker, loaded on the card in
+    float32, runs on 8 decoded 512^2 images: projected embeddings at cosine
+    >= 0.9999 of the CPU's per image, the flags equal wherever every score
+    is beyond 1e-3 of 0 (the thresholds set 0.01 off the first image's
+    cosines, so that it fires). Control: with every concept threshold at -2,
+    a StableDiffusionGMPipeline(safety_checker=fn) call at batch 2 must
+    give black images. Export and import seconds and GB, the checker's ms
+    for a batch of 8 and peak memory are printed; the directories go at
+    the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io import convert, read_hdr
+    from gmdx_torch.io.params import load_file, load_params, save_file
+    from gmdx_torch.io.pipeline import load_component, load_pipeline
+    from gmdx_torch.io.png import read_png
+    from gmdx_torch.models import (
+        CLIP_VIT_L_VISION_CONFIG, StableDiffusionSafetyChecker, make_safety_checker_fn,
+        preprocess_for_clip,
+    )
+    from gmdx_torch.pipelines import StableDiffusionGMPipeline
+
+    tool = _script("convert_torch_checkpoint")
+    workdir = os.path.dirname(pipe_dir)
+    sdr = os.path.join(workdir, "sdr")
+    if not os.path.isdir(sdr):
+        raise SystemExit(f"chip_smoke: phase cli's PNGs are gone from {sdr}")
+    root = os.path.join(workdir, "convert")
+    diff, back = os.path.join(root, "diffusers"), os.path.join(root, "imported")
+    os.makedirs(root)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        tool.main(["export", "--src", pipe_dir, "--dst", diff])
+        export_s, export_gb = time.perf_counter() - t0, _dir_gb(diff)
+
+        torch.manual_seed(args.seed + 110)
+        with torch.device("cuda"):
+            seeded = StableDiffusionSafetyChecker(CLIP_VIT_L_VISION_CONFIG).state_dict()
+        seeded = {k: v.cpu() for k, v in seeded.items()}
+        os.makedirs(os.path.join(diff, "safety_checker"))
+        n_pos = (CLIP_VIT_L_VISION_CONFIG.image_size // CLIP_VIT_L_VISION_CONFIG.patch_size) ** 2 + 1
+        save_file({**seeded, "vision_model.vision_model.embeddings.position_ids":
+                   torch.arange(n_pos)[None]},
+                  os.path.join(diff, "safety_checker", "model.safetensors"))
+        with open(os.path.join(diff, "safety_checker", "config.json"), "w") as f:
+            json.dump(tool._checker_transformers_config(CLIP_VIT_L_VISION_CONFIG), f)
+        with open(os.path.join(diff, "model_index.json")) as f:
+            index = json.load(f)
+        index["safety_checker"] = ["stable_diffusion", "StableDiffusionSafetyChecker"]
+        with open(os.path.join(diff, "model_index.json"), "w") as f:
+            json.dump(index, f)
+        t0 = time.perf_counter()
+        tool.main(["import", "--src", diff, "--dst", back])
+        import_s, import_gb = time.perf_counter() - t0, _dir_gb(back)
+        shutil.rmtree(diff)
+
+        bad, n_tensors = [], 0
+        for name in ("unet", "gm_unet", "vae", "text_encoder"):
+            want = load_file(os.path.join(pipe_dir, name, "params.safetensors"))
+            got = load_file(os.path.join(back, name, "params.safetensors"))
+            n_tensors += len(want)
+            bad += [f"{name}/{k}" for k in _same_tensors(got, want)]
+            if not _same_json(os.path.join(back, name, "config.json"),
+                              os.path.join(pipe_dir, name, "config.json")):
+                bad.append(f"{name}/config.json")
+            del want, got
+        for rel in (("scheduler", "config.json"), ("tokenizer", "vocab.json")):
+            if not _same_json(os.path.join(back, *rel), os.path.join(pipe_dir, *rel)):
+                bad.append("/".join(rel))
+        with open(os.path.join(back, "tokenizer", "merges.txt")) as f, \
+                open(os.path.join(pipe_dir, "tokenizer", "merges.txt")) as g:
+            if f.read() != g.read():
+                bad.append("tokenizer/merges.txt")
+        with open(os.path.join(back, "model_index.json")) as f, \
+                open(os.path.join(pipe_dir, "model_index.json")) as g:
+            if sorted(json.load(f)["components"]) != sorted(json.load(g)["components"]
+                                                            + ["safety_checker"]):
+                bad.append("model_index.json")
+        checker_sd = convert.safety_checker_state_dict_from_flax(
+            load_params(os.path.join(back, "safety_checker", "params.safetensors")))
+        bad += [f"safety_checker/{k}" for k in _same_tensors(
+            {k: torch.from_numpy(np.asarray(v)) for k, v in checker_sd.items()}, seeded)]
+        n_tensors += len(seeded)
+        del checker_sd
+
+        gen_s, db, bit_equal = {}, [], True
+        for tag, d in (("source", pipe_dir), ("imported", back)):
+            t0 = time.perf_counter()
+            _script("generate_hdr").main([
+                "--pretrained_model_name_or_path", d, "--unet_ckpt", os.path.join(d, "gm_unet"),
+                "--sdr_input_path", sdr, "--output_dir", os.path.join(root, f"gen_{tag}"),
+                "--num_inference_steps", "4", "--seed", str(args.seed)])
+            torch.cuda.synchronize()
+            gen_s[tag] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        outputs = sorted(os.listdir(os.path.join(root, "gen_source")))
+        for fn in outputs:
+            a, b = (os.path.join(root, f"gen_{tag}", fn) for tag in ("source", "imported"))
+            read = read_hdr if fn.endswith(".hdr") else read_png
+            x, y = (torch.from_numpy(np.asarray(read(p), np.float32)) for p in (a, b))
+            if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+                bad.append(f"generate_hdr/{fn}: not finite")
+            peak = max(float(x.abs().max()), 1e-9)
+            db.append(psnr01(x / peak, y / peak))
+            bit_equal &= bool(torch.equal(x, y))
+
+        sc_dir = os.path.join(back, "safety_checker")
+        gpu = load_component(sc_dir, device="cuda")
+        cpu = load_component(sc_dir, device="cpu")
+        vae = load_component(os.path.join(back, "vae"), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 111)
+        z = torch.randn(CONVERT_CHECKER_BATCH, 4, 64, 64, generator=gen, device="cuda")
+        with torch.no_grad():
+            imgs = to01(vae.decode(z / vae.config.scaling_factor)).permute(0, 2, 3, 1).float()
+            del vae
+            size = cpu.config.image_size
+            want = cpu.image_embeds(preprocess_for_clip(imgs.cpu(), size))
+            for embeds, weights in ((cpu.concept_embeds, cpu.concept_embeds_weights),
+                                    (cpu.special_care_embeds, cpu.special_care_embeds_weights)):
+                cos = torch.nn.functional.cosine_similarity(want[:1], embeds, dim=-1)
+                below = (torch.arange(len(cos)) % 2 == 1) & (embeds is cpu.concept_embeds)
+                weights.copy_(cos + torch.where(below, -0.01, 0.01))
+            for name in ("concept_embeds_weights", "special_care_embeds_weights"):
+                getattr(gpu, name).copy_(getattr(cpu, name))
+            got = gpu.image_embeds(preprocess_for_clip(imgs, size))
+            cos = torch.nn.functional.cosine_similarity(got.cpu().double(), want.double(), dim=-1)
+            special, concept = cpu.scores(want)
+            decided = (torch.cat([special, concept], 1).abs().min(1).values
+                       > CONVERT_SCORE_MARGIN).numpy()
+        fn = make_safety_checker_fn(gpu)
+        host = imgs.cpu().numpy()
+        flags, want_flags = fn(host)[1], make_safety_checker_fn(cpu)(host)[1]
+
+        @torch.no_grad()
+        def checker_call():
+            return gpu(preprocess_for_clip(imgs, size))
+
+        checker_ms = time_ms(checker_call, iters=5)
+        cfg = gpu.config
+        n_tok, d = (cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.hidden_size
+        flops = CONVERT_CHECKER_BATCH * (
+            cfg.num_layers * (2 * n_tok * d * (4 * d + 2 * cfg.intermediate_size)
+                              + 4 * n_tok * n_tok * d)
+            + 2 * (n_tok - 1) * 3 * cfg.patch_size ** 2 * d)
+        nbytes = 4 * sum(p.numel() for p in gpu.parameters()) + imgs.numel() * 4
+        checker_bound_ms, checker_bound_by = bound_ms(flops, nbytes, peak=FP32_FLOPS)
+        t0 = time.perf_counter()
+        fn(host)
+        checker_wall_s = time.perf_counter() - t0
+        del cpu, imgs
+
+        with torch.no_grad():
+            gpu.concept_embeds_weights.fill_(-2.0)
+        seen = []
+
+        def all_flagged(images01):
+            out, fl = fn(images01)
+            seen.append(fl)
+            return out, fl
+
+        bundle = load_pipeline(back, device="cuda",
+                               components=("vae", "text_encoder", "tokenizer", "scheduler"))
+        pipe = StableDiffusionGMPipeline(
+            load_component(os.path.join(back, "gm_unet"), device="cuda"), bundle["modules"]["vae"],
+            bundle["scheduler"], text_encoder=bundle["modules"]["text_encoder"],
+            tokenizer=bundle["tokenizer"], safety_checker=all_flagged, device="cuda")
+        sdr_latent = torch.randn(2, 4, 64, 64, generator=gen, device="cuda")
+        black = pipe(sdr_latent, prompt=["a photo"] * 2, num_inference_steps=2,
+                     generator=torch.Generator(device="cuda").manual_seed(args.seed),
+                     output_type="np")
+        control_black = bool(black.shape == (2, 512, 512, 3) and not black.any()
+                             and len(seen) == 1 and seen[0].all())
+        del pipe, bundle, gpu
+        torch.cuda.empty_cache()
+
+        emit({"phase": "convert", "export_s": export_s, "export_gb": export_gb,
+              "import_s": import_s, "import_gb": import_gb, "tensors_checked": n_tensors,
+              "mismatched": bad[:20], "n_mismatched": len(bad),
+              "generate_s": gen_s, "generate_files": len(outputs),
+              "generate_db_min": min(db), "generate_bit_equal": bit_equal,
+              "checker_cos_min": float(cos.min()), "checker_decided": int(decided.sum()),
+              "checker_flags": flags.tolist(), "checker_flags_cpu": want_flags.tolist(),
+              "checker_ms_batch8": checker_ms, "checker_bound_ms": checker_bound_ms,
+              "checker_bound_by": checker_bound_by, "checker_fn_wall_s_batch8": checker_wall_s,
+              "control_black": control_black,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if bad:
+            raise SystemExit(f"chip_smoke: the round trip changed {len(bad)} entries: {bad[:8]}")
+        if len(outputs) != 8 or min(db) < PSNR_MIN_DB:
+            raise SystemExit(f"chip_smoke: generate_hdr from the imported directory: "
+                             f"{len(outputs)} files, min {min(db):.2f} dB of the source run")
+        if not (cos >= CONVERT_COS_MIN).all():
+            raise SystemExit(f"chip_smoke: safety checker on the card vs the CPU: cosines "
+                             f"{cos.tolist()} < {CONVERT_COS_MIN}")
+        if not (decided[0] and want_flags[0]
+                and np.array_equal(flags[decided], want_flags[decided])):
+            raise SystemExit(f"chip_smoke: safety checker flags {flags} vs the CPU's "
+                             f"{want_flags} where decided {decided}")
+        if not control_black:
+            raise SystemExit("chip_smoke: with every concept firing, the pipeline's images "
+                             "were not all black")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=2)
@@ -3351,6 +3614,7 @@ def main() -> int:
         pipe_dir = phase_cli(args, workdir)
         phase_train_cli(args, pipe_dir, train_launches)
         phase_trainer_clis(args, pipe_dir, stage1_per_pair)
+        phase_convert(args, pipe_dir)
     finally:
         import shutil
 

@@ -269,14 +269,14 @@ def _hwio(w):
 
 
 # Each transform of a table row: (Flax -> port, port -> Flax).
-_TRANSFORMS = {"conv": (_inv_conv, _hwio)}
+_TRANSFORMS = {"conv": (_inv_conv, _hwio), "linear": (_inv_linear, _inv_linear)}
 
 
-def _table_map(table, flat: dict, src: int) -> dict:
+def _table_map(table, flat: dict, src: int, what: str = "Discriminator") -> dict:
     """Map ``flat``'s keys from column ``src`` of ``table`` (0: Flax, 1: the
     port) to the other column, each value through the row's transform in
     that direction; a key no row matches, or a ``{i}`` that differs
-    between its places, raises."""
+    between its places, raises (naming ``what``)."""
     rows = [(_template_regex(row[src]), row) for row in table]
     out = {}
     for key, value in flat.items():
@@ -291,7 +291,7 @@ def _table_map(table, flat: dict, src: int) -> dict:
             out[target] = value if row[2] is None else _TRANSFORMS[row[2]][src](value)
             break
         else:
-            raise KeyError(f"unhandled Discriminator key {key}")
+            raise KeyError(f"unhandled {what} key {key}")
     return out
 
 
@@ -308,19 +308,67 @@ def discriminator_state_dict_from_flax(params: dict, batch_stats: dict) -> dict[
     return _table_map(_DISCRIMINATOR_TABLE, flat, 0)
 
 
-def discriminator_flax_from_state_dict(state_dict: dict) -> dict:
-    """The port's ``Discriminator`` state dict (parameters and the ``u`` /
-    ``sigma`` buffers) -> gmdx's variables ``{"params": ...,
-    "batch_stats": ...}``, the inverse of
-    :func:`discriminator_state_dict_from_flax` (the same table)."""
+def _nest(flat: dict) -> dict:
+    """{'/'-joined path: leaf} -> nested dicts."""
     out: dict = {}
-    for path, value in _table_map(_DISCRIMINATOR_TABLE, dict(state_dict), 1).items():
+    for path, value in flat.items():
         node = out
         *parents, leaf = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = value
     return out
+
+
+def discriminator_flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's ``Discriminator`` state dict (parameters and the ``u`` /
+    ``sigma`` buffers) -> gmdx's variables ``{"params": ...,
+    "batch_stats": ...}``, the inverse of
+    :func:`discriminator_state_dict_from_flax` (the same table)."""
+    return _nest(_table_map(_DISCRIMINATOR_TABLE, dict(state_dict), 1))
+
+
+# The safety checker's whole mapping (``gmdx/io/torch_import.py:549``
+# ``convert_safety_checker_state_dict`` and ``:608``
+# ``export_safety_checker_state_dict``), in the Discriminator's form: the
+# port's keys are transformers', ``pre_layrnorm`` spelled as there; "linear"
+# rows transpose a Dense kernel, "conv" rows change HWIO <-> OIHW.
+_VISION = "vision_model.vision_model"
+_CLIP_LAYER = "vision_model/layers_{i}"
+_SAFETY_CHECKER_TABLE = (
+    *((name, name, None) for name in ("concept_embeds", "special_care_embeds",
+                                      "concept_embeds_weights", "special_care_embeds_weights")),
+    ("visual_projection/kernel", "visual_projection.weight", "linear"),
+    ("vision_model/class_embedding", f"{_VISION}.embeddings.class_embedding", None),
+    ("vision_model/patch_embedding/kernel", f"{_VISION}.embeddings.patch_embedding.weight",
+     "conv"),
+    ("vision_model/position_embedding/embedding",
+     f"{_VISION}.embeddings.position_embedding.weight", None),
+    *((f"vision_model/{flax}/{fp}", f"{_VISION}.{port}.{tp}", None)
+      for flax, port in (("pre_layernorm", "pre_layrnorm"), ("post_layernorm", "post_layernorm"))
+      for fp, tp in (("scale", "weight"), ("bias", "bias"))),
+    *((f"{_CLIP_LAYER}/{flax}/{fp}", f"{_VISION}.encoder.layers.{{i}}.{port}.{tp}", None)
+      for flax, port in (("norm1", "layer_norm1"), ("norm2", "layer_norm2"))
+      for fp, tp in (("scale", "weight"), ("bias", "bias"))),
+    *((f"{_CLIP_LAYER}/{flax}/{fp}", f"{_VISION}.encoder.layers.{{i}}.{port}.{tp}", t)
+      for flax, port in (*((f"attn/{p}", f"self_attn.{p}")
+                           for p in ("q_proj", "k_proj", "v_proj", "out_proj")),
+                         ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+      for fp, tp, t in (("kernel", "weight", "linear"), ("bias", "bias", None))),
+)
+
+
+def safety_checker_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """gmdx ``StableDiffusionSafetyChecker`` params -> the port's (and
+    transformers') names, by ``_SAFETY_CHECKER_TABLE``."""
+    return _table_map(_SAFETY_CHECKER_TABLE, _flatten(params), 0, "safety-checker")
+
+
+def safety_checker_flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's ``StableDiffusionSafetyChecker`` state dict -> gmdx's
+    params, the inverse of :func:`safety_checker_state_dict_from_flax` (the
+    same table)."""
+    return _nest(_table_map(_SAFETY_CHECKER_TABLE, dict(state_dict), 1, "safety-checker"))
 
 
 _VGG19_SKIPPED = ("classifier.", "head.", "pre_logits.")
@@ -480,6 +528,8 @@ def load_clip_text(
 __all__ = [
     "discriminator_state_dict_from_flax",
     "discriminator_flax_from_state_dict",
+    "safety_checker_state_dict_from_flax",
+    "safety_checker_flax_from_state_dict",
     "vgg19_state_dict_from_checkpoint",
     "load_vgg19_checkpoint",
     "lora_from_flax",

@@ -17,7 +17,9 @@ for the CPU (float32 there). A Stage-1 ``Discriminator`` is a component
 too, in the JAX trainer's layout: ``config.json`` holds ``depth`` and
 ``hidden_channels``, ``params.safetensors`` its ``params`` and the
 spectral-norm ``batch_stats``; it loads in float32 (the power-iteration
-state is float32 in both packages).
+state is float32 in both packages). So does a ``StableDiffusionSafetyChecker``
+(its ``CLIPVisionConfig`` in ``config.json``): both packages compute it in
+float32, and its flags are thresholds on cosines.
 """
 
 from __future__ import annotations
@@ -39,9 +41,11 @@ from gmdx_torch.models import (
     CLIPTextConfig,
     CLIPTextModel,
     CLIPTokenizer,
+    CLIPVisionConfig,
     ControlNetConfig,
     ControlNetModel,
     Discriminator,
+    StableDiffusionSafetyChecker,
     UNet2DConditionModel,
     UNetConfig,
     VAEConfig,
@@ -65,8 +69,13 @@ _COMPONENTS = {
                       lambda tree: convert.discriminator_state_dict_from_flax(
                           tree.get("params", {}), tree.get("batch_stats", {})),
                       convert.discriminator_flax_from_state_dict),
+    "StableDiffusionSafetyChecker": (StableDiffusionSafetyChecker, CLIPVisionConfig,
+                                     convert.safety_checker_state_dict_from_flax,
+                                     convert.safety_checker_flax_from_state_dict),
 }
-_SCHEDULER_NAMES = {
+# Components that load in float32 on the card too.
+_FLOAT32_COMPONENTS = ("Discriminator", "StableDiffusionSafetyChecker")
+SCHEDULER_NAMES = {
     "DDPMScheduler": "ddpm",
     "DDIMScheduler": "ddim",
     "PNDMScheduler": "pndm",
@@ -140,16 +149,20 @@ def save_tokenizer(dirpath: str, tokenizer: CLIPTokenizer) -> None:
             f.write(f"{a} {b}\n")
 
 
-def save_scheduler(dirpath: str, scheduler) -> None:
-    """The scheduler's config fields and constructor extras, as the JAX
-    package writes them."""
-    os.makedirs(dirpath, exist_ok=True)
+def scheduler_config(scheduler) -> dict:
+    """The scheduler's config fields, constructor extras and
+    ``_class_name``, as the JAX package writes them."""
     cfg = dataclasses.asdict(scheduler.config)
     for extra in _SCHEDULER_EXTRAS:
         if hasattr(scheduler, extra):
             cfg[extra] = getattr(scheduler, extra)
     cfg["_class_name"] = type(scheduler).__name__
-    _write_json(os.path.join(dirpath, "config.json"), cfg)
+    return cfg
+
+
+def save_scheduler(dirpath: str, scheduler) -> None:
+    os.makedirs(dirpath, exist_ok=True)
+    _write_json(os.path.join(dirpath, "config.json"), scheduler_config(scheduler))
 
 
 def save_pipeline(
@@ -157,7 +170,8 @@ def save_pipeline(
     scheduler=None, copy_from: dict[str, str] | None = None,
 ) -> None:
     """``components`` maps a subdirectory name ("unet", "gm_unet", "vae",
-    "text_encoder", "controlnet") to one of the port's models;
+    "text_encoder", "safety_checker", "controlnet") to one of the port's
+    models;
     ``copy_from`` maps further names to component directories copied as
     they are (a frozen component keeps its stored float32 weights, which a
     copy on the card holds only in bfloat16)."""
@@ -179,36 +193,43 @@ def save_pipeline(
     _write_json(os.path.join(path, "model_index.json"), index)
 
 
+def component_config(dirpath: str) -> tuple[str, Any]:
+    """(class name, config) of a component directory: its config dataclass,
+    or the keyword arguments of a class that takes none (the
+    Discriminator). An unknown class raises."""
+    cfg = _read_json(os.path.join(dirpath, "config.json"))
+    name = cfg.pop("_class_name")
+    if name not in _COMPONENTS:
+        raise ValueError(f"unknown component class {name!r}")
+    config_cls = _COMPONENTS[name][1]
+    return name, cfg if config_cls is None else _config(config_cls, cfg)
+
+
 def load_component(dirpath: str, *, device: str | torch.device = "cuda",
                    dtype: torch.dtype | None = None) -> nn.Module:
     """The model of one component directory, its weights carried from the
     Flax tree (``strict=True``), in eval mode on ``device``: bfloat16 on the
-    card (the kernels' type), float32 on the CPU and for a Discriminator,
+    card (the kernels' type), float32 on the CPU, and float32 everywhere
+    for a Discriminator and a safety checker (the JAX package's checker
+    computes in float32, and its output is a threshold on a cosine),
     unless ``dtype`` says otherwise (a trainer's float32 master weights)."""
     dev = resolve_device(device)
-    cfg = _read_json(os.path.join(dirpath, "config.json"))
-    name = cfg.pop("_class_name")
-    if name == "StableDiffusionSafetyChecker":
-        raise NotImplementedError(
-            "the safety checker is not ported yet (ROADMAP Queue 1 item 10: "
-            "`gmdx/models/safety_checker.py`, then `gmdx/pipelines/pp.py`)")
-    if name not in _COMPONENTS:
-        raise ValueError(f"unknown component class {name!r}")
-    module_cls, config_cls, to_state_dict, _ = _COMPONENTS[name]
+    name, config = component_config(dirpath)
+    module_cls, _, to_state_dict, _ = _COMPONENTS[name]
     if dtype is None:
-        bf16 = dev.type == "cuda" and name != "Discriminator"
+        bf16 = dev.type == "cuda" and name not in _FLOAT32_COMPONENTS
         dtype = torch.bfloat16 if bf16 else torch.float32
     tree = load_params(os.path.join(dirpath, "params.safetensors"))
     sd = to_state_dict(_to_device(tree, dev, dtype))
     with torch.device("meta"):
-        model = module_cls(**cfg) if config_cls is None else module_cls(_config(config_cls, cfg))
+        model = module_cls(**config) if isinstance(config, dict) else module_cls(config)
     model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device=dev, dtype=dtype).eval()
 
 
 def load_scheduler(dirpath: str):
     cfg = _read_json(os.path.join(dirpath, "config.json"))
-    return get_scheduler(_SCHEDULER_NAMES[cfg.pop("_class_name")], **cfg)
+    return get_scheduler(SCHEDULER_NAMES[cfg.pop("_class_name")], **cfg)
 
 
 def load_pipeline(path: str, *, device: str | torch.device = "cuda",
@@ -238,5 +259,7 @@ __all__ = [
     "load_component",
     "save_tokenizer",
     "save_scheduler",
+    "scheduler_config",
+    "component_config",
     "load_scheduler",
 ]

@@ -9,7 +9,9 @@ transposed to (in, out) and OIHW conv weights to HWIO, norms' ``weight`` as
 layout changes run there). It is the inverse of ``gmdx_torch.io.convert``'s ``*_from_flax``,
 which the pipeline directories use to write what the JAX package reads.
 The ControlNet's mapping is the port's own (the inverse of
-``controlnet_state_dict_from_flax``). Unknown keys raise.
+``controlnet_state_dict_from_flax``). Unknown keys raise. (The
+Discriminator's and the safety checker's maps are one table each in
+``gmdx_torch.io.convert``, which gives both directions.)
 """
 
 from __future__ import annotations

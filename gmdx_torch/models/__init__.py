@@ -1,5 +1,6 @@
-"""UNet, ControlNet, VAE, CLIP text, tokenizer, and Stage-1's LoRA, VGG19
-and discriminator modules of the port (counterpart of ``gmdx.models``)."""
+"""UNet, ControlNet, VAE, CLIP text, tokenizer, the safety checker, and
+Stage-1's LoRA, VGG19 and discriminator modules of the port (counterpart of
+``gmdx.models``)."""
 
 from gmdx_torch.models.clip_text import (
     CLIP_VIT_L_CONFIG,
@@ -17,6 +18,18 @@ from gmdx_torch.models.controlnet import (
 from gmdx_torch.models.discriminator import Discriminator
 from gmdx_torch.models.layers import set_kernel_options, set_use_kernels
 from gmdx_torch.models.lora import LoRAConfig, init_lora_params, lora_targets, merge_lora
+from gmdx_torch.models.safety_checker import (
+    CLIP_IMAGE_MEAN,
+    CLIP_IMAGE_STD,
+    CLIP_VIT_L_VISION_CONFIG,
+    TINY_VISION_CONFIG,
+    CLIPVisionConfig,
+    CLIPVisionModel,
+    StableDiffusionSafetyChecker,
+    make_safety_checker_fn,
+    preprocess_for_clip,
+    run_safety_checker,
+)
 from gmdx_torch.models.tokenizer import CLIPTokenizer
 from gmdx_torch.models.unet2d import (
     SD15_GM_UNET_CONFIG,
@@ -48,6 +61,16 @@ __all__ = [
     "CLIP_VIT_L_CONFIG",
     "TINY_CLIP_CONFIG",
     "CLIPTokenizer",
+    "CLIPVisionConfig",
+    "CLIPVisionModel",
+    "StableDiffusionSafetyChecker",
+    "CLIP_VIT_L_VISION_CONFIG",
+    "TINY_VISION_CONFIG",
+    "preprocess_for_clip",
+    "run_safety_checker",
+    "make_safety_checker_fn",
+    "CLIP_IMAGE_MEAN",
+    "CLIP_IMAGE_STD",
     "ControlNetModel",
     "ControlNetConfig",
     "ConditioningEmbedding",

@@ -1479,3 +1479,93 @@ def test_exposure_augmentation_on_card_does_not_sync(card):
                                                  prob=0.7)
         assert meta == want_meta and out.is_cuda
         assert _rel_l2(out.cpu(), want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_safety_checker_fp32_on_card_against_cpu(card):
+    """The SD-1.5-width safety checker (ViT-L/14, 304 M parameters, seeded)
+    in float32 on the card against the same weights on the CPU, batch 2 of
+    512^2 images: projected embeddings at cosine >= 0.9999 per image, the
+    flags equal wherever every score is beyond 1e-3 of 0. The thresholds
+    sit 0.01 off the first image's cosines, below on odd concepts and above
+    on the rest, so that its flag is decided and set."""
+    from gmdx_torch.models import (
+        CLIP_VIT_L_VISION_CONFIG, StableDiffusionSafetyChecker, make_safety_checker_fn,
+        preprocess_for_clip,
+    )
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        gpu = StableDiffusionSafetyChecker(CLIP_VIT_L_VISION_CONFIG).eval()
+    with torch.device("meta"):
+        cpu = StableDiffusionSafetyChecker(CLIP_VIT_L_VISION_CONFIG).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    imgs = torch.rand(2, 512, 512, 3, generator=card, device="cuda")
+    with torch.no_grad():
+        want = cpu.image_embeds(preprocess_for_clip(imgs.cpu()))
+        for embeds, weights in ((cpu.concept_embeds, cpu.concept_embeds_weights),
+                                (cpu.special_care_embeds, cpu.special_care_embeds_weights)):
+            cos = torch.nn.functional.cosine_similarity(want[:1], embeds, dim=-1)
+            odd = torch.arange(len(cos)) % 2 == 1
+            offset = torch.where(odd & (embeds is cpu.concept_embeds), -0.01, 0.01)
+            weights.copy_(cos + offset)
+        for name in ("concept_embeds_weights", "special_care_embeds_weights"):
+            getattr(gpu, name).copy_(getattr(cpu, name))
+        got = gpu.image_embeds(preprocess_for_clip(imgs))
+        cos = torch.nn.functional.cosine_similarity(got.cpu().double(), want.double(), dim=-1)
+        assert got.dtype == torch.float32 and (cos >= 0.9999).all(), cos
+        special, concept = cpu.scores(want)
+        decided = torch.cat([special, concept], dim=1).abs().min(dim=1).values > 1e-3
+    flags, want_flags = (make_safety_checker_fn(m)(imgs.cpu().numpy())[1] for m in (gpu, cpu))
+    assert decided[0] and want_flags[0]
+    assert np.array_equal(flags[decided.numpy()], want_flags[decided.numpy()])
+
+
+def test_convert_tool_round_trip_without_jax(tmp_path):
+    """The port's converter where JAX and ``safetensors`` are absent: a tiny
+    pipeline directory with a safety checker, exported to diffusers' layout
+    and imported back, holds the same tensors (dtype included), configs,
+    tokenizer and scheduler."""
+    import dataclasses
+    import importlib.util
+    import json
+    import os
+
+    from gmdx_torch.io.params import load_file
+    from gmdx_torch.io.pipeline import save_pipeline
+    from gmdx_torch.models import (
+        TINY_CLIP_CONFIG, TINY_UNET_CONFIG, TINY_VAE_CONFIG, TINY_VISION_CONFIG, AutoencoderKL,
+        CLIPTextModel, CLIPTokenizer, StableDiffusionSafetyChecker, UNet2DConditionModel,
+    )
+    from gmdx_torch.schedulers import get_scheduler
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "port_convert_tool", os.path.join(root, "scripts", "torch", "convert_torch_checkpoint.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    torch.manual_seed(0)
+    mods = {"unet": UNet2DConditionModel(TINY_UNET_CONFIG),
+            "gm_unet": UNet2DConditionModel(dataclasses.replace(TINY_UNET_CONFIG, in_channels=8)),
+            "vae": AutoencoderKL(TINY_VAE_CONFIG), "text_encoder": CLIPTextModel(TINY_CLIP_CONFIG),
+            "safety_checker": StableDiffusionSafetyChecker(TINY_VISION_CONFIG)}
+    src, diff, back = (str(tmp_path / d) for d in ("src", "diff", "back"))
+    save_pipeline(src, components=mods, tokenizer=CLIPTokenizer.tiny(),
+                  scheduler=get_scheduler("lcm", original_inference_steps=40))
+    tool.main(["export", "--src", src, "--dst", diff])
+    tool.main(["import", "--src", diff, "--dst", back])
+
+    def read(d, *rel):
+        with open(os.path.join(d, *rel)) as f:
+            return json.load(f)
+
+    assert sorted(read(back, "model_index.json")["components"]) == \
+        sorted(read(src, "model_index.json")["components"])
+    for name in mods:
+        assert read(back, name, "config.json") == read(src, name, "config.json"), name
+        got, want = (load_file(os.path.join(d, name, "params.safetensors")) for d in (back, src))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (name, k)
+    for rel in (("scheduler", "config.json"), ("tokenizer", "vocab.json")):
+        assert read(back, *rel) == read(src, *rel)

@@ -257,11 +257,21 @@ def test_controlnet_component_round_trip(tmp_path):
 
 
 def test_unknown_and_unported_components_raise(tmp_path):
+    """An unknown class raises, as does the card without one; the safety
+    checker, once unported, now loads from a JAX-written component with
+    gmdx's params, in float32."""
+    from gmdx.models import TINY_VISION_CONFIG, StableDiffusionSafetyChecker
+    from gmdx_torch.io.convert import safety_checker_flax_from_state_dict
+
     d = tmp_path / "sc"
-    d.mkdir()
-    (d / "config.json").write_text(json.dumps({"_class_name": "StableDiffusionSafetyChecker"}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        port_pipeline.load_component(str(d), device="cpu")
+    checker = StableDiffusionSafetyChecker(TINY_VISION_CONFIG)
+    shapes = jax.eval_shape(checker.init, jax.random.key(0), jnp.zeros((1, 3, 32, 32)))
+    params = _random_params(shapes["params"], np.random.default_rng(5))
+    jax_pipeline.save_component(str(d), TINY_VISION_CONFIG, params, "StableDiffusionSafetyChecker")
+    port = port_pipeline.load_component(str(d), device="cpu")
+    assert dataclasses.asdict(port.config) == dataclasses.asdict(TINY_VISION_CONFIG)
+    _assert_same_flat(flatten_tree(safety_checker_flax_from_state_dict(
+        {k: v.numpy() for k, v in port.state_dict().items()})), flatten_tree(params))
     (d / "config.json").write_text(json.dumps({"_class_name": "Nope"}))
     with pytest.raises(ValueError, match="unknown component"):
         port_pipeline.load_component(str(d), device="cpu")
