@@ -227,6 +227,7 @@ The line before the last is the {"kernels": [...]} summary; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -1571,10 +1572,13 @@ def phase_e2e(args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def build_gm_unet(seed: int):
+def build_gm_unet(seed: int, remat: bool = False):
     """The full-width 8-channel GM UNet as Stage 2 starts it: a seeded random
     SD-1.5 UNet's weights with conv_in inflated (tile x2, scale 0.5); fp32
-    master weights, bf16 compute."""
+    master weights, bf16 compute; ``remat`` recomputes its blocks in the
+    backward pass (--gradient_checkpointing)."""
+    import dataclasses
+
     import torch
 
     from gmdx_torch.models import (
@@ -1584,9 +1588,10 @@ def build_gm_unet(seed: int):
     torch.manual_seed(seed)
     with torch.device("cuda"):
         sd = inflate_conv_in(UNet2DConditionModel(SD15_UNET_CONFIG).state_dict(), 8)
-        unet = UNet2DConditionModel(SD15_GM_UNET_CONFIG, dtype=torch.bfloat16)
+        unet = UNet2DConditionModel(dataclasses.replace(SD15_GM_UNET_CONFIG, remat=remat),
+                                    dtype=torch.bfloat16)
     unet.load_state_dict(sd, strict=True)
-    return unet
+    return unet.train() if remat else unet
 
 
 def phase_train(args) -> dict[str, int]:
@@ -1628,12 +1633,15 @@ def phase_train(args) -> dict[str, int]:
     reset_launch_counts()
     losses, times = [], []
     for i in range(2 + args.train_steps):  # pixel form, cached warm-up, timed
+        if i == 1 + args.train_steps:
+            before = launch_counts()  # the last cached step's own launches, for phase dist
         t1 = time.perf_counter()
         state, metrics = step(state, pixel if i == 0 else cached, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
         losses.append(float(metrics["loss"]))
     counts = launch_counts()
+    args.train_step_launches = {k: counts[k] - before[k] for k in TRAIN_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s_step = statistics.median(times[2:])
     args.train_samples_per_s = b / s_step  # beside phase train_cli's cached steps
@@ -3301,8 +3309,8 @@ def phase_controlnet_cli(args, pipe_dir: str, meta: str, loader_s: float) -> Non
 
 
 def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -> None:
-    """Phases stage1_cli and controlnet_cli on one set of 24 pairs (the
-    train_cli phase's data), removed at the end."""
+    """Phases stage1_cli, controlnet_cli and dist on one set of 24 pairs
+    (the train_cli phase's data), removed at the end."""
     import shutil
 
     root = os.path.join(os.path.dirname(pipe_dir), "trainers")
@@ -3312,6 +3320,7 @@ def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -
         loader_s = _loader_s_per_batch(meta, pipe_dir, args.seed)
         phase_stage1_cli(args, pipe_dir, meta, val_dir, loader_s, stage1_per_pair)
         phase_controlnet_cli(args, pipe_dir, meta, loader_s)
+        phase_dist(args, pipe_dir, meta)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3566,6 +3575,632 @@ def phase_convert(args, pipe_dir: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase dist: data-parallel training over ranks (gmdx_torch.dist)
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_STRATEGIES = ("ddp", "zero1", "fsdp")
+DIST_BATCH = 8  # Stage 2's global batch: DIST_BATCH / DIST_WORLD a rank
+DIST_STAGE1_BATCH = 2
+DIST_CONTROLNET_BATCH = 4
+DIST_STEPS = 2
+# (strategy, remat): the three under remat, where fsdp's sharded state
+# shows in the peak, and ddp without it, whose step's launches are phase
+# train's.
+DIST_STAGE2_RUNS = (("ddp", False), ("ddp", True), ("zero1", True), ("fsdp", True))
+# The two-rank runs against one rank on the global batch: train_e2e's bars.
+DIST_LOSS_RTOL = TRAIN_LOSS_RTOL
+DIST_COS_MIN = TRAIN_GRAD_COS_MIN
+# Stage 1 unclipped, so that its adaptive weight itself is compared (its
+# default clip, 1e4, would hold both sides at the clip).
+DIST_ADAPTIVE_WEIGHT_MAX = 1e12
+DIST_BUDGET_S = 150.0
+DIST_TIMED_STEPS = 5  # --dist-cards only
+DIST_SEED = 130
+
+
+def _dist_stage2(seed: int, remat: bool = False):
+    """Phase train's modules and a global cached-latent batch of DIST_BATCH,
+    with the EMA on (part of the state each strategy places); ``remat``
+    as --gradient_checkpointing."""
+    import torch
+
+    from gmdx_torch.models import CLIP_VIT_L_CONFIG, SD15_VAE_CONFIG, AutoencoderKL, CLIPTextModel
+    from gmdx_torch.train import Stage2Config, make_train_step
+
+    unet = build_gm_unet(seed, remat)
+    torch.manual_seed(seed + 1)
+    with torch.device("cuda"):
+        vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
+        text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
+    config = Stage2Config(learning_rate=1e-5, use_ema=True)
+    step = make_train_step(config, unet=unet, vae=vae, text_encoder=text)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    shape = (DIST_BATCH, 4, 64, 64)
+    batch = {"sdr_latent_mean": torch.randn(shape, generator=gen, device="cuda"),
+             "gm_latent_mean": torch.randn(shape, generator=gen, device="cuda"),
+             "input_ids": torch.randint(0, CLIP_VOCAB, (DIST_BATCH, 77), generator=gen,
+                                        device="cuda")}
+    for k in ("sdr", "gm"):
+        batch[f"{k}_latent_std"] = torch.rand(shape, generator=gen, device="cuda") * 0.2 + 0.05
+    return config, unet, step, batch
+
+
+def _dist_stage1(seed: int):
+    """Stage 1 at full width (phase stage1's VAE, VGG19 and discriminator,
+    LoRA r = 64 with non-zero b factors, the CLI's optimizers) with the
+    adaptive weight unclipped, in float32 on the plain versions; a global
+    batch of DIST_STAGE1_BATCH 512^2 pairs. Float32, because at random
+    weights the adversarial probe's gradient norm is near zero: in bf16 the
+    ratio compares the rounding of two batch shapes (13 % apart between one
+    batch of 2 and two of 1 on "NVIDIA H100 80GB HBM3", PERF.md §6), not the
+    ranks' arithmetic."""
+    import dataclasses
+
+    import torch
+
+    from gmdx_torch.models import SD15_VAE_CONFIG, AutoencoderKL, set_use_kernels
+    from gmdx_torch.models.discriminator import Discriminator
+    from gmdx_torch.models.vgg import VGG19Features
+    from gmdx_torch.ops import fix_mulog_tmo
+    from gmdx_torch.train import stage1
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        vae = AutoencoderKL(SD15_VAE_CONFIG)
+        vgg = VGG19Features()
+        disc = Discriminator()
+    set_use_kernels(vae, False)
+    config = dataclasses.replace(stage1.Stage1Config(),
+                                 adaptive_weight_max=DIST_ADAPTIVE_WEIGHT_MAX)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    trainables = stage1.init_trainables(gen, vae, config)
+    with torch.no_grad():
+        for f in trainables["lora"].values():
+            f["b"].normal_(0.0, 1e-2, generator=gen)
+    gen_step = stage1.make_gen_step(config, vae=vae, discriminator=disc, vgg=vgg,
+                                    tmo_fn=fix_mulog_tmo)
+    disc_step = stage1.make_disc_step(config, vae=vae, discriminator=disc, tmo_fn=fix_mulog_tmo)
+    state = stage1.init_state(config, trainables, disc,
+                              stage1.make_optimizers(trainables, disc, lr_warmup_steps=0))
+    batch = stage1_batch(DIST_STAGE1_BATCH, 512, torch.Generator(device="cuda").manual_seed(
+        seed + 3))
+    return state, gen_step, disc_step, batch
+
+
+def _dist_controlnet(seed: int):
+    """The ControlNet trainer's step at full width: a seeded random SD-1.5
+    UNet (frozen, bf16), the ControlNet copied from it (fp32 master weights,
+    bf16 compute), random VAE and CLIP; a global batch of
+    DIST_CONTROLNET_BATCH 512^2 frames."""
+    import torch
+
+    from gmdx_torch.io import controlnet_state_dict_from_unet
+    from gmdx_torch.models import (
+        CLIP_VIT_L_CONFIG, SD15_CONTROLNET_CONFIG, SD15_UNET_CONFIG, SD15_VAE_CONFIG,
+        AutoencoderKL, CLIPTextModel, ControlNetModel, UNet2DConditionModel,
+    )
+    from gmdx_torch.train import (
+        ControlNetTrainConfig, init_controlnet_state, make_controlnet_train_step,
+    )
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(SD15_UNET_CONFIG, dtype=torch.bfloat16)
+        cnet = ControlNetModel(SD15_CONTROLNET_CONFIG, dtype=torch.bfloat16)
+        vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
+        text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
+    cnet.load_state_dict(controlnet_state_dict_from_unet(cnet.state_dict(), unet.state_dict()))
+    unet = unet.to(torch.bfloat16)
+    config = ControlNetTrainConfig(learning_rate=1e-5)
+    step = make_controlnet_train_step(config, unet=unet, vae=vae, text_encoder=text,
+                                      controlnet=cnet.train())
+    state = init_controlnet_state(config, cnet)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    frames = torch.rand(DIST_CONTROLNET_BATCH, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
+    batch = {"image": frames, "cond": frames,
+             "input_ids": torch.randint(0, CLIP_VOCAB, (DIST_CONTROLNET_BATCH, 77),
+                                        generator=gen, device="cuda")}
+    return state, step, batch
+
+
+def _dist_capture_grads(opt, into: list, measure=None):
+    """Wrap ``opt.step`` so that the first gradients it takes (reduced
+    across ranks: full tensors, or this rank's pieces) are kept, or, with
+    ``measure``, only ``measure(grads)`` (no copy held on the card)."""
+    inner = opt.step
+
+    def step(grads, grad_norm=None):
+        if not into:
+            into.append(measure(grads) if measure is not None
+                        else [g.detach().clone() for g in grads])
+        return inner(grads, grad_norm)
+
+    opt.step = step
+
+
+def _dist_flat_bf16(path: str, tensors) -> None:
+    """The tensors, flattened in order, as raw bf16 (int16 bits) in ``path``."""
+    import torch
+
+    with open(path, "wb") as f:
+        for t in tensors:
+            f.write(t.detach().reshape(-1).to(torch.bfloat16).view(torch.int16).cpu()
+                    .numpy().tobytes())
+
+
+def _dist_cosine(dp, pieces, path: str) -> tuple[float, float]:
+    """Over all ranks, between this rank's pieces of a vector in ``dp``'s
+    layout (its own spans, in order) and the same elements of the bf16
+    vector in ``path``: the cosine and the share of elements whose sign
+    differs."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    ref = np.memmap(path, dtype=np.int16, mode="r")
+    acc = torch.zeros(5, dtype=torch.float64, device="cuda")
+    for (i, a, b, _), p in zip(dp.own, pieces):
+        off = dp.layout.offsets[i]
+        r = torch.from_numpy(np.array(ref[off + a:off + b])).cuda().view(torch.bfloat16).double()
+        p = p.reshape(-1).double()
+        acc += torch.stack([(p * r).sum(), (p * p).sum(), (r * r).sum(),
+                            ((p > 0) != (r > 0)).sum().double(),
+                            torch.tensor(float(p.numel()), device=p.device).double()])
+    tdist.all_reduce(acc)
+    dot, na, nb, flips, n = acc.tolist()
+    return dot / math.sqrt(max(na * nb, 1e-300)), flips / max(n, 1.0)
+
+
+def _dist_own(dp, tensors, pieces: bool):
+    """This rank's pieces of ``tensors``: as they are when they already are
+    its pieces (``pieces``), else views into the full tensors."""
+    return tensors if pieces else dp.views(tensors)
+
+
+def dist_job_ref(args) -> None:
+    """One process, no group: the global batch's Stage-2 updates (losses,
+    gradient norms; the first gradient and the update written as bf16
+    vectors), the Stage-1 pair and the ControlNet step."""
+    import torch
+
+    from gmdx_torch.train import init_state, make_ema_step
+
+    out = {}
+    config, unet, step, batch = _dist_stage2(args.seed + DIST_SEED)
+    state = init_state(config, unet)
+    grads: list = []
+    _dist_capture_grads(state.optimizer, grads)
+    before = [p.detach().clone() for p in state.optimizer.params]
+    losses = []
+    for i in range(DIST_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 100 + i)
+        state, m = step(state, batch, gen)
+        make_ema_step(config)(state)
+        losses.append(float(m["loss"]))
+    _dist_flat_bf16(os.path.join(args.dist_dir, "grad.bin"), grads[0])
+    _dist_flat_bf16(os.path.join(args.dist_dir, "mu.bin"), state.optimizer.mu)
+    _dist_flat_bf16(os.path.join(args.dist_dir, "update.bin"),
+                    [p - b for p, b in zip(state.optimizer.params, before)])
+    out["stage2"] = {"loss": losses, "step_s": _dist_timed_steps(args, step, state, batch)}
+    del state, unet, step, batch, grads, before
+    torch.cuda.empty_cache()
+    if not args.dist_cards:
+        out.update(_dist_stage1_and_controlnet(args))
+    with open(os.path.join(args.dist_dir, "ref.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dist_stage1_and_controlnet(args, strategies=None) -> dict:
+    """The Stage-1 pair (under ``strategies[0]`` across ranks) and the
+    ControlNet step (under ``strategies[1]``): their metrics."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.train import stage1
+
+    out = {}
+    state, gen_step, disc_step, batch = _dist_stage1(args.seed + DIST_SEED + 10)
+    if strategies:
+        state = dist.apply_shard_strategy(state, strategies[0],
+                                          param_fields=("trainables", "disc_params", "ema"),
+                                          opt_fields=("opt_state", "disc_opt_state"))
+    local = dist.shard_batch(batch)
+    seed = args.seed + 110
+    state, g = gen_step(state, local, torch.Generator(device="cuda").manual_seed(seed))
+    state, d = disc_step(state, local, torch.Generator(device="cuda").manual_seed(seed + 1))
+    out["stage1"] = {**{k: float(v) for k, v in g.items() if k != "module_grad_norms"},
+                     **{k: float(v) for k, v in d.items() if k != "grad_norm"}}
+    del state, gen_step, disc_step, batch, local
+    torch.cuda.empty_cache()
+    state, step, batch = _dist_controlnet(args.seed + DIST_SEED + 20)
+    if strategies:
+        state = dist.apply_shard_strategy(state, strategies[1], param_fields=("params", "ema"),
+                                          opt_fields=("opt_state",))
+    state, m = step(state, dist.shard_batch(batch),
+                    torch.Generator(device="cuda").manual_seed(args.seed + 120))
+    out["controlnet"] = {k: float(v) for k, v in m.items()}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_job_ranks(args) -> None:
+    """A rank of DIST_WORLD on the one card under gloo: the Stage-2 updates
+    under each strategy (losses, the first reduced gradient's and the
+    update's cosine against the reference, the peak memory, a step's
+    launches), then the Stage-1 pair under fsdp and the ControlNet step
+    under zero1."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.train import init_state, make_ema_step
+
+    if args.dist_port:  # two ranks on the one card
+        dist.initialize(f"localhost:{args.dist_port}", args.dist_world, args.dist_rank,
+                        backend="gloo")
+    else:  # under torchrun: a rank a card, NCCL
+        dist.initialize()
+    out = {"backend": torch.distributed.get_backend(), "world": dist.world_size(),
+           "device": str(torch.cuda.current_device()), "stage2": {}}
+    for strategy, remat in DIST_STAGE2_RUNS:
+        t0 = time.perf_counter()
+        config, unet, step, batch = _dist_stage2(args.seed + DIST_SEED, remat)
+        gc.collect()  # the last run's state, whose wrapped step held it in a cycle
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = dist.apply_shard_strategy(init_state(config, unet), strategy,
+                                          param_fields=("params", "ema"),
+                                          opt_fields=("opt_state",))
+        # init_state builds the whole state on every rank before it is
+        # placed: the setup's peak, apart from the training's.
+        setup_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        placed = torch.cuda.memory_allocated()
+        opt = state.optimizer
+        dp = opt.dp
+        # The harness holds nothing on the card beside the state: the
+        # first gradient is measured where the step takes it, the
+        # parameters before the updates are kept on the host.
+        grad_stats: list = []
+        _dist_capture_grads(opt, grad_stats, lambda g: _dist_cosine(
+            dp, _dist_own(dp, g, dp.sharded), os.path.join(args.dist_dir, "grad.bin")))
+        sharded_master = dp.master is not None  # fsdp: the optimizer steps the master shard
+        before = [t.detach().to("cpu", copy=True)
+                  for t in _dist_own(dp, opt.master_params, sharded_master)]
+        local = dist.shard_batch(batch)
+        losses = []
+        for i in range(DIST_STEPS):
+            if i == DIST_STEPS - 1:
+                reset_launch_counts()
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 100 + i)
+            state, m = step(state, local, gen)
+            make_ema_step(config)(state)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        per_step = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        after = _dist_own(dp, opt.master_params, sharded_master)
+        grad_cos, grad_flips = grad_stats[0]
+        mu_cos, _ = _dist_cosine(dp, opt.mu if dp.sharded else dp.views(opt.mu),
+                                 os.path.join(args.dist_dir, "mu.bin"))
+        update_cos, update_flips = _dist_cosine(
+            dp, [a - b.to(a.device) for a, b in zip(after, before)],
+            os.path.join(args.dist_dir, "update.bin"))
+        step_s = _dist_timed_steps(args, step, state, local)  # after every comparison
+        out["stage2"][strategy + ("_remat" if remat else "")] = {
+            "loss": losses, "peak_mem_gb": peak, "base_mem_gb": base / 1e9,
+            "setup_peak_gb": setup_peak, "placed_mem_gb": placed / 1e9,
+            "launches_per_step": per_step, "grad_cosine": grad_cos,
+            "grad_sign_flip_share": grad_flips, "mu_cosine": mu_cos,
+            "update_cosine": update_cos, "update_sign_flip_share": update_flips,
+            "step_s": step_s, "s": time.perf_counter() - t0}
+        del opt.step  # the wrapper, and with it the cycle
+        del state, opt, dp, grad_stats, before, after, unet, step, batch, local, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not args.dist_cards:
+        out.update(_dist_stage1_and_controlnet(args, ("fsdp", "zero1")))
+    with open(os.path.join(args.dist_dir, f"rank{dist.rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+
+
+def _dist_timed_steps(args, step, state, batch) -> list[float]:
+    """--dist-cards: the walls of DIST_TIMED_STEPS more steps (the
+    parameters move on; nothing is compared after them)."""
+    import torch
+
+    walls = []
+    for i in range(DIST_TIMED_STEPS if args.dist_cards else 0):
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 200 + i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def dist_job_cli(args) -> None:
+    """Under torchrun (one rank, NCCL): the Stage-2 trainer CLI under zero1
+    (2 updates, a checkpoint), under fsdp resumed from it (1 update, an
+    asynchronous checkpoint), then under ddp resumed from that."""
+    import torch
+
+    from gmdx_torch import dist
+
+    dist.initialize()  # torchrun's environment; the trainer then keeps the group
+    out = {"backend": torch.distributed.get_backend(), "world": dist.world_size(),
+           "env": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}}
+    trainer = _script("train_gm_unet")
+    common = ["--pretrained_model_name_or_path", args.dist_pipe, "--train_metadata",
+              args.dist_meta, "--resolution", "512", "--train_batch_size", "2", "--seed",
+              str(args.seed), "--center_crop", "--output_dir",
+              os.path.join(args.dist_dir, "cli"), "--checkpoints_total_limit", "1",
+              "--dataloader_num_workers", "2", "--report_to", "tensorboard"]
+    runs = {}
+    for name, extra in (
+            ("zero1", ["--shard_strategy", "zero1", "--max_train_steps", "2",
+                       "--checkpointing_steps", "2"]),
+            ("fsdp", ["--shard_strategy", "fsdp", "--max_train_steps", "3",
+                      "--checkpointing_steps", "3", "--async_checkpointing",
+                      "--resume_from_checkpoint", "latest"]),
+            ("ddp", ["--shard_strategy", "ddp", "--max_train_steps", "3",
+                     "--resume_from_checkpoint", "latest"])):
+        t0 = time.perf_counter()
+        res = trainer.main(common + extra)
+        torch.cuda.synchronize()
+        runs[name] = {"start_step": res["start_step"], "global_step": res["global_step"],
+                      "losses": res["losses"], "saved": res["saved_digests"],
+                      "restored": res["restored_digest"], "wall_s": time.perf_counter() - t0}
+        del res
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    with open(os.path.join(args.dist_dir, "cli.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+
+
+def _dist_spawn(argv: list[str], log: str, timeout: float, env=None) -> None:
+    """Run a child (its output to ``log``), waiting at most ``timeout``;
+    it is killed if it outlives that, and a failure raises with its log."""
+    with open(log, "w") as f:
+        proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT, cwd=REPO,
+                                env=env or os.environ.copy())
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0:
+        with open(log) as f:
+            tail = f.read()[-3000:]
+        raise SystemExit(f"chip_smoke: dist child {argv[2:5]} failed ({proc.returncode}):\n"
+                         f"{tail}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_check_stage2(ranks: list[dict], ref: dict, want_launches) -> list[str]:
+    """Emit each rank's Stage-2 rows; the failed checks (loss, the first
+    reduced gradient's and first moment's cosines, a step's launches
+    without remat where ``want_launches`` is given, the remat peaks'
+    order)."""
+    bad = []
+    for r, res in enumerate(ranks):
+        for strategy, s2 in res["stage2"].items():
+            rel = max(abs(a - b) / abs(b) for a, b in zip(s2["loss"], ref["stage2"]["loss"]))
+            row = {"phase": "dist", "part": "stage2", "rank": r, "strategy": strategy,
+                   "backend": res["backend"], "world": res["world"],
+                   "loss": s2["loss"], "ref_loss": ref["stage2"]["loss"], "loss_rel_err": rel,
+                   **{k: s2[k] for k in ("grad_cosine", "grad_sign_flip_share", "mu_cosine",
+                                         "update_cosine", "update_sign_flip_share",
+                                         "peak_mem_gb", "base_mem_gb", "setup_peak_gb",
+                                         "placed_mem_gb", "step_s", "s")},
+                   "launches_per_step": {k: s2["launches_per_step"][k] for k in TRAIN_KERNELS},
+                   "train_launches_per_step": want_launches}
+            emit(row)
+            if not (rel <= DIST_LOSS_RTOL and s2["grad_cosine"] >= DIST_COS_MIN
+                    and s2["mu_cosine"] >= DIST_COS_MIN):
+                bad.append(f"rank {r} {strategy}: loss rel {rel}, cosines gradient "
+                           f"{s2['grad_cosine']}, first moment {s2['mu_cosine']}")
+            if (want_launches is not None and not strategy.endswith("_remat")
+                    and row["launches_per_step"] != want_launches):
+                bad.append(f"rank {r} {strategy}: launches a step {row['launches_per_step']}"
+                           f", phase train's {want_launches}")
+        # Without remat the backward's activations and gradients make
+        # zero1's and fsdp's peaks alike (both hold the full fp32
+        # parameters then); the order is held under remat.
+        peaks = [res["stage2"][s + "_remat"]["peak_mem_gb"] for s in ("fsdp", "zero1", "ddp")]
+        if not peaks[0] < peaks[1] < peaks[2]:
+            bad.append(f"rank {r}: remat peaks fsdp / zero1 / ddp {peaks} not increasing")
+    return bad
+
+
+def phase_dist(args, pipe_dir: str, meta: str) -> None:
+    """Data-parallel training (gmdx_torch.dist) at SD-1.5 width, 512^2.
+      ref: one process, no group: DIST_STEPS Stage-2 updates of the global
+         batch (DIST_BATCH cached latents, EMA on; the first gradient, the
+         first moment and the update written as bf16 vectors), a Stage-1
+         pair (DIST_STAGE1_BATCH, float32, plain) and a ControlNet step
+         (DIST_CONTROLNET_BATCH).
+      cli (beside ref): torchrun, one rank under NCCL: train_gm_unet.py
+         under zero1 (a checkpoint), fsdp resumed from it (an asynchronous
+         checkpoint) and ddp resumed from that, restoring the digest fsdp
+         saved.
+      ranks: DIST_WORLD processes on the one card under gloo (NCCL refuses
+         two ranks on one device), each on its rows: the Stage-2 updates of
+         DIST_STAGE2_RUNS: loss within DIST_LOSS_RTOL of ref's, the first
+         reduced gradient's and the first moment's cosine against ref's
+         >= DIST_COS_MIN (the update's cosine and the share of elements
+         whose sign differs are reported: AdamW's first updates are about
+         lr * sign(g), so an element whose gradient lies within bf16
+         rounding of zero flips), a step's launches of every training
+         kernel phase train's (without remat), the training's peak memory
+         (from the state's placement on) fsdp < zero1 < ddp (under remat;
+         the setup's peak, init_state's whole state before its placement,
+         reported); then the Stage-1 pair under fsdp and the
+         ControlNet step under zero1 (losses and the adaptive weight
+         within DIST_LOSS_RTOL).
+    Its time is printed beside DIST_BUDGET_S."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(pipe_dir), "dist")
+    os.makedirs(root)
+    me = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed),
+          "--dist-dir", root]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    cli_log = open(os.path.join(root, "cli.log"), "w")
+    cli_proc = None
+    try:
+        # The NCCL rank beside the reference (the card holds both; the two
+        # gloo ranks and it do not fit in 80 GB at once, PERF.md §6).
+        t0 = time.perf_counter()
+        cli_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+             "1", "--master_addr", "localhost", "--master_port", str(_free_port()),
+             os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed), "--dist-dir", root,
+             "--dist-job", "cli", "--dist-pipe", pipe_dir, "--dist-meta", meta],
+            stdout=cli_log, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+        _dist_spawn(me + ["--dist-job", "ref"], os.path.join(root, "ref.log"), 600)
+        ref_s = time.perf_counter() - t0
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        cli_proc.wait(timeout=900)
+        cli_s = time.perf_counter() - t0
+        if cli_proc.returncode != 0:
+            with open(os.path.join(root, "cli.log")) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"chip_smoke: dist cli under torchrun failed "
+                             f"({cli_proc.returncode}):\n{tail}")
+        t0 = time.perf_counter()
+        port = _free_port()
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(DIST_WORLD)]
+        procs = [subprocess.Popen(me + ["--dist-job", "ranks", "--dist-rank", str(r),
+                                        "--dist-world", str(DIST_WORLD), "--dist-port",
+                                        str(port)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+                 for r in range(DIST_WORLD)]
+        try:
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: dist rank {r} failed ({p.returncode}):\n{tail}")
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ranks_s = time.perf_counter() - t0
+
+        bad = _dist_check_stage2(ranks, ref, getattr(args, "train_step_launches", None))
+        for r, res in enumerate(ranks):
+            for part, keys in (("stage1", ("gen_loss", "recon", "perceptual", "adversarial",
+                                           "adaptive_weight", "disc_loss", "hinge", "gp")),
+                               ("controlnet", ("loss", "grad_norm"))):
+                errs = {k: abs(res[part][k] - ref[part][k]) / max(abs(ref[part][k]), 1e-30)
+                        for k in keys}
+                emit({"phase": "dist", "part": part, "rank": r,
+                      "strategy": "fsdp" if part == "stage1" else "zero1",
+                      "values": {k: res[part][k] for k in keys},
+                      "ref": {k: ref[part][k] for k in keys}, "rel_err": errs})
+                if max(errs.values()) > DIST_LOSS_RTOL:
+                    bad.append(f"rank {r} {part}: rel errors {errs}")
+
+        with open(os.path.join(root, "cli.json")) as f:
+            cli = json.load(f)
+        runs = cli["runs"]
+        emit({"phase": "dist", "part": "cli", "backend": cli["backend"], "world": cli["world"],
+              "env": cli["env"], "runs": runs})
+        losses = [v for run in runs.values() for v in run["losses"].values()]
+        if not (cli["backend"] == "nccl" and cli["world"] == 1
+                and runs["zero1"]["global_step"] == 2 and 2 in map(int, runs["zero1"]["saved"])
+                and runs["fsdp"]["start_step"] == 2 and runs["fsdp"]["global_step"] == 3
+                and runs["fsdp"]["restored"] == runs["zero1"]["saved"]["2"]
+                and runs["ddp"]["start_step"] == 3
+                and runs["ddp"]["restored"] == runs["fsdp"]["saved"]["3"]
+                and all(math.isfinite(v) for v in losses)):
+            bad.append(f"cli under NCCL: {cli['backend']} x {cli['world']}, runs {runs}")
+        elapsed = time.perf_counter() - t_phase
+        emit({"phase": "dist", "elapsed_s": elapsed, "ref_s": ref_s, "cli_s": cli_s,
+              "ranks_s": ranks_s, "budget_s": DIST_BUDGET_S,
+              "within_budget": elapsed <= DIST_BUDGET_S})
+        if bad:
+            raise SystemExit("chip_smoke: dist failed its checks: " + "; ".join(bad))
+    finally:
+        if cli_proc is not None and cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+        cli_log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_dist_cards(args) -> None:
+    """``--dist-cards N`` (not part of the default run; N cards): the
+    Stage-2 part of phase dist with a rank a card under NCCL (torchrun),
+    against one process on the global batch on one card, with
+    DIST_TIMED_STEPS more steps timed on each side; phase dist's checks
+    but the launches (no phase train here). Prints s/step and samples/s of
+    the global batch for each strategy and for the one card."""
+    import shutil
+    import statistics
+
+    root = tempfile.mkdtemp(prefix="gmdx_dist_cards_")
+    me = [os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed), "--dist-dir", root,
+          "--dist-cards", str(args.dist_cards)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        _dist_spawn([sys.executable] + me + ["--dist-job", "ref"],
+                    os.path.join(root, "ref.log"), 600, env=env)
+        _dist_spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                     "--nproc_per_node", str(args.dist_cards), "--master_addr", "localhost",
+                     "--master_port", str(_free_port())] + me + ["--dist-job", "ranks"],
+                    os.path.join(root, "ranks.log"), 900, env=env)
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        ranks = []
+        for r in range(args.dist_cards):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad = _dist_check_stage2(ranks, ref, None)
+        one = statistics.median(ref["stage2"]["step_s"])
+        summary = {"one_card_s_per_step": one, "one_card_samples_per_s": DIST_BATCH / one}
+        for strategy in ranks[0]["stage2"]:
+            walls = [statistics.median(r["stage2"][strategy]["step_s"]) for r in ranks]
+            summary[strategy] = {"s_per_step": max(walls), "samples_per_s": DIST_BATCH / max(walls),
+                                 "peak_mem_gb": max(r["stage2"][strategy]["peak_mem_gb"]
+                                                    for r in ranks)}
+        emit({"phase": "dist_cards", "cards": args.dist_cards, "global_batch": DIST_BATCH,
+              "backend": ranks[0]["backend"], "world": ranks[0]["world"], **summary})
+        if bad:
+            raise SystemExit("chip_smoke: dist_cards failed its checks: " + "; ".join(bad))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=2)
@@ -3586,11 +4221,35 @@ def main() -> int:
     p.add_argument("--profile", action="store_true",
                    help="device time by kernel over one denoise iteration (512^2 and 1024^2), "
                         "one train step and one Stage-1 pair")
+    # Phase dist's children (this script again): which part, and where.
+    for flag in ("--dist-job", "--dist-dir", "--dist-pipe", "--dist-meta"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--dist-rank", "--dist-world", "--dist-port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--dist-cards", type=int, default=0,
+                   help="only the Stage-2 data-parallel check on this many cards, a rank a card "
+                        "under NCCL, against one card, with s/step (not the default run)")
     args = p.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "gmdx_torch")):
         raise SystemExit("chip_smoke: gmdx_torch/ not found beside this script")
     sys.path.insert(0, REPO)
+    if args.dist_job:
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        {"ref": dist_job_ref, "ranks": dist_job_ranks, "cli": dist_job_cli}[args.dist_job](args)
+        return 0
+    if args.dist_cards:
+        dev = phase_device()
+        phase_build()
+        phase_dist_cards(args)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}), flush=True)
+        return 0
     dev = phase_device()
     phase_build()
     kernel_rows = phase_kernels(args.batch, args.train_batch, args.sdr2hdr_batch)

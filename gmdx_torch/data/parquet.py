@@ -82,6 +82,9 @@ def make_dataloader(
     num_workers: int = 4,
     max_samples: int | None = None,
     skip_batches: int = 0,
+    process_shard: bool = False,
+    process_index: int | None = None,
+    process_count: int | None = None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Batches ``pixel_values`` / ``gainmap_values`` (B, 3, R, R) float32 in
     [-1, 1] and ``input_ids`` / ``attention_mask`` (B, 77) int32, made on a
@@ -92,10 +95,28 @@ def make_dataloader(
     from ``default_rng((seed, epoch, start))``, so ``skip_batches`` (resume)
     skips batches without decoding them and the rest equal an uninterrupted
     run's. A producer error is raised in the consumer; the producer stops
-    when the consumer closes the iterator or drops it."""
+    when the consumer closes the iterator or drops it.
+
+    ``process_shard``: ``batch_size`` stays the global batch and process
+    ``pi`` of ``pc`` (``process_index`` / ``process_count``, by default the
+    rank and world size of ``gmdx_torch.dist``) decodes and yields only its
+    rows ``[pi * local, (pi + 1) * local)`` of it; with ``pc > 1`` a batch's
+    crop and flip draws come from ``default_rng((seed, epoch, start, pi))``
+    (the JAX package's keys), and ``skip_batches`` counts global batches."""
     n = len(dataset) if max_samples is None else min(max_samples, len(dataset))
     if n < batch_size:
         raise ValueError(f"dataset ({n}) smaller than batch size ({batch_size})")
+    pi, pc = 0, 1
+    if process_shard:
+        from gmdx_torch.dist.multihost import rank, world_size
+
+        pi = rank() if process_index is None else process_index
+        pc = world_size() if process_count is None else process_count
+        if batch_size % pc:
+            raise ValueError(
+                f"process_shard needs process_count ({pc}) to divide the "
+                f"global batch size ({batch_size})")
+    local = batch_size // pc
 
     def decoded(idx: int):
         """Decode and resize one pair: no random draw, so it runs on the
@@ -139,9 +160,11 @@ def make_dataloader(
                     if remaining_skip > 0:
                         remaining_skip -= 1
                         continue
-                    pairs = pool.map(decoded, (int(i) for i in order[start:start + batch_size]))
+                    idxs = order[start:start + batch_size][pi * local:(pi + 1) * local]
+                    pairs = pool.map(decoded, (int(i) for i in idxs))
                     # The draws, in sample order, as the JAX loader makes them.
-                    rng = np.random.default_rng((seed, epoch, start))
+                    rng = np.random.default_rng((seed, epoch, start, pi) if pc > 1
+                                                else (seed, epoch, start))
                     items = [sample(pair, rng) for pair in pairs]
                     if not put({k: np.stack([it[k] for it in items]) for k in items[0]}):
                         return

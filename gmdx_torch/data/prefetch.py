@@ -11,6 +11,8 @@ allocator, which hands a buffer out again only after the copies recorded
 on it have ended. Loader
 errors are raised in the consumer, and the producer stops when the
 consumer leaves its loop. On the CPU the batches pass through as tensors.
+In a process group a card request (``"cuda"``) means this rank's own card,
+``cuda:<local rank>``, so each rank's rows land on its card.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist.multihost import device as dist_device
 
 
 def _tensor(value) -> torch.Tensor:
@@ -34,7 +37,7 @@ def device_prefetch(loader, device: str | torch.device = "cuda", depth: int = 2)
     batches on ``device``, at most ``depth`` of them resident ahead."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    dev = resolve_device(device)
+    dev = dist_device(resolve_device(device))
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()

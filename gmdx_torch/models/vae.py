@@ -56,9 +56,15 @@ class DiagonalGaussianDistribution:
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        eps = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                          dtype=self.mean.dtype)
+    def sample(self, generator: torch.Generator | None = None,
+               rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """A draw; with ``rows = (start, total)`` (a rank's rows of a
+        global batch) the noise is those rows of one draw for ``total``
+        rows, as ``gmdx_torch.dist.randn_rows`` makes it."""
+        from gmdx_torch.dist.mesh import randn_rows
+
+        eps = randn_rows(self.mean.shape, generator, rows, device=self.mean.device,
+                         dtype=self.mean.dtype)
         return self.mean + self.std * eps
 
     def mode(self) -> torch.Tensor:

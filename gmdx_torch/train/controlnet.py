@@ -32,10 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, randint_rows, randn_rows
 from gmdx_torch.schedulers import DDPMScheduler
 from gmdx_torch.schedulers.base import add_noise
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
-from gmdx_torch.train.optim import AdamW, MultiSteps, global_norm
+from gmdx_torch.train.optim import (
+    AdamW, MultiSteps, data_parallel, gathered, global_norm, master_params, model_params,
+    param_sq_norms, reduce_gradients,
+)
 from gmdx_torch.train.stage2 import Stage2Config, make_optimizer
 
 # The same settings as Stage 2 (rate, schedule, Adam, EMA, precision).
@@ -112,7 +116,10 @@ def make_controlnet_train_step(
     ``batch = {"image", "cond": (B, 3, H, W) in [-1, 1], "input_ids":
     (B, 77)}`` and ``generator`` a ``torch.Generator`` on the device (drawn
     in order: the posterior, the noise, the timesteps). ``metrics`` holds
-    device scalars ``loss`` and ``grad_norm`` (before clipping)."""
+    device scalars ``loss`` and ``grad_norm`` (before clipping). Across
+    ranks the draws are the rank's rows of the global batch's, the
+    optimizer reduces the gradients and the loss is the mean over the
+    ranks, as in the Stage-2 step."""
     dev = resolve_device(device)
     for m in (unet, vae, text_encoder, controlnet):
         m.to(dev)
@@ -125,29 +132,32 @@ def make_controlnet_train_step(
     scaling = vae.config.scaling_factor
 
     def step_fn(state: ControlNetState, batch: dict, generator: torch.Generator):
+        opt = state.optimizer
         with torch.no_grad():
-            latents = vae.encode(batch["image"].to(dev, wd)).sample(generator) * scaling
+            b = batch["input_ids"].shape[0]
+            rows = batch_rows(b)
+            latents = vae.encode(batch["image"].to(dev, wd)).sample(generator, rows) * scaling
             context = text_encoder(batch["input_ids"].to(dev))
             cond01 = (batch["cond"].to(dev, wd) + 1.0) / 2.0
             # The embedder downsamples 8x to the latent grid; a VAE of
             # another scale factor (the tiny test configs) needs a resize.
             cond01 = resize_control(cond01, (latents.shape[2] * 8, latents.shape[3] * 8))
-            b = latents.shape[0]
-            noise = torch.randn(latents.shape, generator=generator, device=dev,
-                                dtype=torch.float32)
-            timesteps = torch.randint(0, num_train_timesteps, (b,), generator=generator,
-                                      device=dev)
+            noise = randn_rows(latents.shape, generator, rows, device=dev)
+            timesteps = randint_rows(num_train_timesteps, b, generator, rows, device=dev)
             noisy = add_noise(acp, latents.float(), noise, timesteps).to(wd)
 
-        loss = controlnet_loss(state.controlnet, unet, noisy_latents=noisy, timesteps=timesteps,
-                               encoder_hidden_states=context, control_image=cond01, noise=noise)
-        params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params)
+        with gathered(opt):
+            loss = controlnet_loss(state.controlnet, unet, noisy_latents=noisy,
+                                   timesteps=timesteps, encoder_hidden_states=context,
+                                   control_image=cond01, noise=noise)
+            grads = list(torch.autograd.grad(loss, model_params(opt)))
+        grads = reduce_gradients(opt, grads)
         with torch.no_grad():
-            grad_norm = global_norm(grads)
-        state.optimizer.step(grads, grad_norm)
+            grad_norm = (global_norm(grads) if data_parallel(opt) is None
+                         else param_sq_norms(opt, grads).sum().sqrt())
+        opt.step(grads, grad_norm)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": all_reduce_mean(loss.detach()), "grad_norm": grad_norm}
 
     return step_fn
 
@@ -159,7 +169,7 @@ def make_controlnet_ema_step(
 
     def step_fn(state: ControlNetState) -> ControlNetState:
         if state.ema is not None:
-            ema_update(EMAConfig(), state.ema, state.optimizer.params)
+            ema_update(EMAConfig(), state.ema, master_params(state.optimizer))
         return state
 
     return step_fn

@@ -5,6 +5,8 @@ Counterpart of ``gmdx/train/ema.py`` (diffusers' ``EMAModel`` ramp):
   * classic:          decay_t = (1 + step) / (10 + step)
 clamped to [min_decay, max_decay]. The shadow is a copy that never aliases
 the live parameters; unlike the JAX package, the update writes it in place.
+Under fsdp (:meth:`EMAState.distribute`) the shadow is this rank's shard of
+the parameters' flat layout, updated from the optimizer's master pieces.
 """
 
 from __future__ import annotations
@@ -28,6 +30,18 @@ class EMAConfig:
 class EMAState:
     shadow: list[torch.Tensor]
     step: int = 0
+    dp: object = None  # the gmdx_torch.dist.DataParallel of a sharded shadow
+    flat: torch.Tensor | None = None  # its shard buffer
+
+    def distribute(self, dp) -> None:
+        """Keep only this rank's shard of the shadow (fsdp)."""
+        self.dp, self.flat = dp, dp.shard_of(self.shadow)
+        self.shadow = dp.pieces(self.flat)
+
+    def full(self) -> list[torch.Tensor]:
+        """The whole shadow (gathered from every rank when sharded: call
+        it on every rank)."""
+        return self.shadow if self.dp is None else self.dp.full(self.flat)
 
 
 def ema_init(params: Sequence[torch.Tensor]) -> EMAState:

@@ -5,7 +5,9 @@ Counterpart of ``gmdx/train/metrics.py``. ``metrics.jsonl`` and
 writes event files through ``torch.utils.tensorboard`` when it can be
 imported and JSONL alone when it cannot (the card's machine has no
 tensorboard), as the JAX logger does; ``wandb`` raises when the package is
-missing; any other backend (the reference's ``comet``) raises.
+missing; any other backend (the reference's ``comet``) raises. Across
+ranks only rank 0 writes (the others' loggers do nothing); the trainers
+log values already averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ import time
 class MetricsLogger:
     def __init__(self, log_dir: str, *, backend: str = "tensorboard", project: str = "gmdx",
                  config: dict | None = None):
+        from gmdx_torch.dist.multihost import is_main_process
+
+        self.enabled = is_main_process()
+        self._jsonl = self._tb = self._wandb = None
+        if not self.enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
@@ -50,6 +58,8 @@ class MetricsLogger:
                 json.dump({k: v for k, v in config.items() if _jsonable(v)}, f, indent=2)
 
     def log(self, step: int, scalars: dict[str, float]) -> None:
+        if not self.enabled:
+            return
         values = {k: float(v) for k, v in scalars.items()}
         self._jsonl.write(json.dumps({"step": int(step), "time": time.time(), **values}) + "\n")
         self._jsonl.flush()
@@ -71,6 +81,8 @@ class MetricsLogger:
             self._wandb.log({k: wandb.Image(v) for k, v in images.items()}, step=int(step))
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

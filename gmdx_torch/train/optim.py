@@ -12,10 +12,20 @@ stores the first moment in bf16 (the update still uses the fp32 value of this
 step), as optax's ``mu_dtype="bfloat16"``. :class:`MultiSteps` is
 ``optax.MultiSteps``: the mean of k micro-batch gradients, one update every
 k-th call. Unlike optax, both update the parameters in place.
+
+Across ranks (:meth:`AdamW.distribute`, a ``gmdx_torch.dist.DataParallel``)
+the optimizer takes local gradients through :meth:`AdamW.reduce` (their
+mean over the ranks: full under ddp, this rank's pieces of the flat layout
+under zero1 and fsdp), clips by the norm over every rank's pieces, steps
+its pieces (``params``: views into the module's tensors under zero1, into
+the master shard under fsdp) and hands the result to the collectives
+(zero1: all-gather). :class:`MultiSteps` accumulates local gradients and
+reduces their mean once, at the update.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Sequence
 
@@ -108,16 +118,53 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.dp = None  # a gmdx_torch.dist.DataParallel once distributed
+        self.model_params = self.params
+
+    def distribute(self, dp) -> None:
+        """Step across the ranks of ``dp`` (built on ``model_params``);
+        under zero1 and fsdp the moments become this rank's shard (kept
+        as they were on its part) and ``params`` its pieces."""
+        self.dp = dp
+        if not dp.sharded:
+            return
+        # One moment at a time, so that only one full copy is ever held.
+        self.mu_flat = dp.shard_of(self.mu)
+        self.mu = dp.pieces(self.mu_flat)
+        self.nu_flat = dp.shard_of(self.nu)
+        self.nu = dp.pieces(self.nu_flat)
+        self.params = (dp.pieces(dp.master) if dp.master is not None
+                       else dp.views(self.model_params))
+
+    @property
+    def master_params(self) -> list[torch.Tensor]:
+        """The fp32 values the EMA follows and checkpoints keep: the
+        module's tensors, or this rank's master pieces under fsdp."""
+        return self.params if self.dp is not None and self.dp.master is not None \
+            else self.model_params
+
+    def gathered(self):
+        """A block in which ``model_params`` hold the full parameters."""
+        return self.dp.gathered() if self.dp is not None else contextlib.nullcontext()
+
+    def reduce(self, grads: list) -> list[torch.Tensor]:
+        """Local gradients -> the ones :meth:`step` takes (their mean over
+        the ranks, the list emptied as it goes; ``grads`` in one process)."""
+        return grads if self.dp is None else self.dp.reduce(grads)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
              grad_norm: torch.Tensor | None = None) -> None:
-        """One update from ``grads`` (one per parameter, in order);
-        ``grad_norm``, their global norm where the caller already has it,
-        spares the clip its own pass over them."""
+        """One update from ``grads`` (one per parameter, in order; across
+        ranks, :meth:`reduce`'s output); ``grad_norm``, their global norm
+        where the caller already has it, spares the clip its own pass over
+        them."""
         grads = [g.to(p.dtype) for g, p in zip(grads, self.params)]
         if self.max_grad_norm is not None and self.max_grad_norm > 0:
-            g_norm = global_norm(grads) if grad_norm is None else grad_norm
+            if grad_norm is not None:
+                g_norm = grad_norm
+            else:
+                g_norm = global_norm(grads) if self.dp is None else self.dp.global_norm(grads)
             coef = torch.where(g_norm < self.max_grad_norm, 1.0, self.max_grad_norm / g_norm)
             grads = torch._foreach_mul(grads, coef)
         b1, b2 = self.beta1, self.beta2
@@ -148,6 +195,8 @@ class AdamW:
         if mu is not self.mu:
             for m, new in zip(self.mu, mu):
                 m.copy_(new)
+        if self.dp is not None:
+            self.dp.after_update()
 
 
 class MultiSteps:
@@ -157,12 +206,27 @@ class MultiSteps:
 
     def __init__(self, opt: AdamW, k: int):
         self.opt, self.k = opt, k
-        self.acc = [torch.zeros_like(p) for p in opt.params]
+        self.acc = [torch.zeros_like(p) for p in opt.model_params]
         self.mini_step = 0
 
     @property
     def params(self) -> list[torch.Tensor]:
         return self.opt.params
+
+    @property
+    def model_params(self) -> list[torch.Tensor]:
+        return self.opt.model_params
+
+    @property
+    def master_params(self) -> list[torch.Tensor]:
+        return self.opt.master_params
+
+    def gathered(self):
+        return self.opt.gathered()
+
+    @property
+    def dp(self):
+        return self.opt.dp
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
@@ -175,15 +239,93 @@ class MultiSteps:
         if self.mini_step < self.k - 1:
             self.mini_step += 1
             return False
-        self.opt.step(self.acc)
+        self.opt.step(self.opt.reduce(list(self.acc)))
         for a in self.acc:
             a.zero_()
         self.mini_step = 0
         return True
 
 
+# The steps' side of distribution. An optimizer is any object with
+# ``params`` and ``step(grads, grad_norm)``; one that :meth:`AdamW.distribute`
+# gave a DataParallel also gathers, reduces and takes norms across ranks.
+
+
+def data_parallel(opt):
+    """``opt``'s ``gmdx_torch.dist.DataParallel``, None if it has none."""
+    return getattr(opt, "dp", None)
+
+
+@contextlib.contextmanager
+def gathered(*opts):
+    """The block with the full parameters of every optimizer in ``opts``
+    that shards them (fsdp)."""
+    with contextlib.ExitStack() as stack:
+        for opt in opts:
+            if data_parallel(opt) is not None:
+                stack.enter_context(opt.gathered())
+        yield
+
+
+def reduce_gradients(opt, grads: list) -> list:
+    """The gradients ``opt.step`` takes: the mean over the ranks (the list
+    emptied as it goes); local ones for :class:`MultiSteps`, which reduces
+    at its update, and in one process."""
+    if data_parallel(opt) is None or isinstance(opt, MultiSteps):
+        return grads
+    return opt.reduce(grads)
+
+
+def param_sq_norms(opt, grads) -> torch.Tensor:
+    """Each parameter's squared norm of a :func:`reduce_gradients` output
+    (summed over the ranks' pieces when sharded)."""
+    if data_parallel(opt) is None or isinstance(opt, MultiSteps):
+        return torch.stack(torch._foreach_norm([g.float() for g in grads])) ** 2
+    return opt.dp.sq_norms(grads)
+
+
+def master_params(opt) -> list[torch.Tensor]:
+    """What the EMA follows: ``opt.master_params`` where it has them."""
+    return getattr(opt, "master_params", None) or opt.params
+
+
+def model_params(opt) -> list[torch.Tensor]:
+    """The module's own (full) trainable tensors of ``opt``."""
+    return getattr(opt, "model_params", None) or opt.params
+
+
+def run_sizes(*, n_samples: int, train_batch_size: int, n_dev: int,
+              gradient_accumulation_steps: int = 1, max_train_steps: int | None = None,
+              num_train_epochs: int = 1) -> dict[str, int]:
+    """A trainer's sizes over ``n_dev`` ranks of ``train_batch_size`` rows,
+    as the JAX trainers compute them: ``global_batch``,
+    ``batches_per_epoch`` (the ragged tail dropped), ``steps_per_epoch``
+    (optimizer updates, ceil over the accumulation) and
+    ``max_train_steps``."""
+    ga = gradient_accumulation_steps
+    global_batch = train_batch_size * n_dev
+    batches_per_epoch = max(1, n_samples // global_batch)
+    steps_per_epoch = max(1, -(-batches_per_epoch // ga))
+    return {"global_batch": global_batch,
+            "batches_per_epoch": batches_per_epoch, "steps_per_epoch": steps_per_epoch,
+            "max_train_steps": max_train_steps or num_train_epochs * steps_per_epoch}
+
+
 # The JAX package's constructor name; the same signature.
 make_adamw = AdamW
 
 
-__all__ = ["get_lr_schedule", "global_norm", "make_adamw", "AdamW", "MultiSteps"]
+__all__ = [
+    "get_lr_schedule",
+    "global_norm",
+    "make_adamw",
+    "run_sizes",
+    "data_parallel",
+    "gathered",
+    "reduce_gradients",
+    "param_sq_norms",
+    "master_params",
+    "model_params",
+    "AdamW",
+    "MultiSteps",
+]

@@ -43,11 +43,15 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, world_size
 from gmdx_torch.models.lora import LoRAConfig, init_lora_params, merge_lora
 from gmdx_torch.models.vgg import perceptual_loss, resize_for_vgg
 from gmdx_torch.ops import apply_gm_to_sdr, gamut_compress
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
-from gmdx_torch.train.optim import AdamW, MultiSteps, get_lr_schedule, global_norm
+from gmdx_torch.train.optim import (
+    AdamW, MultiSteps, data_parallel, gathered, get_lr_schedule, global_norm, master_params,
+    model_params, param_sq_norms, reduce_gradients,
+)
 
 CONV_OUT = "decoder.conv_out"
 
@@ -150,24 +154,27 @@ def vae_weights(vae: nn.Module, params: dict):
 
 def gm_head(config: Stage1Config, vae: nn.Module, miss_pixels: torch.Tensor,
             eps: torch.Tensor | None = None,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``sigmoid(decode(encode(x).sample() * s / s))`` with the VAE's
     current weights; ``miss_pixels`` (B, 3, H, W) in [-1, 1]. ``eps``
-    replaces the posterior's draw (else one from ``generator``)."""
+    replaces the posterior's draw (else one from ``generator``, for this
+    rank's ``rows`` of the global batch across ranks)."""
     post = vae.encode(miss_pixels)
-    sampled = post.sample(generator) if eps is None else post.mean + post.std * eps
+    sampled = post.sample(generator, rows) if eps is None else post.mean + post.std * eps
     latent = sampled * config.scaling_factor
     return torch.sigmoid(vae.decode(latent / config.scaling_factor))
 
 
 def gm_forward(config: Stage1Config, vae: nn.Module, params: dict, miss_pixels: torch.Tensor,
                eps: torch.Tensor | None = None,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               rows: tuple[int, int] | None = None) -> torch.Tensor:
     """:func:`gm_head` with the VAE's weights taken from ``params``, for a
     caller that does not differentiate it (the generator step holds
     :func:`vae_weights` over its backward passes instead)."""
     with vae_weights(vae, params):
-        return gm_head(config, vae, miss_pixels, eps, generator)
+        return gm_head(config, vae, miss_pixels, eps, generator, rows)
 
 
 def reconstruct_and_tonemap(config: Stage1Config, gm: torch.Tensor, sdr01: torch.Tensor,
@@ -255,7 +262,13 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
     ``generator``). ``metrics`` holds device scalars: ``gen_loss``,
     ``grad_norm`` (before clipping), ``module_grad_norms`` (``lora``,
     ``conv_out``), ``recon``, ``perceptual``, ``adversarial`` and
-    ``adaptive_weight``."""
+    ``adaptive_weight``.
+
+    Across ranks (``batch`` the rank's rows, ``generator`` seeded alike)
+    the posterior's draw is the rank's rows of the global batch's, the two
+    probes are averaged over the ranks before their norms (the JAX package
+    takes them on the global batch), the optimizer reduces the gradients,
+    and the losses reported are means over the ranks."""
     dev = resolve_device(device)
     _frozen(vae, dev, vgg)
     discriminator.to(dev)
@@ -265,40 +278,52 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
         miss = batch["miss_pixel_values"].to(dev)
         sdr01 = (miss + 1.0) / 2.0
         eps = batch.get("encode_eps")
-        params = effective_vae_params(config, vae, state.trainables)
-        kernel = params[f"{CONV_OUT}.weight"]
-        with vae_weights(vae, params):
-            gm = gm_head(config, vae, miss, None if eps is None else eps.to(dev), generator)
-            tmo = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
-            if config.vae_loss == "l2":
-                recon = torch.mean((target01 - tmo) ** 2)
-            else:
-                recon = torch.mean(torch.abs(target01 - tmo))
-            perc = perceptual(vgg, target01, tmo, config.vgg_resolution)
-            adv = -torch.mean(state.discriminator(tmo, update_sn=False))
+        opt = state.optimizer
+        rows = batch_rows(miss.shape[0])
+        with gathered(opt, state.disc_optimizer):
+            params = effective_vae_params(config, vae, state.trainables)
+            kernel = params[f"{CONV_OUT}.weight"]
+            with vae_weights(vae, params):
+                gm = gm_head(config, vae, miss, None if eps is None else eps.to(dev), generator,
+                             rows)
+                tmo = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
+                if config.vae_loss == "l2":
+                    recon = torch.mean((target01 - tmo) ** 2)
+                else:
+                    recon = torch.mean(torch.abs(target01 - tmo))
+                perc = perceptual(vgg, target01, tmo, config.vgg_resolution)
+                adv = -torch.mean(state.discriminator(tmo, update_sn=False))
 
-            # The adaptive weight: gradient norms at the effective conv_out
-            # kernel alone, over the same forward.
-            (g_perc,) = torch.autograd.grad(perc, kernel, retain_graph=True)
-            (g_adv,) = torch.autograd.grad(adv, kernel, retain_graph=True)
-            adaptive = (torch.linalg.vector_norm(g_perc)
-                        / torch.linalg.vector_norm(g_adv).clamp(min=1e-8))
-            adaptive = adaptive.clamp(max=config.adaptive_weight_max).detach()
-            loss = recon + perc + adaptive * adv
+                # The adaptive weight: gradient norms at the effective conv_out
+                # kernel alone, over the same forward (of the global batch:
+                # the probes are averaged over the ranks).
+                (g_perc,) = torch.autograd.grad(perc, kernel, retain_graph=True)
+                (g_adv,) = torch.autograd.grad(adv, kernel, retain_graph=True)
+                g_perc, g_adv = all_reduce_mean(g_perc), all_reduce_mean(g_adv)
+                adaptive = (torch.linalg.vector_norm(g_perc)
+                            / torch.linalg.vector_norm(g_adv).clamp(min=1e-8))
+                adaptive = adaptive.clamp(max=config.adaptive_weight_max).detach()
+                loss = recon + perc + adaptive * adv
 
-            grads = torch.autograd.grad(loss, trainable_list(state.trainables))
+                grads = list(torch.autograd.grad(loss, trainable_list(state.trainables)))
+        grads = reduce_gradients(opt, grads)
         with torch.no_grad():
             n_lora = 2 * len(state.trainables["lora"])
-            lora_norm = global_norm(grads[:n_lora])
-            conv_out_norm = global_norm(grads[n_lora:])
+            if data_parallel(opt) is None:
+                lora_norm = global_norm(grads[:n_lora])
+                conv_out_norm = global_norm(grads[n_lora:])
+            else:
+                sq = param_sq_norms(opt, grads)
+                lora_norm, conv_out_norm = sq[:n_lora].sum().sqrt(), sq[n_lora:].sum().sqrt()
             grad_norm = torch.sqrt(lora_norm**2 + conv_out_norm**2)
-        state.optimizer.step(grads, grad_norm)
+            loss, recon, perc, adv = _mean_over_ranks(loss, recon, perc, adv)
+        opt.step(grads, grad_norm)
         state.step += 1
         metrics = {
-            "gen_loss": loss.detach(), "grad_norm": grad_norm,
+            "gen_loss": loss, "grad_norm": grad_norm,
             "module_grad_norms": {"lora": lora_norm, "conv_out": conv_out_norm},
-            "recon": recon.detach(), "perceptual": perc.detach(),
-            "adversarial": adv.detach(), "adaptive_weight": adaptive,
+            "recon": recon, "perceptual": perc,
+            "adversarial": adv, "adaptive_weight": adaptive,
         }
         return state, metrics
 
@@ -325,36 +350,47 @@ def make_disc_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mo
 
     def step_fn(state: Stage1State, batch: dict, generator: torch.Generator | None = None):
         disc = state.discriminator
+        opt = state.disc_optimizer
         target01 = (batch["pixel_values"].to(dev) + 1.0) / 2.0
         miss = batch["miss_pixel_values"].to(dev)
         sdr01 = (miss + 1.0) / 2.0
         eps = batch.get("encode_eps")
-        with torch.no_grad():
+        with torch.no_grad(), gathered(state.optimizer):
             params = effective_vae_params(config, vae, state.trainables)
             gm = gm_forward(config, vae, params, miss, None if eps is None else eps.to(dev),
-                            generator)
+                            generator, batch_rows(miss.shape[0]))
             fake = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
 
-        real = target01.detach().requires_grad_(True)
-        real_out = disc(real, update_sn=False)
-        (grad_images,) = torch.autograd.grad(real_out.sum(), real, create_graph=True)
-        fake_out = disc(fake, update_sn=False)
-        hinge = torch.mean(torch.relu(1.0 + fake_out) + torch.relu(1.0 - real_out))
-        g = grad_images.reshape(grad_images.shape[0], -1)
-        gp = config.gp_weight * torch.mean((safe_norm(g) - 1.0) ** 2)
-        loss = hinge + gp
-        grads = torch.autograd.grad(loss, state.disc_optimizer.params)
+        with gathered(opt):
+            real = target01.detach().requires_grad_(True)
+            real_out = disc(real, update_sn=False)
+            (grad_images,) = torch.autograd.grad(real_out.sum(), real, create_graph=True)
+            fake_out = disc(fake, update_sn=False)
+            hinge = torch.mean(torch.relu(1.0 + fake_out) + torch.relu(1.0 - real_out))
+            g = grad_images.reshape(grad_images.shape[0], -1)
+            gp = config.gp_weight * torch.mean((safe_norm(g) - 1.0) ** 2)
+            loss = hinge + gp
+            grads = list(torch.autograd.grad(loss, model_params(opt)))
+        grads = reduce_gradients(opt, grads)
         with torch.no_grad():
-            grad_norm = global_norm(grads)
-        state.disc_optimizer.step(grads, grad_norm)
-        with torch.no_grad():  # refresh the power-iteration state
+            grad_norm = (global_norm(grads) if data_parallel(opt) is None
+                         else param_sq_norms(opt, grads).sum().sqrt())
+            loss, hinge, gp = _mean_over_ranks(loss, hinge, gp)
+        opt.step(grads, grad_norm)
+        with torch.no_grad(), gathered(opt):  # refresh the power-iteration state
             disc(fake, update_sn=True)
         state.step += 1
-        metrics = {"disc_loss": loss.detach(), "grad_norm": grad_norm,
-                   "hinge": hinge.detach(), "gp": gp.detach()}
+        metrics = {"disc_loss": loss, "grad_norm": grad_norm, "hinge": hinge, "gp": gp}
         return state, metrics
 
     return step_fn
+
+
+def _mean_over_ranks(*scalars: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Detached scalars, each the mean over the ranks (one collective)."""
+    if world_size() == 1:
+        return tuple(t.detach() for t in scalars)
+    return tuple(all_reduce_mean(torch.stack([t.detach().float() for t in scalars])).unbind())
 
 
 def make_ema_step(config: Stage1Config) -> Callable[[Stage1State], Stage1State]:
@@ -363,7 +399,7 @@ def make_ema_step(config: Stage1Config) -> Callable[[Stage1State], Stage1State]:
 
     def step_fn(state: Stage1State) -> Stage1State:
         if state.ema is not None:
-            ema_update(EMAConfig(), state.ema, trainable_list(state.trainables))
+            ema_update(EMAConfig(), state.ema, master_params(state.optimizer))
         return state
 
     return step_fn

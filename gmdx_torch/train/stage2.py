@@ -26,10 +26,14 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, randint_rows, randn_rows
 from gmdx_torch.schedulers import DDPMScheduler
 from gmdx_torch.schedulers.base import add_noise, get_velocity
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
-from gmdx_torch.train.optim import AdamW, MultiSteps, get_lr_schedule, make_adamw
+from gmdx_torch.train.optim import (
+    AdamW, MultiSteps, gathered, get_lr_schedule, make_adamw, master_params, param_sq_norms,
+    reduce_gradients,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +166,14 @@ def make_train_step(
     ``generator`` a ``torch.Generator`` on the device. ``metrics`` holds
     device scalars: ``loss``, ``grad_norm`` (before clipping) and
     ``module_grad_norms`` keyed as the JAX package's param tree.
+
+    Across ranks (``gmdx_torch.dist``; the state distributed by
+    ``apply_shard_strategy``) ``batch`` is the rank's rows, every rank
+    seeds ``generator`` alike, and the step is the 1-rank step on the
+    global batch: the loss reported is the mean over the ranks, the norms
+    are of the reduced gradient (of the local micro-batch's while
+    ``MultiSteps`` only accumulates). ``step_fn.draw_inputs(batch,
+    generator)`` returns the loss's inputs as the step draws them.
     """
     dev = resolve_device(device)
     for m in (unet, vae, text_encoder):
@@ -179,56 +191,66 @@ def make_train_step(
     group_of = [group_names.setdefault(module_key(n), len(group_names)) for n, _ in named]
     group_index = torch.tensor(group_of, device=dev)
 
-    def randn(shape, gen):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-
-    def step_fn(state: Stage2State, batch: dict, generator: torch.Generator):
+    def draw_inputs(batch: dict, generator: torch.Generator) -> dict:
+        """The loss's inputs for this rank's rows of the batch: latents,
+        text states and the step's draws (each made for the global batch
+        and sliced to the rank's rows across ranks)."""
         with torch.no_grad():
+            rows = batch_rows(batch["input_ids"].shape[0])
             if "sdr_latent_mean" in batch:
                 # Cached posteriors: the sampling stays per step, on the device.
                 def latents(prefix):
                     mean = batch[f"{prefix}_latent_mean"].to(dev, torch.float32)
                     std = batch[f"{prefix}_latent_std"].to(dev, torch.float32)
-                    return ((mean + std * randn(mean.shape, generator)) * scaling).to(wd)
+                    eps = randn_rows(mean.shape, generator, rows, device=dev)
+                    return ((mean + std * eps) * scaling).to(wd)
             else:
                 def latents(prefix):
                     post = vae.encode(batch[prefix].to(dev, wd))
-                    return post.sample(generator) * scaling
+                    return post.sample(generator, rows) * scaling
             sdr_latents, gm_latents = latents("sdr"), latents("gm")
             context = text_encoder(batch["input_ids"].to(dev))
 
             b = gm_latents.shape[0]
-            noise = randn(gm_latents.shape, generator)
+            noise = randn_rows(gm_latents.shape, generator, rows, device=dev)
             if config.noise_offset > 0:
-                noise = noise + config.noise_offset * randn(gm_latents.shape[:2] + (1, 1), generator)
+                noise = noise + config.noise_offset * randn_rows(
+                    gm_latents.shape[:2] + (1, 1), generator, rows, device=dev)
             perturbed = None
             if config.input_perturbation > 0:
-                perturbed = noise + config.input_perturbation * randn(noise.shape, generator)
-            timesteps = torch.randint(0, num_train_timesteps, (b,), generator=generator, device=dev)
+                perturbed = noise + config.input_perturbation * randn_rows(
+                    noise.shape, generator, rows, device=dev)
+            timesteps = randint_rows(num_train_timesteps, b, generator, rows, device=dev)
+        return {"sdr_latents": sdr_latents, "gm_latents": gm_latents,
+                "encoder_hidden_states": context, "noise": noise, "timesteps": timesteps,
+                "perturbed_noise": perturbed}
 
-        loss = stage2_loss(
-            state.unet, sdr_latents=sdr_latents, gm_latents=gm_latents,
-            encoder_hidden_states=context, noise=noise, timesteps=timesteps,
-            alphas_cumprod=acp, config=config, perturbed_noise=perturbed,
-        )
+    def step_fn(state: Stage2State, batch: dict, generator: torch.Generator):
+        inputs = draw_inputs(batch, generator)
+        opt = state.optimizer
         params = [p for _, p in named]
-        grads = torch.autograd.grad(loss, params)
+        with gathered(opt):
+            loss = stage2_loss(state.unet, **inputs, alphas_cumprod=acp, config=config)
+            grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
+            # Across ranks: the mean gradient (as the optimizer steps it).
             # One pass over the gradients: per-parameter norms, summed in
             # squares per module and over all; the clip reuses the total.
-            sq = torch.stack(torch._foreach_norm([g.float() for g in grads])) ** 2
+            grads = reduce_gradients(opt, grads)
+            sq = param_sq_norms(opt, grads)
             module_sq = torch.zeros(len(group_names), device=dev).index_add_(0, group_index, sq)
             grad_norm = sq.sum().sqrt()
             module_norms = module_sq.sqrt()
             metrics = {
-                "loss": loss.detach(),
+                "loss": all_reduce_mean(loss.detach()),
                 "grad_norm": grad_norm,
                 "module_grad_norms": {k: module_norms[i] for k, i in group_names.items()},
             }
-        state.optimizer.step(grads, grad_norm)
+        opt.step(grads, grad_norm)
         state.step += 1
         return state, metrics
 
+    step_fn.draw_inputs = draw_inputs
     return step_fn
 
 
@@ -238,7 +260,7 @@ def make_ema_step(config: Stage2Config) -> Callable[[Stage2State], Stage2State]:
 
     def step_fn(state: Stage2State) -> Stage2State:
         if state.ema is not None:
-            ema_update(EMAConfig(), state.ema, state.optimizer.params)
+            ema_update(EMAConfig(), state.ema, master_params(state.optimizer))
         return state
 
     return step_fn

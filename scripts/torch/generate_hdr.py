@@ -68,8 +68,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.tp_size > 1 or args.sp_size > 1:
         raise NotImplementedError(
-            "--tp_size/--sp_size > 1: the port has no distribution yet "
-            "(ROADMAP Queue 1 item 9: `gmdx/dist/{mesh,tp,multihost}.py` -> torch.distributed)")
+            "--tp_size/--sp_size > 1: the port has no tensor or spatial parallelism yet "
+            "(ROADMAP Queue 1 item 9: `gmdx/dist/{tp,tpctx}.py` -> torch.distributed)")
     if args.aot_cache:
         raise NotImplementedError("--aot_cache is the JAX package's export cache "
                                   "(.cache/jax_export/); the port has none")

@@ -10,6 +10,9 @@ either package then trains from it without decoding or encoding.
 
     python scripts/torch/precompute_latents.py --train_metadata data.parquet \\
         --pretrained_model_name_or_path PIPE_DIR --resolution 512 --out latents_512.npz
+
+Launched on several ranks (torchrun), rank 0 alone builds and writes the
+cache, under ``gmdx_torch.dist.main_process_first``; the others wait for it.
 """
 
 from __future__ import annotations
@@ -39,7 +42,21 @@ def main(argv=None) -> dict:
     """Writes the cache; returns {"samples", "seconds", "mb", "out"}."""
     args = parse_args(argv)
 
-    from gmdx_torch import resolve_device
+    from gmdx_torch import dist, resolve_device
+
+    joined = not dist.is_initialized() and dist.initialize()
+    try:
+        with dist.main_process_first():
+            if dist.is_main_process():
+                return _build(args, dist.device(resolve_device(args.device)))
+        return {"samples": None, "seconds": 0.0, "mb": 0.0, "out": args.out}
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def _build(args, dev) -> dict:
+    """One pass over the dataset into ``args.out``."""
     from gmdx_torch.data import ParquetImageDataset
     from gmdx_torch.io import load_pipeline
     from gmdx_torch.io.params import load_params
@@ -47,7 +64,6 @@ def main(argv=None) -> dict:
         compute_latent_cache, latent_cache_fingerprint, save_latent_cache,
     )
 
-    dev = resolve_device(args.device)
     bundle = load_pipeline(args.pretrained_model_name_or_path, device=dev,
                            components=("vae", "tokenizer"))
     dataset = ParquetImageDataset(args.train_metadata)

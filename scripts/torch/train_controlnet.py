@@ -25,8 +25,13 @@ resumed run draws what an uninterrupted one would.
         --train_metadata data.parquet --output_dir OUT --resolution 512 \\
         --train_batch_size 4 --use_ema [--device cpu]
 
-Left out, raising: --shard_strategy other than ddp (one card, one process;
-ROADMAP Queue 1 item 9).
+On several cards, one process a card (``gmdx_torch.dist``):
+``torchrun --nproc_per_node N scripts/torch/train_controlnet.py ...
+--shard_strategy {ddp,zero1,fsdp}``; --train_batch_size is per rank, and
+rank 0 writes the logs, checkpoints (the one-process format) and
+``controlnet/``, as in the Stage-2 trainer.
+
+Left out, raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -76,7 +81,8 @@ def parse_args(argv=None):
     p.add_argument("--tp_size", type=int, default=2)
     p.add_argument("--sp_size", type=int, default=2)
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="only ddp: one card, one process")
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
+                                       "raise)")
     p.add_argument("--logging_dir", type=str, default="logs")
     p.add_argument("--report_to", type=str, default="tensorboard")
     p.add_argument("--tracker_project_name", type=str, default="gmdx-controlnet")
@@ -132,13 +138,12 @@ def main(argv=None) -> dict:
     (logged train_loss by step), "saved_digests", "restored_digest",
     "output_dir"}."""
     args = parse_args(argv)
-    if args.shard_strategy != "ddp":
-        raise NotImplementedError(
-            f"--shard_strategy {args.shard_strategy}: the port trains on one card in one "
-            f"process (ROADMAP Queue 1 item 9: `gmdx/dist/{{mesh,tp,multihost}}.py` -> "
-            f"torch.distributed)")
+    from gmdx_torch import dist
+
+    dist.check_strategy(args.shard_strategy)
     logging.basicConfig(level=logging.INFO)
     os.makedirs(args.output_dir, exist_ok=True)
+    joined = not dist.is_initialized() and dist.initialize()
 
     import numpy as np
     import torch
@@ -153,9 +158,11 @@ def main(argv=None) -> dict:
         make_controlnet_train_step, make_manager, resolve_resume_step, restore_state,
         save_state,
     )
-    from gmdx_torch.train.checkpoint import state_tensors, tensor_digest
+    from gmdx_torch.train.checkpoint import state_digest
+    from gmdx_torch.train.optim import run_sizes
 
-    dev = resolve_device(args.device)
+    dev = dist.device(resolve_device(args.device))
+    main_rank = dist.is_main_process()
     if args.seed is not None:
         np.random.seed(args.seed)
     bundle = load_pipeline(args.pretrained_model_name_or_path, device=dev,
@@ -173,12 +180,13 @@ def main(argv=None) -> dict:
     dataset = ParquetImageDataset(args.train_metadata)
     n_samples = (len(dataset) if args.max_train_samples is None
                  else min(args.max_train_samples, len(dataset)))
-    n_dev = 1  # the data-parallel size: one card
+    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
     ga = args.gradient_accumulation_steps
-    batches_per_epoch = max(1, n_samples // (args.train_batch_size * n_dev))
-    # max_train_steps counts optimizer updates, as in Stage 2.
-    steps_per_epoch = max(1, -(-batches_per_epoch // ga))
-    max_train_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    # max_train_steps counts optimizer updates (ceil(batches / ga) an epoch).
+    sizes = run_sizes(n_samples=n_samples, train_batch_size=args.train_batch_size, n_dev=n_dev,
+                      gradient_accumulation_steps=ga, max_train_steps=args.max_train_steps,
+                      num_train_epochs=args.num_train_epochs)
+    steps_per_epoch, max_train_steps = sizes["steps_per_epoch"], sizes["max_train_steps"]
 
     cfg = ControlNetTrainConfig(
         learning_rate=args.learning_rate, lr_scheduler=args.lr_scheduler,
@@ -193,7 +201,9 @@ def main(argv=None) -> dict:
     train_step = make_controlnet_train_step(cfg, unet=unet, vae=vae, text_encoder=text,
                                             controlnet=controlnet,
                                             noise_scheduler=DDPMScheduler(), device=dev)
-    state = init_controlnet_state(cfg, controlnet)
+    state = dist.apply_shard_strategy(init_controlnet_state(cfg, controlnet),
+                                      args.shard_strategy, param_fields=("params", "ema"),
+                                      opt_fields=("opt_state",))
     ema_step = make_controlnet_ema_step(cfg) if args.use_ema else None
 
     manager = make_manager(args.output_dir, max_to_keep=args.checkpoints_total_limit,
@@ -204,7 +214,7 @@ def main(argv=None) -> dict:
     if resume_step is not None:
         restore_state(manager, resume_step, state)
         global_step = resume_step
-        restored_digest = tensor_digest(state_tensors(state)[0])
+        restored_digest = state_digest(state)
         logger.info("resumed from checkpoint step %d", resume_step)
 
     # A checkpoint at update S has consumed S * ga batches: skip them and
@@ -215,7 +225,7 @@ def main(argv=None) -> dict:
         resolution=args.resolution, center_crop=args.center_crop,
         random_flip=args.random_flip, seed=args.seed or 0,
         num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-        skip_batches=consumed_batches)
+        skip_batches=consumed_batches, process_shard=True)
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
                                 config=vars(args))
@@ -263,11 +273,18 @@ def main(argv=None) -> dict:
 
     metrics_log.close()
     manager.wait_until_finished()
+    dist.barrier("gmdx_final")
     with torch.no_grad():
-        if state.ema is not None:
-            for p, s in zip(state.optimizer.params, state.ema.shadow):
-                p.copy_(s)
-    save_component(os.path.join(args.output_dir, "controlnet"), controlnet)
+        shadow = state.ema.full() if state.ema is not None else None
+        with state.optimizer.gathered():
+            if shadow is not None:
+                for p, s in zip(state.optimizer.model_params, shadow):
+                    p.copy_(s)
+            if main_rank:
+                save_component(os.path.join(args.output_dir, "controlnet"), controlnet)
+    dist.barrier("gmdx_saved")
+    if joined:
+        dist.shutdown()
     logger.info("saved ControlNet to %s/controlnet", args.output_dir)
     return {"state": state, "start_step": resume_step or 0, "global_step": global_step,
             "losses": losses, "saved_digests": saved_digests,

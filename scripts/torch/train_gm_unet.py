@@ -21,9 +21,19 @@ so a resumed run draws what an uninterrupted one would.
         --train_metadata data.parquet --output_dir OUT --resolution 512 \\
         --train_batch_size 8 --use_ema [--cache_latents --center_crop] [--device cpu]
 
-Left out, each raising: --shard_strategy other than ddp (one card, one
-process; ROADMAP Queue 1 item 9) and --dataset_name without
---train_metadata (ROADMAP Queue 1 item 5).
+On several cards, one process a card (``gmdx_torch.dist``):
+
+    torchrun --nproc_per_node 8 scripts/torch/train_gm_unet.py ... \\
+        --shard_strategy {ddp,zero1,fsdp}
+
+--train_batch_size is per rank; the global batch is it times the world
+size, each rank loading and stepping its own rows of it, and the run is the
+one-process run on the global batch (``gmdx_torch.dist.mesh``). Logs,
+checkpoints (the one-process format), validation and the final pipeline
+come from rank 0.
+
+Left out, each raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9)
+and --dataset_name without --train_metadata (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -75,7 +85,8 @@ def parse_args(argv=None):
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="only ddp: one card, one process")
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
+                                       "raise)")
     p.add_argument("--tp_size", type=int, default=2)
     p.add_argument("--sp_size", type=int, default=2)
     p.add_argument("--cache_latents", action="store_true",
@@ -188,19 +199,31 @@ def log_validation(args, pipe, step, val_dir, metrics_log=None):
 
 def build_latent_cache(dataset, tokenizer, vae, vae_params, args, batch_size):
     """The latent cache of --cache_latents: --latent_cache_path loaded (its
-    resolution and fingerprint checked), or one pass built in memory."""
+    resolution and fingerprint checked), or one pass built in memory
+    (across ranks: built once, by rank 0, into the output directory, under
+    ``main_process_first``, and loaded from there by the others)."""
+    from gmdx_torch.dist import main_process_first, world_size
     from gmdx_torch.train.latent_cache import (
-        compute_latent_cache, latent_cache_fingerprint, load_latent_cache,
+        compute_latent_cache, latent_cache_fingerprint, load_latent_cache, save_latent_cache,
     )
 
-    if args.latent_cache_path:
-        cache = load_latent_cache(
-            args.latent_cache_path, resolution=args.resolution,
-            fingerprint=latent_cache_fingerprint(args.train_metadata, len(dataset), vae_params))
+    fingerprint = latent_cache_fingerprint(args.train_metadata, len(dataset), vae_params)
+    path = args.latent_cache_path
+    if path is None and world_size() > 1:
+        path = os.path.join(args.output_dir, f"latent_cache_{args.resolution}.npz")
+        with main_process_first():
+            if not os.path.exists(path):
+                save_latent_cache(path, compute_latent_cache(
+                    dataset, tokenizer, vae, resolution=args.resolution,
+                    enc_batch=min(16, max(1, batch_size)),
+                    num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples),
+                    resolution=args.resolution, fingerprint=fingerprint)
+    if path:
+        cache = load_latent_cache(path, resolution=args.resolution, fingerprint=fingerprint)
         if args.max_train_samples:
             cache = {k: v[:args.max_train_samples] for k, v in cache.items()}
         logger.info("loaded precomputed latent cache (%d samples) from %s",
-                    cache["input_ids"].shape[0], args.latent_cache_path)
+                    cache["input_ids"].shape[0], path)
         return cache
     return compute_latent_cache(
         dataset, tokenizer, vae, resolution=args.resolution,
@@ -258,16 +281,15 @@ def main(argv=None) -> dict:
     "saved_digests" (checkpoint step -> tensor digest), "restored_digest"
     (of the state right after a resume, else None), "output_dir"}."""
     args = parse_args(argv)
-    if args.shard_strategy != "ddp":
-        raise NotImplementedError(
-            f"--shard_strategy {args.shard_strategy}: the port trains on one card in one "
-            f"process (ROADMAP Queue 1 item 9: `gmdx/dist/{{mesh,tp,multihost}}.py` -> "
-            f"torch.distributed)")
+    from gmdx_torch import dist
+
+    dist.check_strategy(args.shard_strategy)
     if args.train_metadata is None:
         raise NotImplementedError(
             "--dataset_name without --train_metadata: the port reads parquet metadata only "
             "(ROADMAP Queue 1 item 5)")
     logging.basicConfig(level=logging.INFO)
+    joined = not dist.is_initialized() and dist.initialize()
 
     import numpy as np
     import torch
@@ -283,9 +305,11 @@ def main(argv=None) -> dict:
         MetricsLogger, Stage2Config, init_state, make_ema_step, make_manager, make_train_step,
         resolve_resume_step, restore_state, save_state,
     )
-    from gmdx_torch.train.checkpoint import state_tensors, tensor_digest
+    from gmdx_torch.train.checkpoint import state_digest
+    from gmdx_torch.train.optim import run_sizes
 
-    dev = resolve_device(args.device)
+    dev = dist.device(resolve_device(args.device))
+    main_rank = dist.is_main_process()
     if args.seed is not None:
         np.random.seed(args.seed)
     pipe_dir = args.pretrained_model_name_or_path
@@ -295,7 +319,7 @@ def main(argv=None) -> dict:
     unet = load_training_unet(pipe_dir, dev, args.gradient_checkpointing)
 
     lr = args.learning_rate
-    n_dev = 1  # the data-parallel size: one card
+    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
     if args.scale_lr:
         lr = lr * args.gradient_accumulation_steps * args.train_batch_size * n_dev
 
@@ -303,10 +327,11 @@ def main(argv=None) -> dict:
     n_samples = (len(dataset) if args.max_train_samples is None
                  else min(args.max_train_samples, len(dataset)))
     ga = args.gradient_accumulation_steps
-    batches_per_epoch = max(1, n_samples // (args.train_batch_size * n_dev))
     # max_train_steps counts optimizer updates (ceil(batches / ga) an epoch).
-    steps_per_epoch = max(1, -(-batches_per_epoch // ga))
-    max_train_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    sizes = run_sizes(n_samples=n_samples, train_batch_size=args.train_batch_size, n_dev=n_dev,
+                      gradient_accumulation_steps=ga, max_train_steps=args.max_train_steps,
+                      num_train_epochs=args.num_train_epochs)
+    steps_per_epoch, max_train_steps = sizes["steps_per_epoch"], sizes["max_train_steps"]
 
     cfg = Stage2Config(
         learning_rate=lr, gradient_accumulation_steps=ga, lr_scheduler=args.lr_scheduler,
@@ -322,7 +347,8 @@ def main(argv=None) -> dict:
     )
     train_step = make_train_step(cfg, unet=unet, vae=vae, text_encoder=text,
                                  noise_scheduler=DDPMScheduler(), device=dev)
-    state = init_state(cfg, unet)
+    state = dist.apply_shard_strategy(init_state(cfg, unet), args.shard_strategy,
+                                      param_fields=("params", "ema"), opt_fields=("opt_state",))
     ema_step = make_ema_step(cfg) if args.use_ema else None
 
     manager = make_manager(args.output_dir, max_to_keep=args.checkpoints_total_limit,
@@ -333,7 +359,7 @@ def main(argv=None) -> dict:
     if resume_step is not None:
         restore_state(manager, resume_step, state)
         global_step = resume_step
-        restored_digest = tensor_digest(state_tensors(state)[0])
+        restored_digest = state_digest(state)
         logger.info("resumed from checkpoint step %d", resume_step)
     elif args.resume_from_checkpoint:
         logger.warning("checkpoint '%s' does not exist. starting a new training run",
@@ -347,14 +373,15 @@ def main(argv=None) -> dict:
     if args.cache_latents:
         vae_params = load_params(os.path.join(pipe_dir, "vae", "params.safetensors"))
         cache = build_latent_cache(dataset, tokenizer, vae, vae_params, args, global_bs)
-        loader = cached_latent_loader(cache, global_bs, seed=args.seed or 0,
-                                      skip_batches=consumed_batches)
+        # Every rank walks the global batches and takes its own rows.
+        loader = (dist.shard_batch(b) for b in cached_latent_loader(
+            cache, global_bs, seed=args.seed or 0, skip_batches=consumed_batches))
     else:
         loader = make_dataloader(
             dataset, tokenizer, batch_size=global_bs, resolution=args.resolution,
             center_crop=args.center_crop, random_flip=args.random_flip, seed=args.seed or 0,
             num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-            skip_batches=consumed_batches)
+            skip_batches=consumed_batches, process_shard=True)
 
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
@@ -409,34 +436,51 @@ def main(argv=None) -> dict:
             logger.info("saved state to checkpoint_%d", global_step)
         if (args.validation_image_dir
                 and global_step % (args.validation_epochs * steps_per_epoch) == 0):
-            if val_unet is None:
+            if val_unet is None and main_rank:
                 with torch.device("meta"):
                     val_unet = UNet2DConditionModel(dataclasses.replace(unet.config, remat=False))
                 val_unet = val_unet.to_empty(device=dev).to(next(vae.parameters()).dtype).eval()
             with torch.no_grad():
-                src = state.ema.shadow if state.ema is not None else state.optimizer.params
-                named = [n for n, p in unet.named_parameters() if p.requires_grad]
-                params = dict(val_unet.named_parameters())
-                for n, t in zip(named, src):
-                    params[n].copy_(t)
-            pipe = StableDiffusionGMPipeline(val_unet, vae, PNDMScheduler(), text_encoder=text,
-                                             tokenizer=tokenizer, device=dev)
-            log_validation(args, pipe, global_step, os.path.join(args.output_dir, "validation"),
-                           metrics_log=metrics_log)
+                # Every rank gathers (fsdp); rank 0 alone validates.
+                shadow = state.ema.full() if state.ema is not None else None
+                with state.optimizer.gathered():
+                    if main_rank:
+                        src = shadow if shadow is not None else state.optimizer.model_params
+                        named = [n for n, p in unet.named_parameters() if p.requires_grad]
+                        params = dict(val_unet.named_parameters())
+                        for n, t in zip(named, src):
+                            params[n].copy_(t)
+                del shadow
+            if main_rank:
+                pipe = StableDiffusionGMPipeline(val_unet, vae, PNDMScheduler(),
+                                                 text_encoder=text, tokenizer=tokenizer,
+                                                 device=dev)
+                log_validation(args, pipe, global_step,
+                               os.path.join(args.output_dir, "validation"),
+                               metrics_log=metrics_log)
+            dist.barrier("gmdx_validation")
     batches.close()
 
     # The final pipeline: the EMA shadow (or the trained weights) as its
-    # UNet, the frozen components copied as stored.
+    # UNet, the frozen components copied as stored; rank 0 writes it.
     manager.wait_until_finished()
-    with torch.no_grad():
-        if state.ema is not None:
-            for p, s in zip(state.optimizer.params, state.ema.shadow):
-                p.copy_(s)
+    dist.barrier("gmdx_final")
     out_dir = os.path.join(args.output_dir, "save_pipeline")
-    save_pipeline(out_dir, components={"unet": unet}, tokenizer=tokenizer,
-                  scheduler=PNDMScheduler(),
-                  copy_from={k: os.path.join(pipe_dir, k) for k in ("vae", "text_encoder")})
+    with torch.no_grad():
+        shadow = state.ema.full() if state.ema is not None else None
+        with state.optimizer.gathered():
+            if shadow is not None:
+                for p, s in zip(state.optimizer.model_params, shadow):
+                    p.copy_(s)
+            if main_rank:
+                save_pipeline(out_dir, components={"unet": unet}, tokenizer=tokenizer,
+                              scheduler=PNDMScheduler(),
+                              copy_from={k: os.path.join(pipe_dir, k)
+                                         for k in ("vae", "text_encoder")})
     metrics_log.close()
+    dist.barrier("gmdx_saved")
+    if joined:
+        dist.shutdown()
     logger.info("training complete; pipeline saved to %s", out_dir)
     return {"state": state, "start_step": resume_step or 0, "global_step": global_step,
             "losses": losses,

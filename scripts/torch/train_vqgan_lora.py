@@ -30,9 +30,17 @@ uninterrupted one would.
         --train_batch_size 4 --clip_pixel --use_ema \\
         [--perceptual_ckpt vgg19.pth] [--device cpu]
 
-Left out, each raising: --shard_strategy other than ddp (one card, one
-process; ROADMAP Queue 1 item 9), --dataset_name without --train_metadata
-(ROADMAP Queue 1 item 5) and --push_to_hub.
+On several cards, one process a card (``gmdx_torch.dist``):
+``torchrun --nproc_per_node N scripts/torch/train_vqgan_lora.py ...
+--shard_strategy {ddp,zero1,fsdp}``. --train_batch_size is per rank; each
+rank loads and steps its rows of the global batch, the posterior draws are
+the rank's rows of the global batch's, the adaptive weight's probes are
+averaged over the ranks, and rank 0 writes the logs, checkpoints (the
+one-process format), validation and artifacts.
+
+Left out, each raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9),
+--dataset_name without --train_metadata (ROADMAP Queue 1 item 5) and
+--push_to_hub.
 """
 
 from __future__ import annotations
@@ -94,7 +102,8 @@ def parse_args(argv=None):
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="only ddp: one card, one process")
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
+                                       "raise)")
     p.add_argument("--tp_size", type=int, default=2)
     p.add_argument("--sp_size", type=int, default=2)
     p.add_argument("--learning_rate", type=float, default=1e-4)
@@ -240,16 +249,15 @@ def main(argv=None) -> dict:
     (checkpoint step -> tensor digest), "restored_digest" (of the state
     right after a resume, else None), "output_dir"}."""
     args = parse_args(argv)
-    if args.shard_strategy != "ddp":
-        raise NotImplementedError(
-            f"--shard_strategy {args.shard_strategy}: the port trains on one card in one "
-            f"process (ROADMAP Queue 1 item 9: `gmdx/dist/{{mesh,tp,multihost}}.py` -> "
-            f"torch.distributed)")
+    from gmdx_torch import dist
+
+    dist.check_strategy(args.shard_strategy)
     if args.train_metadata is None:
         raise NotImplementedError(
             "--dataset_name without --train_metadata: the port reads parquet metadata only "
             "(ROADMAP Queue 1 item 5)")
     logging.basicConfig(level=logging.INFO)
+    joined = not dist.is_initialized() and dist.initialize()
 
     import torch
 
@@ -262,13 +270,15 @@ def main(argv=None) -> dict:
     from gmdx_torch.ops import choose_tmo, random_exposure_adjust
     from gmdx_torch.train import MetricsLogger, make_manager, resolve_resume_step
     from gmdx_torch.train import restore_state, save_state
-    from gmdx_torch.train.checkpoint import state_tensors, tensor_digest
+    from gmdx_torch.train.checkpoint import state_digest
+    from gmdx_torch.train.optim import run_sizes
     from gmdx_torch.train.stage1 import (
         Stage1Config, effective_vae_params, init_state, init_trainables, make_disc_step,
         make_ema_step, make_gen_step, make_optimizers, trainables_like,
     )
 
-    dev = resolve_device(args.device)
+    dev = dist.device(resolve_device(args.device))
+    main_rank = dist.is_main_process()
     pipe_dir = args.pretrained_model_name_or_path
     tokenizer = load_pipeline(pipe_dir, device=dev, components=("tokenizer",))["tokenizer"]
     vae = load_training_vae(pipe_dir, dev, args.gradient_checkpointing)
@@ -292,7 +302,7 @@ def main(argv=None) -> dict:
             "match the reference. Provide torchvision/timm vgg19 ImageNet weights via "
             "--perceptual_ckpt.")
 
-    n_dev = 1  # the data-parallel size: one card
+    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
     lr, dlr = args.learning_rate, args.discr_learning_rate
     if args.scale_lr:
         scale = args.gradient_accumulation_steps * args.train_batch_size * n_dev
@@ -306,10 +316,11 @@ def main(argv=None) -> dict:
     n_samples = (len(dataset) if args.max_train_samples is None
                  else min(args.max_train_samples, len(dataset)))
     ga = args.gradient_accumulation_steps
-    batches_per_epoch = max(1, n_samples // (args.train_batch_size * n_dev))
     # max_train_steps counts optimizer updates (ceil(batches / ga) an epoch).
-    steps_per_epoch = max(1, -(-batches_per_epoch // ga))
-    max_train_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    sizes = run_sizes(n_samples=n_samples, train_batch_size=args.train_batch_size, n_dev=n_dev,
+                      gradient_accumulation_steps=ga, max_train_steps=args.max_train_steps,
+                      num_train_epochs=args.num_train_epochs)
+    steps_per_epoch, max_train_steps = sizes["steps_per_epoch"], sizes["max_train_steps"]
 
     gen = torch.Generator(device=dev).manual_seed(args.seed or 0)
     trainables = init_trainables(gen, vae, cfg)
@@ -320,7 +331,10 @@ def main(argv=None) -> dict:
         beta1=args.adam_beta1, beta2=args.adam_beta2, weight_decay=args.adam_weight_decay,
         epsilon=args.adam_epsilon, max_grad_norm=args.max_grad_norm,
         gradient_accumulation_steps=ga)
-    state = init_state(cfg, trainables, discriminator, optimizers)
+    state = dist.apply_shard_strategy(
+        init_state(cfg, trainables, discriminator, optimizers), args.shard_strategy,
+        param_fields=("trainables", "disc_params", "ema"),
+        opt_fields=("opt_state", "disc_opt_state"))
     gen_step = make_gen_step(cfg, vae=vae, discriminator=discriminator, vgg=vgg, tmo_fn=tmo_fn,
                              device=dev)
     disc_step = make_disc_step(cfg, vae=vae, discriminator=discriminator, tmo_fn=tmo_fn,
@@ -335,7 +349,7 @@ def main(argv=None) -> dict:
     if resume_step is not None:
         restore_state(manager, resume_step, state)
         global_step = resume_step
-        restored_digest = tensor_digest(state_tensors(state)[0])
+        restored_digest = state_digest(state)
         logger.info("resumed from checkpoint step %d", resume_step)
     elif args.resume_from_checkpoint:
         logger.warning("checkpoint '%s' does not exist. starting a new training run",
@@ -350,7 +364,7 @@ def main(argv=None) -> dict:
         resolution=args.resolution, center_crop=args.center_crop,
         random_flip=args.random_flip, seed=args.seed or 0,
         num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-        skip_batches=consumed_batches)
+        skip_batches=consumed_batches, process_shard=True)
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
                                 config=vars(args))
@@ -373,10 +387,12 @@ def main(argv=None) -> dict:
             miss = clipped * 2.0 - 1.0
         step_batch = {"pixel_values": pixel_values, "miss_pixel_values": miss}
         if args.debug_mode and i % 50 == 0:
-            debug_strip(cfg, vae, state.trainables, step_batch,
-                        torch.Generator(device=dev).manual_seed(seed), tmo_fn,
-                        os.path.join(args.output_dir, "debug_train",
-                                     f"step_{i}_concat_image.png"))
+            with state.optimizer.gathered():
+                if main_rank:
+                    debug_strip(cfg, vae, state.trainables, step_batch,
+                                torch.Generator(device=dev).manual_seed(seed), tmo_fn,
+                                os.path.join(args.output_dir, "debug_train",
+                                             f"step_{i}_concat_image.png"))
         step_gen = torch.Generator(device=dev).manual_seed(seed)
         if ((i // ga) % 2) == 0:
             state, m = gen_step(state, step_batch, step_gen)
@@ -413,27 +429,38 @@ def main(argv=None) -> dict:
                                                     wait=not args.async_checkpointing)
             logger.info("saved state to checkpoint_%d", global_step)
         if args.val_images_dir and global_step % args.validation_steps == 0:
-            with torch.no_grad():
-                eff = effective_vae_params(cfg, vae, state.trainables)
-            log_validation(args, cfg, vae, eff, global_step,
-                           os.path.join(args.output_dir, "validation"), metrics_log=metrics_log)
+            with torch.no_grad(), state.optimizer.gathered():
+                if main_rank:
+                    eff = effective_vae_params(cfg, vae, state.trainables)
+                    log_validation(args, cfg, vae, eff, global_step,
+                                   os.path.join(args.output_dir, "validation"),
+                                   metrics_log=metrics_log)
+            dist.barrier("gmdx_validation")
     batches.close()
 
     # Final artifacts: the merged VAE (the EMA shadow's under --use_ema) as
-    # a pipeline directory with the tokenizer, and the discriminator.
+    # a pipeline directory with the tokenizer, and the discriminator, from
+    # rank 0 (every rank gathers what fsdp sharded).
     manager.wait_until_finished()
-    trained = (trainables_like(state.trainables, state.ema.shadow) if state.ema is not None
-               else state.trainables)
-    with torch.no_grad():
-        eff = {k: v.detach().float() for k, v in
-               effective_vae_params(cfg, vae, trained).items()}
-    with torch.device("meta"):
-        final_vae = AutoencoderKL(dataclasses.replace(vae.config, remat=False))
-    final_vae.load_state_dict(eff, strict=True, assign=True)
-    save_pipeline(os.path.join(args.output_dir, "finetuned_VAE"),
-                  components={"vae": final_vae}, tokenizer=tokenizer)
-    save_component(os.path.join(args.output_dir, "discriminator"), state.discriminator)
+    dist.barrier("gmdx_final")
+    shadow = state.ema.full() if state.ema is not None else None
+    with torch.no_grad(), state.optimizer.gathered(), state.disc_optimizer.gathered():
+        if main_rank:
+            trained = (trainables_like(state.trainables, shadow) if shadow is not None
+                       else state.trainables)
+            eff = {k: v.detach().float() for k, v in
+                   effective_vae_params(cfg, vae, trained).items()}
+            with torch.device("meta"):
+                final_vae = AutoencoderKL(dataclasses.replace(vae.config, remat=False))
+            final_vae.load_state_dict(eff, strict=True, assign=True)
+            save_pipeline(os.path.join(args.output_dir, "finetuned_VAE"),
+                          components={"vae": final_vae}, tokenizer=tokenizer)
+            save_component(os.path.join(args.output_dir, "discriminator"),
+                           state.discriminator)
     metrics_log.close()
+    dist.barrier("gmdx_saved")
+    if joined:
+        dist.shutdown()
     logger.info("training complete; artifacts in %s", args.output_dir)
     return {"state": state, "start_step": resume_step or 0, "global_step": global_step,
             "losses": losses, "metrics": rows, "cadence": cadence,

@@ -54,8 +54,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.sp_size > 1:
         raise NotImplementedError(
-            "--sp_size > 1: the port has no distribution yet (ROADMAP Queue 1 item 9: "
-            "`gmdx/dist/{mesh,tp,multihost}.py` -> torch.distributed)")
+            "--sp_size > 1: the port has no spatial parallelism yet (ROADMAP Queue 1 item 9: "
+            "`gmdx/dist/{tp,tpctx}.py` -> torch.distributed)")
 
     import numpy as np
     import torch

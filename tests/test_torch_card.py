@@ -1569,3 +1569,27 @@ def test_convert_tool_round_trip_without_jax(tmp_path):
             assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (name, k)
     for rel in (("scheduler", "config.json"), ("tokenizer", "vocab.json")):
         assert read(back, *rel) == read(src, *rel)
+
+
+@pytest.mark.cuda
+def test_data_parallel_updates_of_two_gloo_ranks_on_card(card, tmp_path):
+    """Two ranks under gloo on the one card (NCCL refuses two ranks on one
+    device): a small model's updates under ddp, zero1 and fsdp, with and
+    without accumulation, through the collectives on CUDA tensors, equal
+    one rank's on the global batches (losses and parameters 1e-5)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_ranks
+
+    setup = torch_dist_ranks.mlp_setup("cuda")
+    ranks = torch_dist_ranks.Ranks("mlp", 2, tmp_path, setup)
+    want = {k: torch_dist_ranks.mlp_run(setup, "ddp", k) for k in (1, 2)}
+    for r in ranks.results():
+        for (strategy, k), got in r.items():
+            np.testing.assert_allclose(got["loss"], want[k]["loss"], rtol=1e-5,
+                                       err_msg=f"{strategy} {k}")
+            for g, w in zip(got["params"], want[k]["params"]):
+                err = np.linalg.norm(g - w) / np.linalg.norm(w)
+                assert err <= 1e-5, (strategy, k, err)

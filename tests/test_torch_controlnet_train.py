@@ -353,7 +353,7 @@ def test_refused_flags(workdir):
     with pytest.raises(SystemExit):
         train.parse_args(["--pretrained_model_name_or_path", str(root / "pipe")])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _train(root, meta, root / "refused", "--shard_strategy", "fsdp")
+        _train(root, meta, root / "refused", "--shard_strategy", "tp")
     gm_pipe = root / "gm_pipe"
     _script("init_pipeline").main(["--output_dir", str(gm_pipe), "--size", "tiny", "--gm_only",
                                    "--device", "cpu"])

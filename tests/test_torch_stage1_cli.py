@@ -555,7 +555,7 @@ def test_refused_flags(workdir):
         with pytest.raises(SystemExit):
             train.parse_args(common + flags)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train.main(common + ["--train_metadata", meta, "--shard_strategy", "fsdp"])
+        train.main(common + ["--train_metadata", meta, "--shard_strategy", "tp"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         train.main(common + ["--dataset_name", "some/hub-set"])
     assert not os.path.exists(root / "refused")
