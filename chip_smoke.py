@@ -51,6 +51,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      flash_attention_fwd, flash_attention_bsc, flash_attention_bwd) their
      launch plans, each held to the kernel's own (gmdx_attention_sm90_plan),
      and the short-K cross-attention its plan (gmdx_xattn_plan).
+     The split GroupNorm's entries (group_norm_moments, group_norm_apply)
+     and the attention kernels at the shapes two ranks give them (a rank's
+     queries against the whole image's keys; half the heads) have rows of
+     their own.
      GroupNorm rows (among them 64^2 x 640 and 32^2 x 1920, the images of
      the UNet too large for one cluster) carry their plan's form, cluster
      size and the clusters resident at once, held to gmdx_group_norm_plan
@@ -215,6 +219,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
      flags equal where every score is beyond 1e-3 of 0), its ms and fp32
      bound for the batch; a pipeline call at batch 2 with every concept
      firing must come out black. Export and import s and GB, peak memory.
+ 24. parallel: tensor- and spatial-parallel serving (gmdx_torch.dist.tp,
+     tpctx and the H split) on two gloo ranks of the one card beside one
+     process with the same seeded weights, embeddings and generators:
+     TP = 2 through the dual path at 512^2 (batch 1, 3 steps), SP = 2
+     through generate_hdr's path at 512^2 (encode, 3 steps, decode) and
+     upconvert_hdrtv's at 1024^2 (2 steps); each rank's decoded SDR and GM
+     >= 40 dB of the one process's, its launches (under TP the attention
+     kernels as in one process and the conv, GroupNorm and FF kernels
+     never; under SP every kernel of the path, the split GroupNorm's
+     entries in place of group_norm_silu), its peak memory beside the one
+     process's, the phase's wall beside PARALLEL_BUDGET_S.
+``python3 chip_smoke.py --parallel-cards N`` (N cards, not the default run)
+runs TP = N and SP = N with a rank a card under NCCL against one card:
+s/image of generate_hdr's path at 512^2 and s/frame of upconvert_hdrtv's
+at 1024^2, PNDM 50, with phase parallel's checks; then generate_hdr
+(--tp_size N, --sp_size N) and upconvert_hdrtv (--sp_size N) themselves
+under torchrun on a full-width directory, their files >= 40 dB of the
+one-card run's.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -296,6 +318,8 @@ KERNELS = {
     "winograd4_conv3x3": ("gmdx_torch/csrc/winograd4.cu", "gmdx/kernels/winograd.py:693"),
     "flash_attention_bwd_d512": (
         "gmdx_torch/csrc/attention_wide_sm90.cuh", "gmdx/kernels/flash_attention.py:348"),
+    "group_norm_moments": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:561"),
+    "group_norm_apply": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:578"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
@@ -305,6 +329,9 @@ HDRTV_KERNELS = ("flash_attention_bsc", "flash_attention_fwd_d512", "attention_k
                  "conv3x3", "group_norm_silu", "geglu_ff_ln")
 STAGE1_KERNELS = ("flash_attention_bwd_d512", "flash_attention_fwd_d512", "group_norm_silu_bwd",
                   "group_norm_silu", "conv3x3")
+# The split GroupNorm's entries: launched by spatial parallelism (phase
+# parallel's SP runs) in place of group_norm_silu.
+PARALLEL_KERNELS = ("group_norm_moments", "group_norm_apply")
 HDRTV_SIDE = 1024
 HDRTV_E2E_STEPS = 2
 # flash_attention_bsc calls per denoise iteration at 1024^2: the 16384-token
@@ -852,7 +879,92 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
     _hdrtv_kernel_rows(gen, results)
     _optin_kernel_rows(gen, sdr2hdr_batch, results)
     _stage1_kernel_rows(gen, results)
+    _parallel_kernel_rows(gen, batch, results)
     return results
+
+
+def _parallel_kernel_rows(gen, batch: int, results: list[dict]) -> None:
+    """I. The shapes tensor and spatial parallelism give the kernels over
+    two ranks: the split GroupNorm's entries (a rank's half of the rows of
+    the UNet's 64^2 x 320 image at the CFG batch, temb and padded output;
+    of the 1024^2 frame's VAE at 1024^2 x 128); the attention kernels at a
+    rank's queries against the whole image's keys (KV-resident 2048 of 4096
+    at 512^2, bsc 8192 of 16384 and the 512-wide forward at 1024^2) and at
+    a rank's half of the heads (KV-resident, 4 heads of 40)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmdx_torch.kernels.attention import attention_kv_resident, attention_kv_resident_plain
+    from gmdx_torch.kernels.flash_attention import (
+        flash_attention_bsc, flash_attention_bsc_plain, flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_apply, group_norm_apply_plain, group_norm_moments, group_norm_moments_plain,
+        group_norm_silu_plain,
+    )
+
+    cfg_b = 2 * batch
+    for bb, h, w, c, temb_on in ((cfg_b, 32, 64, 320, True), (2, HDRTV_SIDE // 2, HDRTV_SIDE,
+                                                               128, False)):
+        x = (_randn(gen, bb, h, w, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+        g = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+        be = _randn(gen, c, scale=0.2)
+        t = _randn(gen, bb, c) if temb_on else None
+        xf, tf = x.float(), t.float() if temb_on else None
+        x4 = x.view(bb, h * w, 32, c // 32)
+        shape = [bb, h, w, c] + (["temb"] if temb_on else [])
+        # The moments: x read once, (B, G, 2) written; ~3 operations an
+        # element. The mean and M2 columns are held apart: M2 is ~1e5 times
+        # the mean, and would hide it in one norm.
+        _check("group_norm_moments", shape, lambda: group_norm_moments(x, t).unbind(-1),
+               lambda: group_norm_moments_plain(xf, tf).unbind(-1),
+               None if temb_on else (lambda: torch.var_mean(x4, dim=(1, 3))),
+               3.0 * x.numel(), x.numel() * 2 + bb * 32 * 2 * 4, results, peak=FP32_FLOPS,
+               library=None if temb_on else "torch.var_mean")
+        _, stats = group_norm_silu_plain(xf, g.float(), be.float(), tf, return_stats=True)
+        # The apply: x read once, the padded rows written; no one PyTorch call
+        # normalises with given statistics.
+        _check("group_norm_apply", shape + ["silu", "pad"],
+               lambda: group_norm_apply(x, g, be, t, stats, pad_output=True),
+               lambda: group_norm_apply_plain(xf, g.float(), be.float(), tf, stats,
+                                              pad_output=True),
+               None, 10.0 * x.numel(),
+               (x.numel() + bb * (h + 2) * (w + 2) * c + 2 * c) * 2 + stats.numel() * 4,
+               results, peak=FP32_FLOPS)
+        del x, xf, x4
+
+    for name, b, sq, sk, heads, d in (
+        ("attention_kv_resident", cfg_b, 2048, 4096, 8, 40),
+        ("attention_kv_resident", cfg_b, 4096, 4096, 4, 40),
+        ("flash_attention_bsc", 2, 8192, 16384, 8, 40),
+        ("flash_attention_fwd_d512", 1, 8192, 16384, 1, 512),
+    ):
+        c = heads * d
+        q = _randn(gen, b, sq, c)
+        k, v = _randn(gen, b, sk, c), _randn(gen, b, sk, c)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        qh = q.view(b, sq, heads, d).transpose(1, 2)
+        kh, vh = (t.view(b, sk, heads, d).transpose(1, 2) for t in (k, v))
+        kern, plain = {
+            "attention_kv_resident": (lambda: attention_kv_resident(q, k, v, heads),
+                                      lambda: attention_kv_resident_plain(qf, kf, vf, heads)),
+            "flash_attention_bsc": (lambda: flash_attention_bsc(q, k, v, heads),
+                                    lambda: flash_attention_bsc_plain(qf, kf, vf, heads)),
+            "flash_attention_fwd_d512": (
+                lambda: flash_attention_fwd(q, k, v, heads)[0],
+                lambda: flash_attention_fwd_plain(qf, kf, vf, heads, d**-0.5)[0]),
+        }[name]
+        if d == 512:
+            backend, lib = _sdpa_backend(qh, kh, vh)
+        else:
+            backend = "default"
+            lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+        _check(name, [b, sq, sk, heads, d], kern, plain, lib, 4.0 * b * heads * sq * sk * d,
+               (2 * b * sq * c + 2 * b * sk * c) * 2, results,
+               library=f"F.scaled_dot_product_attention ({backend} backend)",
+               extra=exp2_keys((2 if d == 512 else 1) * b * heads * sq * sk))
+        del q, k, v, qf, kf, vf, qh, kh, vh
 
 
 def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
@@ -4201,6 +4313,369 @@ def phase_dist_cards(args) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tensor- and spatial-parallel serving
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORLD = 2
+PARALLEL_BUDGET_S = 150.0
+PARALLEL_SEED = 140
+# Phase parallel's runs: (name, mode, path, PNDM steps). TP: the dual
+# text-to-HDR path at 512^2; SP: generate_hdr's single-UNet path at 512^2
+# (encode, steps, decode) and upconvert_hdrtv's at 1024^2.
+PARALLEL_RUNS = (("tp_dual", "tp", "dual", 3), ("sp_gm", "sp", "gm", 3),
+                 ("sp_hdrtv", "sp", "hdrtv", 2))
+# --parallel-cards N: generate_hdr's path under TP = N and SP = N and
+# upconvert_hdrtv's under SP = N, at PNDM 50, each after a 2-step warm-up.
+PARALLEL_CARDS_RUNS = (("tp_gm", "tp", "gm", 50), ("sp_gm", "sp", "gm", 50),
+                       ("sp_hdrtv", "sp", "hdrtv", 50))
+# Under TP the JAX dispatch keeps only attention on its kernels.
+TP_OFF_KERNELS = ("conv3x3", "group_norm_silu", "group_norm_moments", "group_norm_apply",
+                  "geglu_ff_ln", "geglu_ff", "winograd4_conv3x3", "add_layer_norm")
+TP_ATTENTION_KERNELS = ("attention_kv_resident", "flash_attention_bsc",
+                        "flash_attention_fwd_d512")
+# Under SP every kernel of the path launches, the split GroupNorm in place
+# of the one-rank one.
+SP_KERNELS = {"gm": ("attention_kv_resident", "conv3x3", "geglu_ff_ln") + PARALLEL_KERNELS,
+              "hdrtv": ("attention_kv_resident", "flash_attention_bsc",
+                        "flash_attention_fwd_d512", "conv3x3", "geglu_ff_ln")
+              + PARALLEL_KERNELS}
+
+
+def _parallel_pipeline(path: str, seed: int, ctx):
+    """``path``'s pipeline at SD-1.5 width with seeded random bf16 weights;
+    under TP (``ctx``) each module holds this rank's slices."""
+    from gmdx_torch.dist.tp import tp_shard_module
+
+    pipe = {"dual": build_pipeline, "gm": build_gm_pipeline,
+            "hdrtv": build_hdrtv_pipeline}[path](seed)
+    if ctx is not None and ctx.mode == "tp":
+        for m in (pipe.unet, getattr(pipe, "gm_unet", None), pipe.vae,
+                  getattr(pipe, "controlnet", None)):
+            if m is not None:
+                tp_shard_module(m, ctx.rank, ctx.size)
+    return pipe
+
+
+def _parallel_path(pipe, path: str, seed: int, steps: int, ctx):
+    """One run of ``path`` through ``pipe`` inside the model-parallel
+    context ``ctx`` (None: one process): its decoded outputs in [0, 1] as
+    CPU tensors."""
+    import torch
+
+    from gmdx_torch.dist import shard_rows
+
+    if path == "dual":
+        latents, cond, uncond = make_inputs(pipe, 1, seed + 2)
+        _, _, sdr, gm = run_path(pipe, latents, cond, uncond, steps)
+        out = {"sdr": to01(sdr), "gm": to01(gm)}
+    elif path == "gm":
+        sdr, cond, uncond = sdr2hdr_inputs(1, seed + 3)
+        if ctx is not None and ctx.mode == "sp":
+            sdr = shard_rows(sdr, ctx)
+        sdr01, gm01 = run_sdr2hdr(pipe, sdr, cond, uncond, steps, seed + 4)
+        out = {"sdr": sdr01, "gm": gm01}
+    else:
+        sdr, cond, uncond = hdrtv_inputs(1, seed + 5)
+        sdr01, gm01, hdr = upconvert(pipe, sdr, cond, uncond, steps, seed + 6)
+        out = {k: torch.from_numpy(v) for k, v in (("sdr", sdr01), ("gm", gm01), ("hdr", hdr))}
+    torch.cuda.synchronize()
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def parallel_job(args) -> None:
+    """A process of phase parallel: with --parallel-port, rank
+    --parallel-rank of PARALLEL_WORLD gloo ranks on the one card; under
+    torchrun (--parallel-cards), a rank a card under NCCL; else the one
+    process the ranks are held against. Each run's launches (counts set to
+    0 just before it, read just after), peak memory, wall and outputs go to
+    --parallel-dir."""
+    import contextlib
+
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.dist import tpctx
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+
+    rank_tag = "ref"
+    if args.parallel_job == "ranks":
+        if args.parallel_port:
+            dist.initialize(f"localhost:{args.parallel_port}", PARALLEL_WORLD,
+                            args.parallel_rank, backend="gloo")
+        else:
+            dist.initialize()
+        rank_tag = f"rank{dist.rank()}"
+    runs = PARALLEL_CARDS_RUNS if args.parallel_cards else PARALLEL_RUNS
+    out = {"backend": torch.distributed.get_backend() if dist.is_initialized() else None,
+           "world": dist.world_size(), "runs": {}}
+    for name, mode, path, steps in runs:
+        seed = args.seed + PARALLEL_SEED
+        with (tpctx.parallel_context(mode) if dist.is_initialized()
+              else contextlib.nullcontext()) as ctx:
+            pipe = _parallel_pipeline(path, seed, ctx)
+            if args.parallel_cards:  # a warm-up: cuDNN/cuBLAS plans, gloo/NCCL buffers
+                _parallel_path(pipe, path, seed, 2, ctx)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            # The run's peak, from the placed weights on (a TP rank builds
+            # the whole model before it keeps its slices).
+            weights_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = _parallel_path(pipe, path, seed, steps, ctx)
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        torch.save(outs, os.path.join(args.parallel_dir, f"{rank_tag}_{name}.pt"))
+        out["runs"][name] = {"launches": counts, "wall_s": wall, "steps": steps,
+                             "weights_gb": weights_gb,
+                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(args.parallel_dir, f"{rank_tag}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+
+
+def _parallel_check(ranks: list[dict], ref: dict, root: str, runs) -> tuple[list[str], dict]:
+    """Each rank's outputs against the one process's (PSNR), its launches by
+    the rule of its mode, its peak memory beside the one process's."""
+    import torch
+
+    bad, launches = [], {}
+    for name, mode, path, steps in runs:
+        want = torch.load(os.path.join(root, f"ref_{name}.pt"))
+        ref_counts = ref["runs"][name]["launches"]
+        for r, res in enumerate(ranks):
+            got = torch.load(os.path.join(root, f"rank{r}_{name}.pt"))
+            db = {k: psnr01(got[k].clamp(0, 1), want[k].clamp(0, 1)) for k in ("sdr", "gm")}
+            run = res["runs"][name]
+            counts = run["launches"]
+            row = {"phase": "parallel", "run": name, "mode": mode, "rank": r,
+                   "world": res["world"], "backend": res["backend"], "steps": steps,
+                   "psnr_db": db, "min_db": PSNR_MIN_DB, "wall_s": run["wall_s"],
+                   "one_process_wall_s": ref["runs"][name]["wall_s"],
+                   "weights_gb": run["weights_gb"],
+                   "one_process_weights_gb": ref["runs"][name]["weights_gb"],
+                   "peak_mem_gb": run["peak_mem_gb"],
+                   "one_process_peak_mem_gb": ref["runs"][name]["peak_mem_gb"],
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "one_process_launches": {k: v for k, v in ref_counts.items() if v}}
+            if path == "hdrtv":
+                hdr_ok = bool(torch.isfinite(got["hdr"]).all()) and \
+                    got["hdr"].shape == want["hdr"].shape
+                row["hdr_finite"] = hdr_ok
+                if not hdr_ok:
+                    bad.append(f"{name} rank {r}: HDR frame not finite or misshapen")
+            emit(row)
+            if not min(db.values()) >= PSNR_MIN_DB:
+                bad.append(f"{name} rank {r}: PSNR {db} < {PSNR_MIN_DB} dB")
+            if mode == "tp":
+                wrong = {k: (counts[k], ref_counts[k]) for k in TP_ATTENTION_KERNELS
+                         if counts[k] != ref_counts[k]}
+                wrong.update({k: counts[k] for k in TP_OFF_KERNELS if counts[k]})
+            else:
+                wrong = {k: counts[k] for k in SP_KERNELS[path] if counts[k] == 0}
+                if counts["group_norm_silu"]:
+                    wrong["group_norm_silu"] = counts["group_norm_silu"]
+            if wrong:
+                bad.append(f"{name} rank {r}: launches off the rule of {mode}: {wrong}")
+            if r == 0:
+                launches[name] = counts
+    return bad, launches
+
+
+def phase_parallel(args) -> dict[str, int]:
+    """Tensor- and spatial-parallel serving (gmdx_torch.dist.tp, tpctx and
+    the H split) at SD-1.5 width: PARALLEL_WORLD gloo ranks on the one card
+    (NCCL refuses two ranks on one device) beside one process with the same
+    weights, prompt embeddings and generators:
+      tp_dual: TP = 2, the dual text-to-HDR path at 512^2, batch 1, 3 steps;
+      sp_gm: SP = 2, generate_hdr's path at 512^2 (encode, 3 steps, decode);
+      sp_hdrtv: SP = 2, upconvert_hdrtv's path at 1024^2, 2 steps.
+    Each rank's decoded SDR and GM >= 40 dB of the one process's (TP takes
+    the library route for GroupNorm, the conv and the FF, in bf16); the
+    launches of each run on a rank: under TP the attention kernels as in
+    one process and GroupNorm, the conv and the FF never, under SP every
+    kernel of the path, the split GroupNorm in place of the one-rank one;
+    each rank's peak memory beside the one process's, the phase's wall
+    beside PARALLEL_BUDGET_S. Returns rank 0's launches of the SP runs."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gmdx_parallel_")
+    me = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed),
+          "--parallel-dir", root]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs, procs = [], []
+    try:
+        port = _free_port()
+        for r in range(PARALLEL_WORLD):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                me + ["--parallel-job", "ranks", "--parallel-rank", str(r), "--parallel-port",
+                      str(port)], stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        # The one process beside the ranks (the card holds all three).
+        _dist_spawn(me + ["--parallel-job", "ref"], os.path.join(root, "ref.log"), 600, env=env)
+        for p in procs:
+            p.wait(timeout=600)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: parallel rank {r} failed ({p.returncode}):\n"
+                                 f"{tail}")
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        ranks = []
+        for r in range(PARALLEL_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad, launches = _parallel_check(ranks, ref, root, PARALLEL_RUNS)
+        elapsed = time.perf_counter() - t_phase
+        emit({"phase": "parallel", "elapsed_s": elapsed, "budget_s": PARALLEL_BUDGET_S,
+              "within_budget": elapsed <= PARALLEL_BUDGET_S, "card": nvidia_smi_line()})
+        if bad:
+            raise SystemExit("chip_smoke: parallel failed its checks: " + "; ".join(bad))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: launches["sp_gm"][k] + launches["sp_hdrtv"][k] for k in launches["sp_gm"]}
+
+
+# --parallel-cards N, its CLI part: (name, script, width flag or None,
+# steps, input folder) over one full-width directory; each parallel run is
+# held against the one-card run of its script.
+PARALLEL_CLI_RUNS = (("gen_one_card", "generate_hdr", None, 4, "sdr"),
+                     ("gen_tp", "generate_hdr", "--tp_size", 4, "sdr"),
+                     ("gen_sp", "generate_hdr", "--sp_size", 4, "sdr"),
+                     ("up_one_card", "upconvert_hdrtv", None, 2, "hdrtv"),
+                     ("up_sp", "upconvert_hdrtv", "--sp_size", 2, "hdrtv"))
+
+
+def _parallel_cards_cli(args, root: str, env) -> dict:
+    """The CLIs under torchrun on N cards (NCCL): scripts/torch/init_pipeline.py
+    --size sd15 --dual writes one directory; generate_hdr on a 512^2 PNG at
+    4 steps in one process on one card, at --tp_size N and at --sp_size N;
+    upconvert_hdrtv on a 1024^2 PNG at 2 steps on one card and at
+    --sp_size N. Each parallel run's PNGs >= 40 dB of the one-card run's,
+    its .hdr files finite and of the same shape. Returns the rows' failures
+    and walls."""
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io import read_hdr
+    from gmdx_torch.io.png import read_png, write_png
+
+    n = args.parallel_cards
+    pipe_dir = os.path.join(root, "pipe")
+    _script("init_pipeline").main(["--output_dir", pipe_dir, "--size", "sd15", "--dual",
+                                   "--scheduler", "dpm++", "--seed", str(args.seed)])
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(args.seed + 61)
+    for sub, side in (("sdr", 512), ("hdrtv", HDRTV_SIDE)):
+        os.makedirs(os.path.join(root, sub))
+        y, x = np.mgrid[0:side, 0:side]
+        img = np.stack([np.sin(x / (17 + 5 * c) + y / 23) * 100 + 128 for c in range(3)], -1)
+        img = img + rng.integers(-20, 20, (side, side, 3))
+        write_png(os.path.join(root, sub, "frame0.png"), np.clip(img, 0, 255).astype(np.uint8))
+    walls, bad = {}, []
+    for name, script, flag, steps, sub in PARALLEL_CLI_RUNS:
+        argv = [os.path.join(REPO, "scripts", "torch", f"{script}.py"),
+                "--pretrained_model_name_or_path", pipe_dir, "--sdr_input_path",
+                os.path.join(root, sub), "--output_dir", os.path.join(root, "out", name),
+                "--num_inference_steps", str(steps), "--seed", str(args.seed)]
+        if script == "generate_hdr":
+            argv += ["--unet_ckpt", os.path.join(pipe_dir, "gm_unet")]
+        if flag is None:
+            argv = [sys.executable] + argv
+        else:
+            argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                    "--nproc_per_node", str(n), "--master_addr", "localhost", "--master_port",
+                    str(_free_port())] + argv + [flag, str(n)]
+        t0 = time.perf_counter()
+        _dist_spawn(argv, os.path.join(root, f"{name}.log"), 600, env=env)
+        walls[name] = time.perf_counter() - t0
+    for name, script, flag, _, _ in PARALLEL_CLI_RUNS:
+        if flag is None:
+            continue
+        ref = next(r[0] for r in PARALLEL_CLI_RUNS if r[1] == script and r[2] is None)
+        files = sorted(os.listdir(os.path.join(root, "out", ref)))
+        row = {"phase": "parallel_cards", "part": "cli", "run": name, "script": script,
+               "width": f"{flag} {n}", "wall_s": walls[name], "one_card_wall_s": walls[ref],
+               "psnr_db": {}, "hdr_ok": {}}
+        for f in files:
+            a, b = (os.path.join(root, "out", d, f) for d in (name, ref))
+            if not os.path.exists(a):
+                bad.append(f"{name}: {f} not written")
+            elif f.endswith(".png"):
+                got, want = (torch.from_numpy(read_png(p).astype(np.float64) / 255) for p in (a, b))
+                row["psnr_db"][f] = psnr01(got, want)
+                if not row["psnr_db"][f] >= PSNR_MIN_DB:
+                    bad.append(f"{name}: {f} {row['psnr_db'][f]} dB < {PSNR_MIN_DB}")
+            else:
+                got, want = read_hdr(a), read_hdr(b)
+                row["hdr_ok"][f] = bool(got.shape == want.shape and np.isfinite(got).all())
+                if not row["hdr_ok"][f]:
+                    bad.append(f"{name}: {f} misshapen or not finite")
+        emit(row)
+    return bad
+
+
+def phase_parallel_cards(args) -> None:
+    """``--parallel-cards N`` (not part of the default run; N cards): a rank
+    a card under NCCL (torchrun), TP = N and SP = N, against one process on
+    one card: generate_hdr's path at 512^2, PNDM 50, as s/image under TP and
+    SP; upconvert_hdrtv's at 1024^2, PNDM 50, as s/frame under SP; each
+    after a 2-step warm-up; phase parallel's checks on every rank. Then the
+    two CLIs themselves under torchrun (:func:`_parallel_cards_cli`)."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="gmdx_parallel_cards_")
+    me = [os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed), "--parallel-dir", root,
+          "--parallel-cards", str(args.parallel_cards)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        _dist_spawn([sys.executable] + me + ["--parallel-job", "ref"],
+                    os.path.join(root, "ref.log"), 900, env=env)
+        _dist_spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                     "--nproc_per_node", str(args.parallel_cards), "--master_addr", "localhost",
+                     "--master_port", str(_free_port())] + me + ["--parallel-job", "ranks"],
+                    os.path.join(root, "ranks.log"), 1500, env=env)
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        ranks = []
+        for r in range(args.parallel_cards):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad, _ = _parallel_check(ranks, ref, root, PARALLEL_CARDS_RUNS)
+        summary = {}
+        for name, mode, path, steps in PARALLEL_CARDS_RUNS:
+            unit = "s_per_frame" if path == "hdrtv" else "s_per_image"
+            summary[name] = {unit: max(r["runs"][name]["wall_s"] for r in ranks),
+                             "one_card_" + unit: ref["runs"][name]["wall_s"],
+                             "peak_mem_gb": max(r["runs"][name]["peak_mem_gb"] for r in ranks),
+                             "one_card_peak_mem_gb": ref["runs"][name]["peak_mem_gb"]}
+        emit({"phase": "parallel_cards", "cards": args.parallel_cards,
+              "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+              "card": nvidia_smi_line(), **summary})
+        bad += _parallel_cards_cli(args, root, env)
+        if bad:
+            raise SystemExit("chip_smoke: parallel_cards failed its checks: " + "; ".join(bad))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=2)
@@ -4229,6 +4704,15 @@ def main() -> int:
     p.add_argument("--dist-cards", type=int, default=0,
                    help="only the Stage-2 data-parallel check on this many cards, a rank a card "
                         "under NCCL, against one card, with s/step (not the default run)")
+    # Phase parallel's children (this script again).
+    for flag in ("--parallel-job", "--parallel-dir"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--parallel-rank", "--parallel-port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--parallel-cards", type=int, default=0,
+                   help="only tensor- and spatial-parallel serving over this many cards (TP = SP "
+                        "= N), a rank a card under NCCL, against one card, with s/image and "
+                        "s/frame at PNDM 50 (not the default run)")
     args = p.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "gmdx_torch")):
@@ -4242,6 +4726,22 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         {"ref": dist_job_ref, "ranks": dist_job_ranks, "cli": dist_job_cli}[args.dist_job](args)
+        return 0
+    if args.parallel_job:
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        parallel_job(args)
+        return 0
+    if args.parallel_cards:
+        dev = phase_device()
+        phase_build()
+        phase_parallel_cards(args)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}), flush=True)
         return 0
     if args.dist_cards:
         dev = phase_device()
@@ -4278,6 +4778,7 @@ def main() -> int:
         import shutil
 
         shutil.rmtree(workdir, ignore_errors=True)
+    parallel_launches = phase_parallel(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
@@ -4287,7 +4788,8 @@ def main() -> int:
         n = (launches if name in INFERENCE_KERNELS
              else train_launches if name in TRAIN_KERNELS
              else hdrtv_launches if name in HDRTV_KERNELS
-             else stage1_launches if name in STAGE1_KERNELS else sdr2hdr_launches)[name]
+             else stage1_launches if name in STAGE1_KERNELS
+             else parallel_launches if name in PARALLEL_KERNELS else sdr2hdr_launches)[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),

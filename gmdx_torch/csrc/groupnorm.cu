@@ -60,6 +60,16 @@
 // operations an element; the cluster kernel moves exactly that, the pair
 // reads x twice.
 //
+// The split form (gmdx_group_norm_moments, gmdx_group_norm_apply), for an
+// image whose rows lie on several ranks (spatial parallelism; the TPU
+// kernel's stats and apply passes, _stats_kernel and _apply_kernel, with the
+// reduction between them left to the caller): the pair's stats kernel over
+// this rank's rows, then gn_moments_kernel folds its partials into each
+// group's (mean, M2) of the rows in fp64; the caller merges every rank's
+// (Chan's formula, equal counts) into the image's (mean, rstd) and
+// gn_apply_kernel normalises the rows with them. Bound: bytes, x read once
+// by each entry and y written once.
+//
 // Backward (gmdx_group_norm_silu_bwd) replaces gmdx/kernels/groupnorm.py:
 // _gn_backward (TPU kernels _gn_bwd_reduce_kernel, _gn_bwd_apply_kernel,
 // whose sequential grid axis carried the sums). It recomputes
@@ -113,6 +123,8 @@ struct GnArgs {
   __nv_bfloat16* out;
   float* partials;  // the pair's (B, splits, G, 2)
   float* stats;     // (B, 2, G) final (mean, rstd), or null
+  const float* stats_in;  // the split form's (B, 2, G) (mean, rstd) to apply, or null
+  float* moments;         // the split form's (B, G, 2) (mean, M2) of the rows, or null
   int HW, W, C, G, pixels, pad;  // pixels: a CTA's (or pair block's) slice
   float eps;
   int activate;
@@ -488,6 +500,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) gn_apply_kernel(GnArgs a) {
   const int chunks = a.C / 8;
   const int c0 = (threadIdx.x % chunks) * 8;
   for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
+    if (a.stats_in != nullptr) {  // the split form: the statistics of the whole image
+      mean[g] = a.stats_in[(size_t)b * 2 * a.G + g];
+      rstd[g] = a.stats_in[((size_t)b * 2 + 1) * a.G + g];
+      continue;
+    }
     const float* part = a.partials + (size_t)b * gridDim.x * a.G * 2;
     double s1 = 0.0, s2 = 0.0;
     for (unsigned s = 0; s < gridDim.x; ++s) {
@@ -516,6 +533,25 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) gn_apply_kernel(GnArgs a) {
     if (blockIdx.x == gridDim.x - 1)
       border_row(a, b, c0, a.HW / a.W + 1, threadIdx.x / chunks, rows);
   }
+}
+
+// The split form's fold: image b's stats-kernel partials (`splits` of them,
+// shifted about the rows' first element) into the rows' (mean, M2) a group,
+// in fp64 and a fixed order: M2 = sum (v - mean)^2 = s2 - s1^2 / n.
+__global__ void gn_moments_kernel(GnArgs a, int splits) {
+  const int b = blockIdx.x;
+  const int g = threadIdx.x;
+  if (g >= a.G) return;
+  const float* part = a.partials + (size_t)b * splits * a.G * 2;
+  double s1 = 0.0, s2 = 0.0;
+  for (int s = 0; s < splits; ++s) {
+    s1 += part[(size_t)s * a.G * 2 + 2 * g];
+    s2 += part[(size_t)s * a.G * 2 + 2 * g + 1];
+  }
+  const double n = (double)a.HW * (a.C / a.G);
+  const double m2 = s2 - s1 * s1 / n;
+  a.moments[((size_t)b * a.G + g) * 2] = (float)(s1 / n + group_shift(a, b, g));
+  a.moments[((size_t)b * a.G + g) * 2 + 1] = (float)(m2 > 0.0 ? m2 : 0.0);
 }
 
 // The launch configuration of the cluster kernel for plan p (the function's
@@ -953,7 +989,7 @@ extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void
     return static_cast<int>(cudaErrorInvalidValue);
   const GnPlan p = gn_plan(B, H, W, C);
   if (B == 0 || H * W == 0) return 0;
-  GnArgs a;
+  GnArgs a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.gamma = static_cast<const __nv_bfloat16*>(gamma);
   a.beta = static_cast<const __nv_bfloat16*>(beta);
@@ -988,6 +1024,74 @@ extern "C" int gmdx_group_norm_silu(const void* x, const void* gamma, const void
   const cudaLaunchConfig_t cfg = cluster_config(p, &attr, st);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split form of the forward, for an image whose rows lie on several
+// ranks (spatial parallelism): gmdx_group_norm_moments gives each group's
+// (mean, M2) over this rank's rows, the caller merges every rank's into the
+// whole image's (mean, rstd), and gmdx_group_norm_apply normalises the rows
+// with them. Both run the pair's kernels at the pair's grid (gn_plan's
+// splits for these rows), so x is read twice, as by the pair.
+static GnArgs split_args(const void* x, const void* temb, int H, int W, int C, int G, int splits) {
+  GnArgs a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.temb = static_cast<const __nv_bfloat16*>(temb);
+  a.HW = H * W;
+  a.W = W;
+  a.C = C;
+  a.G = G;
+  a.pixels = (a.HW + splits - 1) / splits;
+  return a;
+}
+
+// x: (B, H, W, C) bf16 (this rank's rows), temb (B, C) bf16 or null;
+// partials: B * splits * G * 2 floats of scratch (splits = the pair's
+// gn_pair_splits(B, H * W, C)); moments: (B, G, 2) fp32, written.
+extern "C" int gmdx_group_norm_moments(const void* x, const void* temb, void* partials,
+                                       void* moments, int B, int H, int W, int C, int G,
+                                       void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H * W == 0) return 0;
+  const int splits = gn_pair_splits(B, H * W, C);
+  GnArgs a = split_args(x, temb, H, W, C, G, splits);
+  a.partials = static_cast<float*>(partials);
+  a.moments = static_cast<float*>(moments);
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(gn_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         64 * MAX_THREADS);
+    attr = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = gn_threads(C);
+  gn_stats_kernel<<<dim3(splits, B), threads, 64 * threads, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_moments_kernel<<<B, MAXG, 0, st>>>(a, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, H, W, C) bf16 rows; stats: (B, 2, G) fp32 (mean, rstd) of the whole
+// image; out: (B, H + 2 pad, W + 2 pad, C), its top and bottom border rows
+// zero (the caller puts the neighbours' rows there).
+extern "C" int gmdx_group_norm_apply(const void* x, const void* gamma, const void* beta,
+                                     const void* temb, const void* stats, void* out, int B,
+                                     int H, int W, int C, int G, int activate, int pad,
+                                     void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H * W == 0) return 0;
+  const int splits = gn_pair_splits(B, H * W, C);
+  GnArgs a = split_args(x, temb, H, W, C, G, splits);
+  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
+  a.beta = static_cast<const __nv_bfloat16*>(beta);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.stats_in = static_cast<const float*>(stats);
+  a.pad = pad;
+  a.activate = activate;
+  gn_apply_kernel<<<dim3(splits, B), gn_threads(C), 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""Data-parallel training over the ranks of a process group.
+"""Data-parallel training over the ranks of a process group, and the
+spatial split of an image's rows.
 
 Counterpart of ``gmdx/dist/mesh.py``. The JAX package annotates shardings
 on a 1-D ``data`` mesh and lets XLA place the collectives; the port's train
@@ -30,6 +31,14 @@ global batch is the per-rank batch times it, and a rank takes rows
 step are made for the global batch's shape from a generator seeded alike
 on every rank and sliced to the rank's rows (:func:`randn_rows`), so an
 N-rank step is the 1-rank step on the global batch.
+
+The spatial half (``spatial_sharding`` and ``shard_batch_spatial``'s
+counterparts, for serving): an image's H rows split evenly over the ranks
+(:func:`spatial_rows`, :func:`shard_rows`, :func:`gather_rows`); the rows
+above and below a rank's slab come from its neighbours by one all-gather of
+every rank's edge rows (:func:`halo_rows`, :func:`fill_halo`: gloo, which
+runs two ranks on one card, has no send/recv for tensors on a card); random
+draws are the whole image's, sliced (:func:`randn_spatial`).
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ import torch.distributed as dist
 from gmdx_torch.dist.multihost import is_initialized, rank, world_size
 
 STRATEGIES = ("ddp", "zero1", "fsdp")
-# Tensor and spatial parallelism: a slice of their own (ROADMAP.md).
+# The trainers' tensor and spatial parallelism: a slice of their own
+# (ROADMAP.md; serving has both, gmdx_torch.dist.tp and tpctx).
 TP_SP_ITEM = "ROADMAP Queue 1 item 9"
 BUCKET_BYTES = 128 << 20
 
@@ -55,8 +65,9 @@ BUCKET_BYTES = 128 << 20
 def check_strategy(strategy: str) -> None:
     if strategy in ("tp", "sp"):
         raise NotImplementedError(
-            f"--shard_strategy {strategy}: tensor and spatial parallelism are not in the "
-            f"port yet ({TP_SP_ITEM}: `gmdx/dist/{{tp,tpctx}}.py` -> torch.distributed)")
+            f"--shard_strategy {strategy}: the trainers' tensor and spatial parallelism are "
+            f"not in the port yet ({TP_SP_ITEM}: the training half of `gmdx/dist/{{tp,tpctx}}.py`"
+            f"; serving has both, generate_hdr --tp_size/--sp_size)")
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown shard strategy {strategy!r}")
 
@@ -107,6 +118,94 @@ def randint_rows(high: int, b: int, generator: torch.Generator,
         return torch.randint(0, high, (b,), generator=generator, device=device)
     start, total = rows
     return torch.randint(0, high, (total,), generator=generator, device=device)[start:start + b]
+
+
+# --- spatial parallelism: the image's rows over the ranks -----------------
+
+
+def spatial_rows(h: int, rank_: int, n: int) -> tuple[int, int]:
+    """Rows ``[start, stop)`` of an image of ``h`` rows that rank ``rank_``
+    of ``n`` holds under spatial parallelism (the counterpart of
+    ``spatial_sharding``'s H split). Rows that do not split evenly raise:
+    the convs' halos and the stride-2 levels assume equal slices."""
+    if h % n:
+        raise ValueError(f"{h} image rows do not split evenly over {n} ranks")
+    rows = h // n
+    return rank_ * rows, (rank_ + 1) * rows
+
+
+def shard_rows(x: torch.Tensor, ctx, h_dim: int = 2) -> torch.Tensor:
+    """This rank's rows (along ``h_dim``; NCHW by default) of a whole image
+    that every rank holds (``shard_batch_spatial``'s placement)."""
+    start, stop = spatial_rows(x.shape[h_dim], ctx.rank, ctx.size)
+    return x.narrow(h_dim, start, stop - start).contiguous()
+
+
+def all_gather_stacked(t: torch.Tensor, ctx) -> torch.Tensor:
+    """Every rank's ``t`` of ``ctx``'s group, stacked in rank order:
+    (size, *t.shape), by one all-gather of flat buffers (gloo takes a
+    tensor's leading dimension as the ranks')."""
+    t = t.contiguous()
+    out = torch.empty((ctx.size, t.numel()), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out.view(-1), t.view(-1), group=ctx.group)
+    return out.view(ctx.size, *t.shape)
+
+
+def gather_rows(x: torch.Tensor, ctx, h_dim: int = 2) -> torch.Tensor:
+    """The whole image, on every rank, from each rank's rows ``x`` (one
+    all-gather: gloo has no gather for tensors on a card); any tensor split
+    into equal slices along ``h_dim`` in rank order."""
+    return torch.cat(list(all_gather_stacked(x, ctx).unbind(0)), dim=h_dim)
+
+
+def _neighbour_rows(first: torch.Tensor, last: torch.Tensor, ctx):
+    """(the previous rank's ``last``, the next rank's ``first``), None at the
+    image's top and bottom edge: one all-gather of every rank's border rows
+    (gloo has no send/recv for tensors on a card)."""
+    rows = all_gather_stacked(torch.cat([first, last], dim=1), ctx)
+    k = first.shape[1]
+    prev = rows[ctx.rank - 1][:, k:] if ctx.rank > 0 else None
+    nxt = rows[ctx.rank + 1][:, :k] if ctx.rank < ctx.size - 1 else None
+    return prev, nxt
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int, ctx) -> torch.Tensor:
+    """NHWC rows ``x`` with ``top`` rows of the previous rank above and
+    ``bottom`` rows of the next rank below (zeros past the image's edges):
+    what a conv of this rank's output rows reads."""
+    h = x.shape[1]
+    if top > h or bottom > h:
+        raise ValueError(f"a halo of {max(top, bottom)} rows over {h} local rows")
+    prev, nxt = _neighbour_rows(x[:, :bottom], x[:, h - top:], ctx)
+    zeros = lambda k: x.new_zeros((x.shape[0], k, *x.shape[2:]))  # noqa: E731
+    return torch.cat([zeros(top) if prev is None else prev, x,
+                      zeros(bottom) if nxt is None else nxt], dim=1)
+
+
+def fill_halo(xp: torch.Tensor, ctx) -> torch.Tensor:
+    """A 1-px padded NHWC slab ``xp`` (B, h + 2, W + 2, C) with its top and
+    bottom border rows replaced, in place, by the neighbouring ranks' edge
+    rows (left as zeros at the image's edges): the conv kernel's
+    ``pre_padded`` input for this rank's rows."""
+    h = xp.shape[1] - 2
+    prev, nxt = _neighbour_rows(xp[:, 1:2], xp[:, h:h + 1], ctx)
+    if prev is not None:
+        xp[:, :1] = prev
+    if nxt is not None:
+        xp[:, h + 1:] = nxt
+    return xp
+
+
+def randn_spatial(shape, generator: torch.Generator, ctx, h_dim: int, *, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """This rank's rows of one ``torch.randn`` draw for the whole image
+    whose rank-local shape is ``shape``: every rank draws what one process
+    would and keeps its rows, so a spatially split run samples the noise of
+    an unsplit one."""
+    full = list(shape)
+    full[h_dim] *= ctx.size
+    noise = torch.randn(full, generator=generator, device=device, dtype=dtype)
+    return shard_rows(noise, ctx, h_dim)
 
 
 def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
@@ -453,6 +552,13 @@ __all__ = [
     "shard_batch",
     "randn_rows",
     "randint_rows",
+    "spatial_rows",
+    "shard_rows",
+    "all_gather_stacked",
+    "gather_rows",
+    "halo_rows",
+    "fill_halo",
+    "randn_spatial",
     "all_reduce_mean",
     "all_reduce_mean_list",
     "ShardLayout",

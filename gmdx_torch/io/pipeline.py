@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist.tp import assign_state_dict, tp_shard_state_dict
 from gmdx_torch.io import convert, to_flax
 from gmdx_torch.io.params import load_params, save_params
 from gmdx_torch.models import (
@@ -206,13 +207,16 @@ def component_config(dirpath: str) -> tuple[str, Any]:
 
 
 def load_component(dirpath: str, *, device: str | torch.device = "cuda",
-                   dtype: torch.dtype | None = None) -> nn.Module:
+                   dtype: torch.dtype | None = None,
+                   tp: tuple[int, int] | None = None) -> nn.Module:
     """The model of one component directory, its weights carried from the
     Flax tree (``strict=True``), in eval mode on ``device``: bfloat16 on the
     card (the kernels' type), float32 on the CPU, and float32 everywhere
     for a Discriminator and a safety checker (the JAX package's checker
     computes in float32, and its output is a threshold on a cosine),
-    unless ``dtype`` says otherwise (a trainer's float32 master weights)."""
+    unless ``dtype`` says otherwise (a trainer's float32 master weights).
+    With ``tp = (rank, size)`` the module holds rank ``rank``'s tensor-parallel
+    slices of its weights (``gmdx_torch.dist.tp``), cut from the one load."""
     dev = resolve_device(device)
     name, config = component_config(dirpath)
     module_cls, _, to_state_dict, _ = _COMPONENTS[name]
@@ -223,7 +227,10 @@ def load_component(dirpath: str, *, device: str | torch.device = "cuda",
     sd = to_state_dict(_to_device(tree, dev, dtype))
     with torch.device("meta"):
         model = module_cls(**config) if isinstance(config, dict) else module_cls(config)
-    model.load_state_dict(sd, strict=True, assign=True)
+    if tp is not None and tp[1] > 1:
+        assign_state_dict(model, tp_shard_state_dict(sd, *tp))
+    else:
+        model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device=dev, dtype=dtype).eval()
 
 
@@ -233,10 +240,12 @@ def load_scheduler(dirpath: str):
 
 
 def load_pipeline(path: str, *, device: str | torch.device = "cuda",
-                  components: Sequence[str] | None = None) -> dict[str, Any]:
+                  components: Sequence[str] | None = None,
+                  tp: tuple[int, int] | None = None) -> dict[str, Any]:
     """Every component present, or those named in ``components``:
     {"modules": {name: model}, "tokenizer": ..., "scheduler": ...} (None
-    where absent or not asked for)."""
+    where absent or not asked for); with ``tp = (rank, size)`` each model
+    holds that rank's tensor-parallel slices (:func:`load_component`)."""
     index = _read_json(os.path.join(path, "model_index.json"))
     out: dict[str, Any] = {"modules": {}, "tokenizer": None, "scheduler": None}
     for name in index["components"]:
@@ -248,7 +257,7 @@ def load_pipeline(path: str, *, device: str | torch.device = "cuda",
         elif name == "scheduler":
             out["scheduler"] = load_scheduler(sub)
         else:
-            out["modules"][name] = load_component(sub, device=device)
+            out["modules"][name] = load_component(sub, device=device, tp=tp)
     return out
 
 

@@ -30,6 +30,8 @@ LAUNCHES = {
     "attention_kv_resident": 0,
     "conv3x3": 0,
     "group_norm_silu": 0,
+    "group_norm_moments": 0,
+    "group_norm_apply": 0,
     "geglu_ff_ln": 0,
     "flash_attention_fwd": 0,
     "flash_attention_fwd_d512": 0,

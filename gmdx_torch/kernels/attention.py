@@ -19,6 +19,10 @@ dispatch rule is the JAX package's, in :func:`attention_route`:
     cross-attention, the 64-token mid block, the VAE's head at 512^2) the
     einsum + fp32-softmax path the JAX package leaves to XLA.
 A head dim with no kernel instance raises on the card; it never falls back.
+The routes take the query and key counts apart: under spatial parallelism a
+rank's queries meet the gathered keys of the whole image (``sq < sk``), and
+the route follows the key count, as the JAX rule does. Under tensor
+parallelism :func:`tp_route` says whether a layer runs head-parallel.
 
 Under autograd the kernel shapes take :class:`FlashAttention`, the
 counterpart of the ``_attn_kvres``, ``_flash_bsc`` and ``_xattn_bsc`` custom
@@ -68,6 +72,36 @@ def attention_route(
     if sk >= 1024 and (head_dim <= 256 or sk > 4096):
         return "flash"
     return "plain"
+
+
+# The calls that tensor parallelism sends to library calls, as the JAX
+# package's dispatch does whenever a TP kernel context is active
+# (``gmdx/models/layers.py:139-145``, ``:505-520``, ``geglu_ff.py:461``,
+# ``:593``, ``:622``, ``winograd.py:1111``, ``:1175``); the layers of
+# ``gmdx_torch.models.layers`` ask :func:`tp_route` for each.
+TP_LIBRARY_OPS = ("group_norm", "conv3x3", "geglu_ff", "add_layer_norm")
+
+
+def tp_route(op: str, tp: int, *, heads: int = 1, widths: tuple[int, int, int] = (0, 0, 0)) -> str:
+    """Where a call goes under tensor parallelism over ``tp`` ranks (1: none).
+    ``op="attention"`` with ``heads`` heads and full q/k/v ``widths``:
+    ``"heads"``, head-parallel (``heads / tp`` heads a rank, on the
+    attention kernels' own routes) where ``_tp_route`` gives the JAX
+    package's ``shard_map`` (``gmdx/kernels/attention.py:70-130``: tp
+    divides the heads and q's width, and k and v are as wide as q), else
+    ``"whole"`` (the layer computed whole on every rank from its gathered
+    weights: the VAE's single 512-wide head); ``"kernel"`` without TP. The
+    ops of :data:`TP_LIBRARY_OPS` go to ``"library"`` calls in the working
+    dtype under TP (``F.group_norm`` + SiLU, ``F.conv2d``, the torch GEGLU
+    chain, the residual add and LayerNorm apart), to ``"kernel"`` without."""
+    if op == "attention":
+        q, k, v = widths
+        if tp <= 1:
+            return "kernel"
+        return "heads" if heads % tp == 0 and q % tp == 0 and k == q and v == q else "whole"
+    if op in TP_LIBRARY_OPS:
+        return "library" if tp > 1 else "kernel"
+    raise ValueError(f"unknown op {op!r}")
 
 
 def _flash(q, k, v, heads: int, scale: float, use_kernels: bool) -> torch.Tensor:
@@ -206,6 +240,8 @@ def attention_packed(
 
 
 __all__ = [
+    "TP_LIBRARY_OPS",
+    "tp_route",
     "attention_route",
     "dot_product_attention",
     "attention_kv_resident",

@@ -14,6 +14,14 @@ forward saved) is :func:`group_norm_silu_bwd`, one cooperative launch of
 folds dgamma, dbeta and dtemb; :class:`GroupNormSiLU` ties the two together
 for autograd, as ``_gn_silu_pallas``'s custom VJP does. Statistics are
 (B, 2, G) fp32: each group's mean (of ``x + temb``) and rstd.
+
+Under spatial parallelism an image's rows lie on several ranks and its
+statistics span all of them: the split form is the JAX forward's stats and
+apply passes with a reduction between them. :func:`group_norm_moments`
+takes each group's (mean, M2) over a rank's rows, :func:`merge_moments`
+merges every rank's into the image's (mean, rstd), and
+:func:`group_norm_apply` normalises the rows with them (the collective
+between them is the caller's: ``gmdx_torch.models.layers.GroupNorm``).
 """
 
 from __future__ import annotations
@@ -258,6 +266,104 @@ def group_norm_silu(
     return (out, stats) if return_stats else out
 
 
+# --- the split form: an image whose rows lie on several ranks ---------------
+
+
+def group_norm_moments_plain(
+    x: torch.Tensor, temb: torch.Tensor | None = None, *, num_groups: int = 32,
+) -> torch.Tensor:
+    """Each group's (mean, M2) of ``x + temb`` over x's pixels (M2 the sum of
+    squared deviations from that mean): (B, G, 2) fp32, taken in fp64."""
+    b, h, w, c = x.shape
+    xf = x.double()
+    if temb is not None:
+        xf = xf + temb.double()[:, None, None, :]
+    xg = xf.reshape(b, h * w, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    m2 = ((xg - mean) ** 2).sum(dim=(1, 3))
+    return torch.stack([mean.reshape(b, num_groups), m2], -1).float()
+
+
+def group_norm_moments(
+    x: torch.Tensor, temb: torch.Tensor | None = None, *, num_groups: int = 32,
+) -> torch.Tensor:
+    """:func:`group_norm_moments_plain` by ``gmdx_group_norm_moments``: the
+    pair's stats kernel over x's pixels, folded per group in fp64."""
+    b, h, w, c = x.shape
+    if not x.is_cuda:
+        return group_norm_moments_plain(x, temb, num_groups=num_groups)
+    if c % 8 or c % num_groups or c > MAX_CHANNELS or num_groups > MAX_GROUPS:
+        raise ValueError(f"group_norm_moments kernel: unsupported C={c}, G={num_groups}")
+    stream = check_kernel_operands("group_norm_moments", x, temb)
+    from gmdx_torch.kernels import _build
+
+    splits = _pair_plan(b, h * w, c).grid[0]
+    partials = torch.empty((b, splits, num_groups, 2), dtype=torch.float32, device=x.device)
+    moments = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+    _build.call("gmdx_group_norm_moments", x.data_ptr(),
+                temb.data_ptr() if temb is not None else None, partials.data_ptr(),
+                moments.data_ptr(), b, h, w, c, num_groups, stream)
+    LAUNCHES["group_norm_moments"] += 1
+    return moments
+
+
+def merge_moments(moments: torch.Tensor, count: int, eps: float) -> torch.Tensor:
+    """The whole image's (B, 2, G) fp32 (mean, rstd) from every rank's
+    (n, B, G, 2) (mean, M2) over ``count`` elements a group each (Chan's
+    merge, in fp64, in rank order)."""
+    m = moments.double()
+    mean = m[..., 0].mean(0)
+    m2 = m[..., 1].sum(0) + count * ((m[..., 0] - mean) ** 2).sum(0)
+    rstd = torch.rsqrt(m2 / (count * m.shape[0]) + eps)
+    return torch.stack([mean, rstd], 1).float()
+
+
+def group_norm_apply_plain(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, *, activate: bool = True, pad_output: bool = False,
+) -> torch.Tensor:
+    """Plain version of the split form's apply: x normalised with the given
+    (B, 2, G) (mean, rstd), affine, SiLU, in x's dtype, padded on request."""
+    c = x.shape[-1]
+    xf = x.float()
+    if temb is not None:
+        xf = xf + temb.float()[:, None, None, :]
+    y = (xf - _expand(stats[:, 0].float(), c)) * _expand(stats[:, 1].float(), c)
+    y = y * scale.float() + bias.float()
+    if activate:
+        y = F.silu(y)
+    y = y.to(x.dtype)
+    return F.pad(y, (0, 0, 1, 1, 1, 1)) if pad_output else y
+
+
+def group_norm_apply(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, *, activate: bool = True, pad_output: bool = False,
+) -> torch.Tensor:
+    """:func:`group_norm_apply_plain` by ``gmdx_group_norm_apply`` (the
+    pair's apply kernel reading the given statistics)."""
+    if not x.is_cuda:
+        return group_norm_apply_plain(x, scale, bias, temb, stats, activate=activate,
+                                      pad_output=pad_output)
+    b, h, w, c = x.shape
+    groups = stats.shape[-1]
+    if c % 8 or c % groups or c > MAX_CHANNELS or groups > MAX_GROUPS:
+        raise ValueError(f"group_norm_apply kernel: unsupported C={c}, G={groups}")
+    if stats.shape != (b, 2, groups):
+        raise ValueError(f"stats must be ({b}, 2, {groups}), got {tuple(stats.shape)}")
+    stream = check_kernel_operands("group_norm_apply", x, scale, bias, temb)
+    check_fp32("group_norm_apply", stats)
+    from gmdx_torch.kernels import _build
+
+    pad = 1 if pad_output else 0
+    out = torch.empty((b, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype, device=x.device)
+    _build.call("gmdx_group_norm_apply", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                temb.data_ptr() if temb is not None else None, stats.data_ptr(),
+                out.data_ptr(), b, h, w, c, groups, int(activate), pad, stream)
+    LAUNCHES["group_norm_apply"] += 1
+    return out
+
+
 def _expand(t: torch.Tensor, c: int) -> torch.Tensor:
     """(B, G) per-group values -> (B, 1, 1, C) per-channel."""
     return t.repeat_interleave(c // t.shape[1], dim=1)[:, None, None, :]
@@ -409,6 +515,11 @@ __all__ = [
     "group_norm_bwd_plan",
     "group_norm_silu",
     "group_norm_silu_plain",
+    "group_norm_moments",
+    "group_norm_moments_plain",
+    "merge_moments",
+    "group_norm_apply",
+    "group_norm_apply_plain",
     "group_norm_silu_bwd",
     "group_norm_silu_bwd_plain",
     "GroupNormSiLU",

@@ -28,6 +28,20 @@ differentiated routes: the flash-attention and GroupNorm
 ``autograd.Function``s, the GEGLU FF's kernel forward with a recomputed
 backward, and ``F.conv2d`` for the 3x3 conv (the JAX package's direct conv
 under AD).
+
+Inside a ``gmdx_torch.dist.tpctx`` context the layers split over the ranks
+of a process group, for inference. Tensor parallelism ("tp"): a layer whose
+weights are this rank's slices (``gmdx_torch.dist.tp``) computes its slice
+of the output (column-parallel) or its share of a sum (row-parallel:
+``to_out``, ``ff.net.2``, ``linear_2``, ``conv2``, all-reduced, the bias
+added once after); attention runs head-parallel on the kernels, the
+second GroupNorm of a resnet normalises the rank's ``C / tp`` channels as
+``32 / tp`` whole groups, and GroupNorm, the conv and the FF take library
+calls (:func:`gmdx_torch.kernels.attention.tp_route`). Spatial parallelism
+("sp"): activations are the rank's rows of the image; GroupNorm merges
+every rank's statistics (:meth:`GroupNorm._spatial_parallel`), the 3x3 convs read
+their neighbours' halo rows (the padded GroupNorm output's border, or
+:func:`gmdx_torch.dist.mesh.halo_rows`), self-attention gathers K and V.
 """
 
 from __future__ import annotations
@@ -40,8 +54,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import all_gather_stacked, fill_halo, gather_rows, halo_rows
+from gmdx_torch.dist.tp import all_reduce, gather_full
 from gmdx_torch.kernels import needs_grad
-from gmdx_torch.kernels.attention import attention_packed, dot_product_attention
+from gmdx_torch.kernels.attention import attention_packed, dot_product_attention, tp_route
 from gmdx_torch.kernels.geglu_ff import (
     GegluFF,
     GegluFFLN,
@@ -54,7 +71,16 @@ from gmdx_torch.kernels.geglu_ff import (
     geglu_ff_reference,
     geglu_ff_uses_kernel,
 )
-from gmdx_torch.kernels.groupnorm import GroupNormSiLU, group_norm_silu, group_norm_silu_plain
+from gmdx_torch.kernels.groupnorm import (
+    GroupNormSiLU,
+    group_norm_apply,
+    group_norm_apply_plain,
+    group_norm_moments,
+    group_norm_moments_plain,
+    group_norm_silu,
+    group_norm_silu_plain,
+    merge_moments,
+)
 from gmdx_torch.kernels.winograd import (
     conv3x3,
     conv3x3_direct,
@@ -139,6 +165,55 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, _cast(lin.weight, x), _cast(lin.bias, x))
 
 
+def _tp_ctx(what: str):
+    """The tensor-parallel context a layer holding weight slices needs."""
+    ctx = tpctx.tp_active()
+    if ctx is None:
+        raise RuntimeError(f"{what} holds tensor-parallel weight slices: call it inside "
+                           "gmdx_torch.dist.tpctx.parallel_context(\"tp\")")
+    return ctx
+
+
+def _tp_library(op: str) -> bool:
+    """Whether ``op`` takes its library call: :func:`tp_route` under the
+    active tensor-parallel context (none: the kernels)."""
+    ctx = tpctx.tp_active()
+    return tp_route(op, 1 if ctx is None else ctx.size) == "library"
+
+
+def _sp_ctx(*tensors):
+    """The spatial-parallel context, if one is active (inference only)."""
+    ctx = tpctx.sp_active()
+    if ctx is not None and needs_grad(*tensors):
+        raise NotImplementedError("spatial parallelism is for inference: no backward")
+    return ctx
+
+
+def _row_split(lin: nn.Linear) -> bool:
+    """Whether ``lin`` holds a row-parallel slice (its input dimension)."""
+    return lin.weight.shape[1] != lin.in_features
+
+
+def linear_row(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """:func:`linear`; with a row-parallel slice, the rank's partial product
+    summed over the ranks, then the bias, once."""
+    if not _row_split(lin):
+        return linear(x, lin)
+    y = all_reduce(F.linear(x, _cast(lin.weight, x)), _tp_ctx("a row-parallel Linear"))
+    return y if lin.bias is None else y + _cast(lin.bias, x)
+
+
+def linear_whole(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """:func:`linear` with the whole weights, gathered from the ranks'
+    slices where the layer holds slices."""
+    w, b = lin.weight, lin.bias
+    if w.shape != (lin.out_features, lin.in_features):
+        ctx = _tp_ctx("a Linear")
+        w = gather_full(w, (lin.out_features, lin.in_features), ctx)
+        b = None if b is None else gather_full(b, (lin.out_features,), ctx)
+    return F.linear(x, _cast(w, x), _cast(b, x))
+
+
 class TimestepEmbedding(nn.Module):
     """Two-layer SiLU MLP lifting the sinusoid to the UNet's temb width."""
 
@@ -148,7 +223,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(F.silu(linear(x, self.linear_1)), self.linear_2)
+        return linear_row(F.silu(linear(x, self.linear_1)), self.linear_2)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -158,16 +233,38 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     ).to(x.dtype)
 
 
-def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """A conv left to PyTorch, applied to NHWC ``x`` (a channels-last view)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, x), _cast(conv.bias, x),
-                 conv.stride, conv.padding)
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, *, pad_rows: bool = True) -> torch.Tensor:
+    """A conv left to PyTorch, applied to NHWC ``x`` (a channels-last view).
+    Under spatial parallelism ``x`` is the rank's rows: a conv taller than
+    a row reads the rows above and below that its output rows need from
+    the neighbouring ranks (its own zero padding past the image's edges,
+    unless ``pad_rows`` is False: the caller's), and a stride-2 conv needs
+    even local rows."""
+    ctx = _sp_ctx(x, conv.weight)
+    kh, sh, ph = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    if ctx is None or kh == 1:
+        y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, x), _cast(conv.bias, x),
+                     conv.stride, conv.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+    h = x.shape[1]
+    if h % sh:
+        raise ValueError(f"the {h * ctx.size}-row level: {h} rows a rank do not split into "
+                         f"stride-{sh} rows over {ctx.size} ranks")
+    ph = ph if pad_rows else 0
+    xh = halo_rows(x, ph, kh - sh - ph, ctx)
+    y = F.conv2d(xh.permute(0, 3, 1, 2), _cast(conv.weight, x), _cast(conv.bias, x),
+                 conv.stride, (0, conv.padding[1]))
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    w = conv.weight.view(conv.out_channels, conv.in_channels)
-    return F.linear(x, _cast(w, x), _cast(conv.bias, x))
+    """A 1x1 conv as a Linear over NHWC. Under tensor parallelism the
+    transformer's ``proj_in`` holds its bias's slice (the JAX rule shards
+    it, not the weight): gathered here."""
+    w, b = conv.weight.view(conv.out_channels, conv.in_channels), conv.bias
+    if b is not None and b.shape[0] != conv.out_channels:
+        b = gather_full(b, (conv.out_channels,), _tp_ctx("a 1x1 conv"))
+    return F.linear(x, _cast(w, x), _cast(b, x))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -189,6 +286,11 @@ class GroupNorm(nn.GroupNorm):
         temb: torch.Tensor | None = None,
     ) -> torch.Tensor:
         w, b = _cast(self.weight, x), _cast(self.bias, x)
+        if _tp_library("group_norm"):
+            return self._tensor_parallel(x, w, b, temb, activate, pad_output)
+        ctx = _sp_ctx(x, w, b, temb)
+        if ctx is not None:
+            return self._spatial_parallel(x, w, b, temb, activate, pad_output, ctx)
         if self.use_kernels and needs_grad(x, w, b, temb):
             return GroupNormSiLU.apply(
                 x, w, b, temb, self.num_groups, self.eps, activate, pad_output
@@ -198,6 +300,39 @@ class GroupNorm(nn.GroupNorm):
             x, w, b, temb, num_groups=self.num_groups, eps=self.eps,
             activate=activate, pad_output=pad_output,
         )
+
+    def _spatial_parallel(self, x, w, b, temb, activate, pad_output, ctx) -> torch.Tensor:
+        """The image's GroupNorm over this rank's rows ``x``: the rows'
+        (mean, M2), one all-gather of every rank's, the merge, then the rows
+        normalised with the image's statistics. With ``pad_output`` the
+        result is the conv's slab: its top and bottom border rows are the
+        neighbouring ranks' edge rows (zeros at the image's edges). Whole
+        activations never cross ranks."""
+        _, h, wd, c = x.shape
+        moments = (group_norm_moments if self.use_kernels else group_norm_moments_plain)(
+            x, temb, num_groups=self.num_groups)
+        stats = merge_moments(all_gather_stacked(moments, ctx),
+                              h * wd * (c // self.num_groups), self.eps)
+        y = (group_norm_apply if self.use_kernels else group_norm_apply_plain)(
+            x, w, b, temb, stats, activate=activate, pad_output=pad_output)
+        return fill_halo(y, ctx) if pad_output else y
+
+    def _tensor_parallel(self, x, w, b, temb, activate, pad_output) -> torch.Tensor:
+        """The library call under tensor parallelism; on the rank's ``C / tp``
+        channels (after a column-parallel conv1) as ``G / tp`` whole
+        groups, with the rank's slice of the affine parameters."""
+        c, groups = x.shape[-1], self.num_groups
+        if c != self.num_channels:
+            ctx = _tp_ctx("GroupNorm")
+            n = self.num_channels // c
+            if self.num_channels % c or groups % n:
+                raise ValueError(f"GroupNorm({groups}, {self.num_channels}): {c} channels a "
+                                 f"rank are not whole groups")
+            w, b, groups = w.narrow(0, ctx.rank * c, c), b.narrow(0, ctx.rank * c, c), groups // n
+        h = x if temb is None else x + temb.to(x.dtype)[:, None, None, :]
+        y = F.group_norm(h.permute(0, 3, 1, 2), groups, w, b, self.eps).permute(0, 2, 3, 1)
+        y = (F.silu(y) if activate else y).contiguous()
+        return F.pad(y, (0, 0, 1, 1, 1, 1)) if pad_output else y
 
 
 class Conv3x3(nn.Conv2d):
@@ -238,6 +373,11 @@ class Conv3x3(nn.Conv2d):
 
     def forward(self, x: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
         bias = _cast(self.bias, x)
+        if _tp_library("conv3x3"):
+            return self._tensor_parallel(x, bias, pre_padded)
+        ctx = _sp_ctx(x, self.weight, self.bias)
+        if ctx is not None and not pre_padded:  # the halo rows, then the slab
+            x, pre_padded = F.pad(halo_rows(x, 1, 1, ctx), (0, 0, 1, 1)), True
         if needs_grad(x, self.weight, self.bias):
             return conv3x3_direct(x, _cast(self.weight, x), bias, pre_padded=pre_padded)
         h, w = x.shape[1] - 2 * pre_padded, x.shape[2] - 2 * pre_padded
@@ -247,6 +387,17 @@ class Conv3x3(nn.Conv2d):
             return fn(x, self.wino4_weight(x.dtype), bias, pre_padded=pre_padded)
         fn = conv3x3 if self.use_kernels else conv3x3_plain
         return fn(x, self.packed_weight(x.dtype), bias, pre_padded=pre_padded)
+
+    def _tensor_parallel(self, x, bias, pre_padded) -> torch.Tensor:
+        """``F.conv2d`` on the rank's slice of the weight: conv1's output
+        channels (its bias's slice), or conv2's input channels (a partial
+        sum over the ranks, then the bias)."""
+        w = _cast(self.weight, x)
+        row = w.shape[1] != self.in_channels
+        y = conv3x3_direct(x, w, None if row else bias, pre_padded=pre_padded)
+        if not row:
+            return y
+        return all_reduce(y, _tp_ctx("conv2")) + bias
 
 
 class Attention(nn.Module):
@@ -269,10 +420,21 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         src = x if context is None else context
-        q, k, v = linear(x, self.to_q), linear(src, self.to_k), linear(src, self.to_v)
-        out = attention_packed(q, k, v, self.heads, use_kernels=self.use_kernels,
-                               xattn_kernel=self.xattn_kernel)
-        return linear(out, self.to_out[0])
+        heads, qkv, out = self.heads, linear, linear
+        if self.to_q.weight.shape[0] != self.to_q.out_features:  # tensor-parallel slices
+            ctx = _tp_ctx("Attention")
+            widths = (self.to_q.out_features, self.to_k.out_features, self.to_v.out_features)
+            if tp_route("attention", ctx.size, heads=heads, widths=widths) == "heads":
+                heads, out = heads // ctx.size, linear_row
+            else:
+                qkv = out = linear_whole
+        q, k, v = qkv(x, self.to_q), qkv(src, self.to_k), qkv(src, self.to_v)
+        ctx = _sp_ctx(x)
+        if ctx is not None and context is None:  # the rank's queries, every rank's keys
+            k, v = gather_rows(k, ctx, 1), gather_rows(v, ctx, 1)
+        a = attention_packed(q, k, v, heads, use_kernels=self.use_kernels,
+                             xattn_kernel=self.xattn_kernel)
+        return out(a, self.to_out[0])
 
 
 class GEGLU(nn.Module):
@@ -300,6 +462,11 @@ class GEGLUFeedForward(nn.Module):
         *, residual: torch.Tensor | None = None,
     ) -> torch.Tensor:
         proj_in, proj_out = self.net[0].proj, self.net[2]
+        if _tp_library("geglu_ff"):
+            if norm is not None:
+                x = x + add
+                residual, x = x, layer_norm(x, norm)
+            return self._tensor_parallel(x, _cast(residual, x), proj_in, proj_out)
         if norm is None:
             return self._forward_no_ln(x, _cast(residual, x), proj_in, proj_out)
         args = [x, add] + [
@@ -311,6 +478,19 @@ class GEGLUFeedForward(nn.Module):
         if needs_grad(*args):
             return GegluFFLN.apply(*args, norm.eps)
         return geglu_ff_ln(*args, eps=norm.eps)
+
+    def _tensor_parallel(self, x, residual, proj_in, proj_out) -> torch.Tensor:
+        """The torch GEGLU chain in x's dtype under tensor parallelism: the
+        rank's hidden and gate columns (``gmdx_torch.dist.tp`` slices each
+        half by rank), its rows of ``ff.net.2``, the partial sums
+        all-reduced, then the bias and the residual."""
+        w1, b1, w2, b2 = (_cast(p, x) for p in (proj_in.weight, proj_in.bias, proj_out.weight,
+                                                 proj_out.bias))
+        if not _row_split(proj_out):
+            return geglu_ff_reference(x, residual, w1, b1, w2, b2)
+        hidden, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+        out = all_reduce(F.linear(hidden * F.gelu(gate), w2), _tp_ctx("the FF")) + b2
+        return out if residual is None else residual + out
 
     def _forward_no_ln(self, x, residual, proj_in, proj_out) -> torch.Tensor:
         args = [x, residual] + [
@@ -345,7 +525,7 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         a1 = self.attn1(layer_norm(x, self.norm1))
-        if self.fused_addln:
+        if self.fused_addln and not _tp_library("add_layer_norm"):
             fn = add_layer_norm if self.use_kernels else add_layer_norm_plain
             x, h = fn(x, a1, self.norm2.weight.float(), self.norm2.bias.float(),
                       eps=self.norm2.eps)
@@ -417,6 +597,8 @@ class Downsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.asymmetric_pad:
+            if _sp_ctx(x) is not None:  # the bottom row is the next rank's
+                return conv2d_nhwc(F.pad(x, (0, 0, 0, 1)), self.conv, pad_rows=False)
             x = F.pad(x, (0, 0, 0, 1, 0, 1))
         return conv2d_nhwc(x, self.conv)
 
@@ -431,6 +613,8 @@ class Upsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
+        if _sp_ctx(x) is not None:
+            return conv2d_nhwc(up.permute(0, 2, 3, 1), self.conv)
         y = F.conv2d(up, _cast(self.conv.weight, x), _cast(self.conv.bias, x), padding=1)
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -453,16 +637,24 @@ class VAEAttention(nn.Module):
         b, h, w, c = x.shape
         residual = x
         y = self.group_norm(x).reshape(b, h * w, c)
-        q, k, v = linear(y, self.to_q), linear(y, self.to_k), linear(y, self.to_v)
+        # One head: tensor parallelism computes it whole (tp_route's
+        # "whole"), from weights gathered where the rank holds slices.
+        lin = linear_whole if tpctx.tp_active() is not None else linear
+        q, k, v = lin(y, self.to_q), lin(y, self.to_k), lin(y, self.to_v)
+        ctx = _sp_ctx(x)
+        if ctx is not None:
+            k, v = gather_rows(k, ctx, 1), gather_rows(v, ctx, 1)
         out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None],
                                     use_kernels=self.use_kernels)[:, :, 0]
-        return linear(out, self.to_out[0]).reshape(b, h, w, c) + residual
+        return lin(out, self.to_out[0]).reshape(b, h, w, c) + residual
 
 
 __all__ = [
     "set_use_kernels",
     "set_kernel_options",
     "linear",
+    "linear_row",
+    "linear_whole",
     "layer_norm",
     "timestep_embedding",
     "TimestepEmbedding",

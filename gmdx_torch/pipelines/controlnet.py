@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import shard_rows
 from gmdx_torch.ops import apply_gm_to_sdr
 from gmdx_torch.pipelines.dual import StableDiffusionDualUNetPipeline
 
@@ -51,8 +53,8 @@ class StableDiffusionControlNetHDRPipeline(StableDiffusionDualUNetPipeline):
     ):
         """The dual loop with the ControlNet's residuals on the SDR branch;
         ``control_image`` is (B, 3, H, W) in [0, 1] at 8x the latents'
-        side. Other keyword arguments as the dual pipeline's
-        ``_denoise_dual``."""
+        side (under spatial parallelism, as the latents, the rank's rows).
+        Other keyword arguments as the dual pipeline's ``_denoise_dual``."""
         if control_image is None:
             return super().denoise_dual(prompt_embeds, negative_prompt_embeds, latents, **kwargs)
         ctrl = torch.as_tensor(control_image, device=self.device).permute(0, 2, 3, 1).contiguous()
@@ -90,11 +92,15 @@ def upconvert_sdr_to_hdrtv(
     ``prompt_embeds``/``negative_prompt_embeds`` bypass the tokenizer and
     text encoder; ``call_kwargs`` (``eta``, ``step_noise``,
     ``cross_attention_kwargs``, the callbacks, ...) go to the pipeline's
-    ``__call__``."""
+    ``__call__``. Under spatial parallelism every rank passes the whole
+    frame, conditions the SDR branch on its rows, and returns the whole
+    result."""
     sdr = torch.as_tensor(sdr_image01)
     b, _, h, w = sdr.shape
+    ctx = tpctx.sp_active()
     sdr01, gm01 = pipe(
-        [prompt] * b, control_image=sdr, conditioning_scale=conditioning_scale,
+        [prompt] * b, control_image=sdr if ctx is None else shard_rows(sdr, ctx),
+        conditioning_scale=conditioning_scale,
         generator=generator, height=h, width=w, num_inference_steps=num_inference_steps,
         guidance_scale=guidance_scale, prompt_embeds=prompt_embeds,
         negative_prompt_embeds=negative_prompt_embeds, low_memory=low_memory, **call_kwargs,

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import spatial_rows
 from gmdx_torch.pipelines.gm import (
     StableDiffusionGMPipeline,
     reject_custom_schedule,
@@ -56,12 +58,15 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
     def prepare_latents(
         self, generator: torch.Generator, batch_size: int, height: int, width: int
     ) -> torch.Tensor:
-        """Initial noise (B, 4, H/8, W/8), fp32, from ``generator``."""
-        noise = torch.randn(
-            (batch_size, 4, height // 8, width // 8), generator=generator,
-            device=generator.device, dtype=torch.float32,
-        )
-        return noise.to(self.device) * self.scheduler.init_noise_sigma
+        """Initial noise (B, 4, H/8, W/8), fp32, from ``generator``; under
+        spatial parallelism the rank's rows of it (``height`` is the whole
+        image's)."""
+        ctx = tpctx.sp_active()
+        rows = height // 8
+        if ctx is not None:
+            start, stop = spatial_rows(rows, ctx.rank, ctx.size)
+            rows = stop - start
+        return self._initial_noise(generator, (batch_size, 4, rows, width // 8))
 
     def denoise_dual(
         self,

@@ -26,6 +26,16 @@ raises NotImplementedError. ``cross_attention_kwargs={"scale": s}`` merges
 the LoRA factors held beside each UNet (``lora``) at ``s * alpha/rank`` for
 the call and restores the weights after it. Custom ``timesteps``/``sigmas``
 raise ValueError, as the JAX package's do.
+
+Inside a spatial-parallel context (``tpctx.parallel_context("sp")``)
+every image-shaped tensor the pipeline takes or keeps is the rank's rows of
+the image (``gmdx_torch.dist.mesh.shard_rows``): the SDR input of
+``encode_sdr``, the latents, the step noise. Each random draw is the whole
+image's, made on every rank as one process makes it, of which the rank
+keeps its rows, so the run samples what one process samples.
+``decode_latents`` returns the whole decoded images on every rank. Inside a
+tensor-parallel context the modules hold their weight slices and nothing
+here changes.
 """
 
 from __future__ import annotations
@@ -40,18 +50,39 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import gather_rows, randn_spatial
 from gmdx_torch.models.lora import LoRAConfig, merge_lora
+from gmdx_torch.schedulers.lcm import LCMScheduler
 
 
 def rescale_noise_cfg(
     noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, guidance_rescale: float = 0.0
 ) -> torch.Tensor:
-    """Rescale the CFG output toward the text branch's std (Lin et al. 2023)."""
+    """Rescale the CFG output toward the text branch's std (Lin et al. 2023);
+    under spatial parallelism the std of the whole image."""
     dims = tuple(range(1, noise_cfg.ndim))
-    std_text = noise_pred_text.std(dim=dims, keepdim=True, unbiased=False)
-    std_cfg = noise_cfg.std(dim=dims, keepdim=True, unbiased=False)
+    ctx = tpctx.sp_active()
+    if ctx is not None:
+        std_text, std_cfg = _image_std(noise_pred_text, ctx), _image_std(noise_cfg, ctx)
+    else:
+        std_text = noise_pred_text.std(dim=dims, keepdim=True, unbiased=False)
+        std_cfg = noise_cfg.std(dim=dims, keepdim=True, unbiased=False)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def _image_std(t: torch.Tensor, ctx) -> torch.Tensor:
+    """Each image's population std over all ranks' rows of ``t``: (B, 1, ...)."""
+    import torch.distributed as dist
+
+    flat = t.reshape(t.shape[0], -1).double()
+    sums = torch.stack([flat.sum(1), (flat**2).sum(1),
+                        torch.full_like(flat[:, 0], flat.shape[1])])
+    dist.all_reduce(sums, group=ctx.group)
+    mean = sums[0] / sums[2]
+    std = (sums[1] / sums[2] - mean**2).clamp_min(0).sqrt()
+    return std.to(t.dtype).reshape(-1, *([1] * (t.ndim - 1)))
 
 
 def get_guidance_scale_embedding(
@@ -75,14 +106,31 @@ def _step_kwarg_names(sched_cls) -> frozenset:
     return frozenset(inspect.signature(sched_cls.step).parameters)
 
 
+def _draws_noise(sched, state, eta: float, names) -> bool:
+    """Whether a step draws fresh noise: DDIM with eta > 0, DDPM at every
+    step, LCM at every step but the last."""
+    if "eta" in names:
+        return eta > 0.0
+    return not isinstance(sched, LCMScheduler) or state.step_index < len(state.timesteps) - 1
+
+
 def scheduler_step(
     sched, state, eps: torch.Tensor, latents: torch.Tensor, *, eta: float = 0.0,
     generator: torch.Generator | None = None, noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One sampling step across the family's signatures: DDIM takes eta and
     the randomness, DDPM and LCM the randomness, PNDM and DPM-Solver++
-    neither. Dispatch reads the step's signature."""
+    neither. Dispatch reads the step's signature. Under spatial parallelism
+    ``latents`` (NHWC) are the rank's rows, and so is an explicit
+    ``noise``; a draw from ``generator`` is the whole image's, made here as
+    the scheduler makes it in one process, of which the rank keeps its
+    rows."""
     names = _step_kwarg_names(type(sched))
+    ctx = tpctx.sp_active()
+    if (ctx is not None and noise is None and generator is not None and "noise" in names
+            and _draws_noise(sched, state, eta, names)):
+        noise = randn_spatial(latents.shape, generator, ctx, 1, device=latents.device,
+                              dtype=latents.dtype)
     kwargs = {}
     if "eta" in names:
         kwargs["eta"] = eta
@@ -304,16 +352,31 @@ class StableDiffusionGMPipeline:
     @torch.no_grad()
     def encode_sdr(self, sdr: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """SDR images (B, 3, H, W) in [-1, 1] -> a posterior sample drawn with
-        ``generator``, times the VAE's scaling factor: (B, 4, H/8, W/8) fp32."""
+        ``generator``, times the VAE's scaling factor: (B, 4, H/8, W/8) fp32.
+        Under spatial parallelism ``sdr`` and the result are the rank's rows."""
         post = self.vae.encode(torch.as_tensor(sdr).to(self.device, torch.float32))
-        return post.sample(generator) * self.vae.config.scaling_factor
+        ctx = tpctx.sp_active()
+        if ctx is None:
+            return post.sample(generator) * self.vae.config.scaling_factor
+        eps = randn_spatial(post.mean.shape, generator, ctx, 2, device=post.mean.device,
+                            dtype=post.mean.dtype)
+        return (post.mean + post.std * eps) * self.vae.config.scaling_factor
 
     def prepare_latents(self, generator: torch.Generator, sdr_latent: torch.Tensor) -> torch.Tensor:
         """4-channel noise sized from the SDR latent (B, 4, h, w), fp32, from
         ``generator``, times the scheduler's initial sigma."""
         b, _, h, w = sdr_latent.shape
-        noise = torch.randn((b, 4, h, w), generator=generator, device=generator.device,
-                            dtype=torch.float32)
+        return self._initial_noise(generator, (b, 4, h, w))
+
+    def _initial_noise(self, generator: torch.Generator, shape) -> torch.Tensor:
+        """fp32 noise of ``shape`` (NCHW, the rank's rows under spatial
+        parallelism) from ``generator``, times the initial sigma."""
+        ctx = tpctx.sp_active()
+        if ctx is not None:
+            noise = randn_spatial(shape, generator, ctx, 2, device=generator.device)
+        else:
+            noise = torch.randn(shape, generator=generator, device=generator.device,
+                                dtype=torch.float32)
         return noise.to(self.device) * self.scheduler.init_noise_sigma
 
     @torch.no_grad()
@@ -461,14 +524,19 @@ class StableDiffusionGMPipeline:
 
         ``chunk`` decodes that many images at a time instead of one batched
         pass (the decoder's full-resolution activations dominate memory);
-        it must divide the batch."""
+        it must divide the batch. Under spatial parallelism ``latents`` are
+        the rank's rows, each rank decodes its rows, and every rank returns
+        the whole images."""
         z = latents.to(self.device, torch.float32) / self.vae.config.scaling_factor
         b = z.shape[0]
         if chunk is None or b <= chunk:
-            return self.vae.decode(z)
-        if b % chunk:
+            img = self.vae.decode(z)
+        elif b % chunk:
             raise ValueError(f"decode chunk {chunk} must divide the batch {b}")
-        return torch.cat([self.vae.decode(zc) for zc in z.split(chunk)])
+        else:
+            img = torch.cat([self.vae.decode(zc) for zc in z.split(chunk)])
+        ctx = tpctx.sp_active()
+        return img if ctx is None else gather_rows(img, ctx, 2)
 
 
 __all__ = [

@@ -12,6 +12,14 @@ the JAX package's.
 
     python scripts/torch/upconvert_hdrtv.py --pretrained_model_name_or_path DIR \\
         --sdr_input_path PNGS --output_dir OUT [--device cpu]
+
+Each frame's rows split over S cards, a process a card (the JAX script's
+--sp_size over its devices):
+
+    torchrun --nproc_per_node S scripts/torch/upconvert_hdrtv.py ... --sp_size S
+
+Every rank computes the same frames; rank 0 alone writes them. main()
+returns what it wrote, as float arrays by file name.
 """
 
 from __future__ import annotations
@@ -42,7 +50,11 @@ def parse_args(argv=None):
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--prompt", default="high dynamic range, HDR10, 4000 nits peak brightness")
     p.add_argument("--sp_size", type=int, default=1,
-                   help="spatial-parallel width; only 1 (the port has no distribution yet)")
+                   help="spatial-parallel width: split each frame's rows over this many ranks "
+                        "(conv halos, K/V gathers, merged GroupNorm statistics), the weights "
+                        "whole on each; run under torchrun with exactly this world size (the JAX "
+                        "script takes its first sp devices; a rank cannot sit out, so any other "
+                        "world size raises). 1 = one process (default)")
     p.add_argument("--low_memory", action="store_true",
                    help="sequential CFG: the uncond and cond ControlNet + UNet passes one "
                         "after the other")
@@ -50,17 +62,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.sp_size > 1:
-        raise NotImplementedError(
-            "--sp_size > 1: the port has no spatial parallelism yet (ROADMAP Queue 1 item 9: "
-            "`gmdx/dist/{tp,tpctx}.py` -> torch.distributed)")
+    from gmdx_torch.dist.tpctx import join_model_parallel, parallel_context
+
+    par = join_model_parallel(1, args.sp_size)
+
+    import contextlib
 
     import numpy as np
     import torch
 
-    from gmdx_torch import resolve_device
+    from gmdx_torch import dist, resolve_device
     from gmdx_torch.io import (
         controlnet_state_dict_from_unet, load_component, load_image, load_pipeline,
         save_hdr_image, save_image,
@@ -68,7 +81,7 @@ def main(argv=None) -> None:
     from gmdx_torch.models import ControlNetConfig, ControlNetModel
     from gmdx_torch.pipelines import StableDiffusionControlNetHDRPipeline, upconvert_sdr_to_hdrtv
 
-    dev = resolve_device(args.device)
+    dev = dist.device(resolve_device(args.device))
     bundle = load_pipeline(args.pretrained_model_name_or_path, device=dev)
     mods = bundle["modules"]
     if args.controlnet_ckpt:
@@ -85,24 +98,38 @@ def main(argv=None) -> None:
         mods["unet"], mods["vae"], bundle["scheduler"], mods["gm_unet"], cnet,
         text_encoder=mods["text_encoder"], tokenizer=bundle["tokenizer"], device=dev)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    writes = dist.is_main_process()
+    if writes:
+        os.makedirs(args.output_dir, exist_ok=True)
+    written = {}
+
+    def save(fname, arr, hdr=False):
+        written[fname] = arr
+        if writes:
+            path = os.path.join(args.output_dir, fname)
+            save_hdr_image(path, arr, qmax=args.qmax) if hdr else save_image(path, arr)
+
     pngs = sorted(glob.glob(os.path.join(args.sdr_input_path, "*.png")))[: args.max_images]
-    for i, path in enumerate(pngs):
-        name = os.path.splitext(os.path.basename(path))[0]
-        sdr01 = load_image(path, size=(args.resolution, args.resolution))
-        sdr_in = torch.from_numpy(np.ascontiguousarray(sdr01.transpose(2, 0, 1)))[None]
-        sdr_out, gm_out, hdr = upconvert_sdr_to_hdrtv(
-            pipe, sdr_in, args.prompt,
-            generator=torch.Generator(device=dev).manual_seed(args.seed * 2**20 + i),
-            num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
-            conditioning_scale=args.conditioning_scale, qmax=args.qmax,
-            low_memory=args.low_memory,
-        )
-        save_image(os.path.join(args.output_dir, f"sdr_{name}.png"), sdr_out[0])
-        save_image(os.path.join(args.output_dir, f"gm_{name}.png"), gm_out[0])
-        save_hdr_image(os.path.join(args.output_dir, f"hdrtv_{name}.hdr"),
-                       hdr[0].transpose(1, 2, 0), qmax=args.qmax)
-        print(f"[{i + 1}/{len(pngs)}] {name}")
+    # Under --sp_size each rank conditions on, samples and decodes its rows
+    # of every frame (upconvert_sdr_to_hdrtv splits the whole frame).
+    with parallel_context(par[0], par[1]) if par else contextlib.nullcontext():
+        for i, path in enumerate(pngs):
+            name = os.path.splitext(os.path.basename(path))[0]
+            sdr01 = load_image(path, size=(args.resolution, args.resolution))
+            sdr_in = torch.from_numpy(np.ascontiguousarray(sdr01.transpose(2, 0, 1)))[None]
+            sdr_out, gm_out, hdr = upconvert_sdr_to_hdrtv(
+                pipe, sdr_in, args.prompt,
+                generator=torch.Generator(device=dev).manual_seed(args.seed * 2**20 + i),
+                num_inference_steps=args.num_inference_steps,
+                guidance_scale=args.guidance_scale,
+                conditioning_scale=args.conditioning_scale, qmax=args.qmax,
+                low_memory=args.low_memory,
+            )
+            save(f"sdr_{name}.png", sdr_out[0])
+            save(f"gm_{name}.png", gm_out[0])
+            save(f"hdrtv_{name}.hdr", hdr[0].transpose(1, 2, 0), hdr=True)
+            print(f"[{i + 1}/{len(pngs)}] {name}")
+    return written
 
 
 if __name__ == "__main__":

@@ -1593,3 +1593,117 @@ def test_data_parallel_updates_of_two_gloo_ranks_on_card(card, tmp_path):
             for g, w in zip(got["params"], want[k]["params"]):
                 err = np.linalg.norm(g - w) / np.linalg.norm(w)
                 assert err <= 1e-5, (strategy, k, err)
+
+
+# --- the kernels at the shapes tensor and spatial parallelism give them ----
+
+# (route, batch, queries, keys, width, heads): spatial parallelism's rank
+# queries against the whole image's keys (sp = 2 and 4 at 512^2 and the
+# 1024^2 frame, CFG batch 2), and tensor parallelism's heads / 2 and
+# heads / 4 at head dims 40, 80 and 160.
+PARALLEL_ATTENTION = [
+    ("kv_resident", 2, 2048, 4096, 320, 8), ("kv_resident", 2, 1024, 4096, 320, 8),
+    ("kv_resident", 2, 512, 1024, 640, 8), ("kv_resident", 2, 128, 256, 1280, 8),
+    ("kv_resident", 2, 4096, 4096, 160, 4), ("kv_resident", 2, 4096, 4096, 80, 2),
+    ("kv_resident", 2, 1024, 1024, 320, 4), ("kv_resident", 2, 1024, 1024, 160, 2),
+    ("kv_resident", 2, 256, 256, 640, 4), ("kv_resident", 2, 256, 256, 320, 2),
+    ("flash_bsc", 2, 8192, 16384, 320, 8), ("flash_bsc", 2, 4096, 16384, 320, 8),
+    ("flash_bsc", 2, 16384, 16384, 160, 4), ("flash_bsc", 2, 16384, 16384, 80, 2),
+    ("flash_d512", 1, 8192, 16384, 512, 1), ("flash_d512", 1, 4096, 16384, 512, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,b,sq,sk,c,heads", PARALLEL_ATTENTION)
+def test_attention_kernels_at_parallel_shapes_on_card(card, route, b, sq, sk, c, heads):
+    """Each attention kernel at sq != sk (a rank's rows of queries, the
+    gathered keys) and at a rank's share of the heads, against its plain
+    version; the route rule sends the shape where the test calls it."""
+    q = _bf16(card, b, sq, c)
+    k, v = _bf16(card, b, sk, c), _bf16(card, b, sk, c)
+    d = c // heads
+    want = "flash" if route == "flash_d512" else route
+    assert tk_attention.attention_route(sk, d, packed=d <= 160, sq=sq) == want
+    if route == "kv_resident":
+        out = tk_attention.attention_kv_resident(q, k, v, heads)
+        ref = tk_attention.attention_kv_resident_plain(q.float(), k.float(), v.float(), heads)
+    elif route == "flash_bsc":
+        out = flash_attention_bsc(q, k, v, heads)
+        ref = flash_attention_bsc_plain(q.float(), k.float(), v.float(), heads)
+    else:
+        out = flash_attention_fwd(q, k, v, heads)[0]
+        ref = flash_attention_fwd_plain(q.float(), k.float(), v.float(), heads, d**-0.5)[0]
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+def _split_group_norm(x, g, b, t, ranks, pad):
+    """The split GroupNorm kernels over ``ranks`` row slices of ``x``, the
+    merge between them as the ranks make it, the slices' outputs stacked."""
+    from gmdx_torch.kernels.groupnorm import group_norm_apply, group_norm_moments, merge_moments
+
+    parts = x.chunk(ranks, dim=1)
+    moments = torch.stack([group_norm_moments(p.contiguous(), t) for p in parts])
+    stats = merge_moments(moments, parts[0].shape[1] * x.shape[2] * (x.shape[3] // 32), 1e-5)
+    outs = [group_norm_apply(p.contiguous(), g, b, t, stats, pad_output=pad) for p in parts]
+    if pad:  # the interior rows of each slab
+        outs = [o[:, 1:-1, 1:-1] for o in outs]
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,temb,pad,ranks", [
+    (16, 64, 320, False, False, 2), (16, 64, 320, True, True, 2), (16, 64, 320, True, True, 4),
+    (2, 1024, 128, False, True, 2),
+])
+def test_group_norm_split_kernels_on_card(card, b, hw, c, temb, pad, ranks):
+    """The split GroupNorm entries (gmdx_group_norm_moments, then the merge,
+    then gmdx_group_norm_apply), each rank's rows apart, against the plain
+    GroupNorm of the whole image: 16 x 64^2 x 320, with temb and the padded
+    output, and the 1024^2 frame's VAE at 2 x 1024^2 x 128; each launch
+    counted."""
+    x = _bf16(card, b, hw, hw, c, scale=2.0)
+    g = (1.0 + _bf16(card, c, scale=0.2).float()).to(torch.bfloat16)
+    bias = _bf16(card, c, scale=0.2)
+    t = _bf16(card, b, c) if temb else None
+    before = launch_counts()
+    out = _split_group_norm(x, g, bias, t, ranks, pad)
+    after = launch_counts()
+    assert after["group_norm_moments"] - before["group_norm_moments"] == ranks
+    assert after["group_norm_apply"] - before["group_norm_apply"] == ranks
+    ref = group_norm_silu_plain(x.float(), g.float(), bias.float(),
+                                t.float() if temb else None)
+    assert _rel_l2(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,temb", [(16, 32, 64, 320, True), (2, 512, 1024, 128, False)])
+def test_group_norm_moments_on_card(card, b, h, w, c, temb):
+    """gmdx_group_norm_moments against its plain version, the mean and the
+    M2 column each on its own (M2 is ~1e5 times the mean: one norm over
+    both would not see the mean)."""
+    from gmdx_torch.kernels.groupnorm import group_norm_moments, group_norm_moments_plain
+
+    x = (_bf16(card, b, h, w, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+    t = _bf16(card, b, c) if temb else None
+    got = group_norm_moments(x, t)
+    want = group_norm_moments_plain(x.float(), t.float() if temb else None)
+    for col in range(2):
+        assert _rel_l2(got[..., col], want[..., col]) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,o,ranks", [(64, 320, 320, 2), (64, 640, 320, 4),
+                                          (128, 512, 512, 2)])
+def test_conv3x3_on_halo_slabs_on_card(card, hw, c, o, ranks):
+    """The conv kernel on each rank's slab (its rows, the neighbours' edge
+    rows above and below, zeros past the image) against the plain conv of
+    the whole image, row for row."""
+    x = _bf16(card, 2, hw, hw, c)
+    w = _bf16(card, o, c, 3, 3, scale=(9 * c) ** -0.5)
+    bias = _bf16(card, o, scale=0.1)
+    padded = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    rows = hw // ranks
+    outs = [conv3x3(padded[:, r * rows:(r + 1) * rows + 2].contiguous(), pack_weight(w), bias,
+                    pre_padded=True) for r in range(ranks)]
+    ref = conv3x3_plain(x.float(), pack_weight(w).float(), bias.float())
+    assert _rel_l2(torch.cat(outs, dim=1), ref) <= 1e-2
