@@ -54,7 +54,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
      The split GroupNorm's entries (group_norm_moments, group_norm_apply)
      and the attention kernels at the shapes two ranks give them (a rank's
      queries against the whole image's keys; half the heads) have rows of
-     their own.
+     their own, and so has the split backward (group_norm_bwd_sums, each
+     sum column, dgamma and dbeta apart; group_norm_bwd_apply, dx and
+     dtemb apart) at a rank's half of phase train_parallel's images.
      GroupNorm rows (among them 64^2 x 640 and 32^2 x 1920, the images of
      the UNet too large for one cluster) carry their plan's form, cluster
      size and the clusters resident at once, held to gmdx_group_norm_plan
@@ -230,13 +232,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
      never; under SP every kernel of the path, the split GroupNorm's
      entries in place of group_norm_silu), its peak memory beside the one
      process's, the phase's wall beside PARALLEL_BUDGET_S.
+ 25. train_parallel: Stage-2 training under tensor and spatial parallelism
+     at SD-1.5 width, 512^2, global batch 8 of cached latents, bf16, remat:
+     two gloo ranks of the one card under TP = 2, then SP = 2, each beside
+     one process on the global batch: losses within TRAIN_LOSS_RTOL, the
+     first reduced gradient, whole (TP's slices gathered), at cosine >=
+     TRAIN_GRAD_COS_MIN against the one process's; the steps' launches by
+     the mode's rule (SP: the flash forward and backward, the LN-fused FF
+     and the split GroupNorm's four entries, group_norm_bwd_sums and
+     group_norm_bwd_apply in place of group_norm_silu_bwd; TP: the flash
+     kernels as in one process, GroupNorm, the conv and the FF never); a
+     rank's peak memory beside one process's; then train_gm_unet.py on phase
+     cli's directory for 2 steps under --shard_strategy tp (cached latents)
+     and sp (pixels: the VAE on each rank's rows) on the two ranks: losses
+     finite, the saved pipeline's UNet whole. Its wall beside
+     TRAIN_PARALLEL_BUDGET_S.
 ``python3 chip_smoke.py --parallel-cards N`` (N cards, not the default run)
 runs TP = N and SP = N with a rank a card under NCCL against one card:
 s/image of generate_hdr's path at 512^2 and s/frame of upconvert_hdrtv's
 at 1024^2, PNDM 50, with phase parallel's checks; then generate_hdr
 (--tp_size N, --sp_size N) and upconvert_hdrtv (--sp_size N) themselves
 under torchrun on a full-width directory, their files >= 40 dB of the
-one-card run's.
+one-card run's; then train_gm_unet.py for 2 steps at 512^2 under
+--shard_strategy tp --tp_size N and sp --sp_size N under torchrun against
+one card, the step-1 loss within TRAIN_LOSS_RTOL of the one card's.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -320,6 +339,8 @@ KERNELS = {
         "gmdx_torch/csrc/attention_wide_sm90.cuh", "gmdx/kernels/flash_attention.py:348"),
     "group_norm_moments": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:561"),
     "group_norm_apply": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:578"),
+    "group_norm_bwd_sums": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:291"),
+    "group_norm_bwd_apply": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:315"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
@@ -332,6 +353,9 @@ STAGE1_KERNELS = ("flash_attention_bwd_d512", "flash_attention_fwd_d512", "group
 # The split GroupNorm's entries: launched by spatial parallelism (phase
 # parallel's SP runs) in place of group_norm_silu.
 PARALLEL_KERNELS = ("group_norm_moments", "group_norm_apply")
+# The split GroupNorm backward's entries: launched by Stage 2 under spatial
+# parallelism (phase train_parallel's SP run) in place of group_norm_silu_bwd.
+TRAIN_PARALLEL_KERNELS = ("group_norm_bwd_sums", "group_norm_bwd_apply")
 HDRTV_SIDE = 1024
 HDRTV_E2E_STEPS = 2
 # flash_attention_bsc calls per denoise iteration at 1024^2: the 16384-token
@@ -880,6 +904,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
     _optin_kernel_rows(gen, sdr2hdr_batch, results)
     _stage1_kernel_rows(gen, results)
     _parallel_kernel_rows(gen, batch, results)
+    _train_parallel_kernel_rows(gen, DIST_BATCH, results)
     return results
 
 
@@ -965,6 +990,66 @@ def _parallel_kernel_rows(gen, batch: int, results: list[dict]) -> None:
                library=f"F.scaled_dot_product_attention ({backend} backend)",
                extra=exp2_keys((2 if d == 512 else 1) * b * heads * sq * sk))
         del q, k, v, qf, kf, vf, qh, kh, vh
+
+
+def _train_parallel_kernel_rows(gen, tb: int, results: list[dict]) -> None:
+    """J. The split GroupNorm backward at the shapes spatial parallelism over
+    two ranks gives Stage 2 at 512^2 (phase train_parallel's global batch
+    ``tb``): a rank's half of the
+    64^2 x 320 image of a resnet's norm2 (temb, SiLU, the padded cotangent)
+    and of the 32^2 x 640 image of a transformer's GroupNorm (neither). The
+    statistics are the whole image's; the sums entry's outputs (each group
+    sum column, dgamma, dbeta) and the apply entry's (dx, dtemb) are held
+    apart. No PyTorch call computes either from given statistics."""
+    import torch
+
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_bwd_apply, group_norm_bwd_apply_plain, group_norm_bwd_sums,
+        group_norm_bwd_sums_plain, group_norm_silu_plain,
+    )
+
+    for hw, c, temb_on, act, pad in ((64, 320, True, True, True), (32, 640, False, False, False)):
+        h = hw // 2
+        x = (_randn(gen, tb, h, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+        gam = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+        bet = _randn(gen, c, scale=0.2)
+        t = _randn(gen, tb, c) if temb_on else None
+        cot = _randn(gen, tb, h + 2 * pad, hw + 2 * pad, c)
+        f32 = [u.float() if u is not None else None for u in (x, gam, bet, t)]
+        # The whole image's statistics: this half's rows twice over.
+        _, stats = group_norm_silu_plain(torch.cat([f32[0]] * 2, 1), *f32[1:], activate=act,
+                                         return_stats=True)
+        kw = dict(activate=act, pad_output=pad)
+        n = tb * h * hw * c
+        shape = [tb, h, hw, c] + (["temb"] if temb_on else []) + (["silu"] if act else []) \
+            + (["pad"] if pad else [])
+        small = tb * 2 * 32 * 4 + 2 * c * 2 + (tb * c * 2 if temb_on else 0)  # stats, affine, temb
+
+        def sums_kernel():
+            s, ds, db = group_norm_bwd_sums(x, gam, bet, t, stats, cot, **kw)
+            return s[:, 0], s[:, 1], ds, db
+
+        def sums_plain():
+            s, ds, db = group_norm_bwd_sums_plain(*f32, stats, cot.float(), **kw)
+            return s[:, 0], s[:, 1], ds, db
+
+        # x and the cotangent read, (B, 2, G) sums and (2, C) partials
+        # written; the SiLU derivative and the products, ~20 operations an
+        # element.
+        _check("group_norm_bwd_sums", shape, sums_kernel, sums_plain, None, 20.0 * n,
+               (n + tb * (h + 2 * pad) * (hw + 2 * pad) * c) * 2 + small
+               + (tb * 2 * 32 + 2 * c) * 4, results, peak=FP32_FLOPS)
+        sums = group_norm_bwd_sums_plain(*f32, stats, cot.float(), **kw)[0] * 2
+        # x and the cotangent read, dx written (bf16), dtemb (fp32); ~25
+        # operations an element.
+        _check("group_norm_bwd_apply", shape,
+               lambda: group_norm_bwd_apply(x, gam, bet, t, stats, cot, sums, 2 * h * hw, **kw),
+               lambda: group_norm_bwd_apply_plain(*f32, stats, cot.float(), sums, 2 * h * hw,
+                                                  **kw),
+               None, 25.0 * n,
+               (2 * n + tb * (h + 2 * pad) * (hw + 2 * pad) * c) * 2 + small
+               + tb * 2 * 32 * 4 + (tb * c * 4 if temb_on else 0), results, peak=FP32_FLOPS)
+        del x, cot
 
 
 def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
@@ -3712,10 +3797,10 @@ DIST_TIMED_STEPS = 5  # --dist-cards only
 DIST_SEED = 130
 
 
-def _dist_stage2(seed: int, remat: bool = False):
+def _dist_stage2(seed: int, remat: bool = False, layout=None):
     """Phase train's modules and a global cached-latent batch of DIST_BATCH,
     with the EMA on (part of the state each strategy places); ``remat``
-    as --gradient_checkpointing."""
+    as --gradient_checkpointing; ``layout`` tp / sp's data x model grid."""
     import torch
 
     from gmdx_torch.models import CLIP_VIT_L_CONFIG, SD15_VAE_CONFIG, AutoencoderKL, CLIPTextModel
@@ -3727,7 +3812,7 @@ def _dist_stage2(seed: int, remat: bool = False):
         vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
         text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
     config = Stage2Config(learning_rate=1e-5, use_ema=True)
-    step = make_train_step(config, unet=unet, vae=vae, text_encoder=text)
+    step = make_train_step(config, unet=unet, vae=vae, text_encoder=text, layout=layout)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     shape = (DIST_BATCH, 4, 64, 64)
     batch = {"sdr_latent_mean": torch.randn(shape, generator=gen, device="cuda"),
@@ -4552,6 +4637,295 @@ def phase_parallel(args) -> dict[str, int]:
     return {k: launches["sp_gm"][k] + launches["sp_hdrtv"][k] for k in launches["sp_gm"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: Stage-2 training under tensor and spatial parallelism
+# ---------------------------------------------------------------------------
+
+TRAIN_PARALLEL_WORLD = 2
+TRAIN_PARALLEL_MODES = ("tp", "sp")
+TRAIN_PARALLEL_BUDGET_S = 150.0
+TRAIN_PARALLEL_SEED = 150
+# Under SP every kernel of a cached-latent step launches, the split
+# GroupNorm's entries in place of the one-rank ones; under TP the flash
+# kernels as in one process, and GroupNorm, the conv and the FF never (the
+# JAX dispatch's library route).
+TRAIN_SP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "geglu_ff_ln")
+TRAIN_SP_OFF = ("group_norm_silu", "group_norm_silu_bwd")
+TRAIN_TP_ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
+TRAIN_TP_OFF = ("conv3x3", "group_norm_silu", "group_norm_silu_bwd", "geglu_ff_ln", "geglu_ff",
+                "winograd4_conv3x3", "add_layer_norm") + PARALLEL_KERNELS + TRAIN_PARALLEL_KERNELS
+
+
+def _whole_grad_cosine(dp, grads, path: str) -> tuple[float, float]:
+    """Between a reduced gradient in ``dp``'s layout (TP's slices gathered
+    over the model group leaf by leaf, a collective) and the one process's
+    bf16 vector in ``path``: the cosine and the share of elements whose
+    sign differs."""
+    import numpy as np
+    import torch
+
+    from gmdx_torch.dist.tp import gather_slices
+
+    ref = np.memmap(path, dtype=np.int16, mode="r")
+    acc = torch.zeros(4, dtype=torch.float64, device="cuda")
+    off = 0
+    for i, g in enumerate(grads):
+        if dp.sliced is not None and dp.sliced[i]:
+            g = gather_slices(dp.names[i], g, dp.full_shapes[i], dp.layout_ctx)
+        n = g.numel()
+        r = torch.from_numpy(np.array(ref[off:off + n])).cuda().view(torch.bfloat16).double()
+        p = g.reshape(-1).double()
+        acc += torch.stack([(p * r).sum(), (p * p).sum(), (r * r).sum(),
+                            ((p > 0) != (r > 0)).sum().double()])
+        off += n
+    dot, na, nb, flips = acc.tolist()
+    return dot / math.sqrt(max(na * nb, 1e-300)), flips / max(off, 1)
+
+
+def _train_parallel_cli(args, root: str) -> dict:
+    """train_gm_unet.py on this rank (inside the gloo group the job joined):
+    2 steps under tp (cached latents of 8 samples) and under sp (pixels),
+    EMA and remat on; each run's steps, losses, wall, and (rank 0) the
+    saved pipeline's UNet's elements."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.io.params import load_file
+
+    trainer = _script("train_gm_unet")
+    common = ["--pretrained_model_name_or_path", args.train_parallel_pipe, "--train_metadata",
+              args.train_parallel_meta, "--resolution", "512", "--train_batch_size", "2",
+              "--max_train_steps", "2", "--seed", str(args.seed), "--center_crop",
+              "--use_ema", "--gradient_checkpointing", "--dataloader_num_workers", "2"]
+    out = {}
+    for mode, extra in (("tp", ["--cache_latents", "--max_train_samples", "8"]), ("sp", [])):
+        run_dir = os.path.join(root, f"cli_{mode}")
+        t0 = time.perf_counter()
+        res = trainer.main(common + ["--shard_strategy", mode, f"--{mode}_size",
+                                     str(TRAIN_PARALLEL_WORLD), "--output_dir", run_dir] + extra)
+        torch.cuda.synchronize()
+        row = {"global_step": res["global_step"], "losses": res["losses"],
+               "wall_s": time.perf_counter() - t0}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dist.rank() == 0:
+            saved = load_file(os.path.join(run_dir, "save_pipeline", "unet", "params.safetensors"))
+            row["unet_elements"] = sum(v.numel() if isinstance(v, torch.Tensor) else v.size
+                                       for v in saved.values())
+            del saved
+        out[mode] = row
+    return out
+
+
+def train_parallel_job(args) -> None:
+    """A process of phase train_parallel: with --train-parallel-port, rank
+    --train-parallel-rank of TRAIN_PARALLEL_WORLD gloo ranks on the one card
+    (TP, then SP, each on a data x model grid of (1, 2); then the CLI under
+    both); else the one process on the global batch (its first gradient
+    written as a bf16 vector for the ranks' cosines). Each run's losses,
+    launches (counts set to 0 just before its steps, read just after), peak
+    memory and wall go to --train-parallel-dir."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.dist import tpctx
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.train import init_state, make_ema_step
+
+    root = args.train_parallel_dir
+    ranks = args.train_parallel_job == "ranks"
+    if ranks:
+        dist.initialize(f"localhost:{args.train_parallel_port}", TRAIN_PARALLEL_WORLD,
+                        args.train_parallel_rank, backend="gloo")
+    out = {"backend": torch.distributed.get_backend() if ranks else None,
+           "world": dist.world_size(), "runs": {}}
+    seed = args.seed + TRAIN_PARALLEL_SEED
+    for mode in TRAIN_PARALLEL_MODES if ranks else (None,):
+        t0 = time.perf_counter()
+        layout = tpctx.join_train_parallel(mode, TRAIN_PARALLEL_WORLD) if mode else None
+        config, unet, step, batch = _dist_stage2(seed, remat=True, layout=layout)
+        out["unet_elements"] = sum(p.numel() for p in unet.parameters())
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(config, unet)
+        if mode:
+            state = dist.apply_shard_strategy(state, mode, param_fields=("params", "ema"),
+                                              opt_fields=("opt_state",), layout=layout)
+            batch = dist.shard_batch(batch, layout.data_rank, layout.data_size)
+            if mode == "sp":
+                batch = dist.spatial_batch(batch, layout)
+        setup_peak = torch.cuda.max_memory_allocated() / 1e9
+        placed = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        opt = state.optimizer
+        grad_stats: list = []
+        grad_path = os.path.join(root, "grad.bin")
+        if mode:
+            _dist_capture_grads(opt, grad_stats,
+                                lambda g: _whole_grad_cosine(opt.dp, g, grad_path))
+        else:
+            _dist_capture_grads(opt, grad_stats)
+        losses = []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        for i in range(DIST_STEPS):
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 100 + i)
+            state, m = step(state, batch, gen)
+            make_ema_step(config)(state)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t1
+        counts = launch_counts()
+        row = {"loss": losses, "launches": counts, "steps_s": steps_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "placed_mem_gb": placed, "setup_peak_gb": setup_peak,
+               "held_elements": sum(t.numel() for t in opt.params)}
+        if mode:
+            row["grad_cosine"], row["grad_sign_flip_share"] = grad_stats[0]
+        else:
+            _dist_flat_bf16(grad_path, grad_stats[0])
+        row["s"] = time.perf_counter() - t0
+        out["runs"][mode or "one"] = row
+        del opt.step  # the wrapper, and with it the cycle
+        del state, opt, grad_stats, unet, step, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if ranks:
+        out["cli"] = _train_parallel_cli(args, root)
+    tag = f"rank{dist.rank()}" if ranks else "ref"
+    with open(os.path.join(root, f"{tag}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+
+
+def _train_parallel_check(ranks: list[dict], ref: dict) -> tuple[list[str], dict]:
+    """Each rank's runs against the one process's (loss, gradient cosine,
+    launches by the mode's rule, memory beside it) and its CLI runs."""
+    bad, launches = [], {}
+    one = ref["runs"]["one"]
+    for r, res in enumerate(ranks):
+        for mode in TRAIN_PARALLEL_MODES:
+            run = res["runs"][mode]
+            counts = run["launches"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(run["loss"], one["loss"]))
+            emit({"phase": "train_parallel", "mode": mode, "rank": r, "world": res["world"],
+                  "backend": res["backend"], "global_batch": DIST_BATCH, "resolution": 512,
+                  "steps": DIST_STEPS, "loss": run["loss"], "one_process_loss": one["loss"],
+                  "loss_rel_err": rel, "grad_cosine": run["grad_cosine"],
+                  "grad_sign_flip_share": run["grad_sign_flip_share"],
+                  "steps_s": run["steps_s"], "one_process_steps_s": one["steps_s"],
+                  "peak_mem_gb": run["peak_mem_gb"],
+                  "one_process_peak_mem_gb": one["peak_mem_gb"],
+                  "placed_mem_gb": run["placed_mem_gb"],
+                  "one_process_placed_mem_gb": one["placed_mem_gb"],
+                  "held_elements": run["held_elements"],
+                  "one_process_held_elements": one["held_elements"],
+                  "launches": {k: v for k, v in counts.items() if v},
+                  "one_process_launches": {k: v for k, v in one["launches"].items() if v},
+                  "s": run["s"]})
+            if not (rel <= TRAIN_LOSS_RTOL and run["grad_cosine"] >= TRAIN_GRAD_COS_MIN):
+                bad.append(f"rank {r} {mode}: loss rel {rel}, gradient cosine "
+                           f"{run['grad_cosine']}")
+            if mode == "tp":
+                wrong = {k: (counts[k], one["launches"][k]) for k in TRAIN_TP_ATTENTION
+                         if counts[k] != one["launches"][k] or not counts[k]}
+                wrong.update({k: counts[k] for k in TRAIN_TP_OFF if counts[k]})
+            else:
+                wrong = {k: counts[k] for k in TRAIN_SP_KERNELS + PARALLEL_KERNELS
+                         + TRAIN_PARALLEL_KERNELS if counts[k] == 0}
+                wrong.update({k: counts[k] for k in TRAIN_SP_OFF if counts[k]})
+            if wrong:
+                bad.append(f"rank {r} {mode}: launches off the rule: {wrong}")
+            if r == 0:
+                launches[mode] = counts
+        for mode, cli in res["cli"].items():
+            emit({"phase": "train_parallel", "part": "cli", "mode": mode, "rank": r, **cli})
+            losses = list(cli["losses"].values())
+            if not (cli["global_step"] == 2 and losses
+                    and all(math.isfinite(v) for v in losses)):
+                bad.append(f"rank {r} cli {mode}: {cli}")
+            if r == 0 and cli.get("unet_elements") != ref["unet_elements"]:
+                bad.append(f"cli {mode}: the saved UNet holds {cli.get('unet_elements')} "
+                           f"elements, the model {ref['unet_elements']}")
+    return bad, launches
+
+
+def phase_train_parallel(args, pipe_dir: str) -> dict[str, int]:
+    """Stage-2 training under TP and SP (gmdx_torch.dist.tp, tpctx, the
+    split GroupNorm backward) at SD-1.5 width: the one process, then
+    TRAIN_PARALLEL_WORLD gloo ranks on the one card (NCCL refuses two ranks
+    on one device), each child with a watchdog (killed past its limit: a
+    rank that left the collectives' order would hang the others); then the
+    CLI on phase cli's directory (``pipe_dir``) inside the ranks. Returns
+    rank 0's launches of the SP run."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(pipe_dir), "train_parallel")
+    os.makedirs(root)
+    me = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed),
+          "--train-parallel-dir", root]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs, procs = [], []
+    try:
+        meta, _ = _train_cli_data(root, args.seed + 95)
+        t0 = time.perf_counter()
+        _dist_spawn(me + ["--train-parallel-job", "ref"], os.path.join(root, "ref.log"), 600,
+                    env=env)
+        ref_s = time.perf_counter() - t0
+        port = _free_port()
+        t0 = time.perf_counter()
+        for r in range(TRAIN_PARALLEL_WORLD):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                me + ["--train-parallel-job", "ranks", "--train-parallel-rank", str(r),
+                      "--train-parallel-port", str(port), "--train-parallel-pipe", pipe_dir,
+                      "--train-parallel-meta", meta],
+                stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        deadline = time.perf_counter() + 900
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: train_parallel rank {r} failed "
+                                 f"({p.returncode}):\n{tail}")
+        ranks_s = time.perf_counter() - t0
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        ranks = []
+        for r in range(TRAIN_PARALLEL_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad, launches = _train_parallel_check(ranks, ref)
+        elapsed = time.perf_counter() - t_phase
+        emit({"phase": "train_parallel", "elapsed_s": elapsed, "ref_s": ref_s,
+              "ranks_s": ranks_s, "budget_s": TRAIN_PARALLEL_BUDGET_S,
+              "within_budget": elapsed <= TRAIN_PARALLEL_BUDGET_S, "card": nvidia_smi_line()})
+        if bad:
+            raise SystemExit("chip_smoke: train_parallel failed its checks: " + "; ".join(bad))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches["sp"]
+
+
 # --parallel-cards N, its CLI part: (name, script, width flag or None,
 # steps, input folder) over one full-width directory; each parallel run is
 # held against the one-card run of its script.
@@ -4631,13 +5005,65 @@ def _parallel_cards_cli(args, root: str, env) -> dict:
     return bad
 
 
+def _parallel_cards_train(args, root: str, env) -> list[str]:
+    """train_gm_unet.py under torchrun on N cards (NCCL) for 2 steps at 512^2
+    (EMA, remat, --train_batch_size 2: a global batch of 2 under both) on
+    _parallel_cards_cli's directory: --shard_strategy tp --tp_size N and sp
+    --sp_size N against one card. The step-1 loss within TRAIN_LOSS_RTOL of
+    the one card's, 2 steps, the saved UNet as many elements. Returns the
+    failures."""
+    import torch
+
+    from gmdx_torch.io.params import load_file
+
+    n, pipe_dir = args.parallel_cards, os.path.join(root, "pipe")
+    meta, _ = _train_cli_data(os.path.join(root, "train_data"), args.seed + 97)
+    rows, bad = {}, []
+    for name, mode in (("train_one_card", None), ("train_tp", "tp"), ("train_sp", "sp")):
+        out = os.path.join(root, "out", name)
+        argv = [os.path.join(REPO, "scripts", "torch", "train_gm_unet.py"),
+                "--pretrained_model_name_or_path", pipe_dir, "--train_metadata", meta,
+                "--output_dir", out, "--resolution", "512", "--train_batch_size", "2",
+                "--max_train_steps", "2", "--seed", str(args.seed), "--center_crop",
+                "--use_ema", "--gradient_checkpointing", "--dataloader_num_workers", "2"]
+        if mode is None:
+            argv = [sys.executable] + argv
+        else:
+            argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                    "--nproc_per_node", str(n), "--master_addr", "localhost", "--master_port",
+                    str(_free_port())] + argv + ["--shard_strategy", mode, f"--{mode}_size",
+                                                 str(n)]
+        t0 = time.perf_counter()
+        _dist_spawn(argv, os.path.join(root, f"{name}.log"), 900, env=env)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        saved = load_file(os.path.join(out, "save_pipeline", "unet", "params.safetensors"))
+        rows[name] = {"wall_s": wall, "losses": {m["step"]: m["train_loss"] for m in logged
+                                                  if "train_loss" in m},
+                      "unet_elements": sum(v.numel() if isinstance(v, torch.Tensor) else v.size
+                                           for v in saved.values())}
+        del saved
+    one = rows["train_one_card"]
+    for name in ("train_tp", "train_sp"):
+        row = rows[name]
+        rel = abs(row["losses"][1] - one["losses"][1]) / abs(one["losses"][1])
+        emit({"phase": "parallel_cards", "part": "train_cli", "run": name, "cards": n,
+              **row, "one_card": one, "loss_rel_err": rel, "rtol": TRAIN_LOSS_RTOL})
+        if not (rel <= TRAIN_LOSS_RTOL and row["unet_elements"] == one["unet_elements"]):
+            bad.append(f"{name}: step-1 loss rel {rel}, UNet elements {row['unet_elements']} "
+                       f"vs {one['unet_elements']}")
+    return bad
+
+
 def phase_parallel_cards(args) -> None:
     """``--parallel-cards N`` (not part of the default run; N cards): a rank
     a card under NCCL (torchrun), TP = N and SP = N, against one process on
     one card: generate_hdr's path at 512^2, PNDM 50, as s/image under TP and
     SP; upconvert_hdrtv's at 1024^2, PNDM 50, as s/frame under SP; each
     after a 2-step warm-up; phase parallel's checks on every rank. Then the
-    two CLIs themselves under torchrun (:func:`_parallel_cards_cli`)."""
+    two CLIs themselves under torchrun (:func:`_parallel_cards_cli`), and
+    the Stage-2 trainer under tp and sp (:func:`_parallel_cards_train`)."""
     import shutil
 
     root = tempfile.mkdtemp(prefix="gmdx_parallel_cards_")
@@ -4670,6 +5096,7 @@ def phase_parallel_cards(args) -> None:
               "backend": ranks[0]["backend"], "world": ranks[0]["world"],
               "card": nvidia_smi_line(), **summary})
         bad += _parallel_cards_cli(args, root, env)
+        bad += _parallel_cards_train(args, root, env)
         if bad:
             raise SystemExit("chip_smoke: parallel_cards failed its checks: " + "; ".join(bad))
     finally:
@@ -4709,6 +5136,12 @@ def main() -> int:
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--parallel-rank", "--parallel-port"):
         p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    # Phase train_parallel's children (this script again).
+    for flag in ("--train-parallel-job", "--train-parallel-dir", "--train-parallel-pipe",
+                 "--train-parallel-meta"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--train-parallel-rank", "--train-parallel-port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--parallel-cards", type=int, default=0,
                    help="only tensor- and spatial-parallel serving over this many cards (TP = SP "
                         "= N), a rank a card under NCCL, against one card, with s/image and "
@@ -4727,14 +5160,14 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         {"ref": dist_job_ref, "ranks": dist_job_ranks, "cli": dist_job_cli}[args.dist_job](args)
         return 0
-    if args.parallel_job:
+    if args.parallel_job or args.train_parallel_job:
         import torch
 
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        parallel_job(args)
+        (parallel_job if args.parallel_job else train_parallel_job)(args)
         return 0
     if args.parallel_cards:
         dev = phase_device()
@@ -4774,11 +5207,12 @@ def main() -> int:
         phase_train_cli(args, pipe_dir, train_launches)
         phase_trainer_clis(args, pipe_dir, stage1_per_pair)
         phase_convert(args, pipe_dir)
+        parallel_launches = phase_parallel(args)
+        train_parallel_launches = phase_train_parallel(args, pipe_dir)
     finally:
         import shutil
 
         shutil.rmtree(workdir, ignore_errors=True)
-    parallel_launches = phase_parallel(args)
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
@@ -4789,7 +5223,9 @@ def main() -> int:
              else train_launches if name in TRAIN_KERNELS
              else hdrtv_launches if name in HDRTV_KERNELS
              else stage1_launches if name in STAGE1_KERNELS
-             else parallel_launches if name in PARALLEL_KERNELS else sdr2hdr_launches)[name]
+             else parallel_launches if name in PARALLEL_KERNELS
+             else train_parallel_launches if name in TRAIN_PARALLEL_KERNELS
+             else sdr2hdr_launches)[name]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),

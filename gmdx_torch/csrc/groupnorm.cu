@@ -90,6 +90,17 @@
 // where x + g exceed L2 (at batch 8: 64^2 x 640 84 MB, 64^2 x 960 126 MB,
 // 32^2 x 1920 63 MB) up to that excess comes from device memory again, at
 // most 5/3 of the bound's bytes.
+//
+// The split backward (gmdx_group_norm_bwd_sums, gmdx_group_norm_bwd_apply),
+// for an image whose rows lie on several ranks (spatial parallelism; the TPU
+// kernel's reduce and apply passes, _gn_bwd_reduce_kernel and
+// _gn_bwd_apply_kernel): gn_bwd_kernel's two phases as kernels of their own
+// over this rank's rows, the same per-thread walk and fixed-order folds,
+// with the caller's all-reduce of each (image, group)'s two sums in the
+// grid barrier's place. A padded cotangent's border is not read: under
+// spatial parallelism its top and bottom rows are the neighbours' rows,
+// whose cotangent the caller has sent back to them first. Bound: bytes, x
+// and g read by each entry, dx written by the second.
 #include "bf16x8.cuh"
 #include "gemm_sm90.cuh"
 
@@ -955,6 +966,147 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) gn_bwd_kernel(GnBwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split backward: an image whose rows lie on several ranks
+// ---------------------------------------------------------------------------
+
+// gn_bwd_kernel's phase before its grid barrier, over the grid (splits, B)
+// of this rank's rows: tile (b, s)'s sums of dy and dy xhat per
+// channel, folded over the block's rows in a fixed order, into chpart, and
+// weighted by gamma into grpart's (sum dxhat, sum dxhat xhat) per group.
+__global__ void __launch_bounds__(MAX_THREADS, 1) gn_bwd_sums_kernel(GnBwdArgs a) {
+  extern __shared__ __align__(16) float bsm[];
+  float* red = bsm;  // [2][R][C]
+  const int T = blockDim.x;
+  const int chunks = a.C / 8;
+  const int rows = T / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int row = threadIdx.x / chunks;
+  const int cg = a.C / a.G;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * a.pixels;
+  const int p1 = min(p0 + a.pixels, a.HW);
+  const int n = p0 + row < p1 ? (p1 - p0 - row - 1) / rows + 1 : 0;
+  const size_t tile = (size_t)b * a.splits + blockIdx.x;
+  GnBwdChan ch;
+  bwd_chan(a, b, c0, ch);
+  float s0[8] = {}, s1[8] = {};
+  bwd_walk<BWD_UNROLL, false>(a, b, c0, p0 + row, n, rows,
+                              [&](int, const uint4& xr, const uint4& gr) {
+                                float v[8], dy[8];
+                                unpack8(xr, v);
+                                unpack8(gr, dy);
+                                bwd_dy(a, ch, v, dy);
+#pragma unroll
+                                for (int e = 0; e < 8; ++e) {
+                                  s0[e] += dy[e];
+                                  s1[e] = fmaf(dy[e], fmaf(v[e], ch.rs[e], ch.shr[e]), s1[e]);
+                                }
+                              });
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[threadIdx.x * 8 + e] = s0[e];
+    red[T * 8 + threadIdx.x * 8 + e] = s1[e];
+  }
+  fold_rows(red, a.chpart + tile * 2 * a.C, 2, a.C, rows);
+  for (int i = threadIdx.x; i < 2 * a.G; i += T) {
+    const float* r = red + (i / a.G) * T * 8 + (i % a.G) * cg;
+    const __nv_bfloat16* gm = a.gamma + (i % a.G) * cg;
+    float acc = 0.0f;
+    for (int k = 0; k < cg; ++k) acc = fmaf(__bfloat162float(gm[k]), r[k], acc);
+    a.grpart[tile * 2 * a.G + i] = acc;
+  }
+}
+
+// gn_bwd_kernel's phase after its barrier, over the same grid: m1, m2 are
+// the image's summed (sum dxhat, sum dxhat xhat) of each group (every
+// rank's, all-reduced by the caller) over the image's count, and
+// dx = rstd (dy gamma - m1 - xhat m2) is written for this rank's pixels;
+// with a temb, the tile's sum of dx per channel goes to tpart.
+__global__ void __launch_bounds__(MAX_THREADS, 1) gn_bwd_apply_kernel(GnBwdArgs a,
+                                                                      const float* sums,
+                                                                      double inv_count) {
+  extern __shared__ __align__(16) float bsm[];
+  float* red = bsm;                  // [1][R][C]
+  float* m = bsm + 16 * blockDim.x;  // [2][G]
+  const int T = blockDim.x;
+  const int chunks = a.C / 8;
+  const int rows = T / chunks;
+  const int c0 = (threadIdx.x % chunks) * 8;
+  const int row = threadIdx.x / chunks;
+  const int cg = a.C / a.G;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * a.pixels;
+  const int p1 = min(p0 + a.pixels, a.HW);
+  const int n = p0 + row < p1 ? (p1 - p0 - row - 1) / rows + 1 : 0;
+  for (int i = threadIdx.x; i < 2 * a.G; i += T)
+    m[i] = (float)((double)sums[(size_t)b * 2 * a.G + i] * inv_count);
+  __syncthreads();
+  GnBwdChan ch;
+  bwd_chan(a, b, c0, ch);
+  float dp[8], dq[8], dt[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float m1 = m[(c0 + e) / cg], m2 = m[a.G + (c0 + e) / cg];
+    dp[e] = ch.rs[e] * ch.rs[e] * m2;
+    dq[e] = ch.rs[e] * fmaf(ch.shr[e], m2, m1);
+    dt[e] = 0.0f;
+  }
+  __nv_bfloat16* dxb = a.dx + (size_t)b * a.HW * a.C + c0;
+  bwd_walk<BWD_UNROLL_L2, true>(a, b, c0, p0 + row, n, rows,
+                                [&](int p, const uint4& xr, const uint4& gr) {
+                                  float v[8], dy[8];
+                                  unpack8(xr, v);
+                                  unpack8(gr, dy);
+                                  bwd_dy(a, ch, v, dy);
+#pragma unroll
+                                  for (int e = 0; e < 8; ++e) {
+                                    dy[e] = fmaf(dy[e], ch.ya[e], -fmaf(v[e], dp[e], dq[e]));
+                                    dt[e] += dy[e];
+                                  }
+                                  __stcs(reinterpret_cast<uint4*>(dxb + (size_t)p * a.C),
+                                         pack8(dy));
+                                });
+  if (a.temb == nullptr) return;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[threadIdx.x * 8 + e] = dt[e];
+  fold_rows(red, a.tpart + ((size_t)b * a.splits + blockIdx.x) * a.C, 1, a.C, rows);
+}
+
+// One fold of the split backward: for each of `images`, out[o] = scale *
+// (the sum over parts p of src[p * stride + o]) for its n outputs, the
+// image's src and out `src_step` and `out_step` floats after the last's.
+struct GnFold {
+  const float* src;
+  float* out;
+  size_t stride, src_step, out_step;
+  int parts, n, images;
+  double scale;
+};
+
+// Two folds' jobs of 8 outputs (fold8: every output summed in fp64 in a
+// fixed order), one warp a job: f0's, then f1's.
+__global__ void gn_fold_kernel(GnFold f0, GnFold f1) {
+  const int per0 = (f0.n + 7) / 8, per1 = (f1.n + 7) / 8;
+  const int jobs0 = f0.images * per0, jobs = jobs0 + f1.images * per1;
+  const int warps = gridDim.x * blockDim.x / 32;
+  for (int j = (blockIdx.x * blockDim.x + threadIdx.x) / 32; j < jobs; j += warps) {
+    const GnFold f = j < jobs0 ? f0 : f1;
+    const int k = j < jobs0 ? j : j - jobs0;
+    const int per = j < jobs0 ? per0 : per1;
+    const int img = k / per;
+    fold8(f.src + img * f.src_step, f.stride, f.parts, f.n, 8 * (k % per), f.scale,
+          f.out + img * f.out_step);
+  }
+}
+
+cudaError_t launch_folds(const GnFold& f0, const GnFold& f1, cudaStream_t st) {
+  const int jobs = f0.images * ((f0.n + 7) / 8) + f1.images * ((f1.n + 7) / 8);
+  const int blocks = (jobs + 7) / 8;  // 8 warps a block
+  if (blocks > 0) gn_fold_kernel<<<blocks < 1024 ? blocks : 1024, 256, 0, st>>>(f0, f1);
+  return cudaGetLastError();
+}
+
 // Blocks of the backward at C channels that the card holds on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the card's SMs.
 int bwd_resident(int C) {
@@ -1174,4 +1326,94 @@ extern "C" int gmdx_group_norm_bwd_plan(int B, int H, int W, int C, int* out) {
   const int fields[7] = {p.splits, p.images, p.pixels, p.threads, p.smem, p.resident, sms};
   for (int i = 0; i < 7; ++i) out[i] = fields[i];
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split backward, for an image whose rows lie on several ranks (spatial
+// parallelism): gn_bwd_kernel's two phases as entries of their own, the
+// caller's all-reduce of the group sums taking its grid barrier's place.
+// Both run over the grid (splits, B) of gn_bwd_plan's pixel ranges of this
+// rank's rows, a block a tile (one wave of the blocks an SM holds where
+// the images fit it); the folds over the tiles are gn_fold_kernel's, in
+// fixed orders (no atomics: a repeated call is bit-identical).
+static GnBwdArgs split_bwd_args(const void* x, const void* g, const void* gamma,
+                                const void* beta, const void* temb, const void* stats, int B,
+                                int H, int W, int C, int G, int activate, int gpad) {
+  GnBwdArgs a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
+  a.beta = static_cast<const __nv_bfloat16*>(beta);
+  a.temb = static_cast<const __nv_bfloat16*>(temb);
+  a.stats = static_cast<const float*>(stats);
+  a.B = B;
+  a.HW = H * W;
+  a.W = W;
+  a.C = C;
+  a.G = G;
+  // The one-launch backward's ranges (gn_bwd_plan: a wave of resident
+  // blocks over the images), each a tile; past a wave, more waves.
+  const GnBwdPlan p = gn_bwd_plan(B, H, W, C, bwd_resident(C), device_sms());
+  a.splits = p.splits;
+  a.pixels = p.pixels;
+  a.gpad = gpad;
+  a.activate = activate;
+  return a;
+}
+
+// x: (B, H, W, C) bf16 (this rank's rows); g: the same, or (B, H+2, W+2, C)
+// with gpad (its border is not read); stats: (B, 2, G) fp32 (mean, rstd) of
+// the whole image. Writes sums: (B, 2, G) fp32, each group's sum of dy gamma
+// and of dy gamma xhat over these rows, and dparams: (2, C) fp32, (dbeta,
+// dgamma) over them. chpart, grpart: B * splits * 2 * C and B * splits * 2 * G
+// floats of scratch (splits = gn_bwd_plan's, kernels/groupnorm.py:
+// group_norm_bwd_plan(B, H, W, C).grid[0]).
+extern "C" int gmdx_group_norm_bwd_sums(const void* x, const void* g, const void* gamma,
+                                        const void* beta, const void* temb, const void* stats,
+                                        void* sums, void* dparams, void* chpart, void* grpart,
+                                        int B, int H, int W, int C, int G, int activate,
+                                        int gpad, void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H * W == 0) return 0;
+  GnBwdArgs a = split_bwd_args(x, g, gamma, beta, temb, stats, B, H, W, C, G, activate, gpad);
+  a.chpart = static_cast<float*>(chpart);
+  a.grpart = static_cast<float*>(grpart);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = gn_threads(C);
+  gn_bwd_sums_kernel<<<dim3(a.splits, B), threads, 64 * threads, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Each image's group sums over its tiles; (dbeta, dgamma) over every tile.
+  const GnFold groups = {a.grpart, static_cast<float*>(sums), (size_t)(2 * G),
+                         (size_t)a.splits * 2 * G, (size_t)(2 * G), a.splits, 2 * G, B, 1.0};
+  const GnFold params = {a.chpart, static_cast<float*>(dparams), (size_t)(2 * C), 0, 0,
+                         B * a.splits, 2 * C, 1, 1.0};
+  return static_cast<int>(launch_folds(groups, params, st));
+}
+
+// x, g, gamma, beta, temb, stats as gmdx_group_norm_bwd_sums; sums: (B, 2, G)
+// fp32, the whole image's (every rank's summed); count: the whole image's
+// pixels. Writes dx: (B, H, W, C) bf16 and, with a temb, dtemb: (B, C) fp32,
+// the sum of dx over these rows (null without temb). tpart: B * splits * C
+// floats of scratch (null without temb).
+extern "C" int gmdx_group_norm_bwd_apply(const void* x, const void* g, const void* gamma,
+                                         const void* beta, const void* temb, const void* stats,
+                                         const void* sums, void* dx, void* dtemb, void* tpart,
+                                         int B, int H, int W, int C, int G, int count,
+                                         int activate, int gpad, void* stream) {
+  if (C % 8 || C % G || G > MAXG || C / 8 > MAX_THREADS || count < H * W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H * W == 0) return 0;
+  GnBwdArgs a = split_bwd_args(x, g, gamma, beta, temb, stats, B, H, W, C, G, activate, gpad);
+  a.dx = static_cast<__nv_bfloat16*>(dx);
+  a.tpart = static_cast<float*>(tpart);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gn_bwd_apply_kernel<<<dim3(a.splits, B), gn_threads(C), gn_bwd_smem(C), st>>>(
+      a, static_cast<const float*>(sums), 1.0 / ((double)count * (C / G)));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || temb == nullptr) return static_cast<int>(err);
+  const GnFold t = {a.tpart, static_cast<float*>(dtemb), (size_t)C, (size_t)a.splits * C,
+                    (size_t)C, a.splits, C, B, 1.0};
+  const GnFold none = {};
+  return static_cast<int>(launch_folds(t, none, st));
 }

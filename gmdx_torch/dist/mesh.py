@@ -38,7 +38,17 @@ counterparts, for serving): an image's H rows split evenly over the ranks
 above and below a rank's slab come from its neighbours by one all-gather of
 every rank's edge rows (:func:`halo_rows`, :func:`fill_halo`: gloo, which
 runs two ranks on one card, has no send/recv for tensors on a card); random
-draws are the whole image's, sliced (:func:`randn_spatial`).
+draws are the whole image's, sliced (:func:`randn_spatial`). Under
+autograd each collective's backward is its adjoint: a gathered image's
+gradient is every rank's cotangent summed, then the rank's rows; a halo
+row's goes back to the rank whose row it is.
+
+The Stage-2 trainer's tp and sp (:func:`apply_shard_strategy` with the
+data x model layout of ``tpctx.join_train_parallel``): tp slices the
+UNet's parameters, moments and EMA by ``gmdx_torch.dist.tp``'s rule, sp
+keeps them whole; either way :class:`DataParallel` averages the gradient
+over the data axis alone (under sp after summing each model group's
+rows' shares), and takes the norm of the whole gradient.
 """
 
 from __future__ import annotations
@@ -56,18 +66,25 @@ import torch.distributed as dist
 from gmdx_torch.dist.multihost import is_initialized, rank, world_size
 
 STRATEGIES = ("ddp", "zero1", "fsdp")
-# The trainers' tensor and spatial parallelism: a slice of their own
-# (ROADMAP.md; serving has both, gmdx_torch.dist.tp and tpctx).
+# Tensor and spatial parallelism: the Stage-2 trainer's; the Stage-1 and
+# ControlNet trainers' are a slice of their own (ROADMAP.md).
+MODEL_STRATEGIES = ("tp", "sp")
 TP_SP_ITEM = "ROADMAP Queue 1 item 9"
 BUCKET_BYTES = 128 << 20
 
 
-def check_strategy(strategy: str) -> None:
-    if strategy in ("tp", "sp"):
+def check_strategy(strategy: str, trainer: str | None = None) -> None:
+    """Raise for a ``--shard_strategy`` that ``trainer`` ("stage2",
+    "stage1", "controlnet"; None: the data-parallel strategies alone) does
+    not take: tp and sp are Stage 2's."""
+    if strategy in MODEL_STRATEGIES:
+        if trainer == "stage2":
+            return
+        name = {"stage1": "Stage-1", "controlnet": "ControlNet"}.get(trainer, trainer)
         raise NotImplementedError(
-            f"--shard_strategy {strategy}: the trainers' tensor and spatial parallelism are "
-            f"not in the port yet ({TP_SP_ITEM}: the training half of `gmdx/dist/{{tp,tpctx}}.py`"
-            f"; serving has both, generate_hdr --tp_size/--sp_size)")
+            f"--shard_strategy {strategy}: the {name or 'data-parallel'} trainer's tensor and "
+            f"spatial parallelism are not in the port yet ({TP_SP_ITEM}: Stage 2 has both, "
+            f"train_gm_unet --shard_strategy tp|sp)")
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown shard strategy {strategy!r}")
 
@@ -76,9 +93,13 @@ def data_parallel_size() -> int:
     return world_size()
 
 
-def batch_rows(local_rows: int) -> tuple[int, int] | None:
+def batch_rows(local_rows: int, layout=None) -> tuple[int, int] | None:
     """(first row, rows of the global batch) of this rank's slice of a
-    global batch of ``local_rows`` a rank; None outside a process group."""
+    global batch of ``local_rows`` a rank; None outside a process group.
+    Under a data x model ``layout`` (``tpctx.join_train_parallel``) the
+    batch splits over the data axis alone."""
+    if layout is not None:
+        return layout.data_rank * local_rows, layout.data_size * local_rows
     n = world_size()
     return (rank() * local_rows, n * local_rows) if is_initialized() else None
 
@@ -100,14 +121,20 @@ def shard_batch(batch: dict, index: int | None = None, count: int | None = None)
 
 
 def randn_rows(shape, generator: torch.Generator, rows: tuple[int, int] | None, *,
-               device, dtype=torch.float32) -> torch.Tensor:
+               device, dtype=torch.float32, spatial=None) -> torch.Tensor:
     """``torch.randn(shape)``; with ``rows = (start, total)``, rows
-    ``[start, start + shape[0])`` of one draw for ``total`` rows."""
-    if rows is None:
-        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
-    start, total = rows
-    full = torch.randn((total, *shape[1:]), generator=generator, device=device, dtype=dtype)
-    return full[start:start + shape[0]]
+    ``[start, start + shape[0])`` of one draw for ``total`` rows; with
+    ``spatial = (ctx, h_dim)`` (spatial parallelism) ``shape`` is this
+    rank's image rows, and the draw is the whole image's, sliced to them."""
+    full = list(shape)
+    if spatial is not None:
+        full[spatial[1]] *= spatial[0].size
+    if rows is not None:
+        full[0] = rows[1]
+    out = torch.randn(full, generator=generator, device=device, dtype=dtype)
+    if rows is not None:
+        out = out[rows[0]:rows[0] + shape[0]]
+    return out if spatial is None else shard_rows(out, *spatial)
 
 
 def randint_rows(high: int, b: int, generator: torch.Generator,
@@ -151,49 +178,113 @@ def all_gather_stacked(t: torch.Tensor, ctx) -> torch.Tensor:
     return out.view(ctx.size, *t.shape)
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, h_dim):
+        fctx.ctx, fctx.h_dim, fctx.rows = ctx, h_dim, x.shape[h_dim]
+        return torch.cat(list(all_gather_stacked(x, ctx).unbind(0)), dim=h_dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=fctx.ctx.group)
+        rows = fctx.rows
+        return g.narrow(fctx.h_dim, fctx.ctx.rank * rows, rows), None, None
+
+
 def gather_rows(x: torch.Tensor, ctx, h_dim: int = 2) -> torch.Tensor:
     """The whole image, on every rank, from each rank's rows ``x`` (one
     all-gather: gloo has no gather for tensors on a card); any tensor split
-    into equal slices along ``h_dim`` in rank order."""
-    return torch.cat(list(all_gather_stacked(x, ctx).unbind(0)), dim=h_dim)
+    into equal slices along ``h_dim`` in rank order. Each rank uses the
+    whole in its own way (its queries against every rank's keys), so the
+    gradient of a rank's rows is every rank's cotangent of them: one
+    all-reduce of the whole cotangent, then this rank's rows (gloo has no
+    reduce-scatter for tensors on a card)."""
+    return _GatherRows.apply(x, ctx, h_dim)
 
 
-def _neighbour_rows(first: torch.Tensor, last: torch.Tensor, ctx):
-    """(the previous rank's ``last``, the next rank's ``first``), None at the
-    image's top and bottom edge: one all-gather of every rank's border rows
-    (gloo has no send/recv for tensors on a card)."""
-    rows = all_gather_stacked(torch.cat([first, last], dim=1), ctx)
-    k = first.shape[1]
+def _exchange(up: torch.Tensor, down: torch.Tensor, ctx):
+    """(the previous rank's ``down``, the next rank's ``up``), None at the
+    image's top and bottom edge: one all-gather of every rank's rows ``up``
+    (for the rank above) and ``down`` (for the rank below), NHWC, stacked
+    along H (gloo has no send/recv for tensors on a card)."""
+    rows = all_gather_stacked(torch.cat([up, down], dim=1), ctx)
+    k = up.shape[1]
     prev = rows[ctx.rank - 1][:, k:] if ctx.rank > 0 else None
     nxt = rows[ctx.rank + 1][:, :k] if ctx.rank < ctx.size - 1 else None
     return prev, nxt
 
 
+class _HaloRows(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, top, bottom, ctx):
+        fctx.args = (top, bottom, ctx)
+        h = x.shape[1]
+        prev, nxt = _exchange(x[:, :bottom], x[:, h - top:], ctx)
+        zeros = lambda k: x.new_zeros((x.shape[0], k, *x.shape[2:]))  # noqa: E731
+        return torch.cat([zeros(top) if prev is None else prev, x,
+                          zeros(bottom) if nxt is None else nxt], dim=1)
+
+    @staticmethod
+    def backward(fctx, g):
+        top, bottom, ctx = fctx.args
+        h = g.shape[1] - top - bottom
+        # The halo rows' cotangents go back to the ranks whose rows they are.
+        prev, nxt = _exchange(g[:, :top], g[:, top + h:], ctx)
+        dx = g[:, top:top + h].clone()
+        if prev is not None:  # the rank above read our first rows as its bottom halo
+            dx[:, :bottom] += prev
+        if nxt is not None:  # the rank below read our last rows as its top halo
+            dx[:, h - top:] += nxt
+        return dx, None, None, None
+
+
 def halo_rows(x: torch.Tensor, top: int, bottom: int, ctx) -> torch.Tensor:
     """NHWC rows ``x`` with ``top`` rows of the previous rank above and
     ``bottom`` rows of the next rank below (zeros past the image's edges):
-    what a conv of this rank's output rows reads."""
+    what a conv of this rank's output rows reads. The halo rows' gradient
+    goes back to the ranks whose rows they are, added to their edge rows."""
     h = x.shape[1]
     if top > h or bottom > h:
         raise ValueError(f"a halo of {max(top, bottom)} rows over {h} local rows")
-    prev, nxt = _neighbour_rows(x[:, :bottom], x[:, h - top:], ctx)
-    zeros = lambda k: x.new_zeros((x.shape[0], k, *x.shape[2:]))  # noqa: E731
-    return torch.cat([zeros(top) if prev is None else prev, x,
-                      zeros(bottom) if nxt is None else nxt], dim=1)
+    return _HaloRows.apply(x, top, bottom, ctx)
+
+
+class _FillHalo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, xp, ctx):
+        fctx.ctx = ctx
+        fctx.mark_dirty(xp)
+        h = xp.shape[1] - 2
+        prev, nxt = _exchange(xp[:, 1:2], xp[:, h:h + 1], ctx)
+        if prev is not None:
+            xp[:, :1] = prev
+        if nxt is not None:
+            xp[:, h + 1:] = nxt
+        return xp
+
+    @staticmethod
+    def backward(fctx, g):
+        h = g.shape[1] - 2
+        prev, nxt = _exchange(g[:, :1], g[:, h + 1:], fctx.ctx)
+        dxp = g.clone()
+        dxp[:, :1] = 0  # the border rows were replaced: none of xp's reaches the output
+        dxp[:, h + 1:] = 0
+        if prev is not None:
+            dxp[:, 1:2] += prev
+        if nxt is not None:
+            dxp[:, h:h + 1] += nxt
+        return dxp, None
 
 
 def fill_halo(xp: torch.Tensor, ctx) -> torch.Tensor:
     """A 1-px padded NHWC slab ``xp`` (B, h + 2, W + 2, C) with its top and
     bottom border rows replaced, in place, by the neighbouring ranks' edge
     rows (left as zeros at the image's edges): the conv kernel's
-    ``pre_padded`` input for this rank's rows."""
-    h = xp.shape[1] - 2
-    prev, nxt = _neighbour_rows(xp[:, 1:2], xp[:, h:h + 1], ctx)
-    if prev is not None:
-        xp[:, :1] = prev
-    if nxt is not None:
-        xp[:, h + 1:] = nxt
-    return xp
+    ``pre_padded`` input for this rank's rows. The cotangent of each border
+    row goes back to the neighbour whose edge row it is, added to that
+    row's."""
+    return _FillHalo.apply(xp, ctx)
 
 
 def randn_spatial(shape, generator: torch.Generator, ctx, h_dim: int, *, device,
@@ -202,10 +293,21 @@ def randn_spatial(shape, generator: torch.Generator, ctx, h_dim: int, *, device,
     whose rank-local shape is ``shape``: every rank draws what one process
     would and keeps its rows, so a spatially split run samples the noise of
     an unsplit one."""
-    full = list(shape)
-    full[h_dim] *= ctx.size
-    noise = torch.randn(full, generator=generator, device=device, dtype=dtype)
-    return shard_rows(noise, ctx, h_dim)
+    return randn_rows(shape, generator, None, device=device, dtype=dtype,
+                      spatial=(ctx, h_dim))
+
+
+def spatial_batch(batch: dict, ctx) -> dict:
+    """This rank's image rows of a batch of tensors or host arrays
+    (``shard_batch_spatial``'s placement): every leaf of 4 dimensions or
+    more (NCHW images, latents) split along H over ``ctx``'s group,
+    contiguous; ids and embeddings whole."""
+    def rows(v):
+        start, stop = spatial_rows(v.shape[2], ctx.rank, ctx.size)
+        part = v[:, :, start:stop]
+        return part.contiguous() if isinstance(part, torch.Tensor) else part.copy()
+
+    return {k: rows(v) if v.ndim >= 4 else v for k, v in batch.items()}
 
 
 def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
@@ -233,13 +335,15 @@ def _runs(numels: Sequence[int], bucket: int) -> list[list[int]]:
 
 @torch.no_grad()
 def all_reduce_mean_list(tensors: list, *, bucket_bytes: int = BUCKET_BYTES,
-                         consume: bool = False) -> list[torch.Tensor]:
-    """The mean over the ranks of each of ``tensors`` (new tensors, views
-    into bucketed flat buffers; ``consume`` empties the list's entries as
-    their bucket is packed, so their memory can go)."""
-    if world_size() == 1:
+                         consume: bool = False, group=None,
+                         sum_group=None) -> list[torch.Tensor]:
+    """The mean over the ranks (of ``group``; None: all) of each of
+    ``tensors`` (new tensors, views into bucketed flat buffers; ``consume``
+    empties the list's entries as their bucket is packed, so their memory
+    can go); with ``sum_group``, summed over that group's ranks first."""
+    n = world_size() if group is None else dist.get_world_size(group)
+    if n == 1 and sum_group is None:
         return list(tensors)
-    n = world_size()
     out = [None] * len(tensors)
     esize = tensors[0].element_size() if tensors else 4
     for idx in _runs([t.numel() for t in tensors], max(1, bucket_bytes // esize)):
@@ -248,8 +352,11 @@ def all_reduce_mean_list(tensors: list, *, bucket_bytes: int = BUCKET_BYTES,
         if consume:
             for i in idx:
                 tensors[i] = None
-        dist.all_reduce(flat)
-        flat.div_(n)
+        if sum_group is not None:
+            dist.all_reduce(flat, group=sum_group)
+        if n > 1:
+            dist.all_reduce(flat, group=group)
+            flat.div_(n)
         for i, v, shape in zip(idx, flat.split([math.prod(sh) for sh in shapes]), shapes):
             out[i] = v.view(shape)
     return out
@@ -302,11 +409,30 @@ class DataParallel:
     """The collectives of one list of trainable tensors (the module's own,
     full ones) under ``strategy``: gradient reduction, the norm of a
     reduced gradient, the parameters' gather after an update (zero1) or
-    around a step (fsdp), and full copies of shards."""
+    around a step (fsdp), and full copies of shards.
+
+    Under a data x model ``layout`` (``tpctx.join_train_parallel``; the
+    strategy is then ddp over the data axis) the gradients' mean is taken
+    over the data group alone. Under sp each rank's gradient is its rows'
+    share, summed over the model group first. Under tp the tensors named
+    ``names`` are this rank's slices of leaves of ``full_shapes`` where the
+    slicing rule says so (``sliced``): their norms are summed over the model
+    group, and :meth:`whole` gathers them."""
 
     def __init__(self, tensors: Sequence[torch.Tensor], strategy: str, *,
-                 bucket_bytes: int = BUCKET_BYTES):
+                 bucket_bytes: int = BUCKET_BYTES, layout=None, names=None, full_shapes=None):
         check_strategy(strategy)
+        if layout is not None and strategy != "ddp":
+            raise ValueError(f"a data x model layout takes ddp over its data axis, not {strategy}")
+        self.layout_ctx = layout
+        self.group = None if layout is None else layout.data_group
+        self.sum_group = layout.group if layout is not None and layout.mode == "sp" else None
+        self.names, self.full_shapes = names, full_shapes
+        self.sliced = None
+        if layout is not None and layout.mode == "tp":
+            from gmdx_torch.dist.tp import is_sliced
+
+            self.sliced = [is_sliced(n, sh, layout.size) for n, sh in zip(names, full_shapes)]
         self.tensors = list(tensors)
         dtypes = {t.dtype for t in self.tensors}
         if len(dtypes) != 1:
@@ -314,7 +440,8 @@ class DataParallel:
         self.dtype = dtypes.pop()
         self.device = self.tensors[0].device
         self.strategy = strategy
-        self.world, self.rank = world_size(), rank()
+        self.world, self.rank = ((world_size(), rank()) if layout is None
+                                 else (layout.data_size, layout.data_rank))
         esize = self.tensors[0].element_size()
         self.layout = ShardLayout([t.numel() for t in self.tensors], self.world, self.rank,
                                   bucket_bytes // esize)
@@ -381,7 +508,8 @@ class DataParallel:
         full tensors under ddp, this rank's pieces under zero1 and fsdp."""
         if not self.sharded:
             return all_reduce_mean_list(grads, bucket_bytes=self.layout.bucket
-                                        * self.tensors[0].element_size(), consume=True)
+                                        * self.tensors[0].element_size(), consume=True,
+                                        group=self.group, sum_group=self.sum_group)
         n = self.world
         shard = self.new_shard()
         for k, (lo, hi) in enumerate(self.layout.buckets()):
@@ -400,6 +528,11 @@ class DataParallel:
         """Each tensor's squared gradient norm, from :meth:`reduce`'s
         output (summed over the ranks' pieces when sharded)."""
         norms = torch.stack(torch._foreach_norm([g.float() for g in grads])) ** 2
+        if self.sliced is not None:  # a slice's share of its leaf's, summed over the slices
+            mask = torch.tensor(self.sliced, device=norms.device)
+            part = torch.where(mask, norms, 0.0)
+            dist.all_reduce(part, group=self.layout_ctx.group)
+            return torch.where(mask, part, norms)
         if not self.sharded:
             return norms
         index = torch.tensor(self.piece_index(), device=self.device, dtype=torch.long)
@@ -410,6 +543,8 @@ class DataParallel:
     @torch.no_grad()
     def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of a gradient in :meth:`reduce`'s form."""
+        if self.sliced is not None:
+            return self.sq_norms(grads).sum().sqrt()
         norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
         if not self.sharded:
             return torch.linalg.vector_norm(norms)
@@ -481,6 +616,18 @@ class DataParallel:
                 self.release()
 
     @torch.no_grad()
+    def whole(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The whole leaves of ``tensors`` (one per tensor, in this layout's
+        order): tp's slices gathered over the model group, the rest as they
+        are (a collective of the model group under tp)."""
+        if self.sliced is None:
+            return list(tensors)
+        from gmdx_torch.dist.tp import gather_slices
+
+        return [gather_slices(n, t, sh, self.layout_ctx)
+                for n, t, sh in zip(self.names, tensors, self.full_shapes)]
+
+    @torch.no_grad()
     def full(self, flat: torch.Tensor) -> list[torch.Tensor]:
         """Full tensors from a shard buffer, on every rank."""
         out = [torch.empty(t.shape, dtype=flat.dtype, device=self.device)
@@ -507,8 +654,46 @@ _FIELDS = {
 }
 
 
+def _model_parallel(state, strategy: str, layout, bucket_bytes: int):
+    """tp / sp of a Stage-2 state over ``layout``'s data x model grid. tp:
+    the UNet's parameters, the optimizer's moments and accumulator and the
+    EMA become this rank's slices (``dist.tp``'s rule, the JAX package's
+    ``tp_shard_params``); sp: all stay whole. The gradient's mean goes over
+    the data axis (:class:`DataParallel`'s layout)."""
+    if type(state).__name__ != "Stage2State":
+        raise NotImplementedError(f"--shard_strategy {strategy} of a {type(state).__name__} "
+                                  f"({TP_SP_ITEM})")
+    if layout is None or layout.mode != strategy:
+        raise ValueError(f"--shard_strategy {strategy} needs its data x model layout "
+                         f"(tpctx.join_train_parallel)")
+    module, opt = state.unet, state.optimizer
+    adam = _adam(opt)
+    names = [n for n, p in module.named_parameters() if p.requires_grad]
+    if len(names) != len(adam.params):
+        raise ValueError(f"the optimizer holds {len(adam.params)} tensors, the UNet "
+                         f"{len(names)} trainable parameters")
+    shapes = [tuple(p.shape) for p in adam.params]
+    if strategy == "tp":
+        from gmdx_torch.dist.tp import tp_shard_module, tp_slice
+
+        def cut(i, t):
+            return tp_slice(names[i], t, layout.rank, layout.size)
+
+        tp_shard_module(module, layout.rank, layout.size)
+        own = dict(module.named_parameters())
+        adam.reslice([own[n] for n in names], cut)
+        if hasattr(opt, "acc"):
+            opt.acc = [cut(i, a) for i, a in enumerate(opt.acc)]
+        if state.ema is not None:
+            state.ema.shadow = [cut(i, t) for i, t in enumerate(state.ema.shadow)]
+    adam.distribute(DataParallel(adam.params, "ddp", bucket_bytes=bucket_bytes, layout=layout,
+                                 names=names, full_shapes=shapes))
+    return state
+
+
 def apply_shard_strategy(state, strategy: str, *, param_fields: Sequence[str],
-                         opt_fields: Sequence[str], bucket_bytes: int = BUCKET_BYTES):
+                         opt_fields: Sequence[str], bucket_bytes: int = BUCKET_BYTES,
+                         layout=None):
     """Distribute a train state over the ranks per ``--shard_strategy``,
     with gmdx's field lists of the trainer (Stage 2 and ControlNet:
     ``("params", "ema")``, ``("opt_state",)``; Stage 1: ``("trainables",
@@ -517,7 +702,11 @@ def apply_shard_strategy(state, strategy: str, *, param_fields: Sequence[str],
     ``param_fields`` too. Each of the state's optimizers gets a
     :class:`DataParallel` of its parameters (in a group of one process
     too: its collectives then run on one rank). Outside a process group
-    the state is returned as it is; tp and sp raise."""
+    the state is returned as it is. tp and sp (a Stage-2 state) take the
+    data x model ``layout`` of ``tpctx.join_train_parallel``
+    (:func:`_model_parallel`)."""
+    if strategy in MODEL_STRATEGIES:
+        return _model_parallel(state, strategy, layout, bucket_bytes)
     check_strategy(strategy)
     if not is_initialized():
         return state
@@ -545,6 +734,7 @@ def apply_shard_strategy(state, strategy: str, *, param_fields: Sequence[str],
 
 __all__ = [
     "STRATEGIES",
+    "MODEL_STRATEGIES",
     "TP_SP_ITEM",
     "check_strategy",
     "data_parallel_size",
@@ -559,6 +749,7 @@ __all__ = [
     "halo_rows",
     "fill_halo",
     "randn_spatial",
+    "spatial_batch",
     "all_reduce_mean",
     "all_reduce_mean_list",
     "ShardLayout",

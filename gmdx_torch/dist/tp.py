@@ -27,6 +27,12 @@ of the transformer's 1x1 ``proj_in`` is sharded although its weight is not
 where GSPMD reshards a contiguous column split silently, the port slices
 each half by rank, so that a rank's hidden and gate columns belong together
 and ``ff.net.2``'s rows match them.
+
+For training the layers' collectives carry their adjoints
+(:func:`copy_to_model`, :func:`reduce_from_model`, :func:`gather_full`:
+Megatron's ``f`` and ``g`` and the gathered weight's slice), and
+:func:`gather_slices` puts a leaf back together for the norms,
+checkpoints and the final pipeline.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from gmdx_torch.dist.mesh import gather_rows
+from gmdx_torch.dist.mesh import all_gather_stacked
 
 # Column-parallel 2-D weights: torch (out, in), OUT sharded.
 _COL2D = ("to_q", "to_k", "to_v", "proj_in", "time_emb_proj", "linear_1")
@@ -142,20 +148,90 @@ def tp_shard_module(module: nn.Module, rank: int, n_shards: int) -> nn.Module:
     return assign_state_dict(module, sd)
 
 
-def all_reduce(t: torch.Tensor, ctx) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of ``ctx``'s group, in place."""
-    dist.all_reduce(t, group=ctx.group)
-    return t
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over the ranks of ``ctx``'s
+    group: the input of a column-parallel layer, which each rank multiplies
+    by its slice of the weight, so that each rank's input gradient is its
+    share of the whole one (Megatron's ``f``)."""
+    return _CopyToModel.apply(x, ctx.group)
+
+
+def reduce_from_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``ctx``'s group (a new tensor),
+    whose gradient passes through as it is: the partial products of a
+    row-parallel layer (Megatron's ``g``); every rank's cotangent of the sum
+    is already the whole one."""
+    return _ReduceFromModel.apply(x, ctx.group)
+
+
+class _GatherFull(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, full_shape, pctx):
+        d = next(i for i, (a, b) in enumerate(zip(t.shape, full_shape)) if a != b)
+        ctx.d, ctx.rank, ctx.n = d, pctx.rank, t.shape[d]
+        return torch.cat(list(all_gather_stacked(t, pctx).unbind(0)), dim=d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.d, ctx.rank * ctx.n, ctx.n), None, None
 
 
 def gather_full(t: torch.Tensor, full_shape, ctx) -> torch.Tensor:
     """The full tensor of shape ``full_shape`` of which ``t`` is this rank's
-    contiguous slice along one dimension (``t`` itself when whole)."""
+    contiguous slice along one dimension (``t`` itself when whole). Every
+    rank uses the full tensor alike (the layers compute with it whole), so
+    its gradient is this rank's slice of its cotangent, summed over nothing."""
     if tuple(t.shape) == tuple(full_shape):
         return t
-    d = next(i for i, (a, b) in enumerate(zip(t.shape, full_shape)) if a != b)
-    return gather_rows(t, ctx, d)
+    return _GatherFull.apply(t, tuple(full_shape), ctx)
+
+
+def is_sliced(key: str, shape, n_shards: int) -> bool:
+    """Whether tensor parallelism over ``n_shards`` ranks gives each rank a
+    slice of ``key``'s full tensor of ``shape`` (else each holds it whole)."""
+    return tp_spec_for_key(key, shape, n_shards) is not None
+
+
+def gather_slices(key: str, t: torch.Tensor, full_shape, ctx) -> torch.Tensor:
+    """The full tensor of ``key`` from every rank's slice ``t`` of it (the
+    inverse of :func:`tp_slice`: a GEGLU projection's halves put back in
+    place); ``t`` itself where the rule replicates. A collective of
+    ``ctx``'s group, without autograd."""
+    if not is_sliced(key, full_shape, ctx.size):
+        return t
+    d = tp_spec_for_key(key, full_shape, ctx.size)
+    parts = all_gather_stacked(t.detach(), ctx).unbind(0)
+    if is_geglu_proj(key):
+        halves = [p.chunk(2, dim=0) for p in parts]
+        return torch.cat([torch.cat([h[i] for h in halves]) for i in range(2)])
+    return torch.cat(parts, dim=d)
 
 
 __all__ = ["tp_spec_for_key", "tp_slice", "tp_shard_state_dict", "tp_shard_module",
-           "assign_state_dict", "is_geglu_proj", "all_reduce", "gather_full"]
+           "assign_state_dict", "is_geglu_proj", "is_sliced", "copy_to_model",
+           "reduce_from_model", "gather_full", "gather_slices"]

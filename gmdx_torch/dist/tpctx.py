@@ -16,9 +16,14 @@ group, its size and this process's rank in it, and the mode:
   merges each rank's statistics.
 
 The context is thread-local, as the JAX module's is (its
-``tp_kernel_context``), and set with :func:`parallel_context`; :func:`active`
-is None outside one. A model whose weights are slices raises
-outside a ``"tp"`` context rather than compute with them.
+``tp_kernel_context``), and set with :func:`parallel_context` (serving:
+one model group) or :func:`entered` (training's data x model grid,
+:func:`join_train_parallel`, whose context also carries the data axis);
+:func:`active` is None outside one. A model whose weights are slices raises
+outside a ``"tp"`` context rather than compute with them. Under autograd
+the layers' collectives are ``autograd.Function``s whose backward issues
+the adjoint collective (``gmdx_torch.dist.tp``, ``gmdx_torch.dist.mesh``),
+and a remat block's recompute enters the context it was called in.
 """
 
 from __future__ import annotations
@@ -38,6 +43,11 @@ class ParallelContext:
     group: object  # the model axis's ProcessGroup (None: the default group)
     size: int
     rank: int
+    # Training's data axis (:func:`join_train_parallel`): the ranks that hold
+    # this rank's model index in every model group; a group of one in serving.
+    data_group: object = None
+    data_size: int = 1
+    data_rank: int = 0
 
 
 _state = threading.local()
@@ -61,6 +71,16 @@ def sp_active() -> ParallelContext | None:
 
 
 @contextlib.contextmanager
+def entered(ctx: ParallelContext | None):
+    """The block inside ``ctx`` (None: outside any context)."""
+    prev = active()
+    _state.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _state.ctx = prev
+
+
 def parallel_context(mode: str, group=None):
     """Split the layers called in the block over ``group`` (the default
     process group when None) in ``mode`` ("tp" or "sp")."""
@@ -68,12 +88,8 @@ def parallel_context(mode: str, group=None):
         raise ValueError(f"parallel mode is one of {MODES}, got {mode!r}")
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(f"a {mode} context needs a torch.distributed process group")
-    prev = active()
-    _state.ctx = ParallelContext(mode, group, dist.get_world_size(group), dist.get_rank(group))
-    try:
-        yield _state.ctx
-    finally:
-        _state.ctx = prev
+    return entered(ParallelContext(mode, group, dist.get_world_size(group),
+                                   dist.get_rank(group)))
 
 
 def join_model_parallel(tp_size: int = 1, sp_size: int = 1):
@@ -110,5 +126,29 @@ def join_model_parallel(tp_size: int = 1, sp_size: int = 1):
     return "tp", group, rank % width, width
 
 
-__all__ = ["MODES", "ParallelContext", "active", "tp_active", "sp_active",
-           "parallel_context", "join_model_parallel"]
+def join_train_parallel(strategy: str, size: int) -> ParallelContext:
+    """The trainers' ``--shard_strategy tp|sp`` with ``--tp_size``/
+    ``--sp_size`` ``size``: the ranks as a data x model grid of
+    ``(world / size, size)``, the model axis innermost (ranks r and r + 1
+    share a model group, as the JAX package's ``make_train_mesh`` lays its
+    mesh out), joined from torchrun's environment or the group already
+    joined. Every rank makes every model group and every data group, in the
+    same order. Returns this rank's context: its model group, size and
+    index, and its data group, size and index."""
+    if strategy not in MODES:
+        raise ValueError(f"a train layout is one of {MODES}, got {strategy!r}")
+    from gmdx_torch.dist import multihost
+
+    multihost.initialize()
+    n, rank = multihost.world_size(), multihost.rank()
+    if size < 2 or n % size:  # gmdx/dist/mesh.py:make_train_mesh's check
+        raise ValueError(f"--shard_strategy {strategy} needs a group size >= 2 dividing the "
+                         f"device count ({n}); got {size}")
+    models = [dist.new_group(list(range(g, g + size))) for g in range(0, n, size)]
+    datas = [dist.new_group(list(range(m, n, size))) for m in range(size)]
+    return ParallelContext(strategy, models[rank // size], size, rank % size,
+                           datas[rank % size], n // size, rank // size)
+
+
+__all__ = ["MODES", "ParallelContext", "active", "tp_active", "sp_active", "entered",
+           "parallel_context", "join_model_parallel", "join_train_parallel"]

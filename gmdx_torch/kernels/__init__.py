@@ -39,6 +39,8 @@ LAUNCHES = {
     "flash_attention_bwd": 0,
     "flash_attention_bwd_d512": 0,
     "group_norm_silu_bwd": 0,
+    "group_norm_bwd_sums": 0,
+    "group_norm_bwd_apply": 0,
     "cross_attention_shortk": 0,
     "add_layer_norm": 0,
     "geglu_ff": 0,

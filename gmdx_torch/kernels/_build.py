@@ -56,6 +56,8 @@ ENTRY_POINTS = {
     "gmdx_group_norm_apply": ("groupnorm", [*[_P] * 6, *[_I] * 7, _P]),
     "gmdx_group_norm_silu_bwd": ("groupnorm", [*[_P] * 13, *[_I] * 9, _P]),
     "gmdx_group_norm_bwd_plan": ("groupnorm", [_I, _I, _I, _I, _P]),
+    "gmdx_group_norm_bwd_sums": ("groupnorm", [*[_P] * 10, *[_I] * 7, _P]),
+    "gmdx_group_norm_bwd_apply": ("groupnorm", [*[_P] * 10, *[_I] * 8, _P]),
     "gmdx_geglu_ff_ln": (
         "geglu_ff",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],

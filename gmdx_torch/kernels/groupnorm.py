@@ -21,7 +21,13 @@ apply passes with a reduction between them. :func:`group_norm_moments`
 takes each group's (mean, M2) over a rank's rows, :func:`merge_moments`
 merges every rank's into the image's (mean, rstd), and
 :func:`group_norm_apply` normalises the rows with them (the collective
-between them is the caller's: ``gmdx_torch.models.layers.GroupNorm``).
+between them is the caller's: ``gmdx_torch.models.layers.GroupNorm``). The
+backward splits the same way, at the one-rank kernel's grid barrier:
+:func:`group_norm_bwd_sums` takes each group's sums of ``dy * scale`` and
+``dy * scale * xhat`` over a rank's rows (and the rows' parameter
+gradients), the caller all-reduces them, and :func:`group_norm_bwd_apply`
+writes the rows' dx (and dtemb's share) from the image's sums
+(``gmdx_torch.models.layers.SpatialGroupNorm``).
 """
 
 from __future__ import annotations
@@ -369,6 +375,31 @@ def _expand(t: torch.Tensor, c: int) -> torch.Tensor:
     return t.repeat_interleave(c // t.shape[1], dim=1)[:, None, None, :]
 
 
+def _bwd_terms(x, scale, bias, temb, stats, g, activate, pad_output):
+    """The backward's per-element terms in fp32: (xhat, dy through the SiLU
+    derivative, rstd per channel); the padded cotangent's border dropped."""
+    if pad_output:
+        g = g[:, 1:-1, 1:-1, :]
+    c = x.shape[-1]
+    xf = x.float()
+    if temb is not None:
+        xf = xf + temb.float()[:, None, None, :]
+    rstd = _expand(stats[:, 1].float(), c)
+    xhat = (xf - _expand(stats[:, 0].float(), c)) * rstd
+    dy = g.float()
+    if activate:
+        y = xhat * scale.float() + bias.float()
+        sig = torch.sigmoid(y)
+        dy = dy * sig * (1.0 + y * (1.0 - sig))
+    return xhat, dy, rstd
+
+
+def _group_sum(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, G): the sum over each group's pixels and channels."""
+    b, h, w, c = t.shape
+    return t.reshape(b, h * w, groups, c // groups).sum(dim=(1, 3))
+
+
 def group_norm_silu_bwd_plain(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -385,30 +416,126 @@ def group_norm_silu_bwd_plain(
     ``dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))`` per
     group. Returns (dx in x's dtype, dscale, dbias, dtemb) with the last
     three fp32 (dtemb None without temb)."""
-    if pad_output:
-        g = g[:, 1:-1, 1:-1, :]
+    sums, dscale, dbias = group_norm_bwd_sums_plain(
+        x, scale, bias, temb, stats, g, activate=activate, pad_output=pad_output)
+    dx, dtemb = group_norm_bwd_apply_plain(
+        x, scale, bias, temb, stats, g, sums, x.shape[1] * x.shape[2], activate=activate,
+        pad_output=pad_output)
+    return dx, dscale, dbias, dtemb
+
+
+# --- the split backward: an image whose rows lie on several ranks -----------
+
+
+def group_norm_bwd_sums_plain(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, g: torch.Tensor, *, activate: bool = True, pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's sums over x's pixels (a rank's rows of the image whose
+    (B, 2, G) ``stats`` are given): (sums, dscale, dbias), sums (B, 2, G)
+    fp32 holding each group's sum of ``dy * scale`` and of
+    ``dy * scale * xhat``, and the parameters' gradients over these pixels,
+    fp32."""
+    xhat, dy, _ = _bwd_terms(x, scale, bias, temb, stats, g, activate, pad_output)
+    groups = stats.shape[-1]
+    dxhat = dy * scale.float()
+    sums = torch.stack([_group_sum(dxhat, groups), _group_sum(dxhat * xhat, groups)], 1)
+    return sums, (dy * xhat).sum(dim=(0, 1, 2)), dy.sum(dim=(0, 1, 2))
+
+
+def group_norm_bwd_apply_plain(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, count: int, *,
+    activate: bool = True, pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """dx over x's pixels from the whole image's ``sums`` (every rank's
+    :func:`group_norm_bwd_sums_plain`, summed) over its ``count`` pixels:
+    ``dx = rstd * (dxhat - m1 - xhat * m2)``, m1 and m2 the sums over
+    ``count * C / G``. Returns (dx in x's dtype, dtemb: dx summed over these
+    pixels, fp32, or None without temb)."""
+    xhat, dy, rstd = _bwd_terms(x, scale, bias, temb, stats, g, activate, pad_output)
+    c = x.shape[-1]
+    m = sums.float() / (count * (c // stats.shape[-1]))
+    dx = rstd * (dy * scale.float() - _expand(m[:, 0], c) - xhat * _expand(m[:, 1], c))
+    dtemb = dx.sum(dim=(1, 2)) if temb is not None else None
+    return dx.to(x.dtype), dtemb
+
+
+def _split_bwd_checks(name, x, g, stats, pad_output) -> tuple[int, int]:
+    """(groups, pad) of a split-backward call on the card, its shapes checked."""
     b, h, w, c = x.shape
     groups = stats.shape[-1]
-    xf = x.float()
+    pad = 1 if pad_output else 0
+    if g.shape != (b, h + 2 * pad, w + 2 * pad, c) or stats.shape != (b, 2, groups):
+        raise ValueError(f"{name}: g {tuple(g.shape)}, stats {tuple(stats.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    if c % 8 or c > MAX_CHANNELS or groups > MAX_GROUPS or c % groups:
+        raise ValueError(f"{name} kernel: unsupported C={c}, G={groups}")
+    return groups, pad
+
+
+def group_norm_bwd_sums(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, g: torch.Tensor, *, activate: bool = True, pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`group_norm_bwd_sums_plain` by ``gmdx_group_norm_bwd_sums``:
+    the GN-backward kernel's phase before its grid barrier over x's pixels,
+    over :func:`group_norm_bwd_plan`'s pixel ranges of each image (its grid
+    (splits, B)), then its folds over the tiles."""
+    if not x.is_cuda:
+        return group_norm_bwd_sums_plain(x, scale, bias, temb, stats, g, activate=activate,
+                                         pad_output=pad_output)
+    groups, pad = _split_bwd_checks("group_norm_bwd_sums", x, g, stats, pad_output)
+    stream = check_kernel_operands("group_norm_bwd_sums", x, g, scale, bias, temb)
+    check_fp32("group_norm_bwd_sums", stats)
+    from gmdx_torch.kernels import _build
+
+    b, h, w, c = x.shape
+    tiles = b * group_norm_bwd_plan(b, h, w, c).grid[0]
+    f32 = {"dtype": torch.float32, "device": x.device}
+    sums = torch.empty((b, 2, groups), **f32)
+    dparams = torch.empty((2, c), **f32)  # dbias, dscale
+    chpart, grpart = torch.empty((tiles, 2, c), **f32), torch.empty((tiles, 2, groups), **f32)
+    _build.call("gmdx_group_norm_bwd_sums", x.data_ptr(), g.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), temb.data_ptr() if temb is not None else None,
+                stats.data_ptr(), sums.data_ptr(), dparams.data_ptr(), chpart.data_ptr(),
+                grpart.data_ptr(), b, h, w, c, groups, int(activate), pad, stream)
+    LAUNCHES["group_norm_bwd_sums"] += 1
+    return sums, dparams[1], dparams[0]
+
+
+def group_norm_bwd_apply(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, temb: torch.Tensor | None,
+    stats: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, count: int, *,
+    activate: bool = True, pad_output: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`group_norm_bwd_apply_plain` by ``gmdx_group_norm_bwd_apply``:
+    the GN-backward kernel's phase after its grid barrier over x's pixels,
+    then dtemb's fold over the tiles."""
+    if not x.is_cuda:
+        return group_norm_bwd_apply_plain(x, scale, bias, temb, stats, g, sums, count,
+                                          activate=activate, pad_output=pad_output)
+    groups, pad = _split_bwd_checks("group_norm_bwd_apply", x, g, stats, pad_output)
+    b, h, w, c = x.shape
+    if sums.shape != (b, 2, groups) or count < h * w:
+        raise ValueError(f"group_norm_bwd_apply: sums {tuple(sums.shape)}, count {count} vs x "
+                         f"{tuple(x.shape)}")
+    stream = check_kernel_operands("group_norm_bwd_apply", x, g, scale, bias, temb)
+    check_fp32("group_norm_bwd_apply", stats, sums)
+    from gmdx_torch.kernels import _build
+
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx = torch.empty_like(x)
+    dtemb = tpart = None
     if temb is not None:
-        xf = xf + temb.float()[:, None, None, :]
-    rstd = _expand(stats[:, 1].float(), c)
-    xhat = (xf - _expand(stats[:, 0].float(), c)) * rstd
-    dy = g.float()
-    if activate:
-        y = xhat * scale.float() + bias.float()
-        sig = torch.sigmoid(y)
-        dy = dy * sig * (1.0 + y * (1.0 - sig))
-    dbias = dy.sum(dim=(0, 1, 2))
-    dscale = (dy * xhat).sum(dim=(0, 1, 2))
-    dxhat = dy * scale.float()
-
-    def group_mean(t):
-        return t.reshape(b, h * w, groups, c // groups).mean(dim=(1, 3))
-
-    dx = rstd * (dxhat - _expand(group_mean(dxhat), c) - xhat * _expand(group_mean(dxhat * xhat), c))
-    dtemb = dx.sum(dim=(1, 2)) if temb is not None else None
-    return dx.to(x.dtype), dscale, dbias, dtemb
+        dtemb = torch.empty((b, c), **f32)
+        tpart = torch.empty((b * group_norm_bwd_plan(b, h, w, c).grid[0], c), **f32)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _build.call("gmdx_group_norm_bwd_apply", x.data_ptr(), g.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), ptr(temb), stats.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+                ptr(dtemb), ptr(tpart), b, h, w, c, groups, count, int(activate), pad, stream)
+    LAUNCHES["group_norm_bwd_apply"] += 1
+    return dx, dtemb
 
 
 # Per device: the backward's grid barrier and per-image arrival counters
@@ -522,5 +649,9 @@ __all__ = [
     "group_norm_apply_plain",
     "group_norm_silu_bwd",
     "group_norm_silu_bwd_plain",
+    "group_norm_bwd_sums",
+    "group_norm_bwd_sums_plain",
+    "group_norm_bwd_apply",
+    "group_norm_bwd_apply_plain",
     "GroupNormSiLU",
 ]

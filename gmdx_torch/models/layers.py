@@ -30,18 +30,24 @@ backward, and ``F.conv2d`` for the 3x3 conv (the JAX package's direct conv
 under AD).
 
 Inside a ``gmdx_torch.dist.tpctx`` context the layers split over the ranks
-of a process group, for inference. Tensor parallelism ("tp"): a layer whose
-weights are this rank's slices (``gmdx_torch.dist.tp``) computes its slice
-of the output (column-parallel) or its share of a sum (row-parallel:
-``to_out``, ``ff.net.2``, ``linear_2``, ``conv2``, all-reduced, the bias
+of a process group, for serving and under autograd for training. Tensor
+parallelism ("tp"): a layer whose weights are this rank's slices
+(``gmdx_torch.dist.tp``) computes its slice of the output
+(column-parallel: its input's gradient summed over the ranks,
+``copy_to_model``) or its share of a sum (row-parallel: ``to_out``,
+``ff.net.2``, ``linear_2``, ``conv2``, ``reduce_from_model``, the bias
 added once after); attention runs head-parallel on the kernels, the
 second GroupNorm of a resnet normalises the rank's ``C / tp`` channels as
-``32 / tp`` whole groups, and GroupNorm, the conv and the FF take library
-calls (:func:`gmdx_torch.kernels.attention.tp_route`). Spatial parallelism
+``32 / tp`` whole groups (the affine slices' gradients summed back into
+the whole), and GroupNorm, the conv and the FF take library calls
+(:func:`gmdx_torch.kernels.attention.tp_route`). Spatial parallelism
 ("sp"): activations are the rank's rows of the image; GroupNorm merges
-every rank's statistics (:meth:`GroupNorm._spatial_parallel`), the 3x3 convs read
-their neighbours' halo rows (the padded GroupNorm output's border, or
-:func:`gmdx_torch.dist.mesh.halo_rows`), self-attention gathers K and V.
+every rank's statistics and, backward, sums every rank's group sums
+(:class:`SpatialGroupNorm`), the 3x3 convs read their neighbours' halo
+rows (the padded GroupNorm output's border, or
+:func:`gmdx_torch.dist.mesh.halo_rows`), self-attention gathers K and V;
+the halo rows' and K/V's gradients go back to the ranks whose rows they
+are.
 """
 
 from __future__ import annotations
@@ -50,13 +56,14 @@ import math
 import weakref
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from gmdx_torch.dist import tpctx
 from gmdx_torch.dist.mesh import all_gather_stacked, fill_halo, gather_rows, halo_rows
-from gmdx_torch.dist.tp import all_reduce, gather_full
+from gmdx_torch.dist.tp import copy_to_model, gather_full, reduce_from_model
 from gmdx_torch.kernels import needs_grad
 from gmdx_torch.kernels.attention import attention_packed, dot_product_attention, tp_route
 from gmdx_torch.kernels.geglu_ff import (
@@ -75,6 +82,10 @@ from gmdx_torch.kernels.groupnorm import (
     GroupNormSiLU,
     group_norm_apply,
     group_norm_apply_plain,
+    group_norm_bwd_apply,
+    group_norm_bwd_apply_plain,
+    group_norm_bwd_sums,
+    group_norm_bwd_sums_plain,
     group_norm_moments,
     group_norm_moments_plain,
     group_norm_silu,
@@ -126,9 +137,19 @@ def remat_call(module: nn.Module, enabled: bool, *args):
     (``torch.utils.checkpoint``, non-reentrant): the counterpart of flax's
     ``nn.remat`` on a block. The recompute runs the block's forward again,
     its kernels included. The blocks draw no random numbers, so the RNG
-    state is not stashed."""
+    state is not stashed. Inside a model-parallel context the recompute
+    enters the same context (autograd may run it on another thread), so it
+    issues the forward's collectives again, in the same order on every
+    rank."""
     if enabled and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False,
+        ctx = tpctx.active()
+        if ctx is not None:  # the recompute, in autograd's thread, splits as the forward did
+            def run(*a):
+                with tpctx.entered(ctx):
+                    return module(*a)
+        else:
+            run = module
+        return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
                                                  preserve_rng_state=False)
     return module(*args)
 
@@ -181,14 +202,6 @@ def _tp_library(op: str) -> bool:
     return tp_route(op, 1 if ctx is None else ctx.size) == "library"
 
 
-def _sp_ctx(*tensors):
-    """The spatial-parallel context, if one is active (inference only)."""
-    ctx = tpctx.sp_active()
-    if ctx is not None and needs_grad(*tensors):
-        raise NotImplementedError("spatial parallelism is for inference: no backward")
-    return ctx
-
-
 def _row_split(lin: nn.Linear) -> bool:
     """Whether ``lin`` holds a row-parallel slice (its input dimension)."""
     return lin.weight.shape[1] != lin.in_features
@@ -199,8 +212,16 @@ def linear_row(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     summed over the ranks, then the bias, once."""
     if not _row_split(lin):
         return linear(x, lin)
-    y = all_reduce(F.linear(x, _cast(lin.weight, x)), _tp_ctx("a row-parallel Linear"))
+    y = reduce_from_model(F.linear(x, _cast(lin.weight, x)), _tp_ctx("a row-parallel Linear"))
     return y if lin.bias is None else y + _cast(lin.bias, x)
+
+
+def linear_col(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """:func:`linear`; with a column-parallel slice (its output dimension),
+    the rank's slice of the output, ``x``'s gradient summed over the ranks."""
+    if lin.weight.shape[0] != lin.out_features:
+        x = copy_to_model(x, _tp_ctx("a column-parallel Linear"))
+    return linear(x, lin)
 
 
 def linear_whole(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -223,7 +244,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear_row(F.silu(linear(x, self.linear_1)), self.linear_2)
+        return linear_row(F.silu(linear_col(x, self.linear_1)), self.linear_2)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -240,7 +261,7 @@ def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, *, pad_rows: bool = True) -> t
     the neighbouring ranks (its own zero padding past the image's edges,
     unless ``pad_rows`` is False: the caller's), and a stride-2 conv needs
     even local rows."""
-    ctx = _sp_ctx(x, conv.weight)
+    ctx = tpctx.sp_active()
     kh, sh, ph = conv.kernel_size[0], conv.stride[0], conv.padding[0]
     if ctx is None or kh == 1:
         y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, x), _cast(conv.bias, x),
@@ -267,6 +288,47 @@ def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.linear(x, _cast(w, x), _cast(b, x))
 
 
+class SpatialGroupNorm(torch.autograd.Function):
+    """The image's GroupNorm over this rank's rows ``x`` under spatial
+    parallelism (``ctx``, a ``tpctx.ParallelContext``). Forward: the rows'
+    (mean, M2), one all-gather of every rank's, the merge, then the rows
+    normalised with the image's statistics (padded: its top and bottom
+    border rows left zero for :func:`fill_halo`). Backward, from the saved
+    statistics: the rows' sums of ``dy * scale`` and ``dy * scale * xhat``
+    per group, one all-reduce of every rank's in place of the one-rank
+    kernel's grid barrier, then dx of the rows; the affine parameters' and
+    the temb's gradients are this rank's share (summed over the ranks with
+    every replicated leaf's). Whole activations never cross ranks. The
+    kernels, or with ``use_kernels=False`` their plain versions."""
+
+    @staticmethod
+    def forward(fctx, x, w, b, temb, groups: int, eps: float, activate: bool, pad_output: bool,
+                use_kernels: bool, ctx):
+        _, h, wd, c = x.shape
+        moments = (group_norm_moments if use_kernels else group_norm_moments_plain)(
+            x, temb, num_groups=groups)
+        stats = merge_moments(all_gather_stacked(moments, ctx), h * wd * (c // groups), eps)
+        fctx.save_for_backward(x, w, b, temb, stats)
+        fctx.args = (activate, pad_output, use_kernels, ctx)
+        return (group_norm_apply if use_kernels else group_norm_apply_plain)(
+            x, w, b, temb, stats, activate=activate, pad_output=pad_output)
+
+    @staticmethod
+    def backward(fctx, g):
+        x, w, b, temb, stats = fctx.saved_tensors
+        activate, pad_output, use_kernels, ctx = fctx.args
+        g = g.to(x.dtype).contiguous()
+        kw = {"activate": activate, "pad_output": pad_output}
+        sums, dw, db = (group_norm_bwd_sums if use_kernels else group_norm_bwd_sums_plain)(
+            x, w, b, temb, stats, g, **kw)
+        dist.all_reduce(sums, group=ctx.group)
+        dx, dtemb = (group_norm_bwd_apply if use_kernels else group_norm_bwd_apply_plain)(
+            x, w, b, temb, stats, g, sums, x.shape[1] * x.shape[2] * ctx.size, **kw)
+        return (dx, dw.to(w.dtype), db.to(b.dtype),
+                dtemb.to(temb.dtype) if temb is not None else None,
+                None, None, None, None, None, None)
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics over NHWC, always through the
     GroupNorm kernel (under autograd :class:`GroupNormSiLU`, whose backward
@@ -288,9 +350,11 @@ class GroupNorm(nn.GroupNorm):
         w, b = _cast(self.weight, x), _cast(self.bias, x)
         if _tp_library("group_norm"):
             return self._tensor_parallel(x, w, b, temb, activate, pad_output)
-        ctx = _sp_ctx(x, w, b, temb)
+        ctx = tpctx.sp_active()
         if ctx is not None:
-            return self._spatial_parallel(x, w, b, temb, activate, pad_output, ctx)
+            y = SpatialGroupNorm.apply(x, w, b, temb, self.num_groups, self.eps, activate,
+                                       pad_output, self.use_kernels, ctx)
+            return fill_halo(y, ctx) if pad_output else y
         if self.use_kernels and needs_grad(x, w, b, temb):
             return GroupNormSiLU.apply(
                 x, w, b, temb, self.num_groups, self.eps, activate, pad_output
@@ -300,22 +364,6 @@ class GroupNorm(nn.GroupNorm):
             x, w, b, temb, num_groups=self.num_groups, eps=self.eps,
             activate=activate, pad_output=pad_output,
         )
-
-    def _spatial_parallel(self, x, w, b, temb, activate, pad_output, ctx) -> torch.Tensor:
-        """The image's GroupNorm over this rank's rows ``x``: the rows'
-        (mean, M2), one all-gather of every rank's, the merge, then the rows
-        normalised with the image's statistics. With ``pad_output`` the
-        result is the conv's slab: its top and bottom border rows are the
-        neighbouring ranks' edge rows (zeros at the image's edges). Whole
-        activations never cross ranks."""
-        _, h, wd, c = x.shape
-        moments = (group_norm_moments if self.use_kernels else group_norm_moments_plain)(
-            x, temb, num_groups=self.num_groups)
-        stats = merge_moments(all_gather_stacked(moments, ctx),
-                              h * wd * (c // self.num_groups), self.eps)
-        y = (group_norm_apply if self.use_kernels else group_norm_apply_plain)(
-            x, w, b, temb, stats, activate=activate, pad_output=pad_output)
-        return fill_halo(y, ctx) if pad_output else y
 
     def _tensor_parallel(self, x, w, b, temb, activate, pad_output) -> torch.Tensor:
         """The library call under tensor parallelism; on the rank's ``C / tp``
@@ -328,7 +376,10 @@ class GroupNorm(nn.GroupNorm):
             if self.num_channels % c or groups % n:
                 raise ValueError(f"GroupNorm({groups}, {self.num_channels}): {c} channels a "
                                  f"rank are not whole groups")
-            w, b, groups = w.narrow(0, ctx.rank * c, c), b.narrow(0, ctx.rank * c, c), groups // n
+            # The rank's slice of the whole affine parameters: their
+            # gradient is summed over the ranks, so that each rank's is whole.
+            wb = copy_to_model(torch.stack([w, b]), ctx).narrow(1, ctx.rank * c, c)
+            w, b, groups = wb[0], wb[1], groups // n
         h = x if temb is None else x + temb.to(x.dtype)[:, None, None, :]
         y = F.group_norm(h.permute(0, 3, 1, 2), groups, w, b, self.eps).permute(0, 2, 3, 1)
         y = (F.silu(y) if activate else y).contiguous()
@@ -375,7 +426,7 @@ class Conv3x3(nn.Conv2d):
         bias = _cast(self.bias, x)
         if _tp_library("conv3x3"):
             return self._tensor_parallel(x, bias, pre_padded)
-        ctx = _sp_ctx(x, self.weight, self.bias)
+        ctx = tpctx.sp_active()
         if ctx is not None and not pre_padded:  # the halo rows, then the slab
             x, pre_padded = F.pad(halo_rows(x, 1, 1, ctx), (0, 0, 1, 1)), True
         if needs_grad(x, self.weight, self.bias):
@@ -394,10 +445,12 @@ class Conv3x3(nn.Conv2d):
         sum over the ranks, then the bias)."""
         w = _cast(self.weight, x)
         row = w.shape[1] != self.in_channels
+        if w.shape[0] != self.out_channels:  # conv1's output channels
+            x = copy_to_model(x, _tp_ctx("conv1"))
         y = conv3x3_direct(x, w, None if row else bias, pre_padded=pre_padded)
         if not row:
             return y
-        return all_reduce(y, _tp_ctx("conv2")) + bias
+        return reduce_from_model(y, _tp_ctx("conv2")) + bias
 
 
 class Attention(nn.Module):
@@ -425,11 +478,14 @@ class Attention(nn.Module):
             ctx = _tp_ctx("Attention")
             widths = (self.to_q.out_features, self.to_k.out_features, self.to_v.out_features)
             if tp_route("attention", ctx.size, heads=heads, widths=widths) == "heads":
+                # Column-parallel q/k/v: one gradient sum an input.
                 heads, out = heads // ctx.size, linear_row
+                x = copy_to_model(x, ctx)
+                src = x if context is None else copy_to_model(context, ctx)
             else:
                 qkv = out = linear_whole
         q, k, v = qkv(x, self.to_q), qkv(src, self.to_k), qkv(src, self.to_v)
-        ctx = _sp_ctx(x)
+        ctx = tpctx.sp_active()
         if ctx is not None and context is None:  # the rank's queries, every rank's keys
             k, v = gather_rows(k, ctx, 1), gather_rows(v, ctx, 1)
         a = attention_packed(q, k, v, heads, use_kernels=self.use_kernels,
@@ -488,8 +544,9 @@ class GEGLUFeedForward(nn.Module):
                                                  proj_out.bias))
         if not _row_split(proj_out):
             return geglu_ff_reference(x, residual, w1, b1, w2, b2)
-        hidden, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
-        out = all_reduce(F.linear(hidden * F.gelu(gate), w2), _tp_ctx("the FF")) + b2
+        ctx = _tp_ctx("the FF")
+        hidden, gate = F.linear(copy_to_model(x, ctx), w1, b1).chunk(2, dim=-1)
+        out = reduce_from_model(F.linear(hidden * F.gelu(gate), w2), ctx) + b2
         return out if residual is None else residual + out
 
     def _forward_no_ln(self, x, residual, proj_in, proj_out) -> torch.Tensor:
@@ -578,7 +635,7 @@ class ResnetBlock2D(nn.Module):
         h = self.conv1(h, pre_padded=True)
         t = None
         if temb is not None and hasattr(self, "time_emb_proj"):
-            t = linear(F.silu(temb), self.time_emb_proj)
+            t = linear_col(F.silu(temb), self.time_emb_proj)
         h = self.norm2(h, activate=True, pad_output=True, temb=t)
         h = self.conv2(h, pre_padded=True)
         if self.conv_shortcut is not None:
@@ -597,7 +654,7 @@ class Downsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.asymmetric_pad:
-            if _sp_ctx(x) is not None:  # the bottom row is the next rank's
+            if tpctx.sp_active() is not None:  # the bottom row is the next rank's
                 return conv2d_nhwc(F.pad(x, (0, 0, 0, 1)), self.conv, pad_rows=False)
             x = F.pad(x, (0, 0, 0, 1, 0, 1))
         return conv2d_nhwc(x, self.conv)
@@ -613,7 +670,7 @@ class Upsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
-        if _sp_ctx(x) is not None:
+        if tpctx.sp_active() is not None:
             return conv2d_nhwc(up.permute(0, 2, 3, 1), self.conv)
         y = F.conv2d(up, _cast(self.conv.weight, x), _cast(self.conv.bias, x), padding=1)
         return y.permute(0, 2, 3, 1).contiguous()
@@ -641,7 +698,7 @@ class VAEAttention(nn.Module):
         # "whole"), from weights gathered where the rank holds slices.
         lin = linear_whole if tpctx.tp_active() is not None else linear
         q, k, v = lin(y, self.to_q), lin(y, self.to_k), lin(y, self.to_v)
-        ctx = _sp_ctx(x)
+        ctx = tpctx.sp_active()
         if ctx is not None:
             k, v = gather_rows(k, ctx, 1), gather_rows(v, ctx, 1)
         out = dot_product_attention(q[:, :, None], k[:, :, None], v[:, :, None],

@@ -57,14 +57,16 @@ class DiagonalGaussianDistribution:
         self.std = torch.exp(0.5 * self.logvar)
 
     def sample(self, generator: torch.Generator | None = None,
-               rows: tuple[int, int] | None = None) -> torch.Tensor:
+               rows: tuple[int, int] | None = None, spatial=None) -> torch.Tensor:
         """A draw; with ``rows = (start, total)`` (a rank's rows of a
         global batch) the noise is those rows of one draw for ``total``
-        rows, as ``gmdx_torch.dist.randn_rows`` makes it."""
+        rows, and with ``spatial`` (a posterior of a rank's image rows) the
+        whole image's draw, sliced, as ``gmdx_torch.dist.randn_rows`` makes
+        it."""
         from gmdx_torch.dist.mesh import randn_rows
 
         eps = randn_rows(self.mean.shape, generator, rows, device=self.mean.device,
-                         dtype=self.mean.dtype)
+                         dtype=self.mean.dtype, spatial=spatial)
         return self.mean + self.std * eps
 
     def mode(self) -> torch.Tensor:

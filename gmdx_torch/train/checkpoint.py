@@ -53,6 +53,7 @@ from typing import Any
 import torch
 
 from gmdx_torch.dist.mesh import Sharded, all_reduce_mean_list
+from gmdx_torch.dist.tp import gather_slices, tp_slice
 from gmdx_torch.dist.multihost import barrier, is_initialized, rank
 from gmdx_torch.io.params import load_file, save_file
 from gmdx_torch.train.optim import MultiSteps, data_parallel, model_params
@@ -86,6 +87,36 @@ def tensor_digest(tensors: dict[str, torch.Tensor]) -> str:
 
 
 @dataclasses.dataclass
+class Sliced:
+    """A list of tensors of which this rank holds tensor parallelism's
+    slices, in the order of :class:`~gmdx_torch.dist.DataParallel` ``dp``'s
+    names (checkpoints gather them over the model group)."""
+
+    dp: object
+    tensors: list
+
+
+@dataclasses.dataclass
+class _Slice:
+    """This rank's tensor-parallel slice ``view`` of ``key``'s tensor of
+    ``shape`` (the whole of it where the rule replicates) over the model
+    axis ``ctx``."""
+
+    view: torch.Tensor
+    key: str
+    shape: tuple
+    ctx: object
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.view.dtype
+
+    def full(self) -> torch.Tensor:
+        """The whole tensor, gathered (a collective of the model group)."""
+        return gather_slices(self.key, self.view, self.shape, self.ctx)
+
+
+@dataclasses.dataclass
 class _Part:
     """Elements ``[a, b)`` of a key's flattened tensor (of ``shape`` and
     ``dtype``) held by this rank in ``view`` (None: none of it)."""
@@ -98,10 +129,15 @@ class _Part:
 
 
 def _targets(groups) -> dict:
-    """Key -> full tensor (replicated) or :class:`_Part` (sharded)."""
+    """Key -> full tensor (replicated), :class:`_Part` (sharded) or
+    :class:`_Slice` (tensor-parallel)."""
     out = {}
     for prefix, names, value in groups:
-        if isinstance(value, Sharded):
+        if isinstance(value, Sliced):
+            dp = value.dp
+            for name, key, t, shape in zip(names, dp.names, value.tensors, dp.full_shapes):
+                out[f"{prefix}{name}"] = _Slice(t, key, shape, dp.layout_ctx)
+        elif isinstance(value, Sharded):
             dp = value.dp
             own = {i: (a, b, s) for i, a, b, s in dp.own}
             for i, name in enumerate(names):
@@ -120,20 +156,23 @@ def _spec(t) -> tuple:
 
 
 def _is_cuda(t) -> bool:
-    v = t.view if isinstance(t, _Part) else t
+    v = t.view if isinstance(t, (_Part, _Slice)) else t
     return v is not None and v.is_cuda
 
 
 def _dist_digest(targets: dict) -> str:
     """:func:`tensor_digest` of the whole state, summed over the ranks'
     parts (replicated tensors counted on rank 0): a collective."""
-    device = next((t.view if isinstance(t, _Part) else t).device for t in targets.values()
-                  if not isinstance(t, _Part) or t.view is not None)
+    device = next((t.view if isinstance(t, (_Part, _Slice)) else t).device
+                  for t in targets.values() if not isinstance(t, _Part) or t.view is not None)
     zero = torch.zeros(2, dtype=torch.int64, device=device)
     sums = []
     for k in sorted(targets):
         t = targets[k]
-        if isinstance(t, _Part):
+        if isinstance(t, _Slice):
+            full = t.full()
+            sums.append(_digest_sums(full) if rank() == 0 else zero)
+        elif isinstance(t, _Part):
             sums.append(_digest_sums(t.view, t.a) if t.view is not None and t.b > t.a else zero)
         else:
             sums.append(_digest_sums(t) if rank() == 0 else zero)
@@ -156,6 +195,16 @@ def _optimizer_groups(prefix: str, names: list[str], opt, mean_acc: bool = False
         raise ValueError(f"the optimizer holds {len(params)} tensors, the model "
                          f"{len(names)} trainable parameters")
     dp = data_parallel(adam)
+    if dp is not None and dp.layout_ctx is not None:  # tp / sp
+        groups = [(f"{prefix}{role}/", names, tensors)
+                  for role, tensors in (("params", params), ("mu", adam.mu), ("nu", adam.nu))]
+        if isinstance(opt, MultiSteps):
+            # Saved as the one process's accumulator: the data axis's mean
+            # (under sp of the model group's summed shares).
+            groups.append((f"{prefix}acc/", names, dp.reduce(list(opt.acc)) if mean_acc
+                           else opt.acc))
+        return [(p, n, Sliced(dp, t)) if dp.sliced is not None else (p, n, t)
+                for p, n, t in groups]
     groups = [
         (f"{prefix}params/", names, Sharded(dp, dp.master) if dp is not None
          and dp.master is not None else params),
@@ -211,8 +260,11 @@ def _describe(state, mean_acc: bool = False):
         scalars[f"{prefix}count"] = _adam(opt).count
         scalars[f"{prefix}mini_step"] = opt.mini_step if isinstance(opt, MultiSteps) else None
     if state.ema is not None:
+        dp = data_parallel(_adam(opts[0][2]))
         groups.append(("ema/", names, Sharded(state.ema.dp, state.ema.flat)
-                       if state.ema.dp is not None else state.ema.shadow))
+                       if state.ema.dp is not None
+                       else Sliced(dp, state.ema.shadow) if dp is not None and dp.sliced is not None
+                       else state.ema.shadow))
     return FORMATS[kind], groups, scalars, [(prefix, opt) for prefix, _, opt in opts]
 
 
@@ -223,7 +275,8 @@ def state_tensors(state) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
     _, groups, scalars, _ = _describe(state)
     tensors = {}
     for prefix, names, value in groups:
-        full = value.dp.full(value.flat) if isinstance(value, Sharded) else value
+        full = (value.dp.full(value.flat) if isinstance(value, Sharded)
+                else value.dp.whole(value.tensors) if isinstance(value, Sliced) else value)
         tensors.update({f"{prefix}{n}": t for n, t in zip(names, full)})
     return tensors, scalars
 
@@ -347,6 +400,10 @@ class CheckpointManager:
             dests = [host[f"{prefix}{n}"] for n in names] if main else None
             if isinstance(value, Sharded):
                 _gather_shards(value, dests)
+            elif isinstance(value, Sliced):
+                for i, t in enumerate(value.dp.whole(value.tensors)):
+                    if main:
+                        dests[i].copy_(t.detach(), non_blocking=True)
             elif main:
                 for d, t in zip(dests, value):
                     d.copy_(t.detach(), non_blocking=True)
@@ -394,7 +451,10 @@ class CheckpointManager:
                 if tuple(src.shape) != tuple(shape) or src.dtype != dtype:
                     raise ValueError(f"{path}: {k} is {src.dtype} {tuple(src.shape)}, the run's "
                                      f"{dtype} {tuple(shape)} (another --use_8bit_adam?)")
-                if isinstance(t, _Part):
+                if isinstance(t, _Slice):
+                    t.view.copy_(tp_slice(t.key, src, t.ctx.rank, t.ctx.size),
+                                 non_blocking=True)
+                elif isinstance(t, _Part):
                     if t.view is not None:
                         t.view.copy_(src.reshape(-1)[t.a:t.b], non_blocking=True)
                 else:
@@ -455,6 +515,12 @@ def restore_state(manager: CheckpointManager, step: int, state):
         _adam(opt).count = scalars[f"{prefix}count"]
         if isinstance(opt, MultiSteps):
             opt.mini_step = scalars[f"{prefix}mini_step"]
+            layout = getattr(data_parallel(_adam(opt)), "layout_ctx", None)
+            if layout is not None and layout.mode == "sp" and layout.rank:
+                # sp sums the model group's accumulators at the update: the
+                # saved one lives on its first rank.
+                for a in opt.acc:
+                    a.zero_()
     if state.ema is not None:
         state.ema.step = scalars["ema_step"]
     return state

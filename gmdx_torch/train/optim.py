@@ -136,6 +136,13 @@ class AdamW:
         self.params = (dp.pieces(dp.master) if dp.master is not None
                        else dp.views(self.model_params))
 
+    def reslice(self, params: Sequence[torch.Tensor], fn) -> None:
+        """Step ``params`` (new tensors, one for each old parameter: tensor
+        parallelism's slices) with each moment ``fn(i, moment)``."""
+        self.params = self.model_params = list(params)
+        self.mu = [fn(i, m) for i, m in enumerate(self.mu)]
+        self.nu = [fn(i, v) for i, v in enumerate(self.nu)]
+
     @property
     def master_params(self) -> list[torch.Tensor]:
         """The fp32 values the EMA follows and checkpoints keep: the

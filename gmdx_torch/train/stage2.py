@@ -26,13 +26,14 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
+from gmdx_torch.dist import tpctx
 from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, randint_rows, randn_rows
 from gmdx_torch.schedulers import DDPMScheduler
 from gmdx_torch.schedulers.base import add_noise, get_velocity
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
 from gmdx_torch.train.optim import (
-    AdamW, MultiSteps, gathered, get_lr_schedule, make_adamw, master_params, param_sq_norms,
-    reduce_gradients,
+    AdamW, MultiSteps, gathered, get_lr_schedule, make_adamw, master_params, model_params,
+    param_sq_norms, reduce_gradients,
 )
 
 
@@ -101,8 +102,13 @@ def stage2_loss(
     alphas_cumprod: torch.Tensor,
     config: Stage2Config,
     perturbed_noise: torch.Tensor | None = None,
+    row_shards: int = 1,
 ) -> torch.Tensor:
-    """The per-batch training loss (fp32 scalar) given encoded latents."""
+    """The per-batch training loss (fp32 scalar) given encoded latents.
+    With ``row_shards`` (spatial parallelism: the latents are this rank's
+    rows of images split over that many ranks) it is this rank's share: its
+    rows' squared errors over the whole image's count, so that the ranks'
+    shares sum to the loss (min-SNR weights apply per sample, alike)."""
     noising = perturbed_noise if perturbed_noise is not None else noise
     noisy_gm = add_noise(alphas_cumprod, gm_latents, noising, timesteps)
     model_in = torch.cat([sdr_latents, noisy_gm], dim=1)
@@ -116,7 +122,7 @@ def stage2_loss(
         raise ValueError(f"unknown prediction_type {config.prediction_type!r}")
 
     err = (pred.float() - target.float()) ** 2
-    per_sample = err.mean(dim=tuple(range(1, err.ndim)))
+    per_sample = err.mean(dim=tuple(range(1, err.ndim))) / row_shards
     if config.snr_gamma is not None:
         acp = torch.as_tensor(alphas_cumprod, device=per_sample.device)[timesteps]
         snr = acp / (1.0 - acp)
@@ -153,6 +159,7 @@ def make_train_step(
     text_encoder: nn.Module,
     noise_scheduler: DDPMScheduler | None = None,
     device: str | torch.device = "cuda",
+    layout: tpctx.ParallelContext | None = None,
 ):
     """Build the train step on ``device`` (the card unless the caller asks
     for the CPU); the three modules are moved there, so build the state
@@ -174,6 +181,17 @@ def make_train_step(
     are of the reduced gradient (of the local micro-batch's while
     ``MultiSteps`` only accumulates). ``step_fn.draw_inputs(batch,
     generator)`` returns the loss's inputs as the step draws them.
+
+    Under tensor or spatial parallelism (``layout``, from
+    ``tpctx.join_train_parallel``; the state placed by
+    ``apply_shard_strategy(..., layout=layout)``) ``batch`` is the data
+    group's rows, alike on every rank of a model group; under sp its image
+    leaves are this rank's H rows (``dist.spatial_batch``), and every draw
+    is the whole image's, sliced. The UNet runs inside the layout's context
+    (its weights this rank's slices under tp); the frozen VAE and text
+    encoder run outside it under tp (whole, on the kernels) and the VAE
+    inside it under sp (on its rows). The loss reported is the group's (sp:
+    the ranks' shares summed), the norms are the whole gradient's.
     """
     dev = resolve_device(device)
     for m in (unet, vae, text_encoder):
@@ -185,41 +203,45 @@ def make_train_step(
     num_train_timesteps = noise_scheduler.config.num_train_timesteps
     wd = config.weight_dtype
     scaling = vae.config.scaling_factor
-    named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
+    names = [n for n, p in unet.named_parameters() if p.requires_grad]
     # module_grad_norms' groups: each parameter's group index, in first-seen order.
     group_names: dict[str, int] = {}
-    group_of = [group_names.setdefault(module_key(n), len(group_names)) for n, _ in named]
+    group_of = [group_names.setdefault(module_key(n), len(group_names)) for n in names]
     group_index = torch.tensor(group_of, device=dev)
+
+    sp = layout if layout is not None and layout.mode == "sp" else None
+    spatial = None if sp is None else (sp, 2)
 
     def draw_inputs(batch: dict, generator: torch.Generator) -> dict:
         """The loss's inputs for this rank's rows of the batch: latents,
         text states and the step's draws (each made for the global batch
         and sliced to the rank's rows across ranks)."""
         with torch.no_grad():
-            rows = batch_rows(batch["input_ids"].shape[0])
+            rows = batch_rows(batch["input_ids"].shape[0], layout)
             if "sdr_latent_mean" in batch:
                 # Cached posteriors: the sampling stays per step, on the device.
                 def latents(prefix):
                     mean = batch[f"{prefix}_latent_mean"].to(dev, torch.float32)
                     std = batch[f"{prefix}_latent_std"].to(dev, torch.float32)
-                    eps = randn_rows(mean.shape, generator, rows, device=dev)
+                    eps = randn_rows(mean.shape, generator, rows, device=dev, spatial=spatial)
                     return ((mean + std * eps) * scaling).to(wd)
             else:
                 def latents(prefix):
-                    post = vae.encode(batch[prefix].to(dev, wd))
-                    return post.sample(generator, rows) * scaling
+                    with tpctx.entered(sp):
+                        post = vae.encode(batch[prefix].to(dev, wd))
+                    return post.sample(generator, rows, spatial) * scaling
             sdr_latents, gm_latents = latents("sdr"), latents("gm")
             context = text_encoder(batch["input_ids"].to(dev))
 
             b = gm_latents.shape[0]
-            noise = randn_rows(gm_latents.shape, generator, rows, device=dev)
+            noise = randn_rows(gm_latents.shape, generator, rows, device=dev, spatial=spatial)
             if config.noise_offset > 0:
                 noise = noise + config.noise_offset * randn_rows(
                     gm_latents.shape[:2] + (1, 1), generator, rows, device=dev)
             perturbed = None
             if config.input_perturbation > 0:
                 perturbed = noise + config.input_perturbation * randn_rows(
-                    noise.shape, generator, rows, device=dev)
+                    noise.shape, generator, rows, device=dev, spatial=spatial)
             timesteps = randint_rows(num_train_timesteps, b, generator, rows, device=dev)
         return {"sdr_latents": sdr_latents, "gm_latents": gm_latents,
                 "encoder_hidden_states": context, "noise": noise, "timesteps": timesteps,
@@ -228,9 +250,10 @@ def make_train_step(
     def step_fn(state: Stage2State, batch: dict, generator: torch.Generator):
         inputs = draw_inputs(batch, generator)
         opt = state.optimizer
-        params = [p for _, p in named]
-        with gathered(opt):
-            loss = stage2_loss(state.unet, **inputs, alphas_cumprod=acp, config=config)
+        params = model_params(opt)  # the module's own: tp's slices once placed
+        with gathered(opt), tpctx.entered(layout):
+            loss = stage2_loss(state.unet, **inputs, alphas_cumprod=acp, config=config,
+                               row_shards=1 if sp is None else sp.size)
             grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
             # Across ranks: the mean gradient (as the optimizer steps it).
@@ -242,7 +265,7 @@ def make_train_step(
             grad_norm = sq.sum().sqrt()
             module_norms = module_sq.sqrt()
             metrics = {
-                "loss": all_reduce_mean(loss.detach()),
+                "loss": _group_loss(loss.detach(), sp),
                 "grad_norm": grad_norm,
                 "module_grad_norms": {k: module_norms[i] for k, i in group_names.items()},
             }
@@ -252,6 +275,17 @@ def make_train_step(
 
     step_fn.draw_inputs = draw_inputs
     return step_fn
+
+
+def _group_loss(loss: torch.Tensor, sp) -> torch.Tensor:
+    """The loss one process would report: the mean over the ranks; under
+    spatial parallelism each rank's share summed over its model group,
+    then the mean over the data axis."""
+    if sp is None:
+        return all_reduce_mean(loss)
+    total = loss.clone()
+    torch.distributed.all_reduce(total)
+    return total / sp.data_size
 
 
 def make_ema_step(config: Stage2Config) -> Callable[[Stage2State], Stage2State]:

@@ -140,7 +140,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from gmdx_torch import dist
 
-    dist.check_strategy(args.shard_strategy)
+    dist.check_strategy(args.shard_strategy, "controlnet")
     logging.basicConfig(level=logging.INFO)
     os.makedirs(args.output_dir, exist_ok=True)
     joined = not dist.is_initialized() and dist.initialize()

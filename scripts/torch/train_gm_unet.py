@@ -32,8 +32,23 @@ one-process run on the global batch (``gmdx_torch.dist.mesh``). Logs,
 checkpoints (the one-process format), validation and the final pipeline
 come from rank 0.
 
-Left out, each raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9)
-and --dataset_name without --train_metadata (ROADMAP Queue 1 item 5).
+Tensor and spatial parallelism, as the JAX trainer's:
+
+    torchrun --nproc_per_node 4 scripts/torch/train_gm_unet.py ... \\
+        --shard_strategy tp --tp_size 2      # or: --shard_strategy sp --sp_size 2
+
+lay the ranks out as a data x model grid of (world / size, size), ranks r
+and r + 1 in one model group (``tpctx.join_train_parallel``). A model
+group steps one per-rank batch together: the global batch is
+--train_batch_size times world / size, and so is --scale_lr's factor. tp:
+each rank holds its slices of the UNet's parameters, moments and EMA (the
+JAX package's rule, ``gmdx_torch.dist.tp``); sp: each rank holds its rows
+of every image (split along H) and the parameters whole. Checkpoints, the
+validation UNet and the final pipeline are whole, in the one-process
+format.
+
+Left out, raising: --dataset_name without --train_metadata (ROADMAP Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -85,10 +100,14 @@ def parse_args(argv=None):
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
-                                       "raise)")
-    p.add_argument("--tp_size", type=int, default=2)
-    p.add_argument("--sp_size", type=int, default=2)
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks; tp: tensor "
+                                       "parallelism over a data x model grid; sp: each "
+                                       "image's rows split over the model axis")
+    p.add_argument("--tp_size", type=int, default=2,
+                   help="model-axis size of --shard_strategy tp (>= 2, dividing the world)")
+    p.add_argument("--sp_size", type=int, default=2,
+                   help="ranks that split one image's rows under --shard_strategy sp (>= 2, "
+                        "dividing the world)")
     p.add_argument("--cache_latents", action="store_true",
                    help="precompute the frozen VAE's posterior (mean, std) once and train "
                         "from it (the per-step sampling stays on the device); requires "
@@ -283,13 +302,19 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from gmdx_torch import dist
 
-    dist.check_strategy(args.shard_strategy)
+    dist.check_strategy(args.shard_strategy, "stage2")
     if args.train_metadata is None:
         raise NotImplementedError(
             "--dataset_name without --train_metadata: the port reads parquet metadata only "
             "(ROADMAP Queue 1 item 5)")
     logging.basicConfig(level=logging.INFO)
     joined = not dist.is_initialized() and dist.initialize()
+    layout = None  # the data x model grid of tp / sp
+    if args.shard_strategy in dist.MODEL_STRATEGIES:
+        from gmdx_torch.dist import tpctx
+
+        layout = tpctx.join_train_parallel(
+            args.shard_strategy, args.sp_size if args.shard_strategy == "sp" else args.tp_size)
 
     import numpy as np
     import torch
@@ -306,6 +331,8 @@ def main(argv=None) -> dict:
         resolve_resume_step, restore_state, save_state,
     )
     from gmdx_torch.train.checkpoint import state_digest
+    from gmdx_torch.dist.tp import assign_state_dict
+    from gmdx_torch.train.optim import data_parallel as optim_data_parallel
     from gmdx_torch.train.optim import run_sizes
 
     dev = dist.device(resolve_device(args.device))
@@ -319,7 +346,9 @@ def main(argv=None) -> dict:
     unet = load_training_unet(pipe_dir, dev, args.gradient_checkpointing)
 
     lr = args.learning_rate
-    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
+    # The data axis: the ranks, or under tp / sp the model groups (a group
+    # steps one per-rank batch together); --train_batch_size is per rank.
+    n_dev = dist.data_parallel_size() if layout is None else layout.data_size
     if args.scale_lr:
         lr = lr * args.gradient_accumulation_steps * args.train_batch_size * n_dev
 
@@ -346,9 +375,16 @@ def main(argv=None) -> dict:
             args.mixed_precision, torch.float32),
     )
     train_step = make_train_step(cfg, unet=unet, vae=vae, text_encoder=text,
-                                 noise_scheduler=DDPMScheduler(), device=dev)
+                                 noise_scheduler=DDPMScheduler(), device=dev, layout=layout)
+    trained = [n for n, p in unet.named_parameters() if p.requires_grad]
     state = dist.apply_shard_strategy(init_state(cfg, unet), args.shard_strategy,
-                                      param_fields=("params", "ema"), opt_fields=("opt_state",))
+                                      param_fields=("params", "ema"), opt_fields=("opt_state",),
+                                      layout=layout)
+    data_parallel = optim_data_parallel(state.optimizer)
+
+    def whole(tensors):
+        """The trained tensors whole (tp: gathered over the model group)."""
+        return list(tensors) if data_parallel is None else data_parallel.whole(tensors)
     ema_step = make_ema_step(cfg) if args.use_ema else None
 
     manager = make_manager(args.output_dir, max_to_keep=args.checkpoints_total_limit,
@@ -366,6 +402,8 @@ def main(argv=None) -> dict:
                        args.resume_from_checkpoint)
 
     global_bs = args.train_batch_size * n_dev
+    # Rows by data index: the ranks of a model group take the same ones.
+    shard = (None, None) if layout is None else (layout.data_rank, layout.data_size)
     # A checkpoint at update S has consumed S * ga batches: skipping them,
     # and numbering the batches from there, makes the resumed stream (data
     # order, noise, accumulation phase) the uninterrupted run's.
@@ -374,14 +412,15 @@ def main(argv=None) -> dict:
         vae_params = load_params(os.path.join(pipe_dir, "vae", "params.safetensors"))
         cache = build_latent_cache(dataset, tokenizer, vae, vae_params, args, global_bs)
         # Every rank walks the global batches and takes its own rows.
-        loader = (dist.shard_batch(b) for b in cached_latent_loader(
+        loader = (dist.shard_batch(b, *shard) for b in cached_latent_loader(
             cache, global_bs, seed=args.seed or 0, skip_batches=consumed_batches))
     else:
         loader = make_dataloader(
             dataset, tokenizer, batch_size=global_bs, resolution=args.resolution,
             center_crop=args.center_crop, random_flip=args.random_flip, seed=args.seed or 0,
             num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-            skip_batches=consumed_batches, process_shard=True)
+            skip_batches=consumed_batches, process_shard=True, process_index=shard[0],
+            process_count=shard[1])
 
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
@@ -391,11 +430,12 @@ def main(argv=None) -> dict:
 
     def host_batches():
         for batch in loader:
-            if args.cache_latents:
-                yield batch  # latent stats + input_ids
-            else:
-                yield {"sdr": batch["pixel_values"], "gm": batch["gainmap_values"],
-                       "input_ids": batch["input_ids"]}
+            if not args.cache_latents:  # else latent stats + input_ids
+                batch = {"sdr": batch["pixel_values"], "gm": batch["gainmap_values"],
+                         "input_ids": batch["input_ids"]}
+            # sp: this rank's rows of each image, split on the host.
+            yield (dist.spatial_batch(batch, layout) if args.shard_strategy == "sp"
+                   else batch)
 
     val_unet = None
     losses, saved_digests = {}, {}
@@ -444,11 +484,10 @@ def main(argv=None) -> dict:
                 # Every rank gathers (fsdp); rank 0 alone validates.
                 shadow = state.ema.full() if state.ema is not None else None
                 with state.optimizer.gathered():
+                    src = whole(shadow if shadow is not None else state.optimizer.model_params)
                     if main_rank:
-                        src = shadow if shadow is not None else state.optimizer.model_params
-                        named = [n for n, p in unet.named_parameters() if p.requires_grad]
                         params = dict(val_unet.named_parameters())
-                        for n, t in zip(named, src):
+                        for n, t in zip(trained, src):
                             params[n].copy_(t)
                 del shadow
             if main_rank:
@@ -472,6 +511,9 @@ def main(argv=None) -> dict:
             if shadow is not None:
                 for p, s in zip(state.optimizer.model_params, shadow):
                     p.copy_(s)
+            if args.shard_strategy == "tp":  # the module whole again, for the pipeline
+                full = dict(zip(trained, whole(state.optimizer.model_params)))
+                assign_state_dict(unet, {k: full.get(k, v) for k, v in unet.state_dict().items()})
             if main_rank:
                 save_pipeline(out_dir, components={"unet": unet}, tokenizer=tokenizer,
                               scheduler=PNDMScheduler(),

@@ -251,7 +251,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from gmdx_torch import dist
 
-    dist.check_strategy(args.shard_strategy)
+    dist.check_strategy(args.shard_strategy, "stage1")
     if args.train_metadata is None:
         raise NotImplementedError(
             "--dataset_name without --train_metadata: the port reads parquet metadata only "

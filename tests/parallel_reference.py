@@ -1,8 +1,11 @@
 """The JAX side of the tensor- and spatial-parallel tests: the tiny UNet, VAE
 and ControlNet of ``gmdx`` with seeded weights (the ControlNet's zero convs
 and embedder output made non-zero), their state dicts for the port, numpy
-inputs, and gmdx's unsharded forwards on them at full fp32 precision.
-Imported by ``tests/test_torch_tp.py`` and ``tests/test_torch_sp.py``."""
+inputs, and gmdx's unsharded forwards on them at full fp32 precision
+(``tests/test_torch_tp.py``, ``tests/test_torch_sp.py``); gmdx's
+single-process Stage-2 loss and gradients and the bars the training tests
+hold them to (``tests/test_torch_tp_train.py``,
+``tests/test_torch_sp_train.py``)."""
 
 from __future__ import annotations
 
@@ -101,3 +104,53 @@ def assert_forwards_close(got: dict, want: dict, tol: float = TOL) -> None:
         for i, (a, b) in enumerate(pairs):
             assert float(np.abs(b).max()) > 0.0, key
             np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=f"{key} {i}")
+
+
+# Stage 2's bars against gmdx (tests/test_torch_train.py's): the loss 1e-5
+# relative, each gradient 1e-4 relative L2.
+LOSS_RTOL, GRAD_REL_L2 = 1e-5, 1e-4
+
+
+def jax_stage2_step(setup: dict, draws: dict) -> tuple[float, dict]:
+    """gmdx's single-process Stage-2 loss and gradients (port state-dict
+    names) at the setup's tiny GM UNet on the global batch's ``draws``."""
+    import dataclasses
+
+    from gmdx.schedulers import DDPMScheduler as JaxDDPM
+    from gmdx.train.stage2 import Stage2Config as JaxStage2Config
+    from gmdx.train.stage2 import stage2_loss as jax_stage2_loss
+    from gmdx_torch.io.to_flax import convert_unet_state_dict
+
+    model = JaxUNet(dataclasses.replace(J_UNET, in_channels=8))
+    params = convert_unet_state_dict(setup["unet_sd"])
+    cfg = JaxStage2Config(**setup["stage2_config"])
+    inputs = {k: jnp.asarray(v) for k, v in draws.items() if k != "perturbed_noise"}
+    inputs["timesteps"] = inputs["timesteps"].astype(jnp.int32)
+
+    def loss_fn(p):
+        return jax_stage2_loss(lambda p_, *a: model.apply({"params": p_}, *a), p, **inputs,
+                               alphas_cumprod=jnp.asarray(JaxDDPM().alphas_cumprod), config=cfg)
+
+    with jax.default_matmul_precision("highest"):
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    return float(loss), unet_state_dict_from_flax(jax.tree.map(np.asarray, grads))
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def assert_grads_close(got: dict, want: dict, bar: float = GRAD_REL_L2) -> None:
+    """Every gradient within ``bar`` relative L2; one that is zero up to
+    rounding in both (a bias right before a GroupNorm of one channel a
+    group, the tiny config's 32 / 32, which the normalisation removes) held
+    to the same 1e-6 share of the whole gradient as tests/test_torch_train.py
+    holds it."""
+    assert sorted(got) == sorted(want)
+    total = np.sqrt(sum(float(np.sum(np.square(w, dtype=np.float64))) for w in want.values()))
+    for n, w in want.items():
+        if np.linalg.norm(w) > 1e-6 * total:
+            assert rel_l2(got[n], w) <= bar, (n, rel_l2(got[n], w))
+        else:
+            assert np.linalg.norm(np.asarray(got[n], np.float64) - w) <= 1e-6 * total, n

@@ -1707,3 +1707,82 @@ def test_conv3x3_on_halo_slabs_on_card(card, hw, c, o, ranks):
                     pre_padded=True) for r in range(ranks)]
     ref = conv3x3_plain(x.float(), pack_weight(w).float(), bias.float())
     assert _rel_l2(torch.cat(outs, dim=1), ref) <= 1e-2
+
+
+# --- the kernels at the shapes of Stage-2 training under TP and SP ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,temb,act,pad,ranks", [
+    (8, 64, 320, True, True, True, 2), (8, 64, 320, True, True, True, 4),
+    (8, 32, 640, False, False, False, 2),
+])
+def test_group_norm_bwd_split_kernels_on_card(card, b, hw, c, temb, act, pad, ranks):
+    """gmdx_group_norm_bwd_sums and gmdx_group_norm_bwd_apply on each of
+    ``ranks`` row slices (each slice's padded cotangent: its rows and a
+    border), the sums summed over the slices between them as the ranks'
+    all-reduce does, against their plain versions on the same slices: each
+    sum column, dgamma, dbeta, dx and dtemb held apart."""
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_bwd_apply, group_norm_bwd_apply_plain, group_norm_bwd_sums,
+        group_norm_bwd_sums_plain,
+    )
+
+    x = (_bf16(card, b, hw, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+    gam = (_bf16(card, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+    bet = _bf16(card, c, scale=0.2)
+    t = _bf16(card, b, c) if temb else None
+    cot = _bf16(card, b, hw + 2 * pad, hw + 2 * pad, c)
+    f32 = [u.float() if u is not None else None for u in (x, gam, bet, t)]
+    _, stats = group_norm_silu_plain(*f32, activate=act, return_stats=True)
+    rows = hw // ranks
+    xs = [x[:, r * rows:(r + 1) * rows].contiguous() for r in range(ranks)]
+    gs = [cot[:, r * rows:(r + 1) * rows + 2 * pad].contiguous() for r in range(ranks)]
+    kw = dict(activate=act, pad_output=pad)
+    got = [group_norm_bwd_sums(xr, gam, bet, t, stats, gr, **kw) for xr, gr in zip(xs, gs)]
+    want = [group_norm_bwd_sums_plain(xr.float(), *f32[1:], stats, gr.float(), **kw)
+            for xr, gr in zip(xs, gs)]
+    for (s, ds, db), (ws, wds, wdb) in zip(got, want):
+        for col in range(2):
+            assert _rel_l2(s[:, col], ws[:, col]) <= 1e-2, ("sums", col)
+        assert _rel_l2(ds, wds) <= 1e-2 and _rel_l2(db, wdb) <= 1e-2
+    sums, wsums = sum(s for s, _, _ in got), sum(s for s, _, _ in want)
+    for xr, gr in zip(xs, gs):
+        dx, dt = group_norm_bwd_apply(xr, gam, bet, t, stats, gr, sums, hw * hw, **kw)
+        wdx, wdt = group_norm_bwd_apply_plain(xr.float(), *f32[1:], stats, gr.float(), wsums,
+                                              hw * hw, **kw)
+        assert _rel_l2(dx, wdx) <= 1e-2
+        if temb:
+            assert _rel_l2(dt, wdt) <= 1e-2
+        else:
+            assert dt is None and wdt is None
+
+
+# (batch, queries, keys, width, heads): Stage 2 at 512^2, global batch 8:
+# an SP = 2 rank's queries against the whole image's keys at head dims 40,
+# 80 and 160, and a TP rank's heads / 2 and heads / 4 at each.
+TRAIN_PARALLEL_ATTENTION = [
+    (8, 2048, 4096, 320, 8), (8, 512, 1024, 640, 8), (8, 128, 256, 1280, 8),
+    (8, 4096, 4096, 160, 4), (8, 1024, 1024, 320, 4), (8, 256, 256, 640, 4),
+    (8, 4096, 4096, 80, 2), (8, 1024, 1024, 160, 2), (8, 256, 256, 320, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,c,heads", TRAIN_PARALLEL_ATTENTION)
+def test_flash_attention_at_parallel_training_shapes_on_card(card, b, sq, sk, c, heads):
+    """The flash forward and backward at the training step's TP and SP
+    shapes (the dK/dV grid walks the keys, the dQ grid the queries), each
+    output against the plain version's."""
+    d = c // heads
+    q = _bf16(card, b, sq, c)
+    k, v = _bf16(card, b, sk, c), _bf16(card, b, sk, c)
+    dout = _bf16(card, b, sq, c)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out, lse = flash_attention_fwd(q, k, v, heads)
+    ref_out, ref_lse = flash_attention_fwd_plain(qf, kf, vf, heads, d**-0.5)
+    assert _rel_l2(out, ref_out) <= 1e-2 and _rel_l2(lse, ref_lse) <= 1e-2
+    got = flash_attention_bwd(q, k, v, out, lse, dout, heads)
+    want = flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, dout.float(), heads, d**-0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_l2(g, w) <= 1e-2, name

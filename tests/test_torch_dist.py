@@ -16,6 +16,7 @@ sizes over ranks.
 """
 
 import dataclasses
+import importlib.util
 import os
 import sys
 
@@ -468,12 +469,34 @@ def test_single_process_is_a_no_op():
     assert dist.apply_shard_strategy(state, "fsdp", param_fields=(), opt_fields=()) is state
 
 
-@pytest.mark.parametrize("strategy", ["tp", "sp"])
-def test_tensor_and_spatial_parallelism_raise_naming_the_item(strategy):
+@pytest.mark.parametrize("trainer,kind,strategy", [
+    pytest.param("train_vqgan_lora", "stage1", "tp", id="tp"),
+    pytest.param("train_vqgan_lora", "stage1", "sp", id="sp"),
+    pytest.param("train_controlnet", "controlnet", "tp", id="controlnet-tp"),
+    pytest.param("train_controlnet", "controlnet", "sp", id="controlnet-sp"),
+])
+def test_tensor_and_spatial_parallelism_raise_naming_the_item(tmp_path, trainer, kind,
+                                                              strategy):
+    """The Stage-1 and ControlNet trainers' tp / sp are still to be ported:
+    the check and the CLI raise naming the item before anything is read or
+    written; Stage 2 takes both; an unknown strategy raises."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        dist.check_strategy(strategy, kind)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         dist.check_strategy(strategy)
+    dist.check_strategy(strategy, "stage2")
     with pytest.raises(ValueError):
         dist.check_strategy("zero3")
+    spec = importlib.util.spec_from_file_location(
+        f"refusing_{trainer}", os.path.join(REPO, "scripts", "torch", f"{trainer}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = tmp_path / "out"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        mod.main(["--pretrained_model_name_or_path", str(tmp_path / "pipe"), "--train_metadata",
+                  str(tmp_path / "train.parquet"), "--output_dir", str(out), "--device", "cpu",
+                  "--shard_strategy", strategy])
+    assert not out.exists()
 
 
 @pytest.mark.parametrize("world", [1, 2, 3, 5])
