@@ -247,15 +247,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and sp (pixels: the VAE on each rank's rows) on the two ranks: losses
      finite, the saved pipeline's UNet whole. Its wall beside
      TRAIN_PARALLEL_BUDGET_S.
+ 26. pp: pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) on
+     two gloo ranks of the one card, stage 0 the SDR UNet, stage 1 the GM
+     UNet and the VAE (a stage-1 rank builds the SDR UNet on the meta
+     device, replaying its seeded draws, so its own modules get one
+     process's weights without the SDR UNet's memory), beside one process
+     with the same weights and inputs: 512^2, batch 2, CFG 7.5, PNDM 4
+     steps (5 iterations) in chunks of 2, then stage 1's batched decode and
+     Eq. (1). The decoded SDR and GM >= 40 dB of the one process's (stage
+     0: its SDR latents), max-abs and bit equality reported; the launches
+     of the two ranks summed equal to the one process's; each rank's
+     weights its stage's modules only, each with the one process's count
+     and sum; each rank's peak memory beside the one process's; the
+     phase's wall beside PP_BUDGET_S.
 ``python3 chip_smoke.py --parallel-cards N`` (N cards, not the default run)
-runs TP = N and SP = N with a rank a card under NCCL against one card:
-s/image of generate_hdr's path at 512^2 and s/frame of upconvert_hdrtv's
-at 1024^2, PNDM 50, with phase parallel's checks; then generate_hdr
-(--tp_size N, --sp_size N) and upconvert_hdrtv (--sp_size N) themselves
-under torchrun on a full-width directory, their files >= 40 dB of the
-one-card run's; then train_gm_unet.py for 2 steps at 512^2 under
---shard_strategy tp --tp_size N and sp --sp_size N under torchrun against
-one card, the step-1 loss within TRAIN_LOSS_RTOL of the one card's.
+runs the parts named by --parallel-parts (all by default), a rank a card
+under NCCL against one card: serve, TP = N and SP = N: s/image of
+generate_hdr's path at 512^2 and s/frame of upconvert_hdrtv's at 1024^2,
+PNDM 50, with phase parallel's checks; cli, generate_hdr (--tp_size N,
+--sp_size N) and upconvert_hdrtv (--sp_size N) themselves under torchrun
+on a full-width directory, their files >= 40 dB of the one-card run's;
+train, train_gm_unet.py for 2 steps at 512^2 under --shard_strategy tp
+--tp_size N and sp --sp_size N under torchrun against one card, the
+step-1 loss within TRAIN_LOSS_RTOL of the one card's; pp, the dual path's
+serving headline (batch 8, PNDM 50, CFG 7.5) pipelined over N ranks (N / 2
+a stage) in chunks of 5 and of 1: s/image beside one card's, each stage's
+device ms a chunk, phase pp's checks on every rank (the launch sum with one
+rank a stage only).
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
@@ -4936,14 +4954,14 @@ PARALLEL_CLI_RUNS = (("gen_one_card", "generate_hdr", None, 4, "sdr"),
                      ("up_sp", "upconvert_hdrtv", "--sp_size", 2, "hdrtv"))
 
 
-def _parallel_cards_cli(args, root: str, env) -> dict:
+def _parallel_cards_cli(args, root: str, env, *, run: bool = True) -> list[str]:
     """The CLIs under torchrun on N cards (NCCL): scripts/torch/init_pipeline.py
-    --size sd15 --dual writes one directory; generate_hdr on a 512^2 PNG at
-    4 steps in one process on one card, at --tp_size N and at --sp_size N;
-    upconvert_hdrtv on a 1024^2 PNG at 2 steps on one card and at
-    --sp_size N. Each parallel run's PNGs >= 40 dB of the one-card run's,
-    its .hdr files finite and of the same shape. Returns the rows' failures
-    and walls."""
+    --size sd15 --dual writes one directory (all, without ``run``); generate_hdr
+    on a 512^2 PNG at 4 steps in one process on one card, at --tp_size N
+    and at --sp_size N; upconvert_hdrtv on a 1024^2 PNG at 2 steps on one
+    card and at --sp_size N. Each parallel run's PNGs >= 40 dB of the
+    one-card run's, its .hdr files finite and of the same shape. Returns
+    the failures."""
     import numpy as np
     import torch
 
@@ -4955,6 +4973,8 @@ def _parallel_cards_cli(args, root: str, env) -> dict:
     _script("init_pipeline").main(["--output_dir", pipe_dir, "--size", "sd15", "--dual",
                                    "--scheduler", "dpm++", "--seed", str(args.seed)])
     torch.cuda.empty_cache()
+    if not run:
+        return []
     rng = np.random.default_rng(args.seed + 61)
     for sub, side in (("sdr", 512), ("hdrtv", HDRTV_SIDE)):
         os.makedirs(os.path.join(root, sub))
@@ -5056,51 +5076,455 @@ def _parallel_cards_train(args, root: str, env) -> list[str]:
     return bad
 
 
+# The parts of --parallel-cards N, in the order they run.
+PARALLEL_CARDS_PARTS = ("serve", "cli", "train", "pp")
+
+
 def phase_parallel_cards(args) -> None:
-    """``--parallel-cards N`` (not part of the default run; N cards): a rank
-    a card under NCCL (torchrun), TP = N and SP = N, against one process on
-    one card: generate_hdr's path at 512^2, PNDM 50, as s/image under TP and
-    SP; upconvert_hdrtv's at 1024^2, PNDM 50, as s/frame under SP; each
-    after a 2-step warm-up; phase parallel's checks on every rank. Then the
-    two CLIs themselves under torchrun (:func:`_parallel_cards_cli`), and
-    the Stage-2 trainer under tp and sp (:func:`_parallel_cards_train`)."""
+    """``--parallel-cards N`` (not part of the default run; N cards), its
+    parts (``--parallel-parts``, all by default) against one process on
+    one card, each after a 2-step warm-up: ``serve``, a rank a card under
+    NCCL (torchrun), TP = N and SP = N: generate_hdr's path at 512^2, PNDM
+    50, as s/image under TP and SP, upconvert_hdrtv's at 1024^2, PNDM 50,
+    as s/frame under SP, phase parallel's checks on every rank; ``cli``,
+    the two CLIs themselves under torchrun (:func:`_parallel_cards_cli`);
+    ``train``, the Stage-2 trainer under tp and sp
+    (:func:`_parallel_cards_train`); ``pp``, the dual path's serving
+    headline under pipeline parallelism (:func:`_parallel_cards_pp`)."""
     import shutil
 
+    parts = args.parallel_parts.split(",")
+    unknown = sorted(set(parts) - set(PARALLEL_CARDS_PARTS))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown --parallel-parts {unknown}")
     root = tempfile.mkdtemp(prefix="gmdx_parallel_cards_")
     me = [os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed), "--parallel-dir", root,
           "--parallel-cards", str(args.parallel_cards)]
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    bad = []
     try:
-        _dist_spawn([sys.executable] + me + ["--parallel-job", "ref"],
-                    os.path.join(root, "ref.log"), 900, env=env)
-        _dist_spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-                     "--nproc_per_node", str(args.parallel_cards), "--master_addr", "localhost",
-                     "--master_port", str(_free_port())] + me + ["--parallel-job", "ranks"],
-                    os.path.join(root, "ranks.log"), 1500, env=env)
-        with open(os.path.join(root, "ref.json")) as f:
-            ref = json.load(f)
-        ranks = []
-        for r in range(args.parallel_cards):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        bad, _ = _parallel_check(ranks, ref, root, PARALLEL_CARDS_RUNS)
-        summary = {}
-        for name, mode, path, steps in PARALLEL_CARDS_RUNS:
-            unit = "s_per_frame" if path == "hdrtv" else "s_per_image"
-            summary[name] = {unit: max(r["runs"][name]["wall_s"] for r in ranks),
-                             "one_card_" + unit: ref["runs"][name]["wall_s"],
-                             "peak_mem_gb": max(r["runs"][name]["peak_mem_gb"] for r in ranks),
-                             "one_card_peak_mem_gb": ref["runs"][name]["peak_mem_gb"]}
-        emit({"phase": "parallel_cards", "cards": args.parallel_cards,
-              "backend": ranks[0]["backend"], "world": ranks[0]["world"],
-              "card": nvidia_smi_line(), **summary})
-        bad += _parallel_cards_cli(args, root, env)
-        bad += _parallel_cards_train(args, root, env)
+        if "serve" in parts:
+            bad += _parallel_cards_serve(args, root, me, env)
+        if "cli" in parts or "train" in parts:  # the trainer runs on the CLIs' directory
+            bad += _parallel_cards_cli(args, root, env, run="cli" in parts)
+        if "train" in parts:
+            bad += _parallel_cards_train(args, root, env)
+        if "pp" in parts:
+            bad += _parallel_cards_pp(args, root, env)
         if bad:
             raise SystemExit("chip_smoke: parallel_cards failed its checks: " + "; ".join(bad))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _parallel_cards_serve(args, root: str, me: list[str], env) -> list[str]:
+    """TP = N and SP = N serving against one card (phase_parallel_cards'
+    ``serve``). Returns the failures."""
+    _dist_spawn([sys.executable] + me + ["--parallel-job", "ref"],
+                os.path.join(root, "ref.log"), 900, env=env)
+    _dist_spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                 "--nproc_per_node", str(args.parallel_cards), "--master_addr", "localhost",
+                 "--master_port", str(_free_port())] + me + ["--parallel-job", "ranks"],
+                os.path.join(root, "ranks.log"), 1500, env=env)
+    with open(os.path.join(root, "ref.json")) as f:
+        ref = json.load(f)
+    ranks = []
+    for r in range(args.parallel_cards):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    bad, _ = _parallel_check(ranks, ref, root, PARALLEL_CARDS_RUNS)
+    summary = {}
+    for name, mode, path, steps in PARALLEL_CARDS_RUNS:
+        unit = "s_per_frame" if path == "hdrtv" else "s_per_image"
+        summary[name] = {unit: max(r["runs"][name]["wall_s"] for r in ranks),
+                         "one_card_" + unit: ref["runs"][name]["wall_s"],
+                         "peak_mem_gb": max(r["runs"][name]["peak_mem_gb"] for r in ranks),
+                         "one_card_peak_mem_gb": ref["runs"][name]["peak_mem_gb"]}
+    emit({"phase": "parallel_cards", "cards": args.parallel_cards,
+          "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+          "card": nvidia_smi_line(), **summary})
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# phase 26: pipeline-parallel dual-UNet serving
+# ---------------------------------------------------------------------------
+
+PP_WORLD = 2
+PP_BUDGET_S = 120.0
+PP_SEED = 170
+# Phase pp: batch 2, PNDM 4 steps (5 iterations) in chunks of 2, a ragged
+# tail; --parallel-cards N: the serving headline (batch 8, PNDM 50) in
+# chunks of 5 (the JAX wrapper's default) and of 1, each after a 2-step
+# warm-up.
+PP_BATCH, PP_STEPS, PP_CHUNKS = 2, 4, (2,)
+PP_CARDS_BATCH, PP_CARDS_STEPS, PP_CARDS_CHUNKS = 8, 50, (5, 1)
+PP_MODULES = ("unet", "gm_unet", "vae")
+
+
+def _meta_with_draws(build):
+    """``build()`` on the meta device while the card's default generator
+    advances as if it ran on the card: each seeded draw of its
+    initialisation runs once on a scratch tensor of the card, freed at
+    once. A stage-1 rank builds the SDR UNet so, then its own modules with
+    the generator where one process has it at that point: build_pipeline's
+    weights, without the SDR UNet's memory."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Draws(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if torch.Tag.nondeterministic_seeded in func.tags:
+                if not (args and isinstance(args[0], torch.Tensor) and args[0].is_meta):
+                    raise RuntimeError(f"chip_smoke: no replay on the card for {func}")
+                func(torch.empty_like(args[0], device="cuda"), *args[1:], **kwargs)
+            return func(*args, **kwargs)
+
+    with torch.device("meta"), Draws():
+        return build()
+
+
+def build_stage_pipeline(seed: int, stage: int | None):
+    """build_pipeline's pipeline as a rank of pipeline stage ``stage`` holds
+    it (None: the whole, one process): the same seeded weights, only the
+    stage's modules allocated (the SDR UNet on stage 0, the GM UNet and the
+    VAE on stage 1), None for the rest."""
+    if stage is None:
+        return build_pipeline(seed)
+    import torch
+
+    from gmdx_torch.models import (
+        SD15_GM_UNET_CONFIG, SD15_UNET_CONFIG, SD15_VAE_CONFIG,
+        AutoencoderKL, UNet2DConditionModel,
+    )
+    from gmdx_torch.pipelines import StableDiffusionDualUNetPipeline
+    from gmdx_torch.schedulers import PNDMScheduler
+
+    torch.manual_seed(seed)
+    mods = {}
+    with torch.device("cuda"):  # build_pipeline's order: unet, gm_unet, vae
+        if stage == 0:
+            mods["unet"] = UNet2DConditionModel(SD15_UNET_CONFIG)
+        else:
+            _meta_with_draws(lambda: UNet2DConditionModel(SD15_UNET_CONFIG))
+            mods["gm_unet"] = UNet2DConditionModel(SD15_GM_UNET_CONFIG)
+            mods["vae"] = AutoencoderKL(SD15_VAE_CONFIG)
+    mods = {k: m.to(torch.bfloat16).eval() for k, m in mods.items()}
+    return StableDiffusionDualUNetPipeline(mods.get("unet"), mods.get("vae"), PNDMScheduler(),
+                                           mods.get("gm_unet"), device="cuda")
+
+
+def _held(pipe) -> dict:
+    """Each module the pipeline holds: [its parameter count, the fp64 sum of
+    its parameters] (equal sums, in the same order: equal weights)."""
+    out = {}
+    for k in PP_MODULES:
+        m = getattr(pipe, k, None)
+        if m is not None:
+            ps = list(m.parameters())
+            out[k] = [sum(p.numel() for p in ps), float(sum(p.double().sum() for p in ps))]
+    return out
+
+
+def _timed_pp(pipe, chunk: int, groups):
+    """PipelinedDualUNet recording a CUDA event (no synchronisation) where
+    each chunk's work ends on its stage's stream: on stage 0 before each
+    send, on stage 1 before each receive and after it."""
+    import torch
+
+    from gmdx_torch.pipelines import PipelinedDualUNet
+
+    class Timed(PipelinedDualUNet):
+        def _mark(self, kind: str) -> None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((kind, ev))
+
+        def _send(self, t):
+            self._mark("end")
+            return super()._send(t)
+
+        def _recv(self, shape):
+            self._mark("end")
+            out = super()._recv(shape)
+            self._mark("start")
+            return out
+
+    w = Timed(pipe, chunk, groups)
+    w.marks = []
+    return w
+
+
+def _chunk_ms(stage: int, marks: list, t0) -> dict:
+    """Device ms of each chunk of a stage's run from its marks (after a
+    synchronisation): stage 0 from one send to the next (the run's start
+    event before the first; the final latents' send closes nothing);
+    stage 1 from a receive's end to the next receive's start, and the
+    time its stream waited on each receive."""
+    ends = [e for k, e in marks if k == "end"]
+    if stage == 0:
+        return {"chunk_ms": [a.elapsed_time(b) for a, b in zip([t0] + ends[:-2], ends[:-1])]}
+    starts = [e for k, e in marks if k == "start"]
+    return {"chunk_ms": [a.elapsed_time(b) for a, b in zip(starts[:-1], ends[1:])],
+            "hop_wait_ms": [a.elapsed_time(b) for a, b in zip(ends, starts)]}
+
+
+def pp_job(args) -> None:
+    """A process of phase pp: with --pp-port, rank --pp-rank of PP_WORLD
+    gloo ranks on the one card, one rank a stage; under torchrun
+    (--parallel-cards), a rank a card under NCCL; else the one process the
+    ranks are held against. Each run's outputs, launches (counts set to 0
+    just before it, read just after), wall, chunk times and peak memory
+    (from the placed weights on), and the weights it holds, go to
+    --pp-dir."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.ops import apply_gm_to_sdr
+    from gmdx_torch.pipelines import pp_stage_groups
+
+    cards = args.parallel_cards
+    batch, steps, chunks = ((PP_CARDS_BATCH, PP_CARDS_STEPS, PP_CARDS_CHUNKS) if cards
+                            else (PP_BATCH, PP_STEPS, PP_CHUNKS))
+    groups, tag = None, "ref"
+    if args.pp_job == "ranks":
+        if args.pp_port:
+            dist.initialize(f"localhost:{args.pp_port}", PP_WORLD, args.pp_rank, backend="gloo")
+        else:
+            dist.initialize()
+        groups = pp_stage_groups()
+        tag = f"rank{dist.rank()}"
+    stage = None if groups is None else groups.stage
+    seed = args.seed + PP_SEED
+    pipe = build_stage_pipeline(seed, stage)
+    latents, cond, uncond = make_inputs(pipe, batch, seed + 1)
+    gc.collect()
+    torch.cuda.synchronize()
+    rows = batch if groups is None else batch // groups.data_size
+    out = {"stage": stage, "world": dist.world_size(), "first_row": 0 if groups is None
+           else groups.data_rank * rows,
+           "backend": torch.distributed.get_backend() if dist.is_initialized() else None,
+           "held": _held(pipe), "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9, "runs": {}}
+
+    def run(wrapper, n_steps: int) -> dict:
+        """The dual path: the loop (pipelined through ``wrapper``), then on
+        the GM stage (or the one process) one batched decode and Eq. (1)."""
+        if wrapper is None:
+            sdr, gm = pipe.denoise_dual(cond, uncond, latents, num_inference_steps=n_steps,
+                                        guidance_scale=7.5)
+        else:
+            sdr, gm = wrapper.denoise_dual(cond, uncond, latents, num_inference_steps=n_steps,
+                                           guidance_scale=7.5)
+        res = {"sdr_latents": sdr}
+        if gm is not None:
+            both = pipe.decode_latents(torch.cat([sdr, gm]))
+            b = sdr.shape[0]
+            res.update(gm_latents=gm, sdr=to01(both[:b]), gm=to01(both[b:]))
+            res["hdr"] = apply_gm_to_sdr(res["gm"], res["sdr"], qmax=99.0, clip_output=False)
+        torch.cuda.synchronize()
+        return res
+
+    for chunk in (None,) if groups is None else chunks:
+        name = "one_process" if chunk is None else f"chunk{chunk}"
+        wrapper = None if chunk is None else _timed_pp(pipe, chunk, groups)
+        if cards:  # a warm-up: cuDNN/cuBLAS plans, gloo/NCCL buffers
+            run(wrapper, 2)
+        if wrapper is not None:
+            wrapper.marks.clear()
+            torch.distributed.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        t0 = time.perf_counter()
+        res = run(wrapper, steps)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        row = {"launches": counts, "wall_s": wall, "steps": steps, "batch": batch,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if wrapper is not None:
+            row.update(_chunk_ms(stage, wrapper.marks, t_start), chunk=chunk)
+        if "hdr" in res:
+            row["hdr_finite"] = bool(torch.isfinite(res.pop("hdr")).all())
+        out["runs"][name] = row
+        torch.save({k: v.float().cpu() for k, v in res.items()},
+                   os.path.join(args.pp_dir, f"{tag}_{name}.pt"))
+    with open(os.path.join(args.pp_dir, f"{tag}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+
+
+def _psnr_peak(a, b) -> float:
+    """PSNR of ``a`` against ``b`` over their peak magnitude (latents)."""
+    peak = max(float(a.abs().max()), float(b.abs().max()), 1e-12)
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0.0 else 10.0 * math.log10(peak**2 / mse)
+
+
+def _pp_check(ranks: list[dict], ref: dict, root: str, phase: str) -> tuple[list[str], list]:
+    """Each rank's outputs against the one process's rows: on a GM-stage
+    rank the decoded SDR and GM (>= PSNR_MIN_DB; max-abs and bit equality
+    reported), on an SDR-stage rank its SDR latents (>= PSNR_MIN_DB over
+    their peak); the weights it holds (its stage's modules, each equal to
+    the one process's); with one rank a stage, the launches of the two
+    summed equal to the one process's. Returns the failures and the rows."""
+    import torch
+
+    want = torch.load(os.path.join(root, "ref_one_process.pt"))
+    bad, rows_out = [], []
+    half = len(ranks) // 2
+    stage_modules = ({"unet"}, {"gm_unet", "vae"})
+    for name in ranks[0]["runs"]:
+        for r, res in enumerate(ranks):
+            got = torch.load(os.path.join(root, f"rank{r}_{name}.pt"))
+            run, stage, first = res["runs"][name], res["stage"], res["first_row"]
+            b = got["sdr_latents"].shape[0]
+            sl = slice(first, first + b)
+            row = {"phase": phase, "run": name, "rank": r, "stage": stage,
+                   "world": res["world"], "backend": res["backend"], "rows": [first, first + b],
+                   "wall_s": run["wall_s"], "one_process_wall_s": ref["runs"]["one_process"]
+                   ["wall_s"], "weights_gb": res["weights_gb"],
+                   "one_process_weights_gb": ref["weights_gb"],
+                   "build_peak_gb": res["build_peak_gb"],
+                   "one_process_build_peak_gb": ref["build_peak_gb"],
+                   "peak_mem_gb": run["peak_mem_gb"],
+                   "one_process_peak_mem_gb": ref["runs"]["one_process"]["peak_mem_gb"],
+                   "held": res["held"],
+                   "launches": {k: v for k, v in run["launches"].items() if v}}
+            for k in ("chunk_ms", "hop_wait_ms"):
+                if k in run:
+                    row[k] = run[k]
+            keys = ("sdr", "gm") if stage == 1 else ("sdr_latents",)
+            row["psnr_db"] = {k: (psnr01 if stage == 1 else _psnr_peak)(got[k], want[k][sl])
+                              for k in keys}
+            row["max_abs"] = {k: float((got[k] - want[k][sl]).abs().max()) for k in keys}
+            row["bits_equal"] = {k: torch.equal(got[k], want[k][sl]) for k in
+                                 keys + (("sdr_latents", "gm_latents") if stage == 1 else ())}
+            emit(row)
+            if not min(row["psnr_db"].values()) >= PSNR_MIN_DB:
+                bad.append(f"{name} rank {r}: PSNR {row['psnr_db']} < {PSNR_MIN_DB} dB")
+            if stage == 1 and not run.get("hdr_finite"):
+                bad.append(f"{name} rank {r}: the HDR image is not finite")
+            if set(res["held"]) != stage_modules[stage] or any(
+                    res["held"][k] != ref["held"][k] for k in res["held"]):
+                bad.append(f"{name} rank {r}: holds {res['held']}, not its stage's modules "
+                           f"as one process builds them ({ref['held']})")
+            rows_out.append(row)
+        if half == 1:
+            total = {k: sum(res["runs"][name]["launches"][k] for res in ranks)
+                     for k in ref["runs"]["one_process"]["launches"]}
+            one = ref["runs"]["one_process"]["launches"]
+            emit({"phase": phase, "run": name, "launches_summed": {k: v for k, v in total.items()
+                                                                   if v},
+                  "one_process_launches": {k: v for k, v in one.items() if v},
+                  "equal": total == one})
+            if total != one:
+                bad.append(f"{name}: launches summed over the stages {total} != one process's "
+                           f"{one}")
+    return bad, rows_out
+
+
+def phase_pp(args) -> None:
+    """Pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) at
+    SD-1.5 width: PP_WORLD gloo ranks on the one card (NCCL refuses two
+    ranks on one device), stage 0 the SDR UNet, stage 1 the GM UNet and the
+    VAE, beside one process with the same weights and inputs: 512^2, batch
+    PP_BATCH, CFG 7.5, PNDM PP_STEPS steps in chunks of PP_CHUNKS (a ragged
+    tail), then stage 1's batched decode and Eq. (1); _pp_check's checks,
+    the phase's wall beside PP_BUDGET_S."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gmdx_pp_")
+    me = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed),
+          "--pp-dir", root]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs, procs = [], []
+    try:
+        port = _free_port()
+        for r in range(PP_WORLD):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                me + ["--pp-job", "ranks", "--pp-rank", str(r), "--pp-port", str(port)],
+                stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        _dist_spawn(me + ["--pp-job", "ref"], os.path.join(root, "ref.log"), 600, env=env)
+        for p in procs:
+            p.wait(timeout=600)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: pp rank {r} failed ({p.returncode}):\n{tail}")
+        ranks = []
+        for tag in ["ref"] + [f"rank{r}" for r in range(PP_WORLD)]:
+            with open(os.path.join(root, f"{tag}.json")) as f:
+                ranks.append(json.load(f))
+        bad, _ = _pp_check(ranks[1:], ranks[0], root, "pp")
+        elapsed = time.perf_counter() - t_phase
+        emit({"phase": "pp", "elapsed_s": elapsed, "budget_s": PP_BUDGET_S,
+              "within_budget": elapsed <= PP_BUDGET_S, "card": nvidia_smi_line()})
+        if bad:
+            raise SystemExit("chip_smoke: pp failed its checks: " + "; ".join(bad))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _parallel_cards_pp(args, root: str, env) -> list[str]:
+    """The serving headline under pipeline parallelism on N cards (NCCL, a
+    rank a card under torchrun; at N = 4 each stage runs data parallelism
+    2): batch 8, PNDM 50, CFG 7.5, in chunks of 5 and of 1, each after a
+    2-step warm-up, against one process on one card. s/image (the last
+    rank's wall over the batch) beside one card's, each stage's device ms a
+    chunk, and _pp_check's checks on every rank. Returns the failures."""
+    import statistics
+
+    n = args.parallel_cards
+    root = os.path.join(root, "pp")
+    os.makedirs(root)
+    me = [os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed), "--pp-dir", root,
+          "--parallel-cards", str(n)]
+    _dist_spawn([sys.executable] + me + ["--pp-job", "ref"], os.path.join(root, "pp_ref.log"),
+                600, env=env)
+    _dist_spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                 "--nproc_per_node", str(n), "--master_addr", "localhost", "--master_port",
+                 str(_free_port())] + me + ["--pp-job", "ranks"],
+                os.path.join(root, "pp_ranks.log"), 900, env=env)
+    with open(os.path.join(root, "ref.json")) as f:
+        ref = json.load(f)
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    bad, _ = _pp_check(ranks, ref, root, "parallel_cards_pp")
+    one = ref["runs"]["one_process"]["wall_s"] / PP_CARDS_BATCH
+    summary = {"one_card_s_per_image": one,
+               "one_card_peak_mem_gb": ref["runs"]["one_process"]["peak_mem_gb"]}
+    for name in ranks[0]["runs"]:
+        s_img = max(r["runs"][name]["wall_s"] for r in ranks) / PP_CARDS_BATCH
+        summary[name] = {
+            "s_per_image": s_img, "speedup": one / s_img,
+            "peak_mem_gb": max(r["runs"][name]["peak_mem_gb"] for r in ranks),
+            **{f"stage{s}_chunk_ms_median": statistics.median(
+                [ms for r in ranks if r["stage"] == s for ms in r["runs"][name]["chunk_ms"]])
+               for s in (0, 1)},
+            "stage1_hop_wait_ms_total": max(sum(r["runs"][name]["hop_wait_ms"])
+                                            for r in ranks if r["stage"] == 1)}
+    emit({"phase": "parallel_cards", "part": "pp", "cards": n, "batch": PP_CARDS_BATCH,
+          "steps": PP_CARDS_STEPS, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+          "card": nvidia_smi_line(), **summary})
+    return bad
 
 
 def main() -> int:
@@ -5143,9 +5567,18 @@ def main() -> int:
     for flag in ("--train-parallel-rank", "--train-parallel-port"):
         p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--parallel-cards", type=int, default=0,
-                   help="only tensor- and spatial-parallel serving over this many cards (TP = SP "
-                        "= N), a rank a card under NCCL, against one card, with s/image and "
-                        "s/frame at PNDM 50 (not the default run)")
+                   help="only parallel serving over this many cards, a rank a card under NCCL, "
+                        "against one card: tensor- and spatial-parallel (TP = SP = N) with "
+                        "s/image and s/frame at PNDM 50, the CLIs and the trainer under them, "
+                        "and pipeline-parallel dual-UNet serving (not the default run)")
+    p.add_argument("--parallel-parts", default=",".join(PARALLEL_CARDS_PARTS),
+                   help="the parts of --parallel-cards to run, of "
+                        f"{','.join(PARALLEL_CARDS_PARTS)}")
+    # Phase pp's children (this script again).
+    for flag in ("--pp-job", "--pp-dir"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--pp-rank", "--pp-port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     args = p.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "gmdx_torch")):
@@ -5160,14 +5593,15 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         {"ref": dist_job_ref, "ranks": dist_job_ranks, "cli": dist_job_cli}[args.dist_job](args)
         return 0
-    if args.parallel_job or args.train_parallel_job:
+    if args.parallel_job or args.train_parallel_job or args.pp_job:
         import torch
 
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        (parallel_job if args.parallel_job else train_parallel_job)(args)
+        (parallel_job if args.parallel_job else pp_job if args.pp_job
+         else train_parallel_job)(args)
         return 0
     if args.parallel_cards:
         dev = phase_device()
@@ -5209,6 +5643,7 @@ def main() -> int:
         phase_convert(args, pipe_dir)
         parallel_launches = phase_parallel(args)
         train_parallel_launches = phase_train_parallel(args, pipe_dir)
+        phase_pp(args)
     finally:
         import shutil
 

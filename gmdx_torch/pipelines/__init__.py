@@ -6,10 +6,13 @@ from gmdx_torch.pipelines.controlnet import (
 )
 from gmdx_torch.pipelines.dual import StableDiffusionDualUNetPipeline
 from gmdx_torch.pipelines.gm import StableDiffusionGMPipeline
+from gmdx_torch.pipelines.pp import PipelinedDualUNet, pp_stage_groups
 
 __all__ = [
+    "PipelinedDualUNet",
     "StableDiffusionControlNetHDRPipeline",
     "StableDiffusionDualUNetPipeline",
     "StableDiffusionGMPipeline",
+    "pp_stage_groups",
     "upconvert_sdr_to_hdrtv",
 ]

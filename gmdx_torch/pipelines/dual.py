@@ -21,6 +21,10 @@ sampler, and each step draws its randomness for the SDR branch first, then
 for the GM branch (the JAX package splits the step key into k_sdr, k_gm);
 explicit ``step_noise[i]`` is that (SDR, GM) pair. The callbacks see the
 SDR branch's latents, as the reference's ``latents`` local is that branch.
+
+The per-step algebra lives once, in :func:`sdr_step` and :func:`gm_step`:
+the sequential loop calls both in turn, the pipeline-parallel stages of
+``gmdx_torch.pipelines.pp`` one each.
 """
 
 from __future__ import annotations
@@ -41,19 +45,67 @@ from gmdx_torch.pipelines.gm import (
 )
 
 
+def sdr_step(
+    sched, state, sdr_eps, lat: torch.Tensor, context: torch.Tensor, *, cond: torch.Tensor,
+    uncond: torch.Tensor | None, guidance_scale: float, guidance_rescale: float = 0.0,
+    low_memory: bool = False, eta: float = 0.0, generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the SDR branch on NHWC ``lat``: the prediction
+    ``sdr_eps(x, t, context)`` under CFG (one doubled batch on ``context``
+    = [uncond ‖ cond], or with ``low_memory`` the uncond and cond passes one
+    after the other; conditional-only where ``uncond`` is None), with
+    ``rescale_noise_cfg``, then x0 by the eps formula on alphas_cumprod[t]
+    BEFORE the scheduler's step, then the step. Returns (the latents after
+    the step, x0). The sequential loop and the pipelined SDR stage
+    (``gmdx_torch.pipelines.pp``) both run it."""
+    t = state.timestep
+    do_cfg = uncond is not None
+    if do_cfg and low_memory:
+        eps_uncond = sdr_eps(lat, t, uncond)
+        eps_text = sdr_eps(lat, t, cond)
+    else:
+        eps = sdr_eps(torch.cat([lat, lat]) if do_cfg else lat, t, context)
+        if do_cfg:
+            eps_uncond, eps_text = eps.chunk(2)
+    if do_cfg:
+        eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        if guidance_rescale > 0.0:
+            eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+    a_t = sched.alphas_cumprod[t]
+    x0 = (lat - float(np.sqrt(np.float32(1.0) - a_t)) * eps) / float(np.sqrt(a_t))
+    lat = scheduler_step(sched, state, eps, lat, eta=eta, generator=generator, noise=noise)
+    return lat, x0
+
+
+def gm_step(
+    sched, state, gm_unet: nn.Module, x0: torch.Tensor, gm_lat: torch.Tensor,
+    cond: torch.Tensor, *, eta: float = 0.0, generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One step of the GM branch: the conditional-only prediction of
+    ``gm_unet`` on the channel concat [x0 ‖ gm_lat] (NHWC) at the state's
+    timestep, then the scheduler's step. Returns the GM latents after it.
+    The sequential loop and the pipelined GM stage both run it."""
+    gm_eps = gm_unet(torch.cat([x0, gm_lat], dim=-1), state.timestep, cond, channels_last=True)
+    return scheduler_step(sched, state, gm_eps, gm_lat, eta=eta, generator=generator,
+                          noise=noise)
+
+
 class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
     """The 4-channel SDR UNet (``unet``) beside the 8-channel ``gm_unet``.
     It takes no ``safety_checker``: the JAX package's dual ``__call__``
-    applies none."""
+    applies none. A module given as None is absent (a pipeline-parallel
+    stage holds only its own, ``gmdx_torch.pipelines.pp``)."""
 
     def __init__(
-        self, unet: nn.Module, vae: nn.Module, scheduler, gm_unet: nn.Module, *,
-        text_encoder: nn.Module | None = None, tokenizer=None,
+        self, unet: nn.Module | None, vae: nn.Module | None, scheduler,
+        gm_unet: nn.Module | None, *, text_encoder: nn.Module | None = None, tokenizer=None,
         lora: dict | None = None, device: str | torch.device = "cuda",
     ):
         super().__init__(unet, vae, scheduler, text_encoder=text_encoder, tokenizer=tokenizer,
                          lora=lora, device=device)
-        self.gm_unet = gm_unet.to(self.device)
+        self.gm_unet = None if gm_unet is None else gm_unet.to(self.device)
 
     def prepare_latents(
         self, generator: torch.Generator, batch_size: int, height: int, width: int
@@ -108,34 +160,17 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         sdr_state = sched.init_state(num_inference_steps)
         gm_state = sched.init_state(num_inference_steps)
         generator = self._default_generator(generator, step_noise)
-        acp = sched.alphas_cumprod
         inter_sdr, inter_gm = [], []
 
         for i in range(self._num_steps(num_inference_steps)):
             t = sdr_state.timestep
-            if do_cfg and low_memory:
-                eps_uncond = sdr_eps(lat, t, uncond)
-                eps_text = sdr_eps(lat, t, cond)
-            else:
-                eps = sdr_eps(torch.cat([lat, lat]) if do_cfg else lat, t, context)
-                if do_cfg:
-                    eps_uncond, eps_text = eps.chunk(2)
-            if do_cfg:
-                eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-                if guidance_rescale > 0.0:
-                    eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
-
-            # x0 prediction BEFORE the SDR step, by the eps formula.
-            a_t = acp[t]
-            x0 = (lat - float(np.sqrt(np.float32(1.0) - a_t)) * eps) / float(np.sqrt(a_t))
             noise_sdr, noise_gm = (None, None) if step_noise is None else step_noise[i]
-            lat = scheduler_step(sched, sdr_state, eps, lat, eta=eta, generator=generator,
-                                 noise=noise_sdr)
-
-            # GM branch, conditional-only.
-            gm_eps = self.gm_unet(torch.cat([x0, gm_lat], dim=-1), t, cond, channels_last=True)
-            gm_lat = scheduler_step(sched, gm_state, gm_eps, gm_lat, eta=eta,
-                                    generator=generator, noise=noise_gm)
+            lat, x0 = sdr_step(sched, sdr_state, sdr_eps, lat, context, cond=cond, uncond=uncond,
+                               guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                               low_memory=low_memory, eta=eta, generator=generator,
+                               noise=noise_sdr)
+            gm_lat = gm_step(sched, gm_state, self.gm_unet, x0, gm_lat, cond, eta=eta,
+                             generator=generator, noise=noise_gm)
             if return_intermediates or on_step is not None:
                 lat_nchw = lat.permute(0, 3, 1, 2).contiguous()
                 if return_intermediates:
@@ -224,4 +259,4 @@ class StableDiffusionDualUNetPipeline(StableDiffusionGMPipeline):
         return (result, inter) if return_intermediates else result
 
 
-__all__ = ["StableDiffusionDualUNetPipeline"]
+__all__ = ["StableDiffusionDualUNetPipeline", "gm_step", "sdr_step"]

@@ -162,17 +162,18 @@ class StableDiffusionGMPipeline:
     _callback_tensor_inputs = ("latents", "prompt_embeds", "negative_prompt_embeds")
 
     def __init__(
-        self, unet: nn.Module, vae: nn.Module, scheduler, *,
+        self, unet: nn.Module | None, vae: nn.Module | None, scheduler, *,
         text_encoder: nn.Module | None = None, tokenizer=None, safety_checker=None,
         lora: dict | None = None, device: str | torch.device = "cuda",
     ):
         """``safety_checker``: an optional callable (images01_nhwc) ->
         (images01_nhwc, has_nsfw) applied to the decoded images. ``lora``:
         LoRA factors by UNet attribute name ("unet", "gm_unet"), each
-        ``gmdx_torch.models.lora``'s {weight name: {"a", "b"}}."""
+        ``gmdx_torch.models.lora``'s {weight name: {"a", "b"}}. A module
+        given as None is absent: the calls that need it fail."""
         self.device = resolve_device(device)
-        self.unet = unet.to(self.device)
-        self.vae = vae.to(self.device)
+        self.unet = None if unet is None else unet.to(self.device)
+        self.vae = None if vae is None else vae.to(self.device)
         self.scheduler = scheduler
         self.text_encoder = None if text_encoder is None else text_encoder.to(self.device)
         self.tokenizer = tokenizer

@@ -9,7 +9,8 @@ imports ``chip_smoke`` and ``gmdx_torch`` from the working directory). At
 every GroupNorm shape of the four paths, with the padded output and the
 SiLU of a resnet's first norm, it prints one JSON line with three means of
 20 launches (ms, CUDA events) of ``group_norm_silu`` (the copy's own plan,
-or in a copy without plans the stats + apply pair) and of
+or in a copy without plans the stats + apply pair), of its fp32 plain
+version (``plain_ms``, the kernel table's reference column) and of
 ``F.silu(F.group_norm(...))`` over the NCHW view as the yardstick; the
 relative L2 error of ``group_norm_silu`` against the fp32 plain version;
 the bound (x read once, y written once, at 3.35 TB/s); the plan where the
@@ -30,7 +31,8 @@ cotangent) at each shape, and the transformer's (neither) at its four. Each
 line has three means of 20 calls by CUDA events (host and device), the
 device time a call by torch.profiler (every kernel the call launches,
 summed: the wrapper's own reductions too, where it has them) and by kernel
-name, the same for ``F.group_norm`` (+ ``F.silu``) differentiated by
+name, the same for the fp32 plain version (``plain``) and for
+``F.group_norm`` (+ ``F.silu``) differentiated by
 autograd (on x + temb; dtemb is not in it) as the yardstick, the largest
 relative L2 error of the four outputs against the fp32 plain version, the
 bound (x and g read once, dx written once, at 3.35 TB/s), the plan where the
@@ -102,9 +104,9 @@ def time_bwd(tag: str, smi: str, gen) -> None:
                           device="cuda").to(torch.bfloat16)
         _, stats = gn.group_norm_silu(x, gam, bet, t, activate=act, pad_output=pad,
                                       return_stats=True)
-        ref = gn.group_norm_silu_bwd_plain(
-            x.float(), gam.float(), bet.float(), t.float() if temb else None, stats, cot.float(),
-            activate=act, pad_output=pad)
+        f32 = (x.float(), gam.float(), bet.float(), t.float() if temb else None)
+        cot32 = cot.float()
+        ref = gn.group_norm_silu_bwd_plain(*f32, stats, cot32, activate=act, pad_output=pad)
         xin = x if t is None else (x.float() + t.float()[:, None, None, :]).to(torch.bfloat16)
         xl = xin.permute(0, 3, 1, 2).detach().requires_grad_()
         gl, bl = gam.detach().requires_grad_(), bet.detach().requires_grad_()
@@ -114,6 +116,8 @@ def time_bwd(tag: str, smi: str, gen) -> None:
         fns = {
             "default": lambda: gn.group_norm_silu_bwd(x, gam, bet, t, stats, cot, activate=act,
                                                       pad_output=pad),
+            "plain": lambda: gn.group_norm_silu_bwd_plain(*f32, stats, cot32, activate=act,
+                                                          pad_output=pad),
             "library": lambda: torch.autograd.grad(yl, (xl, gl, bl), cot_l, retain_graph=True),
         }
         row = {"tag": tag, "kind": "bwd", "shape": [b, h, w, c], "temb": temb, "silu": act,
@@ -128,7 +132,7 @@ def time_bwd(tag: str, smi: str, gen) -> None:
         nbytes = (2 * x.numel() + cot.numel()) * 2
         row["bound_ms"] = nbytes / cs.HBM_BYTES_S * 1e3
         print(json.dumps(row), flush=True)
-        del x, cot, ref, xl, yl
+        del x, cot, ref, xl, yl, f32, cot32
 
 
 def main() -> None:
@@ -151,21 +155,23 @@ def main() -> None:
             x = (torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
             g = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
             be = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
-            ref = gn.group_norm_silu_plain(x.float(), g.float(), be.float(), pad_output=True)
-            fns = {"default": lambda: gn.group_norm_silu(x, g, be, pad_output=True)}
+            f32 = (x.float(), g.float(), be.float())
+            ref = gn.group_norm_silu_plain(*f32, pad_output=True)
+            fns = {"default": lambda: gn.group_norm_silu(x, g, be, pad_output=True),
+                   "plain": lambda: gn.group_norm_silu_plain(*f32, pad_output=True)}
             row = {"tag": tag, "path": path, "shape": [b, h, w, c], "device": smi}
             if plan_of is not None:
                 row["plan"] = plan_of(b, h, w, c).__dict__
             x_nchw = x.permute(0, 3, 1, 2)
             fns["library"] = lambda: F.silu(F.group_norm(x_nchw, 32, g, be, 1e-5))
             for name, fn in fns.items():
-                if name != "library":
+                if name == "default":
                     row[f"{name}_rel_l2"] = cs.compare(fn(), ref)[1]
                 row[f"{name}_ms"] = [cs.time_ms(fn, iters=20) for _ in range(3)]
             nbytes = (x.numel() + b * (h + 2) * (w + 2) * c + 2 * c) * 2
             row["bound_ms"] = nbytes / cs.HBM_BYTES_S * 1e3
             print(json.dumps(row), flush=True)
-            del x, ref, x_nchw
+            del x, ref, x_nchw, f32
 
 
 if __name__ == "__main__":

@@ -305,9 +305,10 @@ def main() -> None:
     with open(os.path.join(workdir, "setup.pkl"), "rb") as f:
         setup = pickle.load(f)
     setup["workdir"] = workdir
+    from torch_pp_ranks import JOBS as PP_JOBS
     from torch_tp_ranks import JOBS as TP_JOBS
 
-    out = {**JOBS, **TP_JOBS}[job](setup)
+    out = {**JOBS, **TP_JOBS, **PP_JOBS}[job](setup)
     with open(os.path.join(workdir, f"{job}_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.shutdown()
