@@ -56,7 +56,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      queries against the whole image's keys; half the heads) have rows of
      their own, and so has the split backward (group_norm_bwd_sums, each
      sum column, dgamma and dbeta apart; group_norm_bwd_apply, dx and
-     dtemb apart) at a rank's half of phase train_parallel's images.
+     dtemb apart) at a rank's half of phase train_parallel's images, and
+     (phase trainers_parallel's shapes) at a rank's half of the VAE's
+     1024^2 x 128 and 256^2 x 512 levels (eps 1e-6), beside the 512-wide
+     backward of a rank's 8192 queries against 16384 keys.
      GroupNorm rows (among them 64^2 x 640 and 32^2 x 1920, the images of
      the UNet too large for one cluster) carry their plan's form, cluster
      size and the clusters resident at once, held to gmdx_group_norm_plan
@@ -247,7 +250,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and sp (pixels: the VAE on each rank's rows) on the two ranks: losses
      finite, the saved pipeline's UNet whole. Its wall beside
      TRAIN_PARALLEL_BUDGET_S.
- 26. pp: pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) on
+ 26. trainers_parallel: the Stage-1 and ControlNet trainers under tensor
+     and spatial parallelism at SD-1.5 width on two gloo ranks of the one
+     card, each beside one process: the ControlNet step (512^2, global
+     batch 2) under TP = 2 and SP = 2, losses within TRAIN_LOSS_RTOL, the
+     first reduced gradient, whole, at cosine >= TRAIN_GRAD_COS_MIN; a
+     Stage-1 gen + disc pair (learning rate 0, VGG19 and the discriminator
+     in fp32) under TP = 2 at 512^2, batch 2, and under SP = 2 at 1024^2,
+     batch 1 (the 512-wide flash forward and backward on a rank's 8192
+     queries against 16384 keys), each loss part within TRAIN_LOSS_RTOL
+     (the adaptive weight within STAGE1_ADAPTIVE_RTOL), both gradients and
+     the generator's without the adversarial term at cosine >=
+     TRAIN_GRAD_COS_MIN, the discriminator's input gradient on the same
+     image within STAGE1_DISC_GRAD_REL_L2 (under SP the adaptive weight,
+     the generator loss and the whole generator gradient reported beside
+     one process's own spread: that input gradient moves with the bf16
+     VAE's rounding of the image, TRAINERS_S1_RUNS); launches by the mode's rule (SP: the
+     split GroupNorm's four entries, never group_norm_silu(_bwd); Stage 1's
+     TP: the one process's; the ControlNet's TP: flash as one process,
+     GroupNorm and the FF fewer, none more); a rank's peak memory beside
+     one process's; then train_vqgan_lora.py and train_controlnet.py on
+     phase cli's directory for 2 steps under --shard_strategy tp and sp on
+     the two ranks: losses finite, the artifacts saved. Its wall beside
+     TRAINERS_PARALLEL_BUDGET_S.
+ 27. pp: pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) on
      two gloo ranks of the one card, stage 0 the SDR UNet, stage 1 the GM
      UNet and the VAE (a stage-1 rank builds the SDR UNet on the meta
      device, replaying its seeded draws, so its own modules get one
@@ -269,7 +295,9 @@ PNDM 50, with phase parallel's checks; cli, generate_hdr (--tp_size N,
 on a full-width directory, their files >= 40 dB of the one-card run's;
 train, train_gm_unet.py for 2 steps at 512^2 under --shard_strategy tp
 --tp_size N and sp --sp_size N under torchrun against one card, the
-step-1 loss within TRAIN_LOSS_RTOL of the one card's; pp, the dual path's
+step-1 loss within TRAIN_LOSS_RTOL of the one card's; trainers,
+train_vqgan_lora.py and train_controlnet.py likewise, each run's wall
+beside the one card's; pp, the dual path's
 serving headline (batch 8, PNDM 50, CFG 7.5) pipelined over N ranks (N / 2
 a stage) in chunks of 5 and of 1: s/image beside one card's, each stage's
 device ms a chunk, phase pp's checks on every rank (the launch sum with one
@@ -923,6 +951,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
     _stage1_kernel_rows(gen, results)
     _parallel_kernel_rows(gen, batch, results)
     _train_parallel_kernel_rows(gen, DIST_BATCH, results)
+    _trainers_parallel_kernel_rows(gen, results)
     return results
 
 
@@ -1068,6 +1097,90 @@ def _train_parallel_kernel_rows(gen, tb: int, results: list[dict]) -> None:
                (2 * n + tb * (h + 2 * pad) * (hw + 2 * pad) * c) * 2 + small
                + tb * 2 * 32 * 4 + (tb * c * 4 if temb_on else 0), results, peak=FP32_FLOPS)
         del x, cot
+
+
+def _trainers_parallel_kernel_rows(gen, results: list[dict]) -> None:
+    """K. The shapes spatial parallelism over two ranks gives Stage 1 at
+    1024^2, batch 1 (phase trainers_parallel): the 512-wide flash backward
+    of a rank's 8192 queries against the whole image's 16384 keys (its dK
+    and dV the rank's share, summed over the group by the layer), dq, dk and
+    dv each held to the fp32 plain version, SDPA's backward where a backend
+    takes d = 512; and the split GroupNorm backward at the VAE's widths
+    (eps 1e-6, SiLU, the padded cotangent, no temb): a rank's half of the
+    1024^2 x 128 and the 256^2 x 512 levels, the statistics the whole
+    image's. The backward's bound at the function's 10 B H Sq Sk D
+    operations."""
+    import torch
+
+    from gmdx_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    )
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_bwd_apply, group_norm_bwd_apply_plain, group_norm_bwd_sums,
+        group_norm_bwd_sums_plain, group_norm_silu_plain,
+    )
+
+    d, b, sq, sk = 512, 1, HDRTV_SIDE ** 2 // 64 // 2, HDRTV_SIDE ** 2 // 64
+    q, dout = _randn(gen, b, sq, d), _randn(gen, b, sq, d)
+    k, v = _randn(gen, b, sk, d), _randn(gen, b, sk, d)
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
+    refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                     dout.float(), 1, d**-0.5)
+    rels = {f"rel_l2_{n}": compare(g, r)[1] for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+    del grads, refs
+    qh, dh = (t.view(b, sq, 1, d).transpose(1, 2) for t in (q, dout))
+    kh, vh = (t.view(b, sk, 1, d).transpose(1, 2) for t in (k, v))
+    backend, lib = _sdpa_bwd_backend(qh, kh, vh, dh)
+    # q, out, dout, dq (Sq rows) and k, v, dk, dv (Sk rows) once, lse and dd.
+    _check(
+        "flash_attention_bwd_d512", [b, f"{sq} of {sk}", 1, d],
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout, 1),
+        lambda: flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                          dout.float(), 1, d**-0.5),
+        lib, 10.0 * b * sq * sk * d, 4 * b * (sq + sk) * d * 2 + 2 * b * sq * 4, results,
+        library=f"SDPA backward ({backend})",
+        extra={**exp2_keys(3 * 2 * b * sq * sk), **rels, "split": "sp 2 of 1024^2"},
+    )
+    del q, k, v, dout, out, lse, lib, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    for hw, c in ((HDRTV_SIDE, 128), (HDRTV_SIDE // 4, 512)):
+        h = hw // 2
+        x = (_randn(gen, 1, h, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+        gam = (_randn(gen, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+        bet = _randn(gen, c, scale=0.2)
+        cot = _randn(gen, 1, h + 2, hw + 2, c)
+        f32 = [x.float(), gam.float(), bet.float(), None]
+        # The whole image's statistics: this half's rows twice over.
+        _, stats = group_norm_silu_plain(torch.cat([f32[0]] * 2, 1), *f32[1:], eps=1e-6,
+                                         activate=True, return_stats=True)
+        kw = dict(activate=True, pad_output=True)
+        n = h * hw * c
+        shape = [1, h, hw, c, "silu", "pad", "vae", "sp 2"]
+        small = 2 * 32 * 4 + 2 * c * 2  # stats, affine
+
+        def sums_kernel():
+            s_, ds, db = group_norm_bwd_sums(x, gam, bet, None, stats, cot, **kw)
+            return s_[:, 0], s_[:, 1], ds, db
+
+        def sums_plain():
+            s_, ds, db = group_norm_bwd_sums_plain(*f32, stats, cot.float(), **kw)
+            return s_[:, 0], s_[:, 1], ds, db
+
+        _check("group_norm_bwd_sums", shape, sums_kernel, sums_plain, None, 20.0 * n,
+               (n + (h + 2) * (hw + 2) * c) * 2 + small + (2 * 32 + 2 * c) * 4, results,
+               peak=FP32_FLOPS)
+        sums = group_norm_bwd_sums_plain(*f32, stats, cot.float(), **kw)[0] * 2
+        _check("group_norm_bwd_apply", shape,
+               lambda: group_norm_bwd_apply(x, gam, bet, None, stats, cot, sums, 2 * h * hw,
+                                            **kw),
+               lambda: group_norm_bwd_apply_plain(*f32, stats, cot.float(), sums, 2 * h * hw,
+                                                  **kw),
+               None, 25.0 * n, (2 * n + (h + 2) * (hw + 2) * c) * 2 + small + 2 * 32 * 4,
+               results, peak=FP32_FLOPS)
+        del x, cot
+    torch.cuda.empty_cache()
 
 
 def _training_kernel_rows(gen, tb: int, results: list[dict]) -> None:
@@ -2341,14 +2454,21 @@ def phase_sdr2hdr_e2e(args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def build_stage1(seed: int, lora_b_std: float = 0.0):
+def build_stage1(seed: int, lora_b_std: float = 0.0, layout=None, gan_dtype=None,
+                 no_adv_step: bool = False):
     """Stage 1 at full SD-1.5 width with seeded random weights: the VAE
     (fp32 parameters, bf16 compute), VGG19 and the Paella discriminator
     (depth 6, hidden 512) in bf16 compute, LoRA r = 64 on every VAE conv and
     Linear weight plus the trainable conv_out, clipped AdamW at the CLI's
     defaults. The LoRA ``b`` factors start at 0, as the step does, or with
     ``lora_b_std`` are drawn N(0, lora_b_std^2) so that every factor takes
-    gradient."""
+    gradient. ``layout``: the steps' tp / sp data x model grid;
+    ``gan_dtype``: VGG19's and the discriminator's compute dtype in place of
+    bf16 (both are plain PyTorch); ``no_adv_step``: a third step, the
+    generator's with the adaptive weight clipped at 0 (no adversarial
+    term in its gradient)."""
+    import dataclasses
+
     import torch
 
     from gmdx_torch.models import SD15_VAE_CONFIG, AutoencoderKL
@@ -2360,8 +2480,8 @@ def build_stage1(seed: int, lora_b_std: float = 0.0):
     torch.manual_seed(seed)
     with torch.device("cuda"):
         vae = AutoencoderKL(SD15_VAE_CONFIG, dtype=torch.bfloat16)
-        vgg = VGG19Features(dtype=torch.bfloat16)
-        disc = Discriminator(dtype=torch.bfloat16)
+        vgg = VGG19Features(dtype=gan_dtype or torch.bfloat16)
+        disc = Discriminator(dtype=gan_dtype or torch.bfloat16)
     config = stage1.Stage1Config()
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     trainables = stage1.init_trainables(gen, vae, config)
@@ -2370,8 +2490,13 @@ def build_stage1(seed: int, lora_b_std: float = 0.0):
             for f in trainables["lora"].values():
                 f["b"].normal_(0.0, lora_b_std, generator=gen)
     steps = (stage1.make_gen_step(config, vae=vae, discriminator=disc, vgg=vgg,
-                                  tmo_fn=fix_mulog_tmo),
-             stage1.make_disc_step(config, vae=vae, discriminator=disc, tmo_fn=fix_mulog_tmo))
+                                  tmo_fn=fix_mulog_tmo, layout=layout),
+             stage1.make_disc_step(config, vae=vae, discriminator=disc, tmo_fn=fix_mulog_tmo,
+                                   layout=layout))
+    if no_adv_step:
+        steps += (stage1.make_gen_step(dataclasses.replace(config, adaptive_weight_max=0.0),
+                                       vae=vae, discriminator=disc, vgg=vgg,
+                                       tmo_fn=fix_mulog_tmo, layout=layout),)
     return config, vae, disc, trainables, steps, gen
 
 
@@ -3884,11 +4009,11 @@ def _dist_stage1(seed: int):
     return state, gen_step, disc_step, batch
 
 
-def _dist_controlnet(seed: int):
+def _dist_controlnet(seed: int, batch_size: int = DIST_CONTROLNET_BATCH, layout=None):
     """The ControlNet trainer's step at full width: a seeded random SD-1.5
     UNet (frozen, bf16), the ControlNet copied from it (fp32 master weights,
-    bf16 compute), random VAE and CLIP; a global batch of
-    DIST_CONTROLNET_BATCH 512^2 frames."""
+    bf16 compute), random VAE and CLIP; a global batch of ``batch_size``
+    512^2 frames; ``layout`` the step's tp / sp data x model grid."""
     import torch
 
     from gmdx_torch.io import controlnet_state_dict_from_unet
@@ -3910,13 +4035,13 @@ def _dist_controlnet(seed: int):
     unet = unet.to(torch.bfloat16)
     config = ControlNetTrainConfig(learning_rate=1e-5)
     step = make_controlnet_train_step(config, unet=unet, vae=vae, text_encoder=text,
-                                      controlnet=cnet.train())
+                                      controlnet=cnet.train(), layout=layout)
     state = init_controlnet_state(config, cnet)
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
-    frames = torch.rand(DIST_CONTROLNET_BATCH, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
+    frames = torch.rand(batch_size, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
     batch = {"image": frames, "cond": frames,
-             "input_ids": torch.randint(0, CLIP_VOCAB, (DIST_CONTROLNET_BATCH, 77),
-                                        generator=gen, device="cuda")}
+             "input_ids": torch.randint(0, CLIP_VOCAB, (batch_size, 77), generator=gen,
+                                        device="cuda")}
     return state, step, batch
 
 
@@ -4739,9 +4864,10 @@ def _train_parallel_cli(args, root: str) -> dict:
 def train_parallel_job(args) -> None:
     """A process of phase train_parallel: with --train-parallel-port, rank
     --train-parallel-rank of TRAIN_PARALLEL_WORLD gloo ranks on the one card
-    (TP, then SP, each on a data x model grid of (1, 2); then the CLI under
-    both); else the one process on the global batch (its first gradient
-    written as a bf16 vector for the ranks' cosines). Each run's losses,
+    (the CLI under both; then, once the one process has written ref.json,
+    TP, then SP, each on a data x model grid of (1, 2)); else the one
+    process on the global batch (its first gradient written as a bf16
+    vector for the ranks' cosines). Each run's losses,
     launches (counts set to 0 just before its steps, read just after), peak
     memory and wall go to --train-parallel-dir."""
     import torch
@@ -4759,6 +4885,15 @@ def train_parallel_job(args) -> None:
     out = {"backend": torch.distributed.get_backend() if ranks else None,
            "world": dist.world_size(), "runs": {}}
     seed = args.seed + TRAIN_PARALLEL_SEED
+    if ranks:
+        # The CLI needs nothing of the one process: it runs while that does,
+        # and the runs below wait for its gradient (ref.json comes last).
+        out["cli"] = _train_parallel_cli(args, root)
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(os.path.join(root, "ref.json")):
+            if time.perf_counter() > deadline:
+                raise SystemExit("chip_smoke: train_parallel: no ref.json after 600 s")
+            time.sleep(0.5)
     for mode in TRAIN_PARALLEL_MODES if ranks else (None,):
         t0 = time.perf_counter()
         layout = tpctx.join_train_parallel(mode, TRAIN_PARALLEL_WORLD) if mode else None
@@ -4811,11 +4946,10 @@ def train_parallel_job(args) -> None:
         del state, opt, grad_stats, unet, step, batch, m
         gc.collect()
         torch.cuda.empty_cache()
-    if ranks:
-        out["cli"] = _train_parallel_cli(args, root)
     tag = f"rank{dist.rank()}" if ranks else "ref"
-    with open(os.path.join(root, f"{tag}.json"), "w") as f:
+    with open(os.path.join(root, f"{tag}.json.part"), "w") as f:
         json.dump(out, f)
+    os.replace(os.path.join(root, f"{tag}.json.part"), os.path.join(root, f"{tag}.json"))
     dist.shutdown()
 
 
@@ -4873,12 +5007,13 @@ def _train_parallel_check(ranks: list[dict], ref: dict) -> tuple[list[str], dict
 
 def phase_train_parallel(args, pipe_dir: str) -> dict[str, int]:
     """Stage-2 training under TP and SP (gmdx_torch.dist.tp, tpctx, the
-    split GroupNorm backward) at SD-1.5 width: the one process, then
+    split GroupNorm backward) at SD-1.5 width: the one process and
     TRAIN_PARALLEL_WORLD gloo ranks on the one card (NCCL refuses two ranks
-    on one device), each child with a watchdog (killed past its limit: a
-    rank that left the collectives' order would hang the others); then the
-    CLI on phase cli's directory (``pipe_dir``) inside the ranks. Returns
-    rank 0's launches of the SP run."""
+    on one device) started together, each child with a watchdog (killed
+    past its limit: a rank that left the collectives' order would hang the
+    others); the ranks first run the CLI on phase cli's directory
+    (``pipe_dir``), then, once the one process has written its results,
+    the steps. Returns rank 0's launches of the SP run."""
     import shutil
 
     t_phase = time.perf_counter()
@@ -4892,34 +5027,37 @@ def phase_train_parallel(args, pipe_dir: str) -> dict[str, int]:
     try:
         meta, _ = _train_cli_data(root, args.seed + 95)
         t0 = time.perf_counter()
-        _dist_spawn(me + ["--train-parallel-job", "ref"], os.path.join(root, "ref.log"), 600,
-                    env=env)
-        ref_s = time.perf_counter() - t0
+        # The one process beside the ranks' CLI runs (the ranks' runs wait
+        # for its results).
+        logs.append(open(os.path.join(root, "ref.log"), "w"))
+        procs.append(subprocess.Popen(me + ["--train-parallel-job", "ref"], stdout=logs[0],
+                                      stderr=subprocess.STDOUT, cwd=REPO, env=env))
         port = _free_port()
-        t0 = time.perf_counter()
         for r in range(TRAIN_PARALLEL_WORLD):
             logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
             procs.append(subprocess.Popen(
                 me + ["--train-parallel-job", "ranks", "--train-parallel-rank", str(r),
                       "--train-parallel-port", str(port), "--train-parallel-pipe", pipe_dir,
                       "--train-parallel-meta", meta],
-                stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+                stdout=logs[r + 1], stderr=subprocess.STDOUT, cwd=REPO, env=env))
         deadline = time.perf_counter() + 900
+        done_s = []
         for p in procs:
             try:
                 p.wait(timeout=max(1.0, deadline - time.perf_counter()))
             except subprocess.TimeoutExpired:
                 break
-        for r, p in enumerate(procs):
+            done_s.append(time.perf_counter() - t0)
+        for name, p in zip(["ref"] + [f"rank{r}" for r in range(TRAIN_PARALLEL_WORLD)], procs):
             if p.returncode != 0:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-                with open(os.path.join(root, f"rank{r}.log")) as f:
+                with open(os.path.join(root, f"{name}.log")) as f:
                     tail = f.read()[-3000:]
-                raise SystemExit(f"chip_smoke: train_parallel rank {r} failed "
+                raise SystemExit(f"chip_smoke: train_parallel {name} failed "
                                  f"({p.returncode}):\n{tail}")
-        ranks_s = time.perf_counter() - t0
+        ref_s, ranks_s = done_s[0], max(done_s)
         with open(os.path.join(root, "ref.json")) as f:
             ref = json.load(f)
         ranks = []
@@ -4942,6 +5080,460 @@ def phase_train_parallel(args, pipe_dir: str) -> dict[str, int]:
             f.close()
         shutil.rmtree(root, ignore_errors=True)
     return launches["sp"]
+
+
+TRAINERS_PARALLEL_BUDGET_S = 150.0
+TRAINERS_PARALLEL_SEED = 170
+TRAINERS_CNET_BATCH = 2
+# (run, mode, side, batch): the Stage-1 pairs, each beside one process at
+# its side and batch. Under SP the 1024^2 mid block splits its 16384 queries
+# over the ranks against the whole image's keys: the 512-wide kernels.
+# There a rank's tonemapped image (the bf16 VAE on its rows) is the one
+# process's to 1.4e-3 relative L2, and at these random weights the
+# discriminator's input gradient moves 15 % with that change of its input,
+# 16 % with one process's image rounded to bf16 (its LeakyReLU kinks), while
+# the ranks' gradient on the one process's image is its to 1.9e-4
+# (scripts/torch/stage1_sp_probes.py, PERF.md §6, "NVIDIA H100 80GB HBM3,
+# 700.00 W"). So the adversarial probe, the adaptive weight it
+# divides, the generator loss it scales and the whole generator gradient
+# are reported under SP, beside one process's own spread
+# (``disc_input_grad_bf16_spread``); held instead, in both modes: the
+# discriminator's input gradient on the same image (fp32) within
+# STAGE1_DISC_GRAD_REL_L2, and the generator gradient without the
+# adversarial term (the adaptive weight clipped at 0, the same VAE
+# backward) at cosine >= TRAIN_GRAD_COS_MIN.
+TRAINERS_S1_RUNS = (("stage1_tp", "tp", 512, 2), ("stage1_sp", "sp", HDRTV_SIDE, 1))
+TRAINERS_S1_SP_REPORTED = ("adaptive_weight", "gen_loss")
+# fp32 convs whose cuDNN algorithms differ between a rank's rows and the
+# whole image (read 1.9e-4).
+STAGE1_DISC_GRAD_REL_L2 = 1e-3
+# Under SP every GroupNorm of a differentiated step is the split one: its
+# four entries launch, the one-rank entries never.
+TRAINERS_SP_GN = PARALLEL_KERNELS + TRAIN_PARALLEL_KERNELS
+TRAINERS_SP_OFF = ("group_norm_silu", "group_norm_silu_bwd")
+TRAINERS_SP_WIDE = ("flash_attention_fwd_d512", "flash_attention_bwd_d512")
+# Under TP the ControlNet's GroupNorm, conv and FF take the library route
+# (gmdx's dispatch), the frozen UNet and VAE run whole on the kernels: so
+# these launch fewer times than in one process, and the flash kernels (the
+# ControlNet's head-parallel attention) as often.
+TRAINERS_TP_FEWER = ("group_norm_silu", "group_norm_silu_bwd", "geglu_ff_ln")
+TRAINERS_TP_EQUAL = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def _capture_cosines(opt, into: list, path: str, mode) -> None:
+    """The first gradients ``opt.step`` takes: written as a bf16 vector to
+    ``path`` (one process), or their cosine and sign-flip share against
+    that vector (a rank: whole, TP's slices gathered)."""
+    if mode:
+        _dist_capture_grads(opt, into, lambda g: _whole_grad_cosine(opt.dp, g, path))
+    else:
+        _dist_capture_grads(opt, into, lambda g: _dist_flat_bf16(path, g))
+
+
+def _trainers_controlnet_run(seed: int, layout, root: str) -> dict:
+    """Two ControlNet steps at 512^2 on a global batch of
+    TRAINERS_CNET_BATCH frames, under ``layout`` or in one process: losses,
+    the first gradient's cosine against the one process's, launches (counts
+    set to 0 just before the steps, read just after), peak memory, wall."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+
+    mode = None if layout is None else layout.mode
+    t0 = time.perf_counter()
+    state, step, batch = _dist_controlnet(seed, TRAINERS_CNET_BATCH, layout)
+    if layout is not None:
+        state = dist.apply_shard_strategy(state, mode, param_fields=("params", "ema"),
+                                          opt_fields=("opt_state",), layout=layout)
+        batch = dist.shard_batch(batch, layout.data_rank, layout.data_size)
+        if mode == "sp":
+            batch = dist.spatial_batch(batch, layout)
+    opt = state.optimizer
+    stats: list = []
+    _capture_cosines(opt, stats, os.path.join(root, "cnet_grad.bin"), mode)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    losses = []
+    for i in range(DIST_STEPS):
+        state, m = step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 10 + i))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    row = {"loss": losses, "steps_s": time.perf_counter() - t1, "launches": launch_counts(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_elements": sum(t.numel() for t in opt.params)}
+    if mode:
+        row["grad_cosine"], row["grad_sign_flip_share"] = stats[0]
+    del opt.step
+    del state, step, batch, opt, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["s"] = time.perf_counter() - t0
+    return row
+
+
+def _disc_input_grad(disc, x, sp=None):
+    """d(adversarial term)/d(image) of ``disc`` at ``x`` (under ``sp`` this
+    rank's rows, the term its share), as the generator step takes it."""
+    import torch
+
+    from gmdx_torch.dist import tpctx
+
+    x = x.detach().requires_grad_(True)
+    with tpctx.entered(sp):
+        adv = -torch.mean(disc(x, update_sn=False)) / (1 if sp is None else sp.size)
+    return torch.autograd.grad(adv, x)[0]
+
+
+def _trainers_stage1_run(seed: int, layout, side: int, b: int, root: str, tag: str) -> dict:
+    """A Stage-1 generator and discriminator step (learning rate 0, so that
+    both see the one process's weights; LoRA b factors N(0, 1e-2^2)) at
+    ``side``^2 on a global batch of ``b``, under ``layout`` or in one
+    process: the loss parts, each step's gradient cosine against the one
+    process's, launches, peak memory, wall. Then, outside the counts, a
+    generator step without the adversarial term (its gradient's cosine)
+    and the discriminator's input gradient at the batch's target image (a
+    rank: its relative L2 against the one process's; the one process: its
+    own spread, at the image rounded to bf16). The VAE computes in bf16 on
+    the kernels; VGG19 and the discriminator (plain PyTorch, no kernel) in
+    fp32: in bf16 the gradient penalty's second derivative and the
+    discriminator's input gradient round differently on a rank's rows than
+    on the whole image, and the comparison would measure that rounding,
+    not the ranks' arithmetic."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.train import stage1
+
+    mode = None if layout is None else layout.mode
+    sp = layout if mode == "sp" else None
+    t0 = time.perf_counter()
+    config, vae, disc, trainables, (gen_step, disc_step, no_adv_step), _ = build_stage1(
+        seed, lora_b_std=1e-2, layout=layout, gan_dtype=torch.float32, no_adv_step=True)
+    state = stage1.init_state(config, trainables, disc, stage1.make_optimizers(
+        trainables, disc, learning_rate=0.0, discr_learning_rate=0.0, lr_warmup_steps=0))
+    batch = stage1_batch(b, side, torch.Generator(device="cuda").manual_seed(seed + 3))
+    if layout is not None:
+        state = dist.apply_shard_strategy(
+            state, mode, param_fields=("trainables", "disc_params", "ema"),
+            opt_fields=("opt_state", "disc_opt_state"), layout=layout)
+        batch = dist.shard_batch(batch, layout.data_rank, layout.data_size)
+        if mode == "sp":
+            batch = dist.spatial_batch(batch, layout)
+    stats = {"gen": [], "disc": [], "gen_no_adv": []}
+    _capture_cosines(state.optimizer, stats["gen"], os.path.join(root, f"{tag}_gen.bin"), mode)
+    _capture_cosines(state.disc_optimizer, stats["disc"], os.path.join(root, f"{tag}_disc.bin"),
+                     mode)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    state, gm = gen_step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 4))
+    state, dm = disc_step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 4))
+    torch.cuda.synchronize()
+    row = {"parts": {k: float(v) for m in (gm, dm) for k, v in m.items()
+                     if k not in ("module_grad_norms", "grad_norm")},
+           "pair_s": time.perf_counter() - t1, "launches": launch_counts(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "side": side, "batch": b}
+    # The weights are unchanged (learning rate 0); the power iteration's
+    # refresh reaches only the adversarial term, which this step drops.
+    _capture_cosines(state.optimizer, stats["gen_no_adv"],
+                     os.path.join(root, f"{tag}_gen_no_adv.bin"), mode)
+    state, _ = no_adv_step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 4))
+    image = (batch["pixel_values"] + 1.0) / 2.0
+    grad = _disc_input_grad(state.discriminator, image, sp)
+    path = os.path.join(root, f"{tag}_disc_input_grad.pt")
+    if mode:
+        for k in ("gen", "disc", "gen_no_adv"):
+            row[f"{k}_grad_cosine"], row[f"{k}_grad_sign_flip_share"] = stats[k][0]
+        ref = {"g": torch.load(path).cuda()}
+        ref = dist.shard_batch(ref, layout.data_rank, layout.data_size)
+        ref = dist.spatial_batch(ref, layout) if sp is not None else ref
+        sums = torch.stack([((grad - ref["g"]).double() ** 2).sum(),
+                            (ref["g"].double() ** 2).sum()])
+        if sp is not None:
+            torch.distributed.all_reduce(sums, group=sp.group)
+        if layout.data_size > 1:
+            torch.distributed.all_reduce(sums, group=layout.data_group)
+        row["disc_input_grad_rel_l2"] = math.sqrt(float(sums[0] / sums[1]))
+    else:
+        torch.save(grad.cpu(), path)
+        rounded = _disc_input_grad(state.discriminator, image.bfloat16().float())
+        row["disc_input_grad_bf16_spread"] = float(torch.linalg.vector_norm(rounded - grad)
+                                                   / torch.linalg.vector_norm(grad))
+    del state.optimizer.step, state.disc_optimizer.step
+    del state, vae, disc, trainables, gen_step, disc_step, no_adv_step, batch, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["s"] = time.perf_counter() - t0
+    return row
+
+
+def _trainers_parallel_cli(args, root: str) -> dict:
+    """train_vqgan_lora.py and train_controlnet.py on this rank (inside the
+    gloo group the job joined), each for 2 steps at 512^2 under
+    --shard_strategy tp and sp on phase cli's directory, the EMA on: steps,
+    losses, wall, and (rank 0) the saved artifact's elements."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.io.params import load_file
+
+    common = ["--pretrained_model_name_or_path", args.trainers_parallel_pipe, "--train_metadata",
+              args.trainers_parallel_meta, "--resolution", "512", "--train_batch_size", "1",
+              "--max_train_steps", "2", "--seed", str(args.seed), "--center_crop", "--use_ema",
+              "--dataloader_num_workers", "2", "--checkpointing_steps", "1000"]
+    out = {}
+    for script, saved in (("train_vqgan_lora", ("finetuned_VAE", "vae")),
+                          ("train_controlnet", ("controlnet",))):
+        trainer = _script(script)
+        for mode in TRAIN_PARALLEL_MODES:
+            run_dir = os.path.join(root, f"{script}_{mode}")
+            extra = ["--log_steps", "1"] if script == "train_vqgan_lora" else []
+            t0 = time.perf_counter()
+            res = trainer.main(common + extra + [
+                "--shard_strategy", mode, f"--{mode}_size", str(TRAIN_PARALLEL_WORLD),
+                "--output_dir", run_dir])
+            torch.cuda.synchronize()
+            row = {"global_step": res["global_step"],
+                   "losses": {str(k): v for k, v in res["losses"].items()},
+                   "wall_s": time.perf_counter() - t0}
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            if dist.rank() == 0:
+                tensors = load_file(os.path.join(run_dir, *saved, "params.safetensors"))
+                row["saved_elements"] = sum(v.numel() if isinstance(v, torch.Tensor) else v.size
+                                            for v in tensors.values())
+                del tensors
+            out[f"{script}_{mode}"] = row
+    return out
+
+
+def trainers_parallel_job(args) -> None:
+    """A process of phase trainers_parallel: with --trainers-parallel-port,
+    rank --trainers-parallel-rank of TRAIN_PARALLEL_WORLD gloo ranks on the
+    one card (both CLIs under both; then, once the one process has written
+    ref.json, the ControlNet under TP, then SP, Stage 1 under TP at 512^2
+    and under SP at 1024^2); else the one process
+    on each run's global batch (its gradients written as bf16 vectors for
+    the ranks' cosines). Results go to --trainers-parallel-dir."""
+    import torch
+
+    from gmdx_torch import dist
+    from gmdx_torch.dist import tpctx
+
+    root = args.trainers_parallel_dir
+    ranks = args.trainers_parallel_job == "ranks"
+    if ranks:
+        dist.initialize(f"localhost:{args.trainers_parallel_port}", TRAIN_PARALLEL_WORLD,
+                        args.trainers_parallel_rank, backend="gloo")
+    out = {"backend": torch.distributed.get_backend() if ranks else None,
+           "world": dist.world_size(), "runs": {}}
+    seed = args.seed + TRAINERS_PARALLEL_SEED
+    layouts = ({m: tpctx.join_train_parallel(m, TRAIN_PARALLEL_WORLD)
+                for m in TRAIN_PARALLEL_MODES} if ranks else {})
+    if ranks:
+        # The CLIs need nothing of the one process: they run while it does,
+        # and the comparisons wait for its gradients (ref.json comes last).
+        out["cli"] = _trainers_parallel_cli(args, root)
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(os.path.join(root, "ref.json")):
+            if time.perf_counter() > deadline:
+                raise SystemExit("chip_smoke: trainers_parallel: no ref.json after 600 s")
+            time.sleep(0.5)
+    for mode in TRAIN_PARALLEL_MODES if ranks else (None,):
+        out["runs"][f"controlnet_{mode or 'one'}"] = _trainers_controlnet_run(
+            seed, layouts.get(mode), root)
+    for run, mode, side, b in TRAINERS_S1_RUNS:
+        out["runs"][run if ranks else f"{run}_one"] = _trainers_stage1_run(
+            seed + 1, layouts.get(mode), side, b, root, run)
+    tag = f"rank{dist.rank()}" if ranks else "ref"
+    with open(os.path.join(root, f"{tag}.json.part"), "w") as f:
+        json.dump(out, f)
+    os.replace(os.path.join(root, f"{tag}.json.part"), os.path.join(root, f"{tag}.json"))
+    dist.shutdown()
+
+
+def _trainers_launch_faults(mode: str, counts: dict, one: dict, stage1: bool) -> dict:
+    """The launches of a rank's run off the mode's rule (empty when on it)."""
+    if mode == "sp":
+        need = TRAINERS_SP_GN + (TRAINERS_SP_WIDE if stage1 else TRAIN_TP_ATTENTION)
+        wrong = {k: counts[k] for k in need if counts[k] == 0}
+        wrong.update({k: counts[k] for k in TRAINERS_SP_OFF if counts[k]})
+    elif stage1:  # tp's replicas: the one process's launches
+        wrong = {k: (counts[k], one[k]) for k in one if counts[k] != one[k]}
+    else:
+        wrong = {k: (counts[k], one[k]) for k in one if counts[k] > one[k]}
+        wrong.update({k: (counts[k], one[k]) for k in TRAINERS_TP_EQUAL
+                      if counts[k] != one[k] or not counts[k]})
+        wrong.update({k: (counts[k], one[k]) for k in TRAINERS_TP_FEWER
+                      if not 0 < counts[k] < one[k]})
+    return wrong
+
+
+def _trainers_parallel_check(ranks: list[dict], ref: dict) -> list[str]:
+    """Each rank's runs against the one process's: the ControlNet's loss
+    within TRAIN_LOSS_RTOL and gradient cosine >= TRAIN_GRAD_COS_MIN; Stage
+    1's loss parts within TRAIN_LOSS_RTOL (the adaptive weight within
+    STAGE1_ADAPTIVE_RTOL), the steps' cosines (the generator's with and
+    without the adversarial term, the discriminator's) >= TRAIN_GRAD_COS_MIN
+    and the discriminator's input gradient within STAGE1_DISC_GRAD_REL_L2
+    (under SP TRAINERS_S1_SP_REPORTED and the whole generator gradient's
+    cosine reported, beside one process's own spread); launches by the
+    mode's rule; the CLIs' runs finite and their artifacts whole."""
+    bad = []
+    one = ref["runs"]
+    for r, res in enumerate(ranks):
+        for mode in TRAIN_PARALLEL_MODES:
+            run, base = res["runs"][f"controlnet_{mode}"], one["controlnet_one"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(run["loss"], base["loss"]))
+            wrong = _trainers_launch_faults(mode, run["launches"], base["launches"], False)
+            emit({"phase": "trainers_parallel", "run": "controlnet", "mode": mode, "rank": r,
+                  "backend": res["backend"], "global_batch": TRAINERS_CNET_BATCH,
+                  "resolution": 512, "loss": run["loss"], "one_process_loss": base["loss"],
+                  "loss_rel_err": rel, "grad_cosine": run["grad_cosine"],
+                  "grad_sign_flip_share": run["grad_sign_flip_share"],
+                  "steps_s": run["steps_s"], "one_process_steps_s": base["steps_s"],
+                  "peak_mem_gb": run["peak_mem_gb"],
+                  "one_process_peak_mem_gb": base["peak_mem_gb"],
+                  "held_elements": run["held_elements"],
+                  "one_process_held_elements": base["held_elements"],
+                  "launches": {k: v for k, v in run["launches"].items() if v},
+                  "one_process_launches": {k: v for k, v in base["launches"].items() if v},
+                  "s": run["s"]})
+            if not (rel <= TRAIN_LOSS_RTOL and run["grad_cosine"] >= TRAIN_GRAD_COS_MIN):
+                bad.append(f"rank {r} controlnet {mode}: loss rel {rel}, gradient cosine "
+                           f"{run['grad_cosine']}")
+            if wrong:
+                bad.append(f"rank {r} controlnet {mode}: launches off the rule: {wrong}")
+        for name, mode, side, b in TRAINERS_S1_RUNS:
+            run, base = res["runs"][name], one[f"{name}_one"]
+            reported = TRAINERS_S1_SP_REPORTED if mode == "sp" else ()
+            rel = {k: abs(v - base["parts"][k]) / max(abs(base["parts"][k]), 1e-30)
+                   for k, v in run["parts"].items()}
+            wrong = _trainers_launch_faults(mode, run["launches"], base["launches"], True)
+            emit({"phase": "trainers_parallel", "run": name, "mode": mode, "rank": r,
+                  "resolution": side, "global_batch": b,
+                  "reported_not_held": list(reported) + (["gen_grad_cosine"] if reported
+                                                         else []),
+                  "parts": run["parts"],
+                  "one_process_parts": base["parts"], "parts_rel_err": rel,
+                  "gen_grad_cosine": run["gen_grad_cosine"],
+                  "disc_grad_cosine": run["disc_grad_cosine"],
+                  "gen_no_adv_grad_cosine": run["gen_no_adv_grad_cosine"],
+                  "gen_grad_sign_flip_share": run["gen_grad_sign_flip_share"],
+                  "disc_grad_sign_flip_share": run["disc_grad_sign_flip_share"],
+                  "gen_no_adv_grad_sign_flip_share": run["gen_no_adv_grad_sign_flip_share"],
+                  "disc_input_grad_rel_l2": run["disc_input_grad_rel_l2"],
+                  "one_process_disc_input_grad_bf16_spread": base["disc_input_grad_bf16_spread"],
+                  "pair_s": run["pair_s"], "one_process_pair_s": base["pair_s"],
+                  "peak_mem_gb": run["peak_mem_gb"],
+                  "one_process_peak_mem_gb": base["peak_mem_gb"],
+                  "launches": {k: v for k, v in run["launches"].items() if v},
+                  "one_process_launches": {k: v for k, v in base["launches"].items() if v},
+                  "s": run["s"]})
+            off = {k: v for k, v in rel.items() if k not in reported
+                   and v > (STAGE1_ADAPTIVE_RTOL if k == "adaptive_weight" else TRAIN_LOSS_RTOL)}
+            cos = min([run["disc_grad_cosine"], run["gen_no_adv_grad_cosine"]]
+                      + ([] if reported else [run["gen_grad_cosine"]]))
+            if (off or cos < TRAIN_GRAD_COS_MIN
+                    or not run["disc_input_grad_rel_l2"] <= STAGE1_DISC_GRAD_REL_L2):
+                bad.append(f"rank {r} {name}: parts off {off}, gradient cosine {cos}, "
+                           f"discriminator input gradient {run['disc_input_grad_rel_l2']}")
+            if wrong:
+                bad.append(f"rank {r} {name}: launches off the rule: {wrong}")
+        for name, cli in res["cli"].items():
+            emit({"phase": "trainers_parallel", "part": "cli", "run": name, "rank": r, **cli})
+            losses = list(cli["losses"].values())
+            if not (cli["global_step"] == 2 and losses
+                    and all(math.isfinite(v) for v in losses)):
+                bad.append(f"rank {r} cli {name}: {cli}")
+            if r == 0 and not cli.get("saved_elements"):
+                bad.append(f"cli {name}: no artifact saved")
+    return bad
+
+
+def phase_trainers_parallel(args, pipe_dir: str) -> None:
+    """The Stage-1 and ControlNet trainers under tensor and spatial
+    parallelism (gmdx_torch.dist, the SP discriminator and VGG inputs, the
+    twice-differentiable collectives) at SD-1.5 width: the one process and
+    TRAIN_PARALLEL_WORLD gloo ranks on the one card started together, each
+    child with a watchdog; the ranks first run both CLIs on phase cli's
+    directory (``pipe_dir``), then, once the one process has written its
+    results, the steps. Its wall beside TRAINERS_PARALLEL_BUDGET_S."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(pipe_dir), "trainers_parallel")
+    os.makedirs(root)
+    me = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--seed", str(args.seed),
+          "--trainers-parallel-dir", root]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs, procs = [], []
+    try:
+        meta, _ = _train_cli_data(root, args.seed + 96)
+        t0 = time.perf_counter()
+        # The one process beside the ranks' CLI runs (the ranks' comparisons
+        # wait for its results).
+        logs.append(open(os.path.join(root, "ref.log"), "w"))
+        procs.append(subprocess.Popen(me + ["--trainers-parallel-job", "ref"], stdout=logs[0],
+                                      stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        port = _free_port()
+        for r in range(TRAIN_PARALLEL_WORLD):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                me + ["--trainers-parallel-job", "ranks", "--trainers-parallel-rank", str(r),
+                      "--trainers-parallel-port", str(port), "--trainers-parallel-pipe",
+                      pipe_dir, "--trainers-parallel-meta", meta],
+                stdout=logs[r + 1], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        deadline = time.perf_counter() + 900
+        done_s = []
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+            done_s.append(time.perf_counter() - t0)
+        for name, p in zip(["ref"] + [f"rank{r}" for r in range(TRAIN_PARALLEL_WORLD)], procs):
+            if p.returncode != 0:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                with open(os.path.join(root, f"{name}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: trainers_parallel {name} failed "
+                                 f"({p.returncode}):\n{tail}")
+        ref_s, ranks_s = done_s[0], max(done_s)
+        with open(os.path.join(root, "ref.json")) as f:
+            ref = json.load(f)
+        ranks = []
+        for r in range(TRAIN_PARALLEL_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        bad = _trainers_parallel_check(ranks, ref)
+        elapsed = time.perf_counter() - t_phase
+        emit({"phase": "trainers_parallel", "elapsed_s": elapsed, "ref_s": ref_s,
+              "ranks_s": ranks_s, "budget_s": TRAINERS_PARALLEL_BUDGET_S,
+              "within_budget": elapsed <= TRAINERS_PARALLEL_BUDGET_S,
+              "card": nvidia_smi_line()})
+        if bad:
+            raise SystemExit("chip_smoke: trainers_parallel failed its checks: "
+                             + "; ".join(bad))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # --parallel-cards N, its CLI part: (name, script, width flag or None,
@@ -5076,8 +5668,91 @@ def _parallel_cards_train(args, root: str, env) -> list[str]:
     return bad
 
 
+# (run, script, the logged values held as (step, key), those reported, the
+# saved artifact under the output directory) of --parallel-cards N's
+# trainers part. Stage 1's held values: step 1's loss parts and step 2's
+# discriminator loss, hinge and gradient penalty (the hinge reads the fake
+# of the VAE that step 1 updated). Its generator loss, recon + perceptual
+# + w * adversarial, and w (the adaptive weight) carry the discriminator's
+# input gradient, which at random weights moves 15 % with the bf16 VAE's
+# rounding of the image that SP changes (phase trainers_parallel,
+# TRAINERS_S1_RUNS): reported. On four "NVIDIA H100 80GB HBM3, 700.00 W"
+# SP's step-2 penalty and discriminator loss read 1.7e-3 apart, past the
+# bar (the CLI's discriminator computes in bf16, and the penalty reads its
+# input gradient; in float64 four CPU ranks hold it to 1e-14), and the
+# part fails there (PERF.md §6).
+PARALLEL_CARDS_TRAINERS = (
+    ("vqgan_lora", "train_vqgan_lora",
+     ((1, "recon"), (1, "perceptual"), (1, "adversarial"), (2, "step_discr_loss"), (2, "hinge"),
+      (2, "gp")),
+     ("step_gen_loss", "adaptive_weight"), ("finetuned_VAE", "vae")),
+    ("controlnet", "train_controlnet", ((1, "train_loss"),), (), ("controlnet",)))
+
+
+def _parallel_cards_trainers(args, root: str, env) -> list[str]:
+    """train_vqgan_lora.py and train_controlnet.py under torchrun on N cards
+    (NCCL) for 2 steps at 512^2 (EMA, --train_batch_size 1: a global batch
+    of 1 under both) on _parallel_cards_cli's directory: --shard_strategy tp
+    --tp_size N and sp --sp_size N against one card. Each held value
+    (PARALLEL_CARDS_TRAINERS) within TRAIN_LOSS_RTOL of the one card's, 2
+    steps, the saved artifact as many elements; each run's wall (process
+    start, load and 2 steps) beside the one card's. Returns the
+    failures."""
+    import torch
+
+    from gmdx_torch.io.params import load_file
+
+    n, pipe_dir = args.parallel_cards, os.path.join(root, "pipe")
+    meta, _ = _train_cli_data(os.path.join(root, "trainers_data"), args.seed + 98)
+    bad = []
+    for run, script, held, reported, saved in PARALLEL_CARDS_TRAINERS:
+        rows = {}
+        for mode in (None, "tp", "sp"):
+            name = f"{run}_{mode or 'one_card'}"
+            out = os.path.join(root, "out", name)
+            argv = [os.path.join(REPO, "scripts", "torch", f"{script}.py"),
+                    "--pretrained_model_name_or_path", pipe_dir, "--train_metadata", meta,
+                    "--output_dir", out, "--resolution", "512", "--train_batch_size", "1",
+                    "--max_train_steps", "2", "--seed", str(args.seed), "--center_crop",
+                    "--use_ema", "--dataloader_num_workers", "2", "--checkpointing_steps",
+                    "1000"] + (["--log_steps", "1"] if script == "train_vqgan_lora" else [])
+            if mode is None:
+                argv = [sys.executable] + argv
+            else:
+                argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                        "--nproc_per_node", str(n), "--master_addr", "localhost",
+                        "--master_port", str(_free_port())] + argv + [
+                            "--shard_strategy", mode, f"--{mode}_size", str(n)]
+            t0 = time.perf_counter()
+            _dist_spawn(argv, os.path.join(root, f"{name}.log"), 900, env=env)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+                logged = {m["step"]: m for m in map(json.loads, f)}
+            tensors = load_file(os.path.join(out, *saved, "params.safetensors"))
+            rows[mode] = {"wall_s": wall,
+                          "held": {f"{k}@{step}": logged[step][k] for step, k in held},
+                          "reported": {k: {st: m[k] for st, m in logged.items() if k in m}
+                                       for k in reported},
+                          "saved_elements": sum(v.numel() if isinstance(v, torch.Tensor)
+                                                else v.size for v in tensors.values())}
+            del tensors
+        one = rows[None]
+        for mode in ("tp", "sp"):
+            row = rows[mode]
+            rel = {k: abs(v - one["held"][k]) / abs(one["held"][k])
+                   for k, v in row["held"].items()}
+            emit({"phase": "parallel_cards", "part": "trainers", "run": f"{run}_{mode}",
+                  "cards": n, **row, "one_card": one, "held_rel_err": rel,
+                  "rtol": TRAIN_LOSS_RTOL, "card": nvidia_smi_line()})
+            off = {k: v for k, v in rel.items() if not v <= TRAIN_LOSS_RTOL}
+            if off or row["saved_elements"] != one["saved_elements"]:
+                bad.append(f"{run} {mode}: held values off {off}, saved elements "
+                           f"{row['saved_elements']} vs {one['saved_elements']}")
+    return bad
+
+
 # The parts of --parallel-cards N, in the order they run.
-PARALLEL_CARDS_PARTS = ("serve", "cli", "train", "pp")
+PARALLEL_CARDS_PARTS = ("serve", "cli", "train", "trainers", "pp")
 
 
 def phase_parallel_cards(args) -> None:
@@ -5089,7 +5764,9 @@ def phase_parallel_cards(args) -> None:
     as s/frame under SP, phase parallel's checks on every rank; ``cli``,
     the two CLIs themselves under torchrun (:func:`_parallel_cards_cli`);
     ``train``, the Stage-2 trainer under tp and sp
-    (:func:`_parallel_cards_train`); ``pp``, the dual path's serving
+    (:func:`_parallel_cards_train`); ``trainers``, the Stage-1 and
+    ControlNet trainers under tp and sp (:func:`_parallel_cards_trainers`);
+    ``pp``, the dual path's serving
     headline under pipeline parallelism (:func:`_parallel_cards_pp`)."""
     import shutil
 
@@ -5106,10 +5783,12 @@ def phase_parallel_cards(args) -> None:
     try:
         if "serve" in parts:
             bad += _parallel_cards_serve(args, root, me, env)
-        if "cli" in parts or "train" in parts:  # the trainer runs on the CLIs' directory
+        if {"cli", "train", "trainers"} & set(parts):  # the trainers run on its directory
             bad += _parallel_cards_cli(args, root, env, run="cli" in parts)
         if "train" in parts:
             bad += _parallel_cards_train(args, root, env)
+        if "trainers" in parts:
+            bad += _parallel_cards_trainers(args, root, env)
         if "pp" in parts:
             bad += _parallel_cards_pp(args, root, env)
         if bad:
@@ -5566,11 +6245,18 @@ def main() -> int:
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--train-parallel-rank", "--train-parallel-port"):
         p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    # Phase trainers_parallel's children (this script again).
+    for flag in ("--trainers-parallel-job", "--trainers-parallel-dir", "--trainers-parallel-pipe",
+                 "--trainers-parallel-meta"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--trainers-parallel-rank", "--trainers-parallel-port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--parallel-cards", type=int, default=0,
                    help="only parallel serving over this many cards, a rank a card under NCCL, "
                         "against one card: tensor- and spatial-parallel (TP = SP = N) with "
-                        "s/image and s/frame at PNDM 50, the CLIs and the trainer under them, "
-                        "and pipeline-parallel dual-UNet serving (not the default run)")
+                        "s/image and s/frame at PNDM 50, the CLIs and the three trainers "
+                        "under them, and pipeline-parallel dual-UNet serving (not the default "
+                        "run)")
     p.add_argument("--parallel-parts", default=",".join(PARALLEL_CARDS_PARTS),
                    help="the parts of --parallel-cards to run, of "
                         f"{','.join(PARALLEL_CARDS_PARTS)}")
@@ -5593,7 +6279,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         {"ref": dist_job_ref, "ranks": dist_job_ranks, "cli": dist_job_cli}[args.dist_job](args)
         return 0
-    if args.parallel_job or args.train_parallel_job or args.pp_job:
+    if args.parallel_job or args.train_parallel_job or args.pp_job or args.trainers_parallel_job:
         import torch
 
         if not torch.cuda.is_available():
@@ -5601,7 +6287,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         (parallel_job if args.parallel_job else pp_job if args.pp_job
-         else train_parallel_job)(args)
+         else trainers_parallel_job if args.trainers_parallel_job else train_parallel_job)(args)
         return 0
     if args.parallel_cards:
         dev = phase_device()
@@ -5617,37 +6303,49 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}), flush=True)
         return 0
-    dev = phase_device()
-    phase_build()
-    kernel_rows = phase_kernels(args.batch, args.train_batch, args.sdr2hdr_batch)
-    launches = phase_main(args)
-    phase_e2e(args)
-    train_launches = phase_train(args)
-    phase_train_e2e(args)
-    phase_train_e2e_controls(args)
-    hdrtv_launches = phase_hdrtv(args)
-    phase_hdrtv_e2e(args)
-    sdr2hdr_launches = phase_sdr2hdr(args)
-    phase_sdr2hdr_e2e(args)
-    stage1_launches, stage1_per_pair = phase_stage1(args)
-    phase_stage1_e2e(args)
-    phase_stage1_e2e_d512_plain(args)
-    phase_stage1_e2e_controls(args)
-    phase_samplers(args)
-    phase_samplers_e2e(args)
+    walls: dict[str, float] = {}  # each phase's wall, s, in the order they ran
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+
+    dev = timed(phase_device)
+    timed(phase_build)
+    kernel_rows = timed(phase_kernels, args.batch, args.train_batch, args.sdr2hdr_batch)
+    launches = timed(phase_main, args)
+    timed(phase_e2e, args)
+    train_launches = timed(phase_train, args)
+    timed(phase_train_e2e, args)
+    timed(phase_train_e2e_controls, args)
+    hdrtv_launches = timed(phase_hdrtv, args)
+    timed(phase_hdrtv_e2e, args)
+    sdr2hdr_launches = timed(phase_sdr2hdr, args)
+    timed(phase_sdr2hdr_e2e, args)
+    stage1_launches, stage1_per_pair = timed(phase_stage1, args)
+    timed(phase_stage1_e2e, args)
+    timed(phase_stage1_e2e_d512_plain, args)
+    timed(phase_stage1_e2e_controls, args)
+    timed(phase_samplers, args)
+    timed(phase_samplers_e2e, args)
     workdir = tempfile.mkdtemp(prefix="gmdx_cli_")
     try:
-        pipe_dir = phase_cli(args, workdir)
-        phase_train_cli(args, pipe_dir, train_launches)
-        phase_trainer_clis(args, pipe_dir, stage1_per_pair)
-        phase_convert(args, pipe_dir)
-        parallel_launches = phase_parallel(args)
-        train_parallel_launches = phase_train_parallel(args, pipe_dir)
-        phase_pp(args)
+        pipe_dir = timed(phase_cli, args, workdir)
+        timed(phase_train_cli, args, pipe_dir, train_launches)
+        timed(phase_trainer_clis, args, pipe_dir, stage1_per_pair)
+        timed(phase_convert, args, pipe_dir)
+        parallel_launches = timed(phase_parallel, args)
+        train_parallel_launches = timed(phase_train_parallel, args, pipe_dir)
+        timed(phase_trainers_parallel, args, pipe_dir)
+        timed(phase_pp, args)
     finally:
         import shutil
 
         shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "walls", "s": walls, "total_s": sum(walls.values()),
+          "card": nvidia_smi_line()})
 
     summary = []
     for name, (source, replaces) in KERNELS.items():

@@ -43,12 +43,17 @@ autograd each collective's backward is its adjoint: a gathered image's
 gradient is every rank's cotangent summed, then the rank's rows; a halo
 row's goes back to the rank whose row it is.
 
-The Stage-2 trainer's tp and sp (:func:`apply_shard_strategy` with the
-data x model layout of ``tpctx.join_train_parallel``): tp slices the
-UNet's parameters, moments and EMA by ``gmdx_torch.dist.tp``'s rule, sp
-keeps them whole; either way :class:`DataParallel` averages the gradient
-over the data axis alone (under sp after summing each model group's
-rows' shares), and takes the norm of the whole gradient.
+The trainers' tp and sp (:func:`apply_shard_strategy` with the data x
+model layout of ``tpctx.join_train_parallel``): tp slices the UNet's or
+the ControlNet's parameters, moments and EMA by ``gmdx_torch.dist.tp``'s
+rule (a Stage-1 state has no leaf the rule matches: the model axis holds
+replicas, as in the JAX package), sp keeps them whole; either way
+:class:`DataParallel` averages the gradient over the data axis alone (under
+sp after summing each model group's rows' shares), and takes the norm of
+the whole gradient. The spatial collectives are twice differentiable: each
+backward is an autograd Function, the forward's transpose, whose own
+backward is the forward (Stage 1's gradient penalty differentiates the
+discriminator's input gradient).
 """
 
 from __future__ import annotations
@@ -66,25 +71,27 @@ import torch.distributed as dist
 from gmdx_torch.dist.multihost import is_initialized, rank, world_size
 
 STRATEGIES = ("ddp", "zero1", "fsdp")
-# Tensor and spatial parallelism: the Stage-2 trainer's; the Stage-1 and
-# ControlNet trainers' are a slice of their own (ROADMAP.md).
+# Tensor and spatial parallelism: a trainer's data x model grid.
 MODEL_STRATEGIES = ("tp", "sp")
-TP_SP_ITEM = "ROADMAP Queue 1 item 9"
 BUCKET_BYTES = 128 << 20
 
 
-def check_strategy(strategy: str, trainer: str | None = None) -> None:
-    """Raise for a ``--shard_strategy`` that ``trainer`` ("stage2",
-    "stage1", "controlnet"; None: the data-parallel strategies alone) does
-    not take: tp and sp are Stage 2's."""
+def check_group_size(strategy: str, size: int, n: int) -> None:
+    """``gmdx/dist/mesh.py:make_train_mesh``'s check: a model group of
+    ``size`` >= 2 ranks that divides the ``n`` ranks."""
+    if size < 2 or n % size:
+        raise ValueError(f"--shard_strategy {strategy} needs a group size >= 2 dividing the "
+                         f"device count ({n}); got {size}")
+
+
+def check_strategy(strategy: str) -> None:
+    """Raise for a ``--shard_strategy`` other than the data-parallel ones
+    (:data:`STRATEGIES`), which lay the ranks out as one flat group. tp /
+    sp take a data x model grid (``tpctx.join_train_parallel``, whose group
+    size :func:`check_group_size` checks)."""
     if strategy in MODEL_STRATEGIES:
-        if trainer == "stage2":
-            return
-        name = {"stage1": "Stage-1", "controlnet": "ControlNet"}.get(trainer, trainer)
-        raise NotImplementedError(
-            f"--shard_strategy {strategy}: the {name or 'data-parallel'} trainer's tensor and "
-            f"spatial parallelism are not in the port yet ({TP_SP_ITEM}: Stage 2 has both, "
-            f"train_gm_unet --shard_strategy tp|sp)")
+        raise ValueError(f"--shard_strategy {strategy} lays the ranks out as a data x model "
+                         f"grid (tpctx.join_train_parallel), not one flat group")
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown shard strategy {strategy!r}")
 
@@ -178,18 +185,55 @@ def all_gather_stacked(t: torch.Tensor, ctx) -> torch.Tensor:
     return out.view(ctx.size, *t.shape)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=ctx.group)
+        return y
+
+    @staticmethod
+    def backward(fctx, g):
+        return _AllReduceSum.apply(g, fctx.ctx), None
+
+
+def all_reduce_sum(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum of ``x`` over ``ctx``'s group, on every rank (a new tensor).
+    Each rank uses the sum in its own way (its share of a loss), so the
+    gradient of a rank's ``x`` is every rank's cotangent of the sum,
+    summed: the same collective (``torch.distributed.nn.functional``'s
+    ``all_reduce``), differentiable again."""
+    return _AllReduceSum.apply(x, ctx)
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx, h_dim):
-        fctx.ctx, fctx.h_dim, fctx.rows = ctx, h_dim, x.shape[h_dim]
+        fctx.ctx, fctx.h_dim = ctx, h_dim
         return torch.cat(list(all_gather_stacked(x, ctx).unbind(0)), dim=h_dim)
 
     @staticmethod
     def backward(fctx, g):
+        return _RowsOfSum.apply(g, fctx.ctx, fctx.h_dim), None, None
+
+
+class _RowsOfSum(torch.autograd.Function):
+    """:class:`_GatherRows`' transpose: every rank's whole ``g`` summed (one
+    all-reduce: gloo has no reduce-scatter for tensors on a card), then
+    this rank's rows."""
+
+    @staticmethod
+    def forward(fctx, g, ctx, h_dim):
+        fctx.ctx, fctx.h_dim = ctx, h_dim
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=fctx.ctx.group)
-        rows = fctx.rows
-        return g.narrow(fctx.h_dim, fctx.ctx.rank * rows, rows), None, None
+        dist.all_reduce(g, group=ctx.group)
+        rows = g.shape[h_dim] // ctx.size
+        return g.narrow(h_dim, ctx.rank * rows, rows)
+
+    @staticmethod
+    def backward(fctx, gg):
+        return _GatherRows.apply(gg, fctx.ctx, fctx.h_dim), None, None
 
 
 def gather_rows(x: torch.Tensor, ctx, h_dim: int = 2) -> torch.Tensor:
@@ -198,56 +242,75 @@ def gather_rows(x: torch.Tensor, ctx, h_dim: int = 2) -> torch.Tensor:
     into equal slices along ``h_dim`` in rank order. Each rank uses the
     whole in its own way (its queries against every rank's keys), so the
     gradient of a rank's rows is every rank's cotangent of them: one
-    all-reduce of the whole cotangent, then this rank's rows (gloo has no
-    reduce-scatter for tensors on a card)."""
+    all-reduce of the whole cotangent, then this rank's rows."""
     return _GatherRows.apply(x, ctx, h_dim)
 
 
-def _exchange(up: torch.Tensor, down: torch.Tensor, ctx):
+def _exchange(up: torch.Tensor, down: torch.Tensor, ctx, h_dim: int = 1):
     """(the previous rank's ``down``, the next rank's ``up``), None at the
     image's top and bottom edge: one all-gather of every rank's rows ``up``
-    (for the rank above) and ``down`` (for the rank below), NHWC, stacked
-    along H (gloo has no send/recv for tensors on a card)."""
-    rows = all_gather_stacked(torch.cat([up, down], dim=1), ctx)
-    k = up.shape[1]
-    prev = rows[ctx.rank - 1][:, k:] if ctx.rank > 0 else None
-    nxt = rows[ctx.rank + 1][:, :k] if ctx.rank < ctx.size - 1 else None
+    (for the rank above) and ``down`` (for the rank below), stacked along
+    H (``h_dim``; gloo has no send/recv for tensors on a card)."""
+    rows = all_gather_stacked(torch.cat([up, down], dim=h_dim), ctx)
+    k, m = up.shape[h_dim], down.shape[h_dim]
+    prev = rows[ctx.rank - 1].narrow(h_dim, k, m) if ctx.rank > 0 else None
+    nxt = rows[ctx.rank + 1].narrow(h_dim, 0, k) if ctx.rank < ctx.size - 1 else None
     return prev, nxt
 
 
 class _HaloRows(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, x, top, bottom, ctx):
-        fctx.args = (top, bottom, ctx)
-        h = x.shape[1]
-        prev, nxt = _exchange(x[:, :bottom], x[:, h - top:], ctx)
-        zeros = lambda k: x.new_zeros((x.shape[0], k, *x.shape[2:]))  # noqa: E731
+    def forward(fctx, x, top, bottom, ctx, h_dim):
+        fctx.args = (top, bottom, ctx, h_dim)
+        h = x.shape[h_dim]
+        prev, nxt = _exchange(x.narrow(h_dim, 0, bottom), x.narrow(h_dim, h - top, top), ctx,
+                              h_dim)
+
+        def zeros(k):
+            shape = list(x.shape)
+            shape[h_dim] = k
+            return x.new_zeros(shape)
+
         return torch.cat([zeros(top) if prev is None else prev, x,
-                          zeros(bottom) if nxt is None else nxt], dim=1)
+                          zeros(bottom) if nxt is None else nxt], dim=h_dim)
 
     @staticmethod
     def backward(fctx, g):
-        top, bottom, ctx = fctx.args
-        h = g.shape[1] - top - bottom
-        # The halo rows' cotangents go back to the ranks whose rows they are.
-        prev, nxt = _exchange(g[:, :top], g[:, top + h:], ctx)
-        dx = g[:, top:top + h].clone()
+        return (_HaloRowsT.apply(g, *fctx.args),) + (None,) * 4
+
+
+class _HaloRowsT(torch.autograd.Function):
+    """:class:`_HaloRows`' transpose: the halo rows' cotangents go back to
+    the ranks whose rows they are, added to their edge rows."""
+
+    @staticmethod
+    def forward(fctx, g, top, bottom, ctx, h_dim):
+        fctx.args = (top, bottom, ctx, h_dim)
+        h = g.shape[h_dim] - top - bottom
+        prev, nxt = _exchange(g.narrow(h_dim, 0, top), g.narrow(h_dim, top + h, bottom), ctx,
+                              h_dim)
+        dx = g.narrow(h_dim, top, h).clone()
         if prev is not None:  # the rank above read our first rows as its bottom halo
-            dx[:, :bottom] += prev
+            dx.narrow(h_dim, 0, bottom).add_(prev)
         if nxt is not None:  # the rank below read our last rows as its top halo
-            dx[:, h - top:] += nxt
-        return dx, None, None, None
+            dx.narrow(h_dim, h - top, top).add_(nxt)
+        return dx
+
+    @staticmethod
+    def backward(fctx, gg):
+        return (_HaloRows.apply(gg, *fctx.args),) + (None,) * 4
 
 
-def halo_rows(x: torch.Tensor, top: int, bottom: int, ctx) -> torch.Tensor:
-    """NHWC rows ``x`` with ``top`` rows of the previous rank above and
-    ``bottom`` rows of the next rank below (zeros past the image's edges):
-    what a conv of this rank's output rows reads. The halo rows' gradient
-    goes back to the ranks whose rows they are, added to their edge rows."""
-    h = x.shape[1]
+def halo_rows(x: torch.Tensor, top: int, bottom: int, ctx, h_dim: int = 1) -> torch.Tensor:
+    """Rows ``x`` (NHWC, H at ``h_dim`` 1; NCHW with ``h_dim`` 2) with
+    ``top`` rows of the previous rank above and ``bottom`` rows of the next
+    rank below (zeros past the image's edges): what a conv of this rank's
+    output rows reads. The halo rows' gradient goes back to the ranks whose
+    rows they are, added to their edge rows."""
+    h = x.shape[h_dim]
     if top > h or bottom > h:
         raise ValueError(f"a halo of {max(top, bottom)} rows over {h} local rows")
-    return _HaloRows.apply(x, top, bottom, ctx)
+    return _HaloRows.apply(x, top, bottom, ctx, h_dim)
 
 
 class _FillHalo(torch.autograd.Function):
@@ -265,8 +328,18 @@ class _FillHalo(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
+        return _FillHaloT.apply(g, fctx.ctx), None
+
+
+class _FillHaloT(torch.autograd.Function):
+    """:class:`_FillHalo`' transpose: the border rows' cotangents go back to
+    the neighbours whose edge rows they are."""
+
+    @staticmethod
+    def forward(fctx, g, ctx):
+        fctx.ctx = ctx
         h = g.shape[1] - 2
-        prev, nxt = _exchange(g[:, :1], g[:, h + 1:], fctx.ctx)
+        prev, nxt = _exchange(g[:, :1], g[:, h + 1:], ctx)
         dxp = g.clone()
         dxp[:, :1] = 0  # the border rows were replaced: none of xp's reaches the output
         dxp[:, h + 1:] = 0
@@ -274,7 +347,11 @@ class _FillHalo(torch.autograd.Function):
             dxp[:, 1:2] += prev
         if nxt is not None:
             dxp[:, h:h + 1] += nxt
-        return dxp, None
+        return dxp
+
+    @staticmethod
+    def backward(fctx, gg):
+        return _FillHalo.apply(gg.clone(), fctx.ctx), None
 
 
 def fill_halo(xp: torch.Tensor, ctx) -> torch.Tensor:
@@ -362,6 +439,19 @@ def all_reduce_mean_list(tensors: list, *, bucket_bytes: int = BUCKET_BYTES,
     return out
 
 
+def layout_mean(tensors: list, layout=None, **kw) -> list[torch.Tensor]:
+    """What one process would take of ``tensors`` (each rank's values of its
+    part of the global batch): their mean over the ranks; under a data x
+    model ``layout`` (``tpctx.join_train_parallel``) over its data axis,
+    under sp each rank's rows' share summed over its model group first (tp's
+    group holds replicas). New tensors where a collective ran, else
+    ``tensors``' own; ``kw`` as :func:`all_reduce_mean_list`'s."""
+    if layout is None:
+        return all_reduce_mean_list(tensors, **kw)
+    return all_reduce_mean_list(tensors, group=layout.data_group,
+                                sum_group=layout.group if layout.mode == "sp" else None, **kw)
+
+
 class ShardLayout:
     """Tensors of ``numels`` elements, one after another in a flat range
     split into ``world`` shards of ``chunk`` elements, walked in buckets of
@@ -416,8 +506,8 @@ class DataParallel:
     over the data group alone. Under sp each rank's gradient is its rows'
     share, summed over the model group first. Under tp the tensors named
     ``names`` are this rank's slices of leaves of ``full_shapes`` where the
-    slicing rule says so (``sliced``): their norms are summed over the model
-    group, and :meth:`whole` gathers them."""
+    slicing rule says so (``sliced``; None where it slices none): their
+    norms are summed over the model group, and :meth:`whole` gathers them."""
 
     def __init__(self, tensors: Sequence[torch.Tensor], strategy: str, *,
                  bucket_bytes: int = BUCKET_BYTES, layout=None, names=None, full_shapes=None):
@@ -425,14 +515,13 @@ class DataParallel:
         if layout is not None and strategy != "ddp":
             raise ValueError(f"a data x model layout takes ddp over its data axis, not {strategy}")
         self.layout_ctx = layout
-        self.group = None if layout is None else layout.data_group
-        self.sum_group = layout.group if layout is not None and layout.mode == "sp" else None
         self.names, self.full_shapes = names, full_shapes
         self.sliced = None
-        if layout is not None and layout.mode == "tp":
+        if layout is not None and layout.mode == "tp" and names is not None:
             from gmdx_torch.dist.tp import is_sliced
 
-            self.sliced = [is_sliced(n, sh, layout.size) for n, sh in zip(names, full_shapes)]
+            sliced = [is_sliced(n, sh, layout.size) for n, sh in zip(names, full_shapes)]
+            self.sliced = sliced if any(sliced) else None
         self.tensors = list(tensors)
         dtypes = {t.dtype for t in self.tensors}
         if len(dtypes) != 1:
@@ -507,9 +596,8 @@ class DataParallel:
         tensor; the list is emptied as buckets go, so their memory can):
         full tensors under ddp, this rank's pieces under zero1 and fsdp."""
         if not self.sharded:
-            return all_reduce_mean_list(grads, bucket_bytes=self.layout.bucket
-                                        * self.tensors[0].element_size(), consume=True,
-                                        group=self.group, sum_group=self.sum_group)
+            return layout_mean(grads, self.layout_ctx, consume=True,
+                               bucket_bytes=self.layout.bucket * self.tensors[0].element_size())
         n = self.world
         shard = self.new_shard()
         for k, (lo, hi) in enumerate(self.layout.buckets()):
@@ -655,22 +743,32 @@ _FIELDS = {
 
 
 def _model_parallel(state, strategy: str, layout, bucket_bytes: int):
-    """tp / sp of a Stage-2 state over ``layout``'s data x model grid. tp:
-    the UNet's parameters, the optimizer's moments and accumulator and the
-    EMA become this rank's slices (``dist.tp``'s rule, the JAX package's
-    ``tp_shard_params``); sp: all stay whole. The gradient's mean goes over
-    the data axis (:class:`DataParallel`'s layout)."""
-    if type(state).__name__ != "Stage2State":
-        raise NotImplementedError(f"--shard_strategy {strategy} of a {type(state).__name__} "
-                                  f"({TP_SP_ITEM})")
+    """tp / sp of a trainer's state over ``layout``'s data x model grid.
+    tp: the UNet's (Stage 2) or the ControlNet's parameters, the
+    optimizer's moments and accumulator and the EMA become this rank's
+    slices (``dist.tp``'s rule, the JAX package's ``tp_shard_params``); a
+    Stage-1 state holds no leaf the rule matches (gmdx keys its LoRA
+    factors by path tuples, and the discriminator's convs have other
+    names), so each rank of a model group holds the whole of it, a replica.
+    sp: all stay whole. Each optimizer's gradient mean goes over the data
+    axis (:class:`DataParallel`'s layout)."""
+    kind = type(state).__name__
+    if kind not in _FIELDS:
+        raise TypeError(f"--shard_strategy {strategy}: no layout for a {kind}")
     if layout is None or layout.mode != strategy:
         raise ValueError(f"--shard_strategy {strategy} needs its data x model layout "
                          f"(tpctx.join_train_parallel)")
-    module, opt = state.unet, state.optimizer
+    if kind == "Stage1State":
+        for opt in (state.optimizer, state.disc_optimizer):
+            adam = _adam(opt)
+            adam.distribute(DataParallel(adam.params, "ddp", bucket_bytes=bucket_bytes,
+                                         layout=layout))
+        return state
+    module, opt = (state.unet if kind == "Stage2State" else state.controlnet), state.optimizer
     adam = _adam(opt)
     names = [n for n, p in module.named_parameters() if p.requires_grad]
     if len(names) != len(adam.params):
-        raise ValueError(f"the optimizer holds {len(adam.params)} tensors, the UNet "
+        raise ValueError(f"the optimizer holds {len(adam.params)} tensors, the module "
                          f"{len(names)} trainable parameters")
     shapes = [tuple(p.shape) for p in adam.params]
     if strategy == "tp":
@@ -702,9 +800,8 @@ def apply_shard_strategy(state, strategy: str, *, param_fields: Sequence[str],
     ``param_fields`` too. Each of the state's optimizers gets a
     :class:`DataParallel` of its parameters (in a group of one process
     too: its collectives then run on one rank). Outside a process group
-    the state is returned as it is. tp and sp (a Stage-2 state) take the
-    data x model ``layout`` of ``tpctx.join_train_parallel``
-    (:func:`_model_parallel`)."""
+    the state is returned as it is. tp and sp take the data x model
+    ``layout`` of ``tpctx.join_train_parallel`` (:func:`_model_parallel`)."""
     if strategy in MODEL_STRATEGIES:
         return _model_parallel(state, strategy, layout, bucket_bytes)
     check_strategy(strategy)
@@ -735,8 +832,9 @@ def apply_shard_strategy(state, strategy: str, *, param_fields: Sequence[str],
 __all__ = [
     "STRATEGIES",
     "MODEL_STRATEGIES",
-    "TP_SP_ITEM",
+    "check_group_size",
     "check_strategy",
+    "layout_mean",
     "data_parallel_size",
     "batch_rows",
     "shard_batch",
@@ -745,6 +843,7 @@ __all__ = [
     "spatial_rows",
     "shard_rows",
     "all_gather_stacked",
+    "all_reduce_sum",
     "gather_rows",
     "halo_rows",
     "fill_halo",

@@ -72,7 +72,11 @@ def sp_active() -> ParallelContext | None:
 
 @contextlib.contextmanager
 def entered(ctx: ParallelContext | None):
-    """The block inside ``ctx`` (None: outside any context)."""
+    """The block inside ``ctx``. None: outside any context, also inside a
+    layout's block: a module that the JAX package replicates over a tp
+    layout (the ControlNet trainer's frozen UNet, which takes the
+    ControlNet's residuals whole, after their row-parallel sums) runs whole
+    on every rank, with the one-process routes."""
     prev = active()
     _state.ctx = ctx
     try:
@@ -138,12 +142,11 @@ def join_train_parallel(strategy: str, size: int) -> ParallelContext:
     if strategy not in MODES:
         raise ValueError(f"a train layout is one of {MODES}, got {strategy!r}")
     from gmdx_torch.dist import multihost
+    from gmdx_torch.dist.mesh import check_group_size
 
     multihost.initialize()
     n, rank = multihost.world_size(), multihost.rank()
-    if size < 2 or n % size:  # gmdx/dist/mesh.py:make_train_mesh's check
-        raise ValueError(f"--shard_strategy {strategy} needs a group size >= 2 dividing the "
-                         f"device count ({n}); got {size}")
+    check_group_size(strategy, size, n)
     models = [dist.new_group(list(range(g, g + size))) for g in range(0, n, size)]
     datas = [dist.new_group(list(range(m, n, size))) for m in range(size)]
     return ParallelContext(strategy, models[rank // size], size, rank % size,

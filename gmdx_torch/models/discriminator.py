@@ -15,6 +15,15 @@ rsqrt(sum x^2 + 1e-12)``), both held constant for autograd; ``sigma = v W
 u^T`` and the kernel used is ``W / sigma`` (``sigma`` 0 divides by 1). The
 state (buffers ``u``, ``sigma``, fp32, as the JAX package's
 ``batch_stats``) is written only when the caller passes ``update_sn=True``.
+
+Under spatial parallelism (``gmdx_torch.dist.tpctx``'s ``sp`` context, the
+input this rank's rows of each image) each stride-2 conv reads one halo row
+from the rank above (the output row ``j`` reads input rows ``2j - 1 ..
+2j + 1``; zero padding at the image's top), so a rank's rows must stay even
+through every halving; InstanceNorm sums each image's moments over the
+group; the score map is this rank's rows. The power iteration reads the
+weights alone, so every rank computes the same ``u`` and ``sigma``. Both
+collectives are twice differentiable (Stage 1's gradient penalty).
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import all_reduce_sum, halo_rows
 
 _SN_EPS = 1e-12
 
@@ -54,16 +66,32 @@ class SpectralNormConv2d(nn.Conv2d):
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
-        w = self.normalized_weight(update_sn)
-        return F.conv2d(x, w.to(x.dtype), self.bias.to(x.dtype), self.stride, self.padding)
+        w = self.normalized_weight(update_sn).to(x.dtype)
+        ctx = tpctx.sp_active()
+        if ctx is None:
+            return F.conv2d(x, w, self.bias.to(x.dtype), self.stride, self.padding)
+        h = x.shape[2]
+        if h % 2:
+            raise ValueError(f"the discriminator's {h * ctx.size}-row level: {h} rows a rank "
+                             f"do not halve over {ctx.size} ranks")
+        return F.conv2d(halo_rows(x, 1, 0, ctx, h_dim=2), w, self.bias.to(x.dtype), self.stride,
+                        (0, self.padding[1]))
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel spatial normalisation, no affine, biased
-    variance, statistics in fp32."""
-    xf = x.float()
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    variance, statistics in fp32 (or the input's wider type); under spatial
+    parallelism over the whole image (each moment's sum over the group's
+    rows)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    ctx = tpctx.sp_active()
+    if ctx is None:
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    else:
+        n = x.shape[2] * x.shape[3] * ctx.size
+        mean = all_reduce_sum(xf.sum(dim=(2, 3), keepdim=True), ctx) / n
+        var = all_reduce_sum(((xf - mean) ** 2).sum(dim=(2, 3), keepdim=True), ctx) / n
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

@@ -72,16 +72,31 @@ def perceptual_loss(feats_a: Sequence[torch.Tensor], feats_b: Sequence[torch.Ten
     return total / len(feats_a)
 
 
-def resize_for_vgg(x: torch.Tensor, resolution: int = 224) -> torch.Tensor:
+def resize_for_vgg(x: torch.Tensor, resolution: int = 224, ctx=None) -> torch.Tensor:
     """(B, 3, H, W) -> (B, 3, resolution, resolution) by PyTorch's default
     ``F.interpolate`` rule, ``nearest`` with floor indexing: source index
     ``floor(i * in / out)`` (the JAX package's ``torch_nearest``), computed
-    here as the JAX package computes it, in float64 on the host."""
+    here as the JAX package computes it, in float64 on the host.
+
+    Under spatial parallelism (``ctx``; ``x`` this rank's H rows of equal
+    slices) every rank gets the whole resized image: each places the output
+    rows whose source rows it holds (a contiguous run) and the group sums
+    the placed images, whose gradient is every rank's cotangent summed
+    (:func:`~gmdx_torch.dist.mesh.all_reduce_sum`), back to the rows read."""
     _, _, h, w = x.shape
-    ih = np.minimum((np.arange(resolution) * (h / resolution)).astype(np.int64), h - 1)
+    n = 1 if ctx is None else ctx.size
+    ih = np.minimum((np.arange(resolution) * (h * n / resolution)).astype(np.int64), h * n - 1)
     iw = np.minimum((np.arange(resolution) * (w / resolution)).astype(np.int64), w - 1)
-    ih, iw = (torch.as_tensor(i, device=x.device) for i in (ih, iw))
-    return x.index_select(2, ih).index_select(3, iw)
+    iw = torch.as_tensor(iw, device=x.device)
+    if ctx is None:
+        return x.index_select(2, torch.as_tensor(ih, device=x.device)).index_select(3, iw)
+    from gmdx_torch.dist.mesh import all_reduce_sum
+
+    mine = np.flatnonzero((ih >= ctx.rank * h) & (ih < (ctx.rank + 1) * h))
+    lo, hi = (int(mine[0]), int(mine[-1]) + 1) if mine.size else (0, 0)
+    rows = torch.as_tensor(ih[lo:hi] - ctx.rank * h, device=x.device)
+    part = x.index_select(2, rows).index_select(3, iw)
+    return all_reduce_sum(F.pad(part, (0, 0, lo, resolution - hi)), ctx)
 
 
 __all__ = ["VGG19Features", "VGG19_LAYOUT", "perceptual_loss", "resize_for_vgg"]

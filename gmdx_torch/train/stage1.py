@@ -24,6 +24,17 @@ VAE's blocks.
 * EMA advances at each optimizer sync (:func:`make_ema_step`), after
   generator and discriminator steps alike, as in the JAX package.
 
+Under tensor or spatial parallelism (``layout``, from
+``tpctx.join_train_parallel``): tp's rule slices none of Stage 1's leaves,
+in gmdx as here, so a model group's ranks step the same rows, replicas of
+one data-parallel step. sp splits each image's rows over the model group:
+the VAE, the Eq. (1) chain, the TMO and the discriminator run on a rank's
+rows (``gmdx_torch.dist.tpctx``'s ``sp`` forms), VGG19 on the whole 224^2
+inputs that the group's rows make up; every loss term is this rank's share,
+whose sum over the group is the term (the adaptive weight's probes and the
+gradients are summed over the group, the gradient penalty's per-image norm
+sums its squares over the group); every draw is the whole image's, sliced.
+
 Under autograd the VAE's kernel calls take their differentiated routes
 (``gmdx_torch.models.layers``): the 3x3 convs the direct conv, the
 GroupNorms :class:`~gmdx_torch.kernels.groupnorm.GroupNormSiLU` (forward and
@@ -43,7 +54,8 @@ import torch
 from torch import nn
 
 from gmdx_torch import resolve_device
-from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, world_size
+from gmdx_torch.dist import tpctx
+from gmdx_torch.dist.mesh import all_reduce_sum, batch_rows, layout_mean
 from gmdx_torch.models.lora import LoRAConfig, init_lora_params, merge_lora
 from gmdx_torch.models.vgg import perceptual_loss, resize_for_vgg
 from gmdx_torch.ops import apply_gm_to_sdr, gamut_compress
@@ -155,26 +167,30 @@ def vae_weights(vae: nn.Module, params: dict):
 def gm_head(config: Stage1Config, vae: nn.Module, miss_pixels: torch.Tensor,
             eps: torch.Tensor | None = None,
             generator: torch.Generator | None = None,
-            rows: tuple[int, int] | None = None) -> torch.Tensor:
+            rows: tuple[int, int] | None = None, sp=None) -> torch.Tensor:
     """``sigmoid(decode(encode(x).sample() * s / s))`` with the VAE's
     current weights; ``miss_pixels`` (B, 3, H, W) in [-1, 1]. ``eps``
     replaces the posterior's draw (else one from ``generator``, for this
-    rank's ``rows`` of the global batch across ranks)."""
-    post = vae.encode(miss_pixels)
-    sampled = post.sample(generator, rows) if eps is None else post.mean + post.std * eps
-    latent = sampled * config.scaling_factor
-    return torch.sigmoid(vae.decode(latent / config.scaling_factor))
+    rank's ``rows`` of the global batch across ranks). With ``sp`` (a
+    spatial context) ``miss_pixels`` are this rank's image rows and the
+    draw is the whole image's, sliced."""
+    with tpctx.entered(sp):
+        post = vae.encode(miss_pixels)
+        sampled = (post.sample(generator, rows, None if sp is None else (sp, 2)) if eps is None
+                   else post.mean + post.std * eps)
+        latent = sampled * config.scaling_factor
+        return torch.sigmoid(vae.decode(latent / config.scaling_factor))
 
 
 def gm_forward(config: Stage1Config, vae: nn.Module, params: dict, miss_pixels: torch.Tensor,
                eps: torch.Tensor | None = None,
                generator: torch.Generator | None = None,
-               rows: tuple[int, int] | None = None) -> torch.Tensor:
+               rows: tuple[int, int] | None = None, sp=None) -> torch.Tensor:
     """:func:`gm_head` with the VAE's weights taken from ``params``, for a
     caller that does not differentiate it (the generator step holds
     :func:`vae_weights` over its backward passes instead)."""
     with vae_weights(vae, params):
-        return gm_head(config, vae, miss_pixels, eps, generator, rows)
+        return gm_head(config, vae, miss_pixels, eps, generator, rows, sp)
 
 
 def reconstruct_and_tonemap(config: Stage1Config, gm: torch.Tensor, sdr01: torch.Tensor,
@@ -184,13 +200,16 @@ def reconstruct_and_tonemap(config: Stage1Config, gm: torch.Tensor, sdr01: torch
 
 
 def perceptual(vgg: nn.Module, a01: torch.Tensor, b01: torch.Tensor,
-               resolution: int = 224) -> torch.Tensor:
+               resolution: int = 224, sp=None) -> torch.Tensor:
     """VGG19 feature-pyramid MSE at the backbone resolution; ``a01`` is the
-    target, whose features take no gradient."""
+    target, whose features take no gradient. With ``sp`` the images are
+    this rank's rows: VGG19 runs on the whole resized inputs on every rank
+    (:func:`resize_for_vgg`), and the loss is this rank's share (the loss
+    over the group's size)."""
     with torch.no_grad():
-        fa = vgg(resize_for_vgg(a01, resolution))
-    fb = vgg(resize_for_vgg(b01, resolution))
-    return perceptual_loss(fa, fb)
+        fa = vgg(resize_for_vgg(a01, resolution, sp))
+    fb = vgg(resize_for_vgg(b01, resolution, sp))
+    return perceptual_loss(fa, fb) / (1 if sp is None else sp.size)
 
 
 # The CLI's learning rates (train_vqgan_lora.py:83-84).
@@ -253,7 +272,8 @@ def _frozen(vae: nn.Module, dev: torch.device, *modules: nn.Module) -> None:
 
 
 def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Module,
-                  vgg: nn.Module, tmo_fn: Callable, device: str | torch.device = "cuda"):
+                  vgg: nn.Module, tmo_fn: Callable, device: str | torch.device = "cuda",
+                  layout: tpctx.ParallelContext | None = None):
     """The generator step on ``device`` (the card unless the caller asks for
     the CPU); the modules move there. Returns ``step_fn(state, batch,
     generator=None) -> (state, metrics)`` with ``batch = {"pixel_values",
@@ -268,10 +288,17 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
     the posterior's draw is the rank's rows of the global batch's, the two
     probes are averaged over the ranks before their norms (the JAX package
     takes them on the global batch), the optimizer reduces the gradients,
-    and the losses reported are means over the ranks."""
+    and the losses reported are means over the ranks. Under a tp / sp
+    ``layout`` (the state placed by ``apply_shard_strategy(...,
+    layout=layout)``) ``batch`` is the data group's rows, under sp each
+    image's H rows of this rank (``dist.spatial_batch``): the probes are
+    summed over the model group (sp) before their mean over the data axis,
+    and the losses reported are the group's."""
     dev = resolve_device(device)
     _frozen(vae, dev, vgg)
     discriminator.to(dev)
+    sp = layout if layout is not None and layout.mode == "sp" else None
+    shares = 1 if sp is None else sp.size
 
     def step_fn(state: Stage1State, batch: dict, generator: torch.Generator | None = None):
         target01 = (batch["pixel_values"].to(dev) + 1.0) / 2.0
@@ -279,27 +306,28 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
         sdr01 = (miss + 1.0) / 2.0
         eps = batch.get("encode_eps")
         opt = state.optimizer
-        rows = batch_rows(miss.shape[0])
+        rows = batch_rows(miss.shape[0], layout)
         with gathered(opt, state.disc_optimizer):
             params = effective_vae_params(config, vae, state.trainables)
             kernel = params[f"{CONV_OUT}.weight"]
             with vae_weights(vae, params):
                 gm = gm_head(config, vae, miss, None if eps is None else eps.to(dev), generator,
-                             rows)
+                             rows, sp)
                 tmo = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
                 if config.vae_loss == "l2":
-                    recon = torch.mean((target01 - tmo) ** 2)
+                    recon = torch.mean((target01 - tmo) ** 2) / shares
                 else:
-                    recon = torch.mean(torch.abs(target01 - tmo))
-                perc = perceptual(vgg, target01, tmo, config.vgg_resolution)
-                adv = -torch.mean(state.discriminator(tmo, update_sn=False))
+                    recon = torch.mean(torch.abs(target01 - tmo)) / shares
+                perc = perceptual(vgg, target01, tmo, config.vgg_resolution, sp)
+                with tpctx.entered(sp):
+                    adv = -torch.mean(state.discriminator(tmo, update_sn=False)) / shares
 
                 # The adaptive weight: gradient norms at the effective conv_out
                 # kernel alone, over the same forward (of the global batch:
-                # the probes are averaged over the ranks).
+                # the probes are combined over the ranks).
                 (g_perc,) = torch.autograd.grad(perc, kernel, retain_graph=True)
                 (g_adv,) = torch.autograd.grad(adv, kernel, retain_graph=True)
-                g_perc, g_adv = all_reduce_mean(g_perc), all_reduce_mean(g_adv)
+                g_perc, g_adv = layout_mean([g_perc, g_adv], layout)
                 adaptive = (torch.linalg.vector_norm(g_perc)
                             / torch.linalg.vector_norm(g_adv).clamp(min=1e-8))
                 adaptive = adaptive.clamp(max=config.adaptive_weight_max).detach()
@@ -316,7 +344,8 @@ def make_gen_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mod
                 sq = param_sq_norms(opt, grads)
                 lora_norm, conv_out_norm = sq[:n_lora].sum().sqrt(), sq[n_lora:].sum().sqrt()
             grad_norm = torch.sqrt(lora_norm**2 + conv_out_norm**2)
-            loss, recon, perc, adv = _mean_over_ranks(loss, recon, perc, adv)
+            loss, recon, perc, adv = layout_mean([t.detach() for t in (loss, recon, perc, adv)],
+                                                 layout)
         opt.step(grads, grad_norm)
         state.step += 1
         metrics = {
@@ -339,14 +368,30 @@ def safe_norm(g: torch.Tensor) -> torch.Tensor:
                        torch.linalg.vector_norm(masked, dim=1))
 
 
+def safe_norm_split(g: torch.Tensor, sp) -> torch.Tensor:
+    """:func:`safe_norm` of the rows of (N, M) ``g`` whose columns are
+    split over ``sp``'s group (each rank its image rows' part): the squares
+    summed over the group (differentiable twice), then the root, 0 with a
+    zero gradient at a zero row."""
+    sq = all_reduce_sum((g * g).sum(dim=1), sp)
+    zero = sq <= 0
+    return torch.where(zero, torch.zeros_like(sq), torch.sqrt(torch.where(zero, 1.0, sq)))
+
+
 def make_disc_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Module,
-                   tmo_fn: Callable, device: str | torch.device = "cuda"):
+                   tmo_fn: Callable, device: str | torch.device = "cuda",
+                   layout: tpctx.ParallelContext | None = None):
     """The discriminator step on ``device``. Returns ``step_fn(state, batch,
     generator=None) -> (state, metrics)`` (batch as :func:`make_gen_step`'s)
-    with device scalars ``disc_loss``, ``grad_norm``, ``hinge`` and ``gp``."""
+    with device scalars ``disc_loss``, ``grad_norm``, ``hinge`` and ``gp``.
+    Under sp the discriminator runs on each rank's rows, its input
+    gradient's per-image norm over the group's, and the penalty's second
+    derivative through the collectives' transposes."""
     dev = resolve_device(device)
     _frozen(vae, dev)
     discriminator.to(dev)
+    sp = layout if layout is not None and layout.mode == "sp" else None
+    shares = 1 if sp is None else sp.size
 
     def step_fn(state: Stage1State, batch: dict, generator: torch.Generator | None = None):
         disc = state.discriminator
@@ -358,39 +403,33 @@ def make_disc_step(config: Stage1Config, *, vae: nn.Module, discriminator: nn.Mo
         with torch.no_grad(), gathered(state.optimizer):
             params = effective_vae_params(config, vae, state.trainables)
             gm = gm_forward(config, vae, params, miss, None if eps is None else eps.to(dev),
-                            generator, batch_rows(miss.shape[0]))
+                            generator, batch_rows(miss.shape[0], layout), sp)
             fake = reconstruct_and_tonemap(config, gm, sdr01, tmo_fn)
 
-        with gathered(opt):
+        with gathered(opt), tpctx.entered(sp):
             real = target01.detach().requires_grad_(True)
             real_out = disc(real, update_sn=False)
             (grad_images,) = torch.autograd.grad(real_out.sum(), real, create_graph=True)
             fake_out = disc(fake, update_sn=False)
-            hinge = torch.mean(torch.relu(1.0 + fake_out) + torch.relu(1.0 - real_out))
+            hinge = torch.mean(torch.relu(1.0 + fake_out) + torch.relu(1.0 - real_out)) / shares
             g = grad_images.reshape(grad_images.shape[0], -1)
-            gp = config.gp_weight * torch.mean((safe_norm(g) - 1.0) ** 2)
+            norm = safe_norm(g) if sp is None else safe_norm_split(g, sp)
+            gp = config.gp_weight * torch.mean((norm - 1.0) ** 2) / shares
             loss = hinge + gp
             grads = list(torch.autograd.grad(loss, model_params(opt)))
         grads = reduce_gradients(opt, grads)
         with torch.no_grad():
             grad_norm = (global_norm(grads) if data_parallel(opt) is None
                          else param_sq_norms(opt, grads).sum().sqrt())
-            loss, hinge, gp = _mean_over_ranks(loss, hinge, gp)
+            loss, hinge, gp = layout_mean([t.detach() for t in (loss, hinge, gp)], layout)
         opt.step(grads, grad_norm)
-        with torch.no_grad(), gathered(opt):  # refresh the power-iteration state
+        with torch.no_grad(), gathered(opt), tpctx.entered(sp):  # refresh the power iteration
             disc(fake, update_sn=True)
         state.step += 1
         metrics = {"disc_loss": loss, "grad_norm": grad_norm, "hinge": hinge, "gp": gp}
         return state, metrics
 
     return step_fn
-
-
-def _mean_over_ranks(*scalars: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Detached scalars, each the mean over the ranks (one collective)."""
-    if world_size() == 1:
-        return tuple(t.detach() for t in scalars)
-    return tuple(all_reduce_mean(torch.stack([t.detach().float() for t in scalars])).unbind())
 
 
 def make_ema_step(config: Stage1Config) -> Callable[[Stage1State], Stage1State]:
@@ -422,6 +461,7 @@ __all__ = [
     "init_state",
     "make_gen_step",
     "safe_norm",
+    "safe_norm_split",
     "make_disc_step",
     "make_ema_step",
 ]

@@ -27,7 +27,7 @@ from torch import nn
 
 from gmdx_torch import resolve_device
 from gmdx_torch.dist import tpctx
-from gmdx_torch.dist.mesh import all_reduce_mean, batch_rows, randint_rows, randn_rows
+from gmdx_torch.dist.mesh import batch_rows, layout_mean, randint_rows, randn_rows
 from gmdx_torch.schedulers import DDPMScheduler
 from gmdx_torch.schedulers.base import add_noise, get_velocity
 from gmdx_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
@@ -265,7 +265,7 @@ def make_train_step(
             grad_norm = sq.sum().sqrt()
             module_norms = module_sq.sqrt()
             metrics = {
-                "loss": _group_loss(loss.detach(), sp),
+                "loss": layout_mean([loss.detach()], layout)[0],
                 "grad_norm": grad_norm,
                 "module_grad_norms": {k: module_norms[i] for k, i in group_names.items()},
             }
@@ -275,17 +275,6 @@ def make_train_step(
 
     step_fn.draw_inputs = draw_inputs
     return step_fn
-
-
-def _group_loss(loss: torch.Tensor, sp) -> torch.Tensor:
-    """The loss one process would report: the mean over the ranks; under
-    spatial parallelism each rank's share summed over its model group,
-    then the mean over the data axis."""
-    if sp is None:
-        return all_reduce_mean(loss)
-    total = loss.clone()
-    torch.distributed.all_reduce(total)
-    return total / sp.data_size
 
 
 def make_ema_step(config: Stage2Config) -> Callable[[Stage2State], Stage2State]:

@@ -31,7 +31,21 @@ On several cards, one process a card (``gmdx_torch.dist``):
 rank 0 writes the logs, checkpoints (the one-process format) and
 ``controlnet/``, as in the Stage-2 trainer.
 
-Left out, raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9).
+Tensor and spatial parallelism, as the JAX trainer's:
+
+    torchrun --nproc_per_node 4 scripts/torch/train_controlnet.py ... \\
+        --shard_strategy tp --tp_size 2      # or: --shard_strategy sp --sp_size 2
+
+lay the ranks out as a data x model grid of (world / size, size), ranks r
+and r + 1 in one model group (``tpctx.join_train_parallel``); the global
+batch is --train_batch_size times world / size. tp: each rank holds its
+slices of the ControlNet's parameters, moments and EMA (the JAX package's
+rule, ``gmdx_torch.dist.tp``), the frozen UNet, VAE and text encoder whole;
+sp: every rank reads the global batch (the JAX script's ``process_shard``
+rule) and holds its rows of each image (split along H), the parameters
+whole. Checkpoints and ``controlnet/`` are whole, in the one-process
+format. One process with --shard_strategy tp or sp raises (a group of at
+least 2 ranks that divides the world, the JAX script's check).
 """
 
 from __future__ import annotations
@@ -81,8 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--tp_size", type=int, default=2)
     p.add_argument("--sp_size", type=int, default=2)
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
-                                       "raise)")
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks; tp or sp over "
+                                       "a data x model grid of them (--tp_size / --sp_size)")
     p.add_argument("--logging_dir", type=str, default="logs")
     p.add_argument("--report_to", type=str, default="tensorboard")
     p.add_argument("--tracker_project_name", type=str, default="gmdx-controlnet")
@@ -140,10 +154,15 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from gmdx_torch import dist
 
-    dist.check_strategy(args.shard_strategy, "controlnet")
     logging.basicConfig(level=logging.INFO)
-    os.makedirs(args.output_dir, exist_ok=True)
     joined = not dist.is_initialized() and dist.initialize()
+    layout = None  # the data x model grid of tp / sp
+    if args.shard_strategy in dist.MODEL_STRATEGIES:
+        from gmdx_torch.dist import tpctx
+
+        layout = tpctx.join_train_parallel(
+            args.shard_strategy, args.sp_size if args.shard_strategy == "sp" else args.tp_size)
+    os.makedirs(args.output_dir, exist_ok=True)
 
     import numpy as np
     import torch
@@ -158,8 +177,9 @@ def main(argv=None) -> dict:
         make_controlnet_train_step, make_manager, resolve_resume_step, restore_state,
         save_state,
     )
+    from gmdx_torch.dist.tp import assign_state_dict
     from gmdx_torch.train.checkpoint import state_digest
-    from gmdx_torch.train.optim import run_sizes
+    from gmdx_torch.train.optim import data_parallel, run_sizes
 
     dev = dist.device(resolve_device(args.device))
     main_rank = dist.is_main_process()
@@ -180,7 +200,9 @@ def main(argv=None) -> dict:
     dataset = ParquetImageDataset(args.train_metadata)
     n_samples = (len(dataset) if args.max_train_samples is None
                  else min(args.max_train_samples, len(dataset)))
-    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
+    # The data axis: the ranks, or under tp / sp the model groups (a group
+    # steps one per-rank batch together); --train_batch_size is per rank.
+    n_dev = dist.data_parallel_size() if layout is None else layout.data_size
     ga = args.gradient_accumulation_steps
     # max_train_steps counts optimizer updates (ceil(batches / ga) an epoch).
     sizes = run_sizes(n_samples=n_samples, train_batch_size=args.train_batch_size, n_dev=n_dev,
@@ -200,10 +222,13 @@ def main(argv=None) -> dict:
     )
     train_step = make_controlnet_train_step(cfg, unet=unet, vae=vae, text_encoder=text,
                                             controlnet=controlnet,
-                                            noise_scheduler=DDPMScheduler(), device=dev)
+                                            noise_scheduler=DDPMScheduler(), device=dev,
+                                            layout=layout)
+    trained = [n for n, p in controlnet.named_parameters() if p.requires_grad]
     state = dist.apply_shard_strategy(init_controlnet_state(cfg, controlnet),
                                       args.shard_strategy, param_fields=("params", "ema"),
-                                      opt_fields=("opt_state",))
+                                      opt_fields=("opt_state",), layout=layout)
+    dp = data_parallel(state.optimizer)
     ema_step = make_controlnet_ema_step(cfg) if args.use_ema else None
 
     manager = make_manager(args.output_dir, max_to_keep=args.checkpoints_total_limit,
@@ -220,12 +245,17 @@ def main(argv=None) -> dict:
     # A checkpoint at update S has consumed S * ga batches: skip them and
     # number the batches from there.
     consumed_batches = global_step * ga
+    # tp: a model group's ranks read their data index's rows; sp: every
+    # rank reads the global batch and takes its data rows, then its H rows.
+    sp = args.shard_strategy == "sp"
+    shard = (None, None) if layout is None else (layout.data_rank, layout.data_size)
     loader = make_dataloader(
         dataset, tokenizer, batch_size=args.train_batch_size * n_dev,
         resolution=args.resolution, center_crop=args.center_crop,
         random_flip=args.random_flip, seed=args.seed or 0,
         num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-        skip_batches=consumed_batches, process_shard=True)
+        skip_batches=consumed_batches, process_shard=not sp,
+        **({} if sp else {"process_index": shard[0], "process_count": shard[1]}))
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
                                 config=vars(args))
@@ -235,8 +265,10 @@ def main(argv=None) -> dict:
     def host_batches():
         for batch in loader:
             # Target = control = the SDR frame (the SDR->HDRTV recipe).
-            yield {"image": batch["pixel_values"], "cond": batch["pixel_values"],
-                   "input_ids": batch["input_ids"]}
+            batch = {"image": batch["pixel_values"], "cond": batch["pixel_values"],
+                     "input_ids": batch["input_ids"]}
+            yield (dist.spatial_batch(dist.shard_batch(batch, *shard), layout) if sp
+                   else batch)
 
     losses, saved_digests = {}, {}
     t_last = time.time()
@@ -280,6 +312,10 @@ def main(argv=None) -> dict:
             if shadow is not None:
                 for p, s in zip(state.optimizer.model_params, shadow):
                     p.copy_(s)
+            if dp is not None and dp.sliced is not None:  # tp: the module whole again
+                full = dict(zip(trained, dp.whole(state.optimizer.model_params)))
+                assign_state_dict(controlnet, {k: full.get(k, v)
+                                               for k, v in controlnet.state_dict().items()})
             if main_rank:
                 save_component(os.path.join(args.output_dir, "controlnet"), controlnet)
     dist.barrier("gmdx_saved")

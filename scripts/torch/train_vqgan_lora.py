@@ -38,9 +38,26 @@ the rank's rows of the global batch's, the adaptive weight's probes are
 averaged over the ranks, and rank 0 writes the logs, checkpoints (the
 one-process format), validation and artifacts.
 
-Left out, each raising: --shard_strategy tp / sp (ROADMAP Queue 1 item 9),
---dataset_name without --train_metadata (ROADMAP Queue 1 item 5) and
---push_to_hub.
+Tensor and spatial parallelism, as the JAX trainer's:
+
+    torchrun --nproc_per_node 4 scripts/torch/train_vqgan_lora.py ... \\
+        --shard_strategy tp --tp_size 2      # or: --shard_strategy sp --sp_size 2
+
+lay the ranks out as a data x model grid of (world / size, size), ranks r
+and r + 1 in one model group (``tpctx.join_train_parallel``); the global
+batch is --train_batch_size times world / size, and so is --scale_lr's
+factor. tp: the JAX package's slicing rule matches none of Stage 1's
+leaves, so a model group's ranks hold the whole state and step the same
+rows (replicas), as in the JAX trainer. sp: every rank reads the global
+batch (the JAX script's ``process_shard`` rule), the exposure augmentation
+applies to it, and each rank steps its rows of every image (split along H):
+the VAE, the discriminator and the losses on its rows, VGG19 on the whole
+224^2 inputs. Checkpoints, validation and the artifacts are whole. One
+process with --shard_strategy tp or sp raises (a group of at least 2 ranks
+that divides the world, the JAX script's check).
+
+Left out, each raising: --dataset_name without --train_metadata (ROADMAP
+Queue 1 item 5) and --push_to_hub.
 """
 
 from __future__ import annotations
@@ -102,8 +119,8 @@ def parse_args(argv=None):
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--shard_strategy", choices=["ddp", "zero1", "fsdp", "tp", "sp"],
-                   default="ddp", help="ddp, zero1 or fsdp across the ranks (tp and sp "
-                                       "raise)")
+                   default="ddp", help="ddp, zero1 or fsdp across the ranks; tp or sp over "
+                                       "a data x model grid of them (--tp_size / --sp_size)")
     p.add_argument("--tp_size", type=int, default=2)
     p.add_argument("--sp_size", type=int, default=2)
     p.add_argument("--learning_rate", type=float, default=1e-4)
@@ -251,13 +268,18 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from gmdx_torch import dist
 
-    dist.check_strategy(args.shard_strategy, "stage1")
     if args.train_metadata is None:
         raise NotImplementedError(
             "--dataset_name without --train_metadata: the port reads parquet metadata only "
             "(ROADMAP Queue 1 item 5)")
     logging.basicConfig(level=logging.INFO)
     joined = not dist.is_initialized() and dist.initialize()
+    layout = None  # the data x model grid of tp / sp
+    if args.shard_strategy in dist.MODEL_STRATEGIES:
+        from gmdx_torch.dist import tpctx
+
+        layout = tpctx.join_train_parallel(
+            args.shard_strategy, args.sp_size if args.shard_strategy == "sp" else args.tp_size)
 
     import torch
 
@@ -302,7 +324,9 @@ def main(argv=None) -> dict:
             "match the reference. Provide torchvision/timm vgg19 ImageNet weights via "
             "--perceptual_ckpt.")
 
-    n_dev = dist.data_parallel_size()  # the ranks; --train_batch_size is per rank
+    # The data axis: the ranks, or under tp / sp the model groups (a group
+    # steps one per-rank batch together); --train_batch_size is per rank.
+    n_dev = dist.data_parallel_size() if layout is None else layout.data_size
     lr, dlr = args.learning_rate, args.discr_learning_rate
     if args.scale_lr:
         scale = args.gradient_accumulation_steps * args.train_batch_size * n_dev
@@ -334,11 +358,11 @@ def main(argv=None) -> dict:
     state = dist.apply_shard_strategy(
         init_state(cfg, trainables, discriminator, optimizers), args.shard_strategy,
         param_fields=("trainables", "disc_params", "ema"),
-        opt_fields=("opt_state", "disc_opt_state"))
+        opt_fields=("opt_state", "disc_opt_state"), layout=layout)
     gen_step = make_gen_step(cfg, vae=vae, discriminator=discriminator, vgg=vgg, tmo_fn=tmo_fn,
-                             device=dev)
+                             device=dev, layout=layout)
     disc_step = make_disc_step(cfg, vae=vae, discriminator=discriminator, tmo_fn=tmo_fn,
-                               device=dev)
+                               device=dev, layout=layout)
     ema_step = make_ema_step(cfg) if args.use_ema else None
 
     manager = make_manager(args.output_dir, max_to_keep=args.checkpoints_total_limit,
@@ -359,12 +383,17 @@ def main(argv=None) -> dict:
     # and numbering the batches from there, resumes the data order, the
     # draws and the generator / discriminator cadence where they were.
     consumed_batches = global_step * ga
+    # tp: a model group's ranks read their data index's rows; sp: every
+    # rank reads the global batch, takes its data rows, then its H rows.
+    sp = args.shard_strategy == "sp"
+    shard = (None, None) if layout is None else (layout.data_rank, layout.data_size)
     loader = make_dataloader(
         dataset, tokenizer, batch_size=args.train_batch_size * n_dev,
         resolution=args.resolution, center_crop=args.center_crop,
         random_flip=args.random_flip, seed=args.seed or 0,
         num_workers=args.dataloader_num_workers, max_samples=args.max_train_samples,
-        skip_batches=consumed_batches, process_shard=True)
+        skip_batches=consumed_batches, process_shard=not sp,
+        **({} if sp else {"process_index": shard[0], "process_count": shard[1]}))
     metrics_log = MetricsLogger(os.path.join(args.output_dir, args.logging_dir),
                                 backend=args.report_to, project=args.tracker_project_name,
                                 config=vars(args))
@@ -386,6 +415,8 @@ def main(argv=None) -> dict:
             clipped, _ = random_exposure_adjust(aug, (pixel_values + 1.0) / 2.0, prob=0.7)
             miss = clipped * 2.0 - 1.0
         step_batch = {"pixel_values": pixel_values, "miss_pixel_values": miss}
+        if sp:  # the augmentation drew for the global batch; now this rank's rows
+            step_batch = dist.shard_batch(step_batch, *shard)
         if args.debug_mode and i % 50 == 0:
             with state.optimizer.gathered():
                 if main_rank:
@@ -393,6 +424,8 @@ def main(argv=None) -> dict:
                                 torch.Generator(device=dev).manual_seed(seed), tmo_fn,
                                 os.path.join(args.output_dir, "debug_train",
                                              f"step_{i}_concat_image.png"))
+        if sp:
+            step_batch = dist.spatial_batch(step_batch, layout)
         step_gen = torch.Generator(device=dev).manual_seed(seed)
         if ((i // ga) % 2) == 0:
             state, m = gen_step(state, step_batch, step_gen)

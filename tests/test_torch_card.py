@@ -1786,3 +1786,92 @@ def test_flash_attention_at_parallel_training_shapes_on_card(card, b, sq, sk, c,
     want = flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, dout.float(), heads, d**-0.5)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _rel_l2(g, w) <= 1e-2, name
+
+
+# --- the kernels at the shapes of Stage-1 and ControlNet training under SP ---
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d512_split_queries_on_card(card):
+    """The 512-wide backward of a rank's 8192 queries against the whole
+    1024^2 image's 16384 keys (SP = 2 of the VAE's mid block): dq, dk and dv
+    each within relative L2 1e-2 of the fp32 plain version."""
+    q, dout = _bf16(card, 1, 8192, 512), _bf16(card, 1, 8192, 512)
+    k, v = _bf16(card, 1, 16384, 512), _bf16(card, 1, 16384, 512)
+    out, lse = flash_attention_fwd(q, k, v, 1)
+    before = launch_counts()["flash_attention_bwd_d512"]
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, 1)
+    assert launch_counts()["flash_attention_bwd_d512"] == before + 1
+    refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                     dout.float(), 1, 512 ** -0.5)
+    for got, ref in zip(grads, refs):
+        assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c", [(1024, 128), (256, 512)])
+def test_group_norm_bwd_split_kernels_at_vae_shapes_on_card(card, hw, c):
+    """The split GroupNorm backward on two row slices of a VAE level (eps
+    1e-6, SiLU, the padded cotangent, no temb), the sums summed between the
+    entries as the ranks' all-reduce does: each slice's sums, dgamma,
+    dbeta and dx against the plain versions."""
+    from gmdx_torch.kernels.groupnorm import (
+        group_norm_bwd_apply, group_norm_bwd_apply_plain, group_norm_bwd_sums,
+        group_norm_bwd_sums_plain,
+    )
+
+    x = (_bf16(card, 1, hw, hw, c, scale=2.0).float() + 0.5).to(torch.bfloat16)
+    gam = (_bf16(card, c, scale=0.2).float() + 1.0).to(torch.bfloat16)
+    bet = _bf16(card, c, scale=0.2)
+    cot = _bf16(card, 1, hw + 2, hw + 2, c)
+    f32 = [x.float(), gam.float(), bet.float(), None]
+    _, stats = group_norm_silu_plain(*f32, eps=1e-6, activate=True, return_stats=True)
+    rows = hw // 2
+    kw = dict(activate=True, pad_output=True)
+    xs = [x[:, r * rows:(r + 1) * rows].contiguous() for r in range(2)]
+    gs = [cot[:, r * rows:(r + 1) * rows + 2].contiguous() for r in range(2)]
+    got = [group_norm_bwd_sums(xr, gam, bet, None, stats, gr, **kw) for xr, gr in zip(xs, gs)]
+    want = [group_norm_bwd_sums_plain(xr.float(), *f32[1:], stats, gr.float(), **kw)
+            for xr, gr in zip(xs, gs)]
+    for (s, ds, db), (ws, wds, wdb) in zip(got, want):
+        for col in range(2):
+            assert _rel_l2(s[:, col], ws[:, col]) <= 1e-2, ("sums", col)
+        assert _rel_l2(ds, wds) <= 1e-2 and _rel_l2(db, wdb) <= 1e-2
+    sums, wsums = sum(s for s, _, _ in got), sum(s for s, _, _ in want)
+    for xr, gr in zip(xs, gs):
+        dx, _ = group_norm_bwd_apply(xr, gam, bet, None, stats, gr, sums, hw * hw, **kw)
+        wdx, _ = group_norm_bwd_apply_plain(xr.float(), *f32[1:], stats, gr.float(), wsums,
+                                            hw * hw, **kw)
+        assert _rel_l2(dx, wdx) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_sp_discriminator_gradient_penalty_of_two_gloo_ranks_on_card(card, tmp_path):
+    """The Paella discriminator (depth 6, 512 wide) on two gloo ranks of the
+    one card, each its half of two 256^2 images' rows: the gradient penalty
+    (its second derivative through the halo and moment collectives), the
+    per-image input-gradient norms and the discriminator's gradients,
+    summed over the ranks, against one process on the card (1e-9
+    relative), the loss (its fp32 sigmoid head) within 1e-7. In float64:
+    in float32 cuDNN picks other algorithms for a rank's half-height convs
+    than for the whole image's, and the second derivative carries their
+    rounding (3.9e-4 relative L2 on the gradients), which would hide the
+    collectives' own arithmetic."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_ranks
+    import torch_tp_ranks
+
+    real = np.random.default_rng(4).uniform(0, 1, (2, 3, 256, 256)).astype(np.float32)
+    setup = {"device": "cuda", "dtype": "float64", "seed": 3, "depth": 6, "hidden": 512,
+             "real": real}
+    ranks = torch_dist_ranks.Ranks("disc_gp", 2, tmp_path, setup)
+    want = torch_tp_ranks.disc_gp_run(setup, None)
+    for got in ranks.results():
+        np.testing.assert_allclose(got["gp"], want["gp"], rtol=1e-9)
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-7)
+        np.testing.assert_allclose(got["norm"], want["norm"], rtol=1e-9)
+        err = np.linalg.norm(got["grads"] - want["grads"]) / np.linalg.norm(want["grads"])
+        assert err <= 1e-9, err

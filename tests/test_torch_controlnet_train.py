@@ -352,8 +352,10 @@ def test_refused_flags(workdir):
     train = _script("train_controlnet")
     with pytest.raises(SystemExit):
         train.parse_args(["--pretrained_model_name_or_path", str(root / "pipe")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # One process holds no model group of 2 (gmdx's make_train_mesh rule).
+    with pytest.raises(ValueError, match=r"group size >= 2 dividing the device count \(1\)"):
         _train(root, meta, root / "refused", "--shard_strategy", "tp")
+    assert not os.path.exists(root / "refused")
     gm_pipe = root / "gm_pipe"
     _script("init_pipeline").main(["--output_dir", str(gm_pipe), "--size", "tiny", "--gm_only",
                                    "--device", "cpu"])

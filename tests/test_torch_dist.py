@@ -469,22 +469,26 @@ def test_single_process_is_a_no_op():
     assert dist.apply_shard_strategy(state, "fsdp", param_fields=(), opt_fields=()) is state
 
 
-@pytest.mark.parametrize("trainer,kind,strategy", [
-    pytest.param("train_vqgan_lora", "stage1", "tp", id="tp"),
-    pytest.param("train_vqgan_lora", "stage1", "sp", id="sp"),
-    pytest.param("train_controlnet", "controlnet", "tp", id="controlnet-tp"),
-    pytest.param("train_controlnet", "controlnet", "sp", id="controlnet-sp"),
+@pytest.mark.parametrize("trainer,strategy", [
+    pytest.param("train_vqgan_lora", "tp", id="tp"),
+    pytest.param("train_vqgan_lora", "sp", id="sp"),
+    pytest.param("train_controlnet", "tp", id="controlnet-tp"),
+    pytest.param("train_controlnet", "sp", id="controlnet-sp"),
 ])
-def test_tensor_and_spatial_parallelism_raise_naming_the_item(tmp_path, trainer, kind,
-                                                              strategy):
-    """The Stage-1 and ControlNet trainers' tp / sp are still to be ported:
-    the check and the CLI raise naming the item before anything is read or
-    written; Stage 2 takes both; an unknown strategy raises."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dist.check_strategy(strategy, kind)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+def test_tensor_and_spatial_parallelism_raise_naming_the_item(tmp_path, trainer, strategy):
+    """The Stage-1 and ControlNet trainers take tp / sp, as Stage 2 does;
+    what raises is gmdx's rule (``make_train_mesh``): a model group of at
+    least 2 ranks that divides the world, checked by ``check_group_size``
+    and by the CLI in one process before anything is read or written. The
+    data-parallel check (``check_strategy``, which ``DataParallel`` makes)
+    refuses tp / sp and an unknown strategy."""
+    dist.check_group_size(strategy, 2, 4)
+    for size, n in ((1, 1), (2, 1), (3, 4)):
+        with pytest.raises(ValueError, match=rf"group size >= 2 dividing the device count "
+                                             rf"\({n}\); got {size}"):
+            dist.check_group_size(strategy, size, n)
+    with pytest.raises(ValueError, match="data x model grid"):
         dist.check_strategy(strategy)
-    dist.check_strategy(strategy, "stage2")
     with pytest.raises(ValueError):
         dist.check_strategy("zero3")
     spec = importlib.util.spec_from_file_location(
@@ -492,7 +496,8 @@ def test_tensor_and_spatial_parallelism_raise_naming_the_item(tmp_path, trainer,
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match=rf"--shard_strategy {strategy} needs a group size >= 2 "
+                                         rf"dividing the device count \(1\); got 2"):
         mod.main(["--pretrained_model_name_or_path", str(tmp_path / "pipe"), "--train_metadata",
                   str(tmp_path / "train.parquet"), "--output_dir", str(out), "--device", "cpu",
                   "--shard_strategy", strategy])

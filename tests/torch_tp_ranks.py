@@ -165,7 +165,11 @@ def job_cli(setup: dict) -> dict:
     """Each run of ``setup["cli_runs"]``: (name, script, argv): what
     ``scripts/torch/<script>.py``'s main(argv) wrote, by file."""
     out = {}
-    for name, script, argv in setup["cli_runs"]:
+    for name, script, argv, *copy in setup["cli_runs"]:
+        if copy:
+            if tdist.get_rank() == 0:
+                shutil.copytree(*copy[0])
+            tdist.barrier()
         spec = importlib.util.spec_from_file_location(
             f"tp_ranks_{script}", os.path.join(REPO, "scripts", "torch", f"{script}.py"))
         mod = importlib.util.module_from_spec(spec)
@@ -388,3 +392,329 @@ def job_train_cli(setup: dict) -> dict:
 JOBS = {"tp_models": job_models, "sp_edges": job_sp_edges, "tp_dual": job_dual,
         "sp_step_noise": job_step_noise, "tp_cli": job_cli, "tp_train": job_train,
         "tp_collectives": job_collectives, "tp_train_cli": job_train_cli}
+
+
+# --- the Stage-1 and ControlNet trainers under tp / sp -----------------------
+
+
+def _capture_first(opt, into: list, whole=None) -> None:
+    """Keep the first gradients ``opt.step`` takes (reduced; ``whole`` makes
+    them whole), as numpy."""
+    from torch_dist_ranks import _np
+
+    inner = opt.step
+
+    def step(g, grad_norm=None):
+        if not into:
+            into.append([_np(t) for t in (whole(g) if whole is not None else g)])
+        return inner(g, grad_norm)
+
+    opt.step = step
+
+
+def _rank_batch(setup_batch: dict, layout) -> dict:
+    """This rank's part of a global numpy batch: its data index's rows,
+    under sp its H rows of each image."""
+    batch = {k: torch.from_numpy(v) for k, v in setup_batch.items()}
+    if layout is not None:
+        batch = mesh.shard_batch(batch, layout.data_rank, layout.data_size)
+        if layout.mode == "sp":
+            batch = mesh.spatial_batch(batch, layout)
+    return batch
+
+
+def cnet_modules(setup: dict):
+    """The tiny UNet, VAE, CLIP text encoder and ControlNet of the setup's
+    state dicts, fp32."""
+    from gmdx_torch.models import TINY_CLIP_CONFIG, CLIPTextModel
+
+    unet, vae, cnet = tiny_models(setup)
+    text = CLIPTextModel(TINY_CLIP_CONFIG)
+    text.load_state_dict({k: torch.from_numpy(v) for k, v in setup["text_sd"].items()})
+    return unet, vae, text, cnet.train()
+
+
+def cnet_train_run(setup: dict, mode: str | None, *, steps=(0, 1), restore=None,
+                   save=None) -> dict:
+    """ControlNet updates ``steps`` (indices of the setup's seeds) on the
+    setup's global batch: under ``mode`` over a data x model layout of
+    ``setup["size"]``-rank model groups on this rank's part of it, or in
+    one process (None). ``restore`` / ``save``: (checkpoint dir, step).
+    Returns the metrics, the draws (this rank's rows), the first reduced
+    gradient whole, the state's tensors whole, the digest, and the
+    parameters' shapes this rank holds."""
+    from torch_dist_ranks import _np
+
+    from gmdx_torch.train import (
+        ControlNetTrainConfig, init_controlnet_state, make_controlnet_ema_step,
+        make_controlnet_train_step, make_manager,
+    )
+    from gmdx_torch.train.checkpoint import restore_state, save_state, state_digest, \
+        state_tensors
+
+    layout = tpctx.join_train_parallel(mode, setup["size"]) if mode else None
+    unet, vae, text, cnet = cnet_modules(setup)
+    cfg = ControlNetTrainConfig(**setup["cnet_config"])
+    step = make_controlnet_train_step(cfg, unet=unet, vae=vae, text_encoder=text,
+                                      controlnet=cnet, device="cpu", layout=layout)
+    names = [n for n, p in cnet.named_parameters() if p.requires_grad]
+    state = mesh.apply_shard_strategy(init_controlnet_state(cfg, cnet), mode or "ddp",
+                                      param_fields=("params", "ema"),
+                                      opt_fields=("opt_state",), layout=layout)
+    batch = _rank_batch(setup["cnet_batch"], layout)
+    opt = state.optimizer
+    grads: list = []
+    _capture_first(opt, grads, opt.dp.whole if opt.dp is not None else None)
+    out = {"loss": [], "grad_norm": [], "draws": [], "saved": None, "restored": None}
+    if restore is not None:
+        restore_state(make_manager(restore[0]), restore[1], state)
+        out["restored"] = state_digest(state)
+    for k in steps:
+        seed = setup["seeds"][k]
+        out["draws"].append({n: _np(v) for n, v in step.draw_inputs(
+            batch, torch.Generator().manual_seed(seed)).items()})
+        state, m = step(state, batch, torch.Generator().manual_seed(seed))
+        make_controlnet_ema_step(cfg)(state)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if save is not None and save[1] == k + 1:
+            out["saved"] = save_state(make_manager(save[0]), k + 1, state)
+    del opt.step
+    out["grads"] = dict(zip(names, grads[0])) if grads else None
+    tensors, scalars = state_tensors(state)
+    out["tensors"] = {n: _np(t) for n, t in tensors.items()}
+    out["scalars"] = scalars
+    out["digest"] = state_digest(state)
+    out["held"] = {n: tuple(p.shape) for n, p in cnet.named_parameters()}
+    return out
+
+
+def job_cnet_train(setup: dict) -> dict:
+    """The mode's two updates, checkpointed after the first; one update
+    resumed from the one-process run's checkpoint of the first."""
+    mode, work = setup["mode"], setup["workdir"]
+    return {"run": cnet_train_run(setup, mode, save=(os.path.join(work, f"ckpt_{mode}"), 1)),
+            "resumed": cnet_train_run(setup, mode, steps=(1,),
+                                      restore=(os.path.join(work, "ckpt_one"), 1))}
+
+
+def s1_train_run(setup: dict, mode: str | None, *, lr: float, restore=None,
+                 save=None) -> dict:
+    """A Stage-1 generator step, the EMA, then a discriminator step (the
+    setup's seed for both) at learning rate ``lr`` on the setup's global
+    batch: under ``mode`` on this rank's part of it, or in one process.
+    Returns both steps' metrics, their first reduced gradients, the state's
+    tensors whole, the digest and the shapes this rank holds."""
+    from torch_dist_ranks import _np, stage1_setup
+
+    from gmdx_torch.ops import tmo
+    from gmdx_torch.train import make_manager, stage1
+    from gmdx_torch.train.checkpoint import restore_state, save_state, state_digest, \
+        state_tensors
+
+    layout = tpctx.join_train_parallel(mode, setup["size"]) if mode else None
+    cfg, vae, vgg, disc, trainables = stage1_setup(setup)
+    names = stage1.trainable_names(trainables)
+    disc_names = [n for n, _ in disc.named_parameters()]
+    state = stage1.init_state(cfg, trainables, disc, stage1.make_optimizers(
+        trainables, disc, learning_rate=lr, discr_learning_rate=lr, lr_warmup_steps=0))
+    state = mesh.apply_shard_strategy(state, mode or "ddp",
+                                      param_fields=("trainables", "disc_params", "ema"),
+                                      opt_fields=("opt_state", "disc_opt_state"), layout=layout)
+    kw = dict(vae=vae, discriminator=disc, tmo_fn=tmo.fix_mulog_tmo, device="cpu",
+              layout=layout)
+    gen_step = stage1.make_gen_step(cfg, vgg=vgg, **kw)
+    disc_step = stage1.make_disc_step(cfg, **kw)
+    batch = _rank_batch(setup["s1_batch"], layout)
+    out = {"saved": None, "restored": None}
+    if restore is not None:
+        restore_state(make_manager(restore[0]), restore[1], state)
+        out["restored"] = state_digest(state)
+    gen_grads: list = []
+    disc_grads: list = []
+    _capture_first(state.optimizer, gen_grads)
+    _capture_first(state.disc_optimizer, disc_grads)
+    seed = setup["seeds"][0]
+    state, g = gen_step(state, batch, torch.Generator().manual_seed(seed))
+    stage1.make_ema_step(cfg)(state)
+    state, d = disc_step(state, batch, torch.Generator().manual_seed(seed))
+    del state.optimizer.step, state.disc_optimizer.step
+    if save is not None:
+        out["saved"] = save_state(make_manager(save), 1, state)
+    tensors, scalars = state_tensors(state)
+    out.update({
+        "gen": {k: float(v) for k, v in g.items() if k != "module_grad_norms"},
+        "disc": {k: float(v) for k, v in d.items()},
+        "gen_grads": dict(zip(names, gen_grads[0])),
+        "disc_grads": dict(zip(disc_names, disc_grads[0])),
+        "tensors": {n: _np(t) for n, t in tensors.items()}, "scalars": scalars,
+        "digest": state_digest(state),
+        "held": {n: tuple(t.shape) for n, t in zip(
+            names + disc_names, stage1.trainable_list(state.trainables)
+            + list(state.discriminator.parameters()))}})
+    return out
+
+
+def job_s1_train(setup: dict) -> dict:
+    """The mode's pair at learning rate 0 (the gradients gmdx's step is held
+    to, at the initial state) and at the setup's rate (checkpointed), then
+    the pair resumed from the one-process run's checkpoint."""
+    mode, work = setup["mode"], setup["workdir"]
+    return {"grads": s1_train_run(setup, mode, lr=0.0),
+            "run": s1_train_run(setup, mode, lr=setup["lr"],
+                                save=os.path.join(work, f"ckpt_{mode}")),
+            "resumed": s1_train_run(setup, mode, lr=setup["lr"],
+                                    restore=(os.path.join(work, "ckpt_one"), 1))}
+
+
+def second_order_setup(n: int = 2) -> dict:
+    """Whole tensors for :func:`second_order_run` over ``n`` ranks: an NHWC
+    image of 8 rows and an NCHW one, a weight over their last dimension,
+    and a cotangent of each."""
+    rng = np.random.default_rng(9)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {"n": n, "second_order": {"nhwc": r(2, 8, 3, 4), "nchw": r(2, 3, 8, 4), "w": r(4),
+                                     "c_nhwc": r(2, 8, 3, 4), "c_nchw": r(2, 3, 8, 4)}}
+
+
+# Each collective of the second-order check: (H dim, replicated output).
+SECOND_ORDER = {"all_reduce_sum": (1, True), "gather_rows": (1, True), "halo_rows": (1, False),
+                "halo_rows_nchw": (2, False), "fill_halo": (1, False)}
+
+
+def second_order_run(setup: dict, ctx) -> dict:
+    """What a gradient penalty differentiates, through each collective: on
+    a rank's rows x, the collective's outputs y, s = sum(tanh(y) * w) (a
+    replicated output counted as its 1/n share), dx = ds/dx under
+    create_graph, p = sum(dx^2 * c) (c's rows), then dp/dx and dp/dw. With
+    ``ctx`` None the whole tensors in one process, each rank's outputs
+    made from them (the windows a rank's halo reads, zero-padded at the
+    image's edges): the sums over the ranks of s and p are the ranks'."""
+    import torch.nn.functional as F
+
+    t = {k: torch.from_numpy(v) for k, v in setup["second_order"].items()}
+    n = setup["n"]
+
+    def ys(name, x):
+        """The outputs whose s the objective sums (one a rank)."""
+        if ctx is not None:
+            return [{"all_reduce_sum": lambda: mesh.all_reduce_sum(
+                        0.05 * (x * x).sum(dim=(1, 2)), ctx),
+                     "gather_rows": lambda: mesh.gather_rows(x, ctx, 1),
+                     "halo_rows": lambda: mesh.halo_rows(x, 1, 1, ctx),
+                     "halo_rows_nchw": lambda: mesh.halo_rows(x, 1, 0, ctx, h_dim=2),
+                     "fill_halo": lambda: mesh.fill_halo(F.pad(x, (0, 0, 1, 1, 1, 1)), ctx),
+                     }[name]()]
+        if name == "all_reduce_sum":
+            return [0.05 * (x * x).sum(dim=(1, 2))] * n
+        if name == "gather_rows":
+            return [x] * n
+        h = x.shape[SECOND_ORDER[name][0]] // n
+        if name == "halo_rows_nchw":
+            xp = F.pad(x, (0, 0, 1, 0))
+            return [xp[:, :, r * h:(r + 1) * h + 1] for r in range(n)]
+        xp = F.pad(x, (0, 0, 0, 0, 1, 1) if name == "halo_rows" else (0, 0, 1, 1, 1, 1))
+        return [xp[:, r * h:(r + 1) * h + 2] for r in range(n)]
+
+    out = {}
+    for name, (h_dim, replicated) in SECOND_ORDER.items():
+        layout = "nchw" if h_dim == 2 else "nhwc"
+        x, c = t[layout], t[f"c_{layout}"]
+        if ctx is not None:
+            x, c = mesh.shard_rows(x, ctx, h_dim), mesh.shard_rows(c, ctx, h_dim)
+        x = x.clone().requires_grad_()
+        w = t["w"].clone().requires_grad_()
+        share = 1.0 / n if replicated else 1.0
+        s = sum((torch.tanh(y) * w).sum() for y in ys(name, x)) * share
+        (dx,) = torch.autograd.grad(s, x, create_graph=True)
+        gx, gw = torch.autograd.grad((dx * dx * c).sum(), (x, w))
+        out[name] = {"dx": dx.detach().numpy(), "gx": gx.numpy(), "gw": gw.numpy()}
+    return out
+
+
+def job_second_order(setup: dict) -> dict:
+    with tpctx.parallel_context("sp") as c:
+        return second_order_run(setup, c)
+
+
+def job_trainer_cli(setup: dict) -> dict:
+    """Each run of ``setup["cli_runs"]``: (name, script, argv) of
+    ``scripts/torch/<script>.py``, optionally with (source, destination):
+    a checkpoint directory rank 0 copies before the run; its losses,
+    steps, digests and the state's whole tensors."""
+    import shutil
+    import sys
+
+    import torch.distributed as tdist
+
+    from torch_dist_ranks import _np
+
+    from gmdx_torch.train.checkpoint import state_tensors
+
+    sys.modules["torch.utils.tensorboard"] = None  # as on the card's machine
+    out = {}
+    for name, script, argv, *copy in setup["cli_runs"]:
+        if copy:
+            if tdist.get_rank() == 0:
+                shutil.copytree(*copy[0])
+            tdist.barrier()
+        spec = importlib.util.spec_from_file_location(
+            f"tp_ranks_{script}", os.path.join(REPO, "scripts", "torch", f"{script}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        res = mod.main(argv)
+        tensors, _ = state_tensors(res.pop("state"))
+        res["tensors"] = {k: _np(v) for k, v in tensors.items()}
+        out[name] = res
+    return out
+
+
+def disc_gp_run(setup: dict, ctx) -> dict:
+    """A seeded discriminator's hinge on reals plus the gradient penalty
+    (gmdx's, weight 10) on ``setup["device"]`` in ``setup["dtype"]``
+    (float32 by default): under ``ctx`` (sp) on this
+    rank's rows, each term its share and the gradients summed over the
+    group, or in one process. Returns the penalty, the input gradient's
+    per-image norms and the discriminator's gradients."""
+    from gmdx_torch.models.discriminator import Discriminator
+    from gmdx_torch.train.stage1 import safe_norm, safe_norm_split
+
+    dev = torch.device(setup["device"])
+    if dev.type == "cuda":  # fp32 convs and matmuls, as the card tests' process
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(setup["seed"])
+    dtype = getattr(torch, setup.get("dtype", "float32"))
+    disc = Discriminator(depth=setup["depth"], hidden_channels=setup["hidden"]).to(dev, dtype)
+    x = torch.from_numpy(setup["real"]).to(dev, dtype)
+    n = 1 if ctx is None else ctx.size
+    if ctx is not None:
+        x = mesh.shard_rows(x, ctx)
+    with tpctx.entered(ctx):
+        real = x.requires_grad_()
+        out = disc(real)
+        (g,) = torch.autograd.grad(out.sum(), real, create_graph=True)
+        g = g.reshape(g.shape[0], -1)
+        norm = safe_norm(g) if ctx is None else safe_norm_split(g, ctx)
+        gp = 10.0 * torch.mean((norm - 1.0) ** 2) / n
+        loss = torch.mean(torch.relu(1.0 - out)) / n + gp
+        grads = torch.autograd.grad(loss, list(disc.parameters()))
+    flat = torch.cat([t.reshape(-1) for t in grads]).double()
+    total = torch.stack([gp.detach().double(), loss.detach().double()])
+    if ctx is not None:
+        torch.distributed.all_reduce(flat, group=ctx.group)
+        torch.distributed.all_reduce(total, group=ctx.group)
+    return {"gp": float(total[0]), "loss": float(total[1]), "norm": norm.detach().cpu().numpy(),
+            "grads": flat.cpu().numpy()}
+
+
+def job_disc_gp(setup: dict) -> dict:
+    with tpctx.parallel_context("sp") as c:
+        return disc_gp_run(setup, c)
+
+
+JOBS.update({"cnet_train": job_cnet_train, "s1_train": job_s1_train, "disc_gp": job_disc_gp,
+             "second_order": job_second_order, "trainer_cli": job_trainer_cli})
