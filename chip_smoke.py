@@ -74,7 +74,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      a backend takes d = 512, the plans held to gmdx_wide_plan; the
      backward's bound at the function's 10 B H Sq Sk D operations and the
      design's 16 beside it) and the GroupNorm backward at the VAE's shapes
-     (4x512^2x128 ... 1x1024^2x128, eps 1e-6).
+     (4x512^2x128 ... 1x1024^2x128, eps 1e-6). The opt-in kernels as the
+     Stage-2 step trains with them (batch OPTIN_TRAIN_BATCH), rows of their
+     own: conv3x3_train and winograd4_conv3x3_train at 64^2 x 320
+     (pre-padded, F.conv2d's fprop beside), add_layer_norm_train at 4096 x
+     320, flash_attention_fwd_k77 / _bwd_k77 at 4096 queries x 77 keys, d 40
+     (SDPA beside).
   4. main: the full-width SD-1.5 dual-UNet text-to-HDR path at 512^2 with
      seeded random bf16 weights: denoise_dual (PNDM, CFG 7.5), one batched
      VAE decode, Eq. (1), a .hdr written and read back. Launch counts of
@@ -172,7 +177,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
      that directory (its 4-channel unet inflated to 8): 24 pairs of 600x800
      PNGs in a parquet written by the port. Run A, the parquet path at
      512^2, batch 8, random flips, EMA, 6 steps, asynchronous checkpoints
-     at 3 and 6, one validation image an epoch (PNDM 49), the final
+     at 3 and 6, one validation image at step 6 (PNDM 49), the final
      pipeline directory: losses finite, both checkpoints, the saved unet
      8-channel and the EMA shadow bit for bit, the validation PNG and .hdr
      finite at 512^2; the loader's s/batch alone, s/step, checkpoint s and
@@ -212,7 +217,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
      digest equals the saved one, C's step-6 loss within
      TRAIN_CLI_LOSS_RTOL of A's. s/step, samples/s, checkpoint call and
      restore s and GB, peak memory.
- 23. convert: scripts/torch/convert_torch_checkpoint.py exports that
+ 23. optin_train: training with the opt-in kernels at SD-1.5 width, each
+     part against the default options on the same weights, batch and
+     draws (learning rate 0; the Stage-1 discriminator's spectral norms
+     restored before each step): the Stage-2 step at 512^2, batch 8, cached
+     latents, with all four options (xattn_kernel, fused_addln,
+     winograd_m=4, winograd_train), then once more under remat, whose
+     recompute launches the convs, add + LN and the flash forward twice
+     over; the ControlNet step (batch 4) and a Stage-1 pair (batch 1, VGG19
+     and the discriminator fp32) with winograd_train; the loss (Stage 1:
+     each loss part) within TRAIN_LOSS_RTOL, the whole gradient's cosine
+     >= TRAIN_GRAD_COS_MIN (float64 sums), the options' kernels launched,
+     no *_plain function on a card tensor outside the backward; step
+     walls and peak memory with and without the options. Then
+     train_gm_unet.py for 2 steps with every flag and generate_hdr.py with
+     the three inference flags on phase cli's directory (the GM PNGs'
+     PSNR against phase cli's run reported). Its wall beside
+     OPTIN_TRAIN_BUDGET_S; it gives the kernels line's *_train and *_k77
+     rows their launches a Stage-2 step.
+ 24. convert: scripts/torch/convert_torch_checkpoint.py exports that
      directory to diffusers' layout; a seeded full-width ViT-L/14 safety
      checker (transformers' layout, position_ids included) joins it; the
      result is imported into a second directory, whose unet, gm_unet, vae
@@ -224,7 +247,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
      flags equal where every score is beyond 1e-3 of 0), its ms and fp32
      bound for the batch; a pipeline call at batch 2 with every concept
      firing must come out black. Export and import s and GB, peak memory.
- 24. parallel: tensor- and spatial-parallel serving (gmdx_torch.dist.tp,
+ 25. parallel: tensor- and spatial-parallel serving (gmdx_torch.dist.tp,
      tpctx and the H split) on two gloo ranks of the one card beside one
      process with the same seeded weights, embeddings and generators:
      TP = 2 through the dual path at 512^2 (batch 1, 3 steps), SP = 2
@@ -235,7 +258,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
      never; under SP every kernel of the path, the split GroupNorm's
      entries in place of group_norm_silu), its peak memory beside the one
      process's, the phase's wall beside PARALLEL_BUDGET_S.
- 25. train_parallel: Stage-2 training under tensor and spatial parallelism
+ 26. train_parallel: Stage-2 training under tensor and spatial parallelism
      at SD-1.5 width, 512^2, global batch 8 of cached latents, bf16, remat:
      two gloo ranks of the one card under TP = 2, then SP = 2, each beside
      one process on the global batch: losses within TRAIN_LOSS_RTOL, the
@@ -250,7 +273,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and sp (pixels: the VAE on each rank's rows) on the two ranks: losses
      finite, the saved pipeline's UNet whole. Its wall beside
      TRAIN_PARALLEL_BUDGET_S.
- 26. trainers_parallel: the Stage-1 and ControlNet trainers under tensor
+ 27. trainers_parallel: the Stage-1 and ControlNet trainers under tensor
      and spatial parallelism at SD-1.5 width on two gloo ranks of the one
      card, each beside one process: the ControlNet step (512^2, global
      batch 2) under TP = 2 and SP = 2, losses within TRAIN_LOSS_RTOL, the
@@ -273,7 +296,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
      phase cli's directory for 2 steps under --shard_strategy tp and sp on
      the two ranks: losses finite, the artifacts saved. Its wall beside
      TRAINERS_PARALLEL_BUDGET_S.
- 27. pp: pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) on
+ 28. pp: pipeline-parallel dual-UNet serving (gmdx_torch.pipelines.pp) on
      two gloo ranks of the one card, stage 0 the SDR UNet, stage 1 the GM
      UNet and the VAE (a stage-1 rank builds the SDR UNet on the meta
      device, replaying its seeded draws, so its own modules get one
@@ -314,6 +337,7 @@ The line before the last is the {"kernels": [...]} summary; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -387,6 +411,15 @@ KERNELS = {
     "group_norm_apply": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:578"),
     "group_norm_bwd_sums": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:291"),
     "group_norm_bwd_apply": ("gmdx_torch/csrc/groupnorm.cu", "gmdx/kernels/groupnorm.py:315"),
+    # The opt-in kernels in training (phase optin_train; rows L of phase
+    # kernels at the Stage-2 step's shapes).
+    "conv3x3_train": ("gmdx_torch/csrc/conv3x3.cu", "gmdx/kernels/winograd.py:815"),
+    "winograd4_conv3x3_train": ("gmdx_torch/csrc/winograd4.cu", "gmdx/kernels/winograd.py:693"),
+    "add_layer_norm_train": ("gmdx_torch/csrc/add_ln.cu", "gmdx/kernels/geglu_ff.py:521"),
+    "flash_attention_fwd_k77": (
+        "gmdx_torch/csrc/flash_attention.cu", "gmdx/kernels/flash_attention.py:142"),
+    "flash_attention_bwd_k77": (
+        "gmdx_torch/csrc/flash_attention.cu", "gmdx/kernels/flash_attention.py:348"),
 }
 # The kernels of each path: the phase whose run must launch them all.
 INFERENCE_KERNELS = ("attention_kv_resident", "conv3x3", "group_norm_silu", "geglu_ff_ln")
@@ -424,7 +457,7 @@ SDR2HDR_E2E_STEPS = 3
 # DDIM's steps in phase samplers, and the timed repeats of each sampler
 # (the median is reported).
 SAMPLER_STEPS = 4
-SAMPLER_REPEATS = 5
+SAMPLER_REPEATS = 3
 # The F(4x4) algorithm's max error relative to the output's peak against the
 # fp32 direct conv must stay under max(10x the direct bf16 conv's, 5e-2), the
 # JAX package's own bar (tests/test_kernels.py:1192-1219).
@@ -655,7 +688,7 @@ def _check(name, shape, kernel_fn, plain_fn, library_fn, flops, nbytes, results,
     errs = [compare(o, r) for o, r in zip(outs, refs) if r is not None]
     max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     ms = time_ms(kernel_fn)
-    plain_ms = time_ms(plain_fn, iters=3)
+    plain_ms = time_ms(plain_fn, iters=1)
     lib_ms = time_ms(library_fn) if library_fn is not None else None
     b_ms, b_by = bound_ms(flops, nbytes, peak)
     row = {
@@ -952,6 +985,7 @@ def phase_kernels(batch: int, train_batch: int, sdr2hdr_batch: int) -> list[dict
     _parallel_kernel_rows(gen, batch, results)
     _train_parallel_kernel_rows(gen, DIST_BATCH, results)
     _trainers_parallel_kernel_rows(gen, results)
+    _optin_train_kernel_rows(gen, OPTIN_TRAIN_BATCH, results)
     return results
 
 
@@ -1672,6 +1706,114 @@ def _optin_kernel_rows(gen, batch: int, results: list[dict]) -> None:
         if not max_rel < bar:
             raise SystemExit(f"chip_smoke: F(4x4) {shape} max-rel {max_rel} >= bar {bar}")
         del x, x_nchw, ref, out, direct_bf16
+
+
+def _optin_train_kernel_rows(gen, tb: int, results: list[dict]) -> None:
+    """L. The opt-in kernels as phase optin_train's Stage-2 step runs them
+    under autograd, batch ``tb``: the conv kernel and F(4x4) as the
+    training forward at the 64^2 x 320 level (pre-padded, as the GroupNorm
+    gives it), add + LayerNorm at 4096 x 320, and the flash forward and
+    backward at the short-K route's 77 keys (4096 queries, d 40: one
+    partial key tile). Rows of their own, beside the inference rows of the
+    same kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmdx_torch.kernels.flash_attention import (
+        attention_fwd_plan, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain, flash_bwd_plan,
+    )
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm, add_layer_norm_plain
+    from gmdx_torch.kernels.winograd import (
+        conv3x3, conv3x3_plain, pack_weight, pack_weight4, winograd4_conv3x3,
+        winograd4_conv3x3_plain,
+    )
+
+    hw, c, o = 64, 320, 320
+    x = F.pad(_randn(gen, tb, hw, hw, c), (0, 0, 1, 1, 1, 1))
+    w = _randn(gen, o, c, 3, 3, scale=(9 * c) ** -0.5)
+    bias = _randn(gen, o, scale=0.1)
+    wp, u = pack_weight(w), pack_weight4(w, torch.bfloat16)
+    x_nchw = x.permute(0, 3, 1, 2)
+    shape = [tb, hw, hw, c, o, "pre_padded"]
+    direct_flops = 2.0 * tb * hw * hw * 9 * c * o
+    _check(
+        "conv3x3_train", shape,
+        lambda: conv3x3(x, wp, bias, pre_padded=True),
+        lambda: conv3x3_plain(x.float(), wp.float(), bias.float(), pre_padded=True),
+        lambda: F.conv2d(x_nchw, w, bias), direct_flops,
+        (x.numel() + w.numel() + o + tb * hw * hw * o) * 2, results,
+        library="F.conv2d (fprop)", extra=_conv_plan_keys(tb, hw, c, o, True),
+    )
+    _check(
+        "winograd4_conv3x3_train", shape,
+        lambda: winograd4_conv3x3(x, u, bias, pre_padded=True),
+        lambda: winograd4_conv3x3_plain(x, u, bias, pre_padded=True),
+        lambda: F.conv2d(x_nchw, w, bias),
+        2.0 * 36 * tb * (hw // 4) ** 2 * c * o,
+        (x.numel() + u.numel() + o + tb * hw * hw * o) * 2, results,
+        library="F.conv2d (fprop)", extra=_wino4_plan_keys(tb, hw, c, o),
+    )
+    del x, x_nchw
+
+    s, c = 4096, 320
+    xa, ya = _randn(gen, tb, s, c), _randn(gen, tb, s, c)
+    gam = _randn(gen, c, scale=0.2).float() + 1.0
+    bet = _randn(gen, c, scale=0.2).float()
+    n = xa.numel()
+
+    def lib():
+        s_ = xa + ya
+        return s_, F.layer_norm(s_, (c,), gam.to(s_.dtype), bet.to(s_.dtype), 1e-5)
+
+    _check(
+        "add_layer_norm_train", [tb, s, c],
+        lambda: add_layer_norm(xa, ya, gam, bet),
+        lambda: add_layer_norm_plain(xa, ya, gam, bet),
+        lib, 10.0 * n, 4 * n * 2 + 2 * c * 4, results, peak=FP32_FLOPS,
+        library="x + y, then F.layer_norm (two calls: no single call gives both outputs)",
+        extra=_add_ln_plan_keys(tb * s, c),
+    )
+    del xa, ya
+
+    heads, sk = 8, 77
+    d = c // heads
+    q, dout = _randn(gen, tb, s, c), _randn(gen, tb, s, c)
+    k, v = _randn(gen, tb, sk, c), _randn(gen, tb, sk, c)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out, lse = flash_attention_fwd(q, k, v, heads)
+    ref_out, ref_lse = flash_attention_fwd_plain(qf, kf, vf, heads, d ** -0.5)
+    qh, kh, vh, dh = (t.view(tb, t.shape[1], heads, d).transpose(1, 2)
+                      for t in (q, k, v, dout))
+    shape = [tb, s, sk, heads, d]
+    fwd_flops = 4.0 * tb * heads * s * sk * d
+    _check(
+        "flash_attention_fwd_k77", shape,
+        lambda: flash_attention_fwd(q, k, v, heads),
+        lambda: flash_attention_fwd_plain(qf, kf, vf, heads, d ** -0.5),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        fwd_flops, (2 * tb * s * c + 2 * tb * sk * c) * 2 + tb * heads * s * 4, results,
+        library="SDPA",
+        extra={**exp2_keys(tb * heads * s * sk),
+               "plan": _attention_plan(0, attention_fwd_plan(tb, s, sk, heads, d), tb, s, sk,
+                                       heads, d)},
+    )
+    backend, lib_bwd = _sdpa_bwd_backend(qh, kh, vh, dh)
+    dkv, dq = flash_bwd_plan(tb, s, sk, heads, d)
+    _check(
+        "flash_attention_bwd_k77", shape,
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout, heads),
+        lambda: flash_attention_bwd_plain(qf, kf, vf, ref_out, ref_lse, dout.float(), heads,
+                                          d ** -0.5),
+        lib_bwd, 2.5 * fwd_flops,
+        (4 * tb * s * c + 4 * tb * sk * c) * 2 + 2 * tb * heads * s * 4, results,
+        library=f"SDPA backward ({backend})",
+        extra={**exp2_keys(2 * tb * heads * s * sk),
+               "plan": {"dkv": _attention_plan(1, dkv, tb, s, sk, heads, d),
+                        "dq": _attention_plan(2, dq, tb, s, sk, heads, d)}},
+    )
+    del q, k, v, dout, out, lse, lib_bwd, qh, kh, vh, dh
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2624,7 +2766,8 @@ def _stage1_e2e_run(args, use_kernels: bool) -> dict:
     g = state.optimizer.grads
     out = {
         "parts": {k: float(v) for m in (gm, dm) for k, v in m.items()
-                  if k in ("recon", "perceptual", "adversarial", "adaptive_weight", "hinge", "gp")},
+                  if k in ("recon", "perceptual", "adversarial", "adaptive_weight", "disc_loss",
+                          "hinge", "gp")},
         "gen": torch.cat(g), "disc": torch.cat(state.disc_optimizer.grads),
         "watched": {n: t for n, t in zip(names, g) if any(w in n for w in STAGE1_WATCHED)},
     }
@@ -2898,8 +3041,10 @@ def phase_cli(args, workdir: str | None = None) -> str:
     upconvert_hdrtv on one 1024^2 PNG at 2 steps read it; every PNG and
     .hdr they write is read back, and the up-conversion's launches are
     checked as phase hdrtv's. The directory is written under ``workdir``
-    and left there for phase train_cli (its path is returned), or, without
-    ``workdir``, under a temporary directory removed at the end."""
+    and left there for phase train_cli (its path is returned), with
+    generate_hdr's outputs (``out/gen``, which phases optin_train and
+    convert read), or, without ``workdir``, under a temporary directory
+    removed at the end."""
     import shutil
 
     import numpy as np
@@ -2992,7 +3137,9 @@ def phase_cli(args, workdir: str | None = None) -> str:
             raise SystemExit(f"chip_smoke: upconvert_hdrtv launched flash_attention_bsc "
                              f"{counts['flash_attention_bsc']} times in {n_iter} iterations and "
                              f"the 512-wide flash forward {counts['flash_attention_fwd_d512']}")
-        shutil.rmtree(out, ignore_errors=True)
+        # generate_hdr's outputs stay under a workdir: phase optin_train
+        # reads them beside its run with the opt-in flags.
+        shutil.rmtree(os.path.join(out, "hdrtv") if workdir else out, ignore_errors=True)
     finally:
         if workdir is None:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3007,9 +3154,9 @@ TRAIN_CLI_REMAT_RTOL = 1e-3
 RESUME_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd")
 
 
-def _train_cli_data(root: str, seed: int) -> tuple[str, str]:
-    """24 pairs of 600x800 SDR PNGs on disk and gain-map PNG bytes with
-    captions, in one parquet written by the port; one 512^2 validation
+def _train_cli_data(root: str, seed: int, pairs: int = TRAIN_CLI_PAIRS) -> tuple[str, str]:
+    """``pairs`` pairs of 600x800 SDR PNGs on disk and gain-map PNG bytes
+    with captions, in one parquet written by the port; one 512^2 validation
     PNG. Returns (parquet, validation directory)."""
     import numpy as np
 
@@ -3021,7 +3168,7 @@ def _train_cli_data(root: str, seed: int) -> tuple[str, str]:
     os.makedirs(os.path.join(root, "sdr"))
     os.makedirs(os.path.join(root, "val"))
     paths, gms, texts = [], [], []
-    for i in range(TRAIN_CLI_PAIRS):
+    for i in range(pairs):
         base = np.stack([np.sin(x / (13 + 3 * c + i) + y / (19 + i)) for c in range(3)], -1)
         sdr = np.clip(base * 90 + 128 + rng.integers(-4, 4, (600, 800, 3)), 0, 255)
         paths.append(os.path.join(root, "sdr", f"{i}.png"))
@@ -3047,7 +3194,7 @@ def phase_train_cli(args, pipe_dir: str, train_launches: dict[str, int]) -> None
     port's BILINEAR) in a parquet written by the port.
       A: the parquet path, batch 8, 512^2, --random_flip --use_ema,
          6 steps, checkpoints at 3 and 6 (asynchronous), one validation
-         image each epoch (3 steps): losses finite, checkpoint_3 and
+         image at step 6 (every two epochs): losses finite, checkpoint_3 and
          checkpoint_6 written, the saved unet 8-channel and equal to the
          EMA shadow bit for bit, the validation GM PNG and .hdr finite at
          512^2; the loader's s/batch alone, s/step, checkpoint s and GB,
@@ -3138,7 +3285,7 @@ def phase_train_cli(args, pipe_dir: str, train_launches: dict[str, int]) -> None
         a = run_cli(["--output_dir", out_a, "--mixed_precision", "no", "--random_flip",
                      "--use_ema", "--max_train_steps", "6", "--checkpointing_steps", "3",
                      "--async_checkpointing", "--validation_image_dir", val_dir,
-                     "--validation_epochs", "1"])
+                     "--validation_epochs", "2"])
         peak_a = torch.cuda.max_memory_allocated() / 1e9
         step_s = a["spans"]["step"][1:]
         ckpt_gb = _dir_gb(os.path.join(out_a, "checkpoint_3"))
@@ -3665,6 +3812,416 @@ def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: optin_train, training with the opt-in kernels
+# ---------------------------------------------------------------------------
+
+# The Stage-2 step's batch at 512^2 (BENCHNOTES' setting) and the options:
+# the three opt-ins and the conv kernel as the training forward.
+OPTIN_TRAIN_BATCH = 8
+OPTIN_SIDE = 512
+OPTIN_ALL = dict(OPT_INS, winograd_train=True)
+OPTIN_WINO_TRAIN = {"winograd_train": True}
+OPTIN_TRAIN_KERNELS = ("conv3x3", "winograd4_conv3x3", "add_layer_norm", "flash_attention_fwd",
+                       "flash_attention_bwd")
+# The kernels line's rows of the training launches (phase kernels' rows L):
+# each row's kernel counter, read a Stage-2 step with the options on.
+OPTIN_TRAIN_ROWS = {"conv3x3_train": "conv3x3", "winograd4_conv3x3_train": "winograd4_conv3x3",
+                    "add_layer_norm_train": "add_layer_norm",
+                    "flash_attention_fwd_k77": "flash_attention_fwd",
+                    "flash_attention_bwd_k77": "flash_attention_bwd"}
+# The launches a step with the options must add to the default's: the
+# Stage-2 step's 77-key flash route takes the ten cross-attentions of its
+# 4096- and 1024-query levels; the ControlNet's and Stage 1's conv kernel
+# forward, at least one conv under autograd.
+OPTIN_STAGE2_ADDED = {"conv3x3": 1, "winograd4_conv3x3": 1, "add_layer_norm": 1,
+                      "flash_attention_fwd": 10, "flash_attention_bwd": 10}
+OPTIN_CONV_ADDED = {"conv3x3": 1}
+# Stage 1's held metrics: the loss parts of the generator and of the
+# discriminator step, and the generator's loss without the adversarial
+# term; its held cosines: the discriminator's gradient and the generator's
+# without the adversarial term (the whole generator gradient's is reported:
+# its adversarial term is scaled by the adaptive weight, a ratio of two
+# gradient norms that the discriminator's input gradient moves by percents
+# at random weights, PERF.md section 6).
+OPTIN_STAGE1_HELD = ("recon", "perceptual", "adversarial", "disc_loss", "hinge", "gp",
+                     "gen_loss_no_adv")
+OPTIN_STAGE1_COSINES = ("disc", "gen_no_adv")
+OPTIN_TRAIN_BUDGET_S = 90.0
+OPTIN_TRAIN_SEED = 180
+OPTIN_CLI_PAIRS = 16
+
+
+@contextlib.contextmanager
+def _plain_watch(hits: list):
+    """Every ``*_plain`` function of the kernel modules, wrapped wherever a
+    module of gmdx_torch holds it: a call on a CUDA tensor is appended to
+    ``hits`` unless the autograd engine makes it (add + LayerNorm's
+    backward recomputes its plain version by design, as gmdx's VJP does
+    its jnp reference)."""
+    import torch
+
+    saved = []
+    for mod in [m for n, m in list(sys.modules.items())
+                if n.startswith("gmdx_torch") and m is not None]:
+        for name, fn in list(vars(mod).items()):
+            if not (name.endswith("_plain") and callable(fn)
+                    and getattr(fn, "__module__", "").startswith("gmdx_torch.kernels")):
+                continue
+
+            def watched(*a, _fn=fn, _name=name, **kw):
+                if torch._C._current_autograd_node() is None and any(
+                        isinstance(t, torch.Tensor) and t.is_cuda for t in (*a, *kw.values())):
+                    hits.append(_name)
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, watched)
+    try:
+        yield hits
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _cosine64(a, b) -> float:
+    """The cosine of two flat vectors, accumulated in float64 a chunk at a
+    time (an fp32 dot of 10^9 elements is off in the fifth digit)."""
+    import torch
+
+    acc = torch.zeros(3, dtype=torch.float64, device=a.device)
+    for x, y in zip(a.split(1 << 26), b.split(1 << 26)):
+        x, y = x.double(), y.double()
+        acc += torch.stack([x @ y, x @ x, y @ y])
+    dot, na, nb = acc.tolist()
+    return dot / math.sqrt(max(na * nb, 1e-300))
+
+
+def _optin_runs(part: str, modules, options: dict, step, state, batch, seed: int,
+                grads_of, reset=None, arm=None) -> dict:
+    """One trainer step under the default options and under ``options`` on
+    the same weights (the optimizer moves nothing; ``reset()``, where
+    given, restores what a step moves besides), batch and draws: for each,
+    a warm-up step, a timed step (its wall, peak memory and launches) and a
+    step whose gradients ``grads_of(state)`` reads (``arm()`` before it,
+    where given). ``grads_of`` returns the gradients by name, each a list of
+    tensors, and metrics of its own; they are flattened, the default run's
+    kept on the host through the options' run (on the card they would add
+    to its peak). Returns both runs' metrics, walls, peaks and launches, each metric's
+    relative difference, each named gradient's cosine and the launches the
+    options added."""
+    import torch
+
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.models import set_kernel_options
+
+    runs, grads = {}, {}
+    for name, opts in (("default", {}), ("options", options)):
+        for m in modules:
+            set_kernel_options(m, **opts)
+        res = {}
+        for i in range(3):
+            if reset is not None:
+                reset()
+            if i == 2 and arm is not None:
+                arm()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            if i == 1:
+                res.update(step_s=time.perf_counter() - t,
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches={k: v for k, v in launch_counts().items() if v})
+        res["metrics"] = {k: float(v) for k, v in metrics.items() if k != "module_grad_norms"}
+        named, extra = grads_of(state)
+        res["metrics"].update(extra)
+        grads[name] = {k: torch.cat([g.detach().float().reshape(-1) for g in v])
+                       for k, v in named.items()}
+        if name == "default":
+            grads[name] = {k: v.cpu() for k, v in grads[name].items()}
+        del named
+        runs[name] = res
+    for m in modules:
+        set_kernel_options(m)
+    cos = {}
+    for k in list(grads["default"]):
+        a, b = grads["options"].pop(k), grads["default"].pop(k).cuda()
+        cos[k] = _cosine64(a, b)
+        del a, b
+    base = runs["default"]["metrics"]
+    loss_key = next(k for k in ("loss", "gen_loss") if k in base)
+    rel = {k: abs(v - base[k]) / max(abs(base[k]), 1e-30)
+           for k, v in runs["options"]["metrics"].items()}
+    added = {k: v - runs["default"]["launches"].get(k, 0)
+             for k, v in runs["options"]["launches"].items()}
+    return {"part": part, "options": options, "runs": runs, "loss_key": loss_key,
+            "loss_rel_err": rel[loss_key], "metrics_rel_err": rel, "grad_cosine": cos,
+            "launches_added": {k: v for k, v in added.items() if v}}
+
+
+def _optin_check(report: dict, added: dict[str, int], bad: list, held=None,
+                 held_cosines=None) -> None:
+    """The phase's bars on one part: the loss (or each metric of ``held``)
+    within TRAIN_LOSS_RTOL; each gradient cosine (or each of
+    ``held_cosines``) at least TRAIN_GRAD_COS_MIN; each kernel of
+    ``added`` launched at least that many times more in the options' step
+    than in the default's (the default path launches some of them too:
+    the no-grad VAE, the frozen UNet's down path, the self-attentions)."""
+    rel, cos = report["metrics_rel_err"], report["grad_cosine"]
+    report["held"] = held = list(held or [report["loss_key"]])
+    report["held_cosines"] = held_cosines = list(held_cosines or cos)
+    report["launches_added_min"] = added
+    emit({"phase": "optin_train", **report, "card": nvidia_smi_line()})
+    over = {k: rel[k] for k in held if not rel[k] <= TRAIN_LOSS_RTOL}
+    low = {k: cos[k] for k in held_cosines if not cos[k] >= TRAIN_GRAD_COS_MIN}
+    if over or low:
+        bad.append(f"{report['part']}: rel errors {over}, cosines {low}")
+    short = {k: report["launches_added"].get(k, 0) for k, n in added.items()
+             if not report["launches_added"].get(k, 0) >= n}
+    if short:
+        bad.append(f"{report['part']}: launches the options added {short}, want at least "
+                   f"{added}")
+
+
+def _optin_grads(opt):
+    """``(arm, grads_of)``: ``opt.step``'s gradients in the step after
+    ``arm()`` and in no other, which ``grads_of`` hands to _optin_runs and
+    lets go of (held on, they would add to the next step's peak)."""
+    into = [None]  # filled: no step captures until armed
+
+    def grads_of(state):
+        grads, into[0] = into[0], None
+        return {"whole": grads}, {}
+
+    _dist_capture_grads(opt, into, lambda g: [t.detach() for t in g])
+    return into.clear, grads_of
+
+
+def phase_optin_train(args, pipe_dir: str) -> dict[str, int]:
+    """The opt-in kernels in training at SD-1.5 width, each part against
+    the default options on the same weights, batch and draws (the
+    optimizers move nothing between the runs):
+      stage2: the Stage-2 step at 512^2, batch OPTIN_TRAIN_BATCH, cached
+         latents, with all four options (OPTIN_ALL); then the same step
+         under remat (its blocks recomputed in the backward: the convs',
+         add + LN's and the flash forward's launches twice over, the flash
+         backward's once);
+      controlnet: the ControlNet step at 512^2, batch TRAINER_CLI_BATCH,
+         with winograd_train (the frozen UNet's up path too);
+      stage1: a Stage-1 gen + disc pair at 512^2, batch 1 (LoRA b factors
+         drawn, the posterior draw given; VGG19 and the discriminator in
+         float32, the CLI's default), with winograd_train, then a generator
+         step without the adversarial term;
+      train_gm_unet: the CLI for 2 steps with every flag, 512^2, batch 8;
+      generate_hdr: the CLI once with the three inference flags, on phase
+         cli's frames (PSNR against phase cli's default run reported).
+    Bars: loss within TRAIN_LOSS_RTOL relative and the whole gradient's
+    cosine >= TRAIN_GRAD_COS_MIN (Stage 1: each metric of OPTIN_STAGE1_HELD
+    and the cosines of OPTIN_STAGE1_COSINES; its adaptive weight, generator
+    loss and whole generator gradient's cosine reported), the launches
+    each part's options add to the default step's (OPTIN_STAGE2_ADDED,
+    OPTIN_CONV_ADDED; the CLIs': each opt-in kernel launched), no
+    ``*_plain`` function on a CUDA tensor outside the backward.
+    Step walls and peaks with and without the options, the card beside.
+    Returns the launches a Stage-2 step with the options of the kernels
+    line's OPTIN_TRAIN_ROWS (the 77-key flash rows: the options' step less
+    the default's)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gmdx_torch.io.png import read_png
+    from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.models import (
+        CLIP_VIT_L_CONFIG, SD15_VAE_CONFIG, AutoencoderKL, CLIPTextModel, set_kernel_options,
+    )
+    from gmdx_torch.train import Stage2Config, init_state, make_train_step, stage1
+
+    t_phase = time.perf_counter()
+    seed = args.seed + OPTIN_TRAIN_SEED
+    bad: list[str] = []
+    plain_hits: list[str] = []
+    with _plain_watch(plain_hits):
+        # Stage 2.
+        b = OPTIN_TRAIN_BATCH
+        unet = build_gm_unet(seed)
+        with torch.device("cuda"):
+            vae = AutoencoderKL(SD15_VAE_CONFIG).to(torch.bfloat16).eval()
+            text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
+        config = Stage2Config(learning_rate=0.0)
+        step = make_train_step(config, unet=unet, vae=vae, text_encoder=text)
+        state = init_state(config, unet)
+        arm, grads_of = _optin_grads(state.optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, CLIP_VOCAB, (b, 77), generator=gen,
+                                            device="cuda")}
+        lat = (b, 4, OPTIN_SIDE // 8, OPTIN_SIDE // 8)
+        for k in ("sdr", "gm"):
+            batch[f"{k}_latent_mean"] = torch.randn(*lat, generator=gen, device="cuda")
+            batch[f"{k}_latent_std"] = torch.rand(*lat, generator=gen, device="cuda") * 0.2 + 0.05
+        report = _optin_runs("stage2", (unet, vae, text), OPTIN_ALL, step, state, batch,
+                             seed + 2, grads_of, arm=arm)
+        opt_l = report["runs"]["options"]["launches"]
+        def_l = report["runs"]["default"]["launches"]
+        # Under remat, the options' step once more.
+        set_kernel_options(unet, **OPTIN_ALL)
+        unet.remat = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 2))
+        torch.cuda.synchronize()
+        remat_l = launch_counts()
+        report["remat"] = {"step_s": time.perf_counter() - t,
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "launches": {k: remat_l[k] for k in OPTIN_TRAIN_KERNELS}}
+        unet.remat = False
+        set_kernel_options(unet)
+        _optin_check(report, OPTIN_STAGE2_ADDED, bad)
+        want = {k: (1 if k == "flash_attention_bwd" else 2) * opt_l.get(k, 0)
+                for k in OPTIN_TRAIN_KERNELS}
+        if report["remat"]["launches"] != want:
+            bad.append(f"stage2 under remat: launches {report['remat']['launches']}, "
+                       f"want {want}")
+        stage2_rows = {row: opt_l.get(k, 0) - (def_l.get(k, 0) if row.endswith("_k77") else 0)
+                       for row, k in OPTIN_TRAIN_ROWS.items()}
+        del state, step, unet, vae, text, arm, grads_of, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The ControlNet.
+        state, step, batch = _dist_controlnet(seed + 3, TRAINER_CLI_BATCH, learning_rate=0.0)
+        arm, grads_of = _optin_grads(state.optimizer)
+        report = _optin_runs("controlnet", step.modules, OPTIN_WINO_TRAIN, step, state, batch,
+                             seed + 4, grads_of, arm=arm)
+        _optin_check(report, OPTIN_CONV_ADDED, bad)
+        del state, step, batch, arm, grads_of
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Stage 1: a gen + disc pair; the recorders move nothing. VGG19 and
+        # the discriminator in float32, the CLI's default.
+        config, vae, disc, trainables, (gen_step, disc_step, no_adv_step), g = build_stage1(
+            seed + 5, lora_b_std=1e-2, gan_dtype=torch.float32, no_adv_step=True)
+        state = stage1.init_state(config, trainables, disc, (
+            _Recorder(stage1.trainable_list(trainables)), _Recorder(disc.parameters())))
+        batch = stage1_batch(1, OPTIN_SIDE, g)
+        side = OPTIN_SIDE // 2 ** (len(vae.config.block_out_channels) - 1)
+        batch["encode_eps"] = torch.randn(1, 4, side, side, generator=g, device="cuda")
+
+        def pair(st, bt, gn):
+            st, gm = gen_step(st, bt, gn)
+            st, dm = disc_step(st, bt, gn)
+            return st, {**{k: v for k, v in gm.items() if k != "grad_norm"},
+                        **{k: v for k, v in dm.items() if k != "grad_norm"}}
+
+        def pair_grads(st):
+            # The pair's gradients, then the generator's without the
+            # adversarial term (its step's draws: the same seed).
+            gen_g, disc_g = st.optimizer.grads, st.disc_optimizer.grads
+            st, m = no_adv_step(st, batch, torch.Generator(device="cuda").manual_seed(seed + 6))
+            return ({"gen": gen_g, "disc": disc_g, "gen_no_adv": st.optimizer.grads},
+                    {"gen_loss_no_adv": float(m["gen_loss"])})
+
+        # The disc step refreshes the spectral norms' state: each step starts
+        # from the same.
+        sn = {k: v.clone() for k, v in disc.state_dict().items()}
+        report = _optin_runs("stage1", (vae,), OPTIN_WINO_TRAIN, pair, state, batch, seed + 6,
+                             pair_grads, reset=lambda: disc.load_state_dict(sn))
+        # What moves the adaptive weight (reported): the discriminator's
+        # input gradient at the target image against the same at the image
+        # rounded to bf16, a change of the size the conv kernel's forward
+        # makes in the reconstruction.
+        image = (batch["pixel_values"] + 1.0) / 2.0
+        grad = _disc_input_grad(disc, image)
+        report["disc_input_grad_bf16_spread"] = float(
+            torch.linalg.vector_norm(_disc_input_grad(disc, image.bfloat16().float()) - grad)
+            / torch.linalg.vector_norm(grad))
+        _optin_check(report, OPTIN_CONV_ADDED, bad, held=OPTIN_STAGE1_HELD,
+                     held_cosines=OPTIN_STAGE1_COSINES)
+        del state, vae, disc, trainables, gen_step, disc_step, no_adv_step, batch, grad
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The CLIs (their own processes' modules: outside the watch, which
+    # wraps the modules imported before it).
+    root = os.path.join(os.path.dirname(pipe_dir), "optin_train")
+    os.makedirs(root)
+    try:
+        meta, _ = _train_cli_data(root, seed + 7, pairs=OPTIN_CLI_PAIRS)
+        flags = ["--xattn_kernel", "--fused_addln", "--winograd_m", "4"]
+        reset_launch_counts()
+        t = time.perf_counter()
+        res = _script("train_gm_unet").main([
+            "--pretrained_model_name_or_path", pipe_dir, "--train_metadata", meta,
+            "--resolution", str(OPTIN_SIDE), "--train_batch_size", str(OPTIN_TRAIN_BATCH),
+            "--max_train_steps", "2", "--seed", str(args.seed), "--output_dir",
+            os.path.join(root, "train"), "--dataloader_num_workers", "2",
+            "--report_to", "tensorboard", *flags, "--winograd_train"])
+        torch.cuda.synchronize()
+        cli_launches = launch_counts()
+        cli = {"wall_s": time.perf_counter() - t, "losses": res["losses"],
+               "global_step": res["global_step"],
+               "launches": {k: cli_launches[k] for k in OPTIN_TRAIN_KERNELS}}
+        del res
+        torch.cuda.empty_cache()
+        src = os.path.join(os.path.dirname(pipe_dir), "sdr")
+        reset_launch_counts()
+        t = time.perf_counter()
+        written = _script("generate_hdr").main([
+            "--pretrained_model_name_or_path", pipe_dir, "--unet_ckpt",
+            os.path.join(pipe_dir, "gm_unet"), "--sdr_input_path", src,
+            "--output_dir", os.path.join(root, "gen"), "--num_inference_steps", "4",
+            "--resolution", str(OPTIN_SIDE), "--seed", str(args.seed), *flags])
+        torch.cuda.synchronize()
+        gen_launches = launch_counts()
+        psnr = {}
+        for name, arr in written.items():
+            ref_path = os.path.join(os.path.dirname(pipe_dir), "out", "gen", name)
+            ok = np.isfinite(arr).all() and arr.shape == (OPTIN_SIDE, OPTIN_SIDE, 3)
+            if not ok:
+                bad.append(f"generate_hdr {name}: {arr.shape}, finite {np.isfinite(arr).all()}")
+            if os.path.exists(ref_path) and name.startswith("gm_"):
+                # Against the 8-bit PNG phase cli wrote: capped near 59 dB.
+                psnr[name] = psnr01(torch.from_numpy(np.asarray(arr, np.float32)),
+                                    torch.from_numpy(read_png(ref_path).astype(np.float32) / 255.0))
+        gen_rep = {"wall_s": time.perf_counter() - t, "files": len(written),
+                   "psnr_db_vs_phase_cli": psnr,
+                   "launches": {k: gen_launches[k] for k in
+                                ("cross_attention_shortk", "add_layer_norm",
+                                 "winograd4_conv3x3", "conv3x3")}}
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "optin_train", "part": "train_gm_unet", "flags": flags + ["--winograd_train"],
+          **cli, "card": nvidia_smi_line()})
+    emit({"phase": "optin_train", "part": "generate_hdr", "flags": flags, **gen_rep,
+          "card": nvidia_smi_line()})
+    if cli["global_step"] != 2 or not all(math.isfinite(v) for v in cli["losses"].values()):
+        bad.append(f"train_gm_unet: {cli['global_step']} steps, losses {cli['losses']}")
+    for part, launched, kernels in (("train_gm_unet", cli["launches"], OPTIN_TRAIN_KERNELS),
+                                    ("generate_hdr", gen_rep["launches"],
+                                     gen_rep["launches"].keys())):
+        missing = [k for k in kernels if launched[k] == 0]
+        if missing:
+            bad.append(f"{part}: not launched with the flags: {missing}")
+    if plain_hits:
+        bad.append(f"plain versions on CUDA tensors: {sorted(set(plain_hits))}")
+    elapsed = time.perf_counter() - t_phase
+    emit({"phase": "optin_train", "elapsed_s": elapsed, "budget_s": OPTIN_TRAIN_BUDGET_S,
+          "within_budget": elapsed <= OPTIN_TRAIN_BUDGET_S, "plain_on_cuda": len(plain_hits),
+          "kernels_line_launches": stage2_rows, "card": nvidia_smi_line()})
+    if bad:
+        raise SystemExit("chip_smoke: optin_train failed its checks: " + "; ".join(bad))
+    return stage2_rows
+
+
 CONVERT_CHECKER_BATCH = 8
 # The card's checker against the CPU's: projected embeddings' cosine per
 # image; flags compared where every score is this far from 0.
@@ -3706,8 +4263,9 @@ def phase_convert(args, pipe_dir: str) -> None:
     text_encoder must equal the source bit for bit, dtype included, every
     config.json, the scheduler and the tokenizer too, and the checker the
     seeded one. generate_hdr from the imported directory (4 steps, phase
-    cli's PNGs) must give finite outputs at >= 40 dB of a run from the
-    source (bit equality reported). The checker, loaded on the card in
+    cli's PNGs) must give finite outputs at >= 40 dB of phase cli's run
+    from the source, whose files it left under ``out/gen`` (bit equality
+    reported). The checker, loaded on the card in
     float32, runs on 8 decoded 512^2 images: projected embeddings at cosine
     >= 0.9999 of the CPU's per image, the flags equal wherever every score
     is beyond 1e-3 of 0 (the thresholds set 0.01 off the first image's
@@ -3795,19 +4353,20 @@ def phase_convert(args, pipe_dir: str) -> None:
         n_tensors += len(seeded)
         del checker_sd
 
+        # The source's run is phase cli's, with these arguments.
+        source_out = os.path.join(os.path.dirname(pipe_dir), "out", "gen")
         gen_s, db, bit_equal = {}, [], True
-        for tag, d in (("source", pipe_dir), ("imported", back)):
-            t0 = time.perf_counter()
-            _script("generate_hdr").main([
-                "--pretrained_model_name_or_path", d, "--unet_ckpt", os.path.join(d, "gm_unet"),
-                "--sdr_input_path", sdr, "--output_dir", os.path.join(root, f"gen_{tag}"),
-                "--num_inference_steps", "4", "--seed", str(args.seed)])
-            torch.cuda.synchronize()
-            gen_s[tag] = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-        outputs = sorted(os.listdir(os.path.join(root, "gen_source")))
+        t0 = time.perf_counter()
+        _script("generate_hdr").main([
+            "--pretrained_model_name_or_path", back, "--unet_ckpt", os.path.join(back, "gm_unet"),
+            "--sdr_input_path", sdr, "--output_dir", os.path.join(root, "gen_imported"),
+            "--num_inference_steps", "4", "--seed", str(args.seed)])
+        torch.cuda.synchronize()
+        gen_s["imported"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        outputs = sorted(os.listdir(source_out))
         for fn in outputs:
-            a, b = (os.path.join(root, f"gen_{tag}", fn) for tag in ("source", "imported"))
+            a, b = os.path.join(source_out, fn), os.path.join(root, "gen_imported", fn)
             read = read_hdr if fn.endswith(".hdr") else read_png
             x, y = (torch.from_numpy(np.asarray(read(p), np.float32)) for p in (a, b))
             if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
@@ -3927,8 +4486,12 @@ DIST_CONTROLNET_BATCH = 4
 DIST_STEPS = 2
 # (strategy, remat): the three under remat, where fsdp's sharded state
 # shows in the peak, and ddp without it, whose step's launches are phase
-# train's.
-DIST_STAGE2_RUNS = (("ddp", False), ("ddp", True), ("zero1", True), ("fsdp", True))
+# train's. In phase dist the gloo ranks start beside the NCCL rank's CLI
+# runs: the runs before the first ddp one (a rank's peak under 20 GB), then
+# the Stage-1 pair and the ControlNet step; the ddp runs (28 GB a rank)
+# wait for the CLI's end (the DIST_CLI_DONE file).
+DIST_STAGE2_RUNS = (("fsdp", True), ("zero1", True), ("ddp", True), ("ddp", False))
+DIST_CLI_DONE = "cli_done"
 # The two-rank runs against one rank on the global batch: train_e2e's bars.
 DIST_LOSS_RTOL = TRAIN_LOSS_RTOL
 DIST_COS_MIN = TRAIN_GRAD_COS_MIN
@@ -4009,11 +4572,13 @@ def _dist_stage1(seed: int):
     return state, gen_step, disc_step, batch
 
 
-def _dist_controlnet(seed: int, batch_size: int = DIST_CONTROLNET_BATCH, layout=None):
+def _dist_controlnet(seed: int, batch_size: int = DIST_CONTROLNET_BATCH, layout=None,
+                     learning_rate: float = 1e-5):
     """The ControlNet trainer's step at full width: a seeded random SD-1.5
     UNet (frozen, bf16), the ControlNet copied from it (fp32 master weights,
     bf16 compute), random VAE and CLIP; a global batch of ``batch_size``
-    512^2 frames; ``layout`` the step's tp / sp data x model grid."""
+    512^2 frames; ``layout`` the step's tp / sp data x model grid. The
+    step's ``modules`` are (ControlNet, UNet, VAE, text encoder)."""
     import torch
 
     from gmdx_torch.io import controlnet_state_dict_from_unet
@@ -4033,9 +4598,10 @@ def _dist_controlnet(seed: int, batch_size: int = DIST_CONTROLNET_BATCH, layout=
         text = CLIPTextModel(CLIP_VIT_L_CONFIG).to(torch.bfloat16).eval()
     cnet.load_state_dict(controlnet_state_dict_from_unet(cnet.state_dict(), unet.state_dict()))
     unet = unet.to(torch.bfloat16)
-    config = ControlNetTrainConfig(learning_rate=1e-5)
+    config = ControlNetTrainConfig(learning_rate=learning_rate)
     step = make_controlnet_train_step(config, unet=unet, vae=vae, text_encoder=text,
                                       controlnet=cnet.train(), layout=layout)
+    step.modules = (cnet, unet, vae, text)
     state = init_controlnet_state(config, cnet)
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     frames = torch.rand(batch_size, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
@@ -4186,6 +4752,10 @@ def dist_job_ranks(args) -> None:
     out = {"backend": torch.distributed.get_backend(), "world": dist.world_size(),
            "device": str(torch.cuda.current_device()), "stage2": {}}
     for strategy, remat in DIST_STAGE2_RUNS:
+        if strategy == "ddp" and args.dist_port and "stage1" not in out:
+            # The two parts that fit beside the CLI's rank, then its end.
+            out.update(_dist_stage1_and_controlnet(args, ("fsdp", "zero1")))
+            _dist_wait_for(os.path.join(args.dist_dir, DIST_CLI_DONE), 900)
         t0 = time.perf_counter()
         config, unet, step, batch = _dist_stage2(args.seed + DIST_SEED, remat)
         gc.collect()  # the last run's state, whose wrapped step held it in a cycle
@@ -4242,11 +4812,20 @@ def dist_job_ranks(args) -> None:
         del state, opt, dp, grad_stats, before, after, unet, step, batch, local, m
         gc.collect()
         torch.cuda.empty_cache()
-    if not args.dist_cards:
+    if not args.dist_cards and "stage1" not in out:
         out.update(_dist_stage1_and_controlnet(args, ("fsdp", "zero1")))
     with open(os.path.join(args.dist_dir, f"rank{dist.rank()}.json"), "w") as f:
         json.dump(out, f)
     dist.shutdown()
+
+
+def _dist_wait_for(path: str, timeout: float) -> None:
+    """Wait until ``path`` exists (another process's signal)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"chip_smoke: {path} did not appear within {timeout} s")
+        time.sleep(0.5)
 
 
 def _dist_timed_steps(args, step, state, batch) -> list[float]:
@@ -4375,11 +4954,13 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
          first moment and the update written as bf16 vectors), a Stage-1
          pair (DIST_STAGE1_BATCH, float32, plain) and a ControlNet step
          (DIST_CONTROLNET_BATCH).
-      cli (beside ref): torchrun, one rank under NCCL: train_gm_unet.py
+      cli (beside ref, then the ranks' first runs): torchrun, one rank
+         under NCCL: train_gm_unet.py
          under zero1 (a checkpoint), fsdp resumed from it (an asynchronous
          checkpoint) and ddp resumed from that, restoring the digest fsdp
          saved.
-      ranks: DIST_WORLD processes on the one card under gloo (NCCL refuses
+      ranks (started when ref has ended; their ddp runs wait for cli's
+         end): DIST_WORLD processes on the one card under gloo (NCCL refuses
          two ranks on one device), each on its rows: the Stage-2 updates of
          DIST_STAGE2_RUNS: loss within DIST_LOSS_RTOL of ref's, the first
          reduced gradient's and the first moment's cosine against ref's
@@ -4390,9 +4971,9 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
          kernel phase train's (without remat), the training's peak memory
          (from the state's placement on) fsdp < zero1 < ddp (under remat;
          the setup's peak, init_state's whole state before its placement,
-         reported); then the Stage-1 pair under fsdp and the
-         ControlNet step under zero1 (losses and the adaptive weight
-         within DIST_LOSS_RTOL).
+         reported); and, before the ddp runs, the Stage-1 pair under fsdp
+         and the ControlNet step under zero1 (losses and the adaptive
+         weight within DIST_LOSS_RTOL).
     Its time is printed beside DIST_BUDGET_S."""
     import shutil
 
@@ -4406,8 +4987,9 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
     cli_log = open(os.path.join(root, "cli.log"), "w")
     cli_proc = None
     try:
-        # The NCCL rank beside the reference (the card holds both; the two
-        # gloo ranks and it do not fit in 80 GB at once, PERF.md §6).
+        # The NCCL rank beside the reference, then beside the gloo ranks'
+        # runs that fit with it (the two ranks' ddp runs and it do not fit
+        # in 80 GB at once, PERF.md §6).
         t0 = time.perf_counter()
         cli_proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
@@ -4419,14 +5001,9 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
         ref_s = time.perf_counter() - t0
         with open(os.path.join(root, "ref.json")) as f:
             ref = json.load(f)
-        cli_proc.wait(timeout=900)
-        cli_s = time.perf_counter() - t0
-        if cli_proc.returncode != 0:
-            with open(os.path.join(root, "cli.log")) as f:
-                tail = f.read()[-3000:]
-            raise SystemExit(f"chip_smoke: dist cli under torchrun failed "
-                             f"({cli_proc.returncode}):\n{tail}")
-        t0 = time.perf_counter()
+        # The gloo ranks beside the CLI's rank: their runs that fit first,
+        # the ddp runs once the CLI has ended (DIST_STAGE2_RUNS).
+        t1 = time.perf_counter()
         port = _free_port()
         logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(DIST_WORLD)]
         procs = [subprocess.Popen(me + ["--dist-job", "ranks", "--dist-rank", str(r),
@@ -4435,6 +5012,17 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
                                   stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
                  for r in range(DIST_WORLD)]
         try:
+            try:
+                cli_proc.wait(timeout=900)
+            finally:
+                with open(os.path.join(root, DIST_CLI_DONE), "w"):
+                    pass
+            cli_s = time.perf_counter() - t0
+            if cli_proc.returncode != 0:
+                with open(os.path.join(root, "cli.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: dist cli under torchrun failed "
+                                 f"({cli_proc.returncode}):\n{tail}")
             for p in procs:
                 p.wait(timeout=900)
         finally:
@@ -4453,7 +5041,7 @@ def phase_dist(args, pipe_dir: str, meta: str) -> None:
         for r in range(DIST_WORLD):
             with open(os.path.join(root, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        ranks_s = time.perf_counter() - t0
+        ranks_s = time.perf_counter() - t1
 
         bad = _dist_check_stage2(ranks, ref, getattr(args, "train_step_launches", None))
         for r, res in enumerate(ranks):
@@ -4542,7 +5130,7 @@ def phase_dist_cards(args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 24: tensor- and spatial-parallel serving
+# phase 25: tensor- and spatial-parallel serving
 # ---------------------------------------------------------------------------
 
 PARALLEL_WORLD = 2
@@ -4781,7 +5369,7 @@ def phase_parallel(args) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 25: Stage-2 training under tensor and spatial parallelism
+# phase 26: Stage-2 training under tensor and spatial parallelism
 # ---------------------------------------------------------------------------
 
 TRAIN_PARALLEL_WORLD = 2
@@ -5827,7 +6415,7 @@ def _parallel_cards_serve(args, root: str, me: list[str], env) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
-# phase 26: pipeline-parallel dual-UNet serving
+# phase 28: pipeline-parallel dual-UNet serving
 # ---------------------------------------------------------------------------
 
 PP_WORLD = 2
@@ -6335,6 +6923,7 @@ def main() -> int:
         pipe_dir = timed(phase_cli, args, workdir)
         timed(phase_train_cli, args, pipe_dir, train_launches)
         timed(phase_trainer_clis, args, pipe_dir, stage1_per_pair)
+        optin_launches = timed(phase_optin_train, args, pipe_dir)
         timed(phase_convert, args, pipe_dir)
         parallel_launches = timed(phase_parallel, args)
         train_parallel_launches = timed(phase_train_parallel, args, pipe_dir)
@@ -6352,7 +6941,8 @@ def main() -> int:
         rows = [r for r in kernel_rows if r["name"] == name]
         head = rows[0]
         # Launches from the run of the path the kernel was ported for.
-        n = (launches if name in INFERENCE_KERNELS
+        n = (optin_launches if name in OPTIN_TRAIN_ROWS
+             else launches if name in INFERENCE_KERNELS
              else train_launches if name in TRAIN_KERNELS
              else hdrtv_launches if name in HDRTV_KERNELS
              else stage1_launches if name in STAGE1_KERNELS

@@ -9,8 +9,9 @@ calls the ``*_plain`` function (the models' ``use_kernels=False``).
 Under autograd (:func:`needs_grad`) the models take the differentiated
 routes: ``torch.autograd.Function``s whose forward and backward are kernels
 where the JAX package's custom VJPs call Pallas kernels (attention,
-GroupNorm), and a recompute of the plain version where they recompute jnp
-(the GEGLU FF backward).
+GroupNorm, the conv's training forward), and a recompute of the plain
+version where they recompute jnp (the GEGLU FF and add + LayerNorm
+backwards).
 
 ``LAUNCHES`` counts each wrapper's kernel launches, so a run can show which
 kernels its path went through.
@@ -92,17 +93,8 @@ def check_kernel_operands(name: str, *tensors: torch.Tensor | None) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
-    """The opt-in kernels are inference-only: raise under autograd."""
-    if needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward: see ROADMAP, Queue 1, \"Training with the "
-            "opt-in kernels\""
-        )
-
-
 __all__ = [
     "NUM_SMS", "SM_REGISTERS", "SM_SMEM", "SM_WARPS", "SM_BLOCKS",
     "LAUNCHES", "reset_launch_counts", "launch_counts", "needs_grad", "check_fp32",
-    "check_kernel_operands", "refuse_grad",
+    "check_kernel_operands",
 ]

@@ -26,10 +26,10 @@ parallelism :func:`tp_route` says whether a layer runs head-parallel.
 
 Under autograd the kernel shapes take :class:`FlashAttention`, the
 counterpart of the ``_attn_kvres``, ``_flash_bsc`` and ``_xattn_bsc`` custom
-VJPs (``flash_attention.py:653-667, 824-848, 1005-1023``): its forward is the
-flash forward,
-which also saves the logsumexp, and its backward the two flash backward
-kernels. Without grad, inference keeps the KV-resident, bsc and short-K
+VJPs (``flash_attention.py:653-667, 824-848, 996-1022``): its forward is the
+flash forward, which also saves the logsumexp, and its backward the two
+flash backward kernels; ``cross_attention_shortk`` takes it under autograd
+too. Without grad, inference keeps the KV-resident, bsc and short-K
 kernels.
 ``use_kernels=False`` sends each kernel shape to that kernel's plain
 version.

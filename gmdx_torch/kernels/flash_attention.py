@@ -36,7 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
-from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, refuse_grad
+from gmdx_torch.kernels import LAUNCHES, check_fp32, check_kernel_operands, needs_grad
 
 _LOG2_E = 1.0 / math.log(2.0)
 # SD-1.5's head dims: the instances of csrc/attention_sm90.cuh's forward and
@@ -459,15 +459,22 @@ def cross_attention_shortk(
 ) -> torch.Tensor:
     """Exact-softmax attention over head-packed (B, S, H*D) q/k/v with at
     most :data:`XATTN_MAX_KEYS` keys (the 77 CLIP tokens): every key of a
-    head is resident at once, so nothing is online. Inference only. The
-    kernel scales the fp32 scores by ``scale * log2(e)`` where the plain
-    version rounds the pre-scaled Q to bf16 (the TPU kernel's rounding)."""
+    head is resident at once, so nothing is online. The kernel scales the
+    fp32 scores by ``scale * log2(e)`` where the plain version rounds the
+    pre-scaled Q to bf16 (the TPU kernel's rounding). Under autograd it is
+    :class:`gmdx_torch.kernels.attention.FlashAttention` (the flash forward
+    and backward, any key count: at 77 keys one partial key tile, the keys
+    past it masked, their dK and dV rows not written), as ``_xattn_bsc``'s
+    VJP takes them (``flash_attention.py:996-1022``)."""
     d = _check_shapes(q, k, v, heads)
     if not 1 <= k.shape[1] <= XATTN_MAX_KEYS:
         raise ValueError(f"short-K attention takes 1 to {XATTN_MAX_KEYS} keys, got {k.shape[1]}")
-    refuse_grad("cross_attention_shortk", q, k, v)
     if scale is None:
         scale = d**-0.5
+    if needs_grad(q, k, v):
+        from gmdx_torch.kernels.attention import FlashAttention  # it imports this module
+
+        return FlashAttention.apply(q, k, v, heads, scale)
     if not q.is_cuda:
         return cross_attention_shortk_plain(q, k, v, heads, scale=scale)
     stream = check_kernel_operands("cross_attention_shortk", q, k, v)

@@ -27,7 +27,8 @@ Under autograd, :class:`GegluFFLN` and :class:`GegluFF` run the kernel
 forward and, like ``_ff_ln_bwd``/``_ff_add_ln_bwd``/``_ff_bwd``
 (``geglu_ff.py:195-208, 385-428``), differentiate a recompute of the
 reference in their backward: the JAX package has no backward kernel here,
-so the port writes none. :func:`add_layer_norm` is inference-only.
+so the port writes none. :class:`AddLayerNorm` does the same for
+:func:`add_layer_norm` (``_add_ln_bwd``, ``geglu_ff.py:549-575``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from gmdx_torch.kernels import (
-    LAUNCHES, NUM_SMS, SM_SMEM, check_fp32, check_kernel_operands, refuse_grad,
+    LAUNCHES, NUM_SMS, SM_SMEM, check_fp32, check_kernel_operands, needs_grad,
 )
 
 _SQRT_HALF = 0.7071067811865476
@@ -301,18 +302,42 @@ def add_layer_norm_plain(
     return s, (h * gamma.float() + beta.float()).to(x.dtype)
 
 
+class AddLayerNorm(torch.autograd.Function):
+    """Differentiated :func:`add_layer_norm`, the counterpart of
+    ``_add_ln_fused``'s custom VJP: the kernel forward; the backward
+    recomputes :func:`add_layer_norm_plain` (fp32 arithmetic) from the saved
+    (x, y, gamma, beta) and differentiates it, as ``_add_ln_bwd`` takes the
+    VJP of ``_add_ln_reference``. Both outputs, s and h, carry gradients."""
+
+    @staticmethod
+    def forward(ctx, x, y, gamma, beta, eps: float):
+        ctx.save_for_backward(x, y, gamma, beta)
+        ctx.eps = eps
+        return add_layer_norm(x, y, gamma, beta, eps=eps)
+
+    @staticmethod
+    def backward(ctx, gs, gh):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = add_layer_norm_plain(*leaves, eps=ctx.eps)
+            grads = torch.autograd.grad(outs, leaves, (gs, gh))
+        return (*grads, None)
+
+
 def add_layer_norm(
     x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     eps: float = 1e-5,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(x + y, LayerNorm(x + y)) over (B, S, C): the residual stream and
     the next sublayer's input in one pass. ``gamma``/``beta`` are fp32 on
-    the card, as the JAX kernel takes them. Inference only."""
+    the card, as the JAX kernel takes them. Under autograd it is the
+    forward of :class:`AddLayerNorm`."""
     c = x.shape[-1]
     if y.shape != x.shape or gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"add_layer_norm: x {tuple(x.shape)}, y {tuple(y.shape)}, "
                          f"gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    refuse_grad("add_layer_norm", x, y, gamma, beta)
+    if needs_grad(x, y, gamma, beta):
+        return AddLayerNorm.apply(x, y, gamma, beta, eps)
     if not x.is_cuda:
         return add_layer_norm_plain(x, y, gamma, beta, eps=eps)
     if c % 8 or c > ADD_LN_MAX_DIM:
@@ -338,4 +363,5 @@ __all__ = [
     "geglu_ff_ln", "geglu_ff_ln_plain", "geglu_ff_ln_reference", "geglu_ff_ln_plan", "GegluFFLN",
     "geglu_ff", "geglu_ff_plain", "geglu_ff_reference", "geglu_ff_uses_kernel", "GegluFF",
     "add_layer_norm", "add_layer_norm_plain", "add_layer_norm_plan", "AddLayerNormPlan",
+    "AddLayerNorm",
 ]

@@ -23,18 +23,22 @@ Counterpart of ``gmdx/kernels/winograd.py:winograd_conv3x3``.
 Under autograd the conv is :func:`conv3x3_direct`, ``F.conv2d`` in both
 directions, as the JAX package's ``_wino_fwd`` takes the direct XLA conv for
 training by default (``winograd.py:1028-1048``, ``GMDX_WINOGRAD_TRAIN=0``):
-a computation the JAX package leaves outside Pallas.
+a computation the JAX package leaves outside Pallas. With the layers'
+``winograd_train`` option (``GMDX_WINOGRAD_TRAIN=1``) the training forward is
+the kernel :func:`conv_route` gives, through :class:`ConvKernelTrain`, whose
+backward is the direct conv's gradients (``_wino_bwd``, ``:1051-1059``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, refuse_grad
+from gmdx_torch.kernels import LAUNCHES, check_kernel_operands, needs_grad
 
 # The H100 SXM's SMs, which a launch's work units should fill.
 SMS = 132
@@ -253,13 +257,26 @@ def conv3x3_plain(
     return out.reshape(b, h, w, -1).to(x.dtype)
 
 
+def _train_route(name, x, operand, bias, weight, wino4: bool, pre_padded: bool):
+    """Under autograd, :class:`ConvKernelTrain` on the OIHW ``weight`` the
+    ``operand`` was made from; None where nothing is differentiated."""
+    if not needs_grad(x, operand, bias, weight):
+        return None
+    if weight is None or operand.requires_grad:
+        raise ValueError(f"{name} under autograd differentiates the OIHW conv weight: pass "
+                         "weight=, the tensor its operand was made from without grad")
+    return ConvKernelTrain.apply(x, weight, bias, operand, wino4, pre_padded)
+
+
 def conv3x3(
     x: torch.Tensor, wpacked: torch.Tensor, bias: torch.Tensor, *,
-    pre_padded: bool = False,
+    pre_padded: bool = False, weight: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """3x3 SAME conv of NHWC ``x`` (B, H, W, C), or of its 1-px zero-bordered
     form (B, H+2, W+2, C) with ``pre_padded``, by the packed weight
-    (O, 9*C) plus ``bias`` (O,). Returns (B, H, W, O)."""
+    (O, 9*C) plus ``bias`` (O,). Returns (B, H, W, O). Under autograd it is
+    the forward of :class:`ConvKernelTrain`, with ``weight`` the OIHW conv
+    weight that ``wpacked`` was made from."""
     if x.ndim != 4:
         raise ValueError(f"expected NHWC, got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -268,6 +285,9 @@ def conv3x3(
     o = wpacked.shape[0]
     if wpacked.shape != (o, 9 * c) or bias.shape != (o,):
         raise ValueError(f"weight {tuple(wpacked.shape)} does not match C={c}")
+    y = _train_route("conv3x3", x, wpacked, bias, weight, False, pre_padded)
+    if y is not None:
+        return y
     if not x.is_cuda:
         return conv3x3_plain(x, wpacked, bias, pre_padded=pre_padded)
     if c % 8 or o % 8:
@@ -303,11 +323,50 @@ def conv3x3_direct(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+class ConvKernelTrain(torch.autograd.Function):
+    """The conv kernel as the training forward: the counterpart of
+    ``_wino_conv``'s custom VJP under ``GMDX_WINOGRAD_TRAIN=1``
+    (``gmdx/kernels/winograd.py:994-1059``). The forward launches
+    :func:`winograd4_conv3x3` (``wino4``) or :func:`conv3x3` on ``operand``,
+    the weight's packing for that kernel, which the caller makes without
+    grad. The backward is :func:`conv3x3_direct`'s gradients for x, the OIHW
+    ``weight`` and the bias, cuDNN's dgrad and wgrad in one
+    ``convolution_backward`` call, as ``_wino_bwd`` takes the VJP of the
+    direct conv. The wrappers enter it under autograd. It saves (x, weight,
+    bias), as gmdx's residuals are: the bytes the direct conv's graph keeps,
+    not the packed operand."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, operand, wino4: bool, pre_padded: bool):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.pre_padded = pre_padded
+        fn = winograd4_conv3x3 if wino4 else conv3x3
+        return fn(x, operand, bias, pre_padded=pre_padded)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        pad = 0 if ctx.pre_padded else 1
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight,
+            [bias.shape[0]], [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            list(ctx.needs_input_grad[:3]))
+        return None if gx is None else gx.permute(0, 2, 3, 1), gw, gb, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _g4(device: torch.device) -> torch.Tensor:
+    """G of F(4x4) on ``device``, copied there once: a copy from host memory
+    at every call would wait for the card's queue (training packs U at
+    every step)."""
+    return torch.tensor(G4, dtype=torch.float32, device=device)
+
+
 def pack_weight4(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """OIHW (O, C, 3, 3) -> U (36, O, C), U[6*xi + nu] = G g G^T at (xi, nu),
     taken in fp32 from the weight's own dtype and rounded to ``dtype``, as
     ``_wino4_kernel`` fills its ``u_scr``."""
-    g4 = torch.tensor(G4, dtype=torch.float32, device=weight.device)
+    g4 = _g4(weight.device)
     u = torch.einsum("ak,bl,ockl->aboc", g4, g4, weight.detach().float())
     return u.reshape(36, *weight.shape[:2]).to(dtype).contiguous()
 
@@ -453,11 +512,14 @@ def winograd4_plan(b: int, h: int, w: int, c: int, o: int,
 
 def winograd4_conv3x3(
     x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor, *, pre_padded: bool = False,
+    weight: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """3x3 SAME conv of NHWC ``x`` (B, H, W, C), or of its 1-px zero-bordered
     form (B, H+2, W+2, C) with ``pre_padded``, by Winograd F(4x4, 3x3) with
     the transformed weight ``u`` (36, O, C) plus ``bias`` (O,); H == W, a
-    multiple of 4. Returns (B, H, W, O). Inference only."""
+    multiple of 4. Returns (B, H, W, O). Under autograd it is the forward
+    of :class:`ConvKernelTrain`, with ``weight`` the OIHW conv weight that
+    ``u`` was made from."""
     if x.ndim != 4:
         raise ValueError(f"expected NHWC, got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -469,7 +531,9 @@ def winograd4_conv3x3(
     if not _wino4_shape_ok(h, w, c, o):
         raise ValueError(f"F(4x4) takes square H % 4 == 0 >= 16 and C, O % 8 == 0, "
                          f"got {h}x{w}, {c} -> {o}")
-    refuse_grad("winograd4_conv3x3", x, u, bias)
+    y = _train_route("winograd4_conv3x3", x, u, bias, weight, True, pre_padded)
+    if y is not None:
+        return y
     if not x.is_cuda:
         return winograd4_conv3x3_plain(x, u, bias, pre_padded=pre_padded)
     stream = check_kernel_operands("winograd4_conv3x3", x, u, bias)
@@ -490,7 +554,8 @@ def winograd4_conv3x3(
 
 
 __all__ = [
-    "conv3x3", "conv3x3_plain", "conv3x3_direct", "pack_weight", "conv_route",
+    "conv3x3", "conv3x3_plain", "conv3x3_direct", "ConvKernelTrain", "pack_weight",
+    "conv_route",
     "ConvPlan", "conv3x3_box", "conv3x3_plan",
     "pack_weight4", "winograd4_conv3x3", "winograd4_conv3x3_plain",
     "Wino4Plan", "winograd4_plan",

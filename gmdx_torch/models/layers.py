@@ -10,9 +10,10 @@ default: every 4-D GroupNorm (with its SiLU, temb pre-add and padded
 output), the resnet 3x3 convs, the self-attention of 256 keys and more (the
 VAE's past 4096), and the transformer block's LN -> GEGLU FF -> residual
 tail. :func:`set_kernel_options` switches on the JAX package's three opt-in
-kernels (its ``GMDX_XATTN_KERNEL``, ``GMDX_FUSED_ADDLN`` and
-``GMDX_WINOGRAD_M`` toggles): the short-K cross-attention, the fused
-attn1-residual + norm2, and Winograd F(4x4) for the convs it tiles. A
+kernels (its ``GMDX_XATTN_KERNEL``, ``GMDX_FUSED_ADDLN``, ``GMDX_WINOGRAD_M``
+and ``GMDX_WINOGRAD_TRAIN`` toggles): the short-K cross-attention, the fused
+attn1-residual + norm2, Winograd F(4x4) for the convs it tiles, and the
+conv kernel as the training forward. A
 ``GEGLUFeedForward`` called without LayerNorm parameters takes the LN-free
 FF kernel. A module with ``use_kernels=False`` calls the same functions'
 plain versions instead. Everything else (the projections, conv_in/conv_out,
@@ -25,9 +26,10 @@ the activations' dtype at use, inside the autograd graph, so gradients land
 on the parameters in their own dtype. Under autograd
 (:func:`gmdx_torch.kernels.needs_grad`) the kernel calls take their
 differentiated routes: the flash-attention and GroupNorm
-``autograd.Function``s, the GEGLU FF's kernel forward with a recomputed
-backward, and ``F.conv2d`` for the 3x3 conv (the JAX package's direct conv
-under AD).
+``autograd.Function``s, the GEGLU FF's and add + LayerNorm's kernel forwards
+with recomputed backwards, and ``F.conv2d`` for the 3x3 conv (the JAX
+package's direct conv under AD), or with ``winograd_train`` the conv
+kernel's forward and the direct conv's backward.
 
 Inside a ``gmdx_torch.dist.tpctx`` context the layers split over the ranks
 of a process group, for serving and under autograd for training. Tensor
@@ -114,19 +116,23 @@ def set_use_kernels(module: nn.Module, flag: bool) -> None:
 
 def set_kernel_options(
     module: nn.Module, *, xattn_kernel: bool = False, fused_addln: bool = False,
-    winograd_m: int = 2,
+    winograd_m: int = 2, winograd_train: bool = False,
 ) -> None:
     """The JAX package's opt-in kernels for every module under ``module``;
     the defaults are its defaults. ``xattn_kernel``: the short-K
-    cross-attention (``GMDX_XATTN_KERNEL=1``); ``fused_addln``: the
-    transformer block's attn1 residual and norm2 in one call
-    (``GMDX_FUSED_ADDLN=1``); ``winograd_m=4``: F(4x4) Winograd for the 3x3
-    convs :func:`conv_route` gives it (``GMDX_WINOGRAD_M=4``)."""
+    cross-attention (``GMDX_XATTN_KERNEL=1``), under autograd the flash
+    kernels at the short key count; ``fused_addln``: the transformer block's
+    attn1 residual and norm2 in one call (``GMDX_FUSED_ADDLN=1``);
+    ``winograd_m=4``: F(4x4) Winograd for the 3x3 convs :func:`conv_route`
+    gives it (``GMDX_WINOGRAD_M=4``); ``winograd_train``: under autograd the
+    conv kernel as the training forward, the direct conv's backward
+    (``GMDX_WINOGRAD_TRAIN=1``)."""
     if winograd_m not in (2, 4):
         raise ValueError(f"winograd_m is 2 or 4, got {winograd_m}")
+    options = {"xattn_kernel": xattn_kernel, "fused_addln": fused_addln,
+               "winograd_m": winograd_m, "winograd_train": winograd_train}
     for m in module.modules():
-        for name, value in (("xattn_kernel", xattn_kernel), ("fused_addln", fused_addln),
-                            ("winograd_m", winograd_m)):
+        for name, value in options.items():
             if hasattr(m, name):
                 setattr(m, name, value)
 
@@ -394,7 +400,11 @@ class Conv3x3(nn.Conv2d):
     whenever the weight changes: an optimizer's in-place update bumps the
     weight's version, and a weight swapped in for the call is another
     tensor object; the caches are keyed on both. Under autograd the
-    conv is :func:`conv3x3_direct` with the weight itself."""
+    conv is :func:`conv3x3_direct` with the weight itself, or with
+    ``winograd_train`` the same kernel as in inference as the forward of
+    :class:`~gmdx_torch.kernels.winograd.ConvKernelTrain`, whose backward is
+    the direct conv's (``gmdx/models/layers.py:455-490`` under
+    ``GMDX_WINOGRAD_TRAIN=1``)."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, padding=1)
@@ -402,6 +412,7 @@ class Conv3x3(nn.Conv2d):
             raise ValueError(f"conv kernel needs widths % 8 == 0, got {in_ch}, {out_ch}")
         self.use_kernels = True
         self.winograd_m = 2
+        self.winograd_train = False
         self._cached: dict[str, tuple] = {}
 
     def _weight_operand(self, kind: str, dtype: torch.dtype, make) -> torch.Tensor:
@@ -429,15 +440,19 @@ class Conv3x3(nn.Conv2d):
         ctx = tpctx.sp_active()
         if ctx is not None and not pre_padded:  # the halo rows, then the slab
             x, pre_padded = F.pad(halo_rows(x, 1, 1, ctx), (0, 0, 1, 1)), True
+        kw = {"pre_padded": pre_padded}
         if needs_grad(x, self.weight, self.bias):
-            return conv3x3_direct(x, _cast(self.weight, x), bias, pre_padded=pre_padded)
+            weight = _cast(self.weight, x)
+            if not (self.winograd_train and self.use_kernels):
+                return conv3x3_direct(x, weight, bias, **kw)
+            kw["weight"] = weight  # the kernel forward, the direct conv's backward
         h, w = x.shape[1] - 2 * pre_padded, x.shape[2] - 2 * pre_padded
         if conv_route(h, w, self.in_channels, self.out_channels, self.winograd_m,
                       x.element_size()) == "wino4":
             fn = winograd4_conv3x3 if self.use_kernels else winograd4_conv3x3_plain
-            return fn(x, self.wino4_weight(x.dtype), bias, pre_padded=pre_padded)
+            return fn(x, self.wino4_weight(x.dtype), bias, **kw)
         fn = conv3x3 if self.use_kernels else conv3x3_plain
-        return fn(x, self.packed_weight(x.dtype), bias, pre_padded=pre_padded)
+        return fn(x, self.packed_weight(x.dtype), bias, **kw)
 
     def _tensor_parallel(self, x, bias, pre_padded) -> torch.Tensor:
         """``F.conv2d`` on the rank's slice of the weight: conv1's output

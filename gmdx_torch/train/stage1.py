@@ -36,7 +36,9 @@ gradients are summed over the group, the gradient penalty's per-image norm
 sums its squares over the group); every draw is the whole image's, sliced.
 
 Under autograd the VAE's kernel calls take their differentiated routes
-(``gmdx_torch.models.layers``): the 3x3 convs the direct conv, the
+(``gmdx_torch.models.layers``): the 3x3 convs the direct conv (with the
+``winograd_train`` option the conv kernel forward and the direct conv's
+backward; the merged LoRA weights reach it through :func:`vae_weights`), the
 GroupNorms :class:`~gmdx_torch.kernels.groupnorm.GroupNormSiLU` (forward and
 backward kernels), the mid-block attention past 4096 tokens
 :class:`~gmdx_torch.kernels.attention.FlashAttention` (the 512-wide flash

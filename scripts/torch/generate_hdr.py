@@ -29,6 +29,10 @@ data axis does); --sp_size S splits each image's rows over the S ranks, with
 the whole weights on each. Every rank computes the same images; rank 0
 alone writes them. main() returns what it wrote, as float arrays by file
 name.
+
+--xattn_kernel, --fused_addln and --winograd_m {2,4} stand for the JAX
+package's GMDX_XATTN_KERNEL, GMDX_FUSED_ADDLN and GMDX_WINOGRAD_M toggles
+(``gmdx_torch.kernel_flags``), set on every module.
 """
 
 from __future__ import annotations
@@ -76,6 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--aot_cache", action="store_true",
                    help="the JAX package's export cache; refused by the port")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    from gmdx_torch.kernel_flags import add_kernel_flags
+
+    add_kernel_flags(p, train=False)
     return p.parse_args(argv)
 
 
@@ -103,6 +110,7 @@ def main(argv=None) -> dict:
     from gmdx_torch.io import (
         load_component, load_image, load_pipeline, save_hdr_image, save_image, to_model_input,
     )
+    from gmdx_torch.kernel_flags import apply_kernel_flags
     from gmdx_torch.ops import apply_gm_to_sdr
     from gmdx_torch.pipelines import StableDiffusionGMPipeline
 
@@ -120,6 +128,7 @@ def main(argv=None) -> dict:
         raise ValueError(f"--unet_ckpt must be the 8-channel GM UNet, got "
                          f"in_channels={unet.config.in_channels}")
     mods = bundle["modules"]
+    apply_kernel_flags(args, unet, *mods.values())
     pipe = StableDiffusionGMPipeline(unet, mods["vae"], bundle["scheduler"],
                                      text_encoder=mods["text_encoder"],
                                      tokenizer=bundle["tokenizer"], device=dev)

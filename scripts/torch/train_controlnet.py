@@ -46,6 +46,12 @@ rule) and holds its rows of each image (split along H), the parameters
 whole. Checkpoints and ``controlnet/`` are whole, in the one-process
 format. One process with --shard_strategy tp or sp raises (a group of at
 least 2 ranks that divides the world, the JAX script's check).
+
+--xattn_kernel, --fused_addln, --winograd_m {2,4} and --winograd_train
+stand for the JAX package's GMDX_XATTN_KERNEL, GMDX_FUSED_ADDLN,
+GMDX_WINOGRAD_M and GMDX_WINOGRAD_TRAIN toggles (``gmdx_torch.kernel_flags``),
+set on every module: the ControlNet, the frozen UNet (whose up path the
+ControlNet's gradient crosses), the VAE and the text encoder.
 """
 
 from __future__ import annotations
@@ -107,6 +113,9 @@ def parse_args(argv=None):
                         "on a thread (still atomic)")
     p.add_argument("--resume_from_checkpoint", type=str, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    from gmdx_torch.kernel_flags import add_kernel_flags
+
+    add_kernel_flags(p, train=True)
     return p.parse_args(argv)
 
 
@@ -171,6 +180,7 @@ def main(argv=None) -> dict:
     from gmdx_torch.data import ParquetImageDataset, device_prefetch, make_dataloader
     from gmdx_torch.io import load_pipeline
     from gmdx_torch.io.pipeline import save_component
+    from gmdx_torch.kernel_flags import apply_kernel_flags
     from gmdx_torch.schedulers import DDPMScheduler
     from gmdx_torch.train import (
         ControlNetTrainConfig, MetricsLogger, init_controlnet_state, make_controlnet_ema_step,
@@ -196,6 +206,7 @@ def main(argv=None) -> dict:
             f"in_channels={unet.config.in_channels} (pass the base pipeline, "
             "not the 8-channel GM UNet)")
     controlnet = build_controlnet(args, unet, dev)
+    apply_kernel_flags(args, controlnet, unet, vae, text)
 
     dataset = ParquetImageDataset(args.train_metadata)
     n_samples = (len(dataset) if args.max_train_samples is None

@@ -47,6 +47,12 @@ of every image (split along H) and the parameters whole. Checkpoints, the
 validation UNet and the final pipeline are whole, in the one-process
 format.
 
+--xattn_kernel, --fused_addln, --winograd_m {2,4} and --winograd_train
+stand for the JAX package's GMDX_XATTN_KERNEL, GMDX_FUSED_ADDLN,
+GMDX_WINOGRAD_M and GMDX_WINOGRAD_TRAIN toggles (``gmdx_torch.kernel_flags``),
+set on every module: the trained UNet, the frozen VAE and text encoder, and
+the validation UNet.
+
 Left out, raising: --dataset_name without --train_metadata (ROADMAP Queue 1
 item 5).
 """
@@ -158,6 +164,9 @@ def parse_args(argv=None):
     p.add_argument("--hub_model_id", type=str, default=None)
     p.add_argument("--local_rank", type=int, default=int(os.environ.get("LOCAL_RANK", -1)))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    from gmdx_torch.kernel_flags import add_kernel_flags
+
+    add_kernel_flags(p, train=True)
     args = p.parse_args(argv)
 
     if args.dream_training or args.use_x0_conditioning:
@@ -322,6 +331,7 @@ def main(argv=None) -> dict:
     from gmdx_torch.data import ParquetImageDataset, device_prefetch, make_dataloader
     from gmdx_torch.io import load_pipeline, save_pipeline
     from gmdx_torch.io.params import load_params
+    from gmdx_torch.kernel_flags import apply_kernel_flags
     from gmdx_torch.models import UNet2DConditionModel
     from gmdx_torch.pipelines import StableDiffusionGMPipeline
     from gmdx_torch.schedulers import DDPMScheduler, PNDMScheduler
@@ -343,6 +353,7 @@ def main(argv=None) -> dict:
     vae, text = bundle["modules"]["vae"], bundle["modules"]["text_encoder"]
     tokenizer = bundle["tokenizer"]
     unet = load_training_unet(pipe_dir, dev, args.gradient_checkpointing)
+    apply_kernel_flags(args, unet, vae, text)
 
     lr = args.learning_rate
     # The data axis: the ranks, or under tp / sp the model groups (a group
@@ -479,6 +490,7 @@ def main(argv=None) -> dict:
                 with torch.device("meta"):
                     val_unet = UNet2DConditionModel(dataclasses.replace(unet.config, remat=False))
                 val_unet = val_unet.to_empty(device=dev).to(next(vae.parameters()).dtype).eval()
+                apply_kernel_flags(args, val_unet)
             with torch.no_grad():
                 # Every rank gathers (fsdp); rank 0 alone validates.
                 shadow = state.ema.full() if state.ema is not None else None

@@ -16,8 +16,10 @@ shadow's under ``--use_ema``, and the tokenizer) and ``discriminator/``, in
 the layout the JAX package writes and reads.
 
 On the card the VAE keeps float32 master weights and computes in bfloat16
-(the kernels' type), as the discriminator and VGG19 do; on the CPU
-everything is float32. ``--gradient_checkpointing`` recomputes the VAE's
+(the kernels' type); on the CPU it computes in float32. The discriminator
+and VGG19 compute in the dtype --mixed_precision gives, as in the JAX
+script: float32 by default, bfloat16 under bf16, float16 under fp16 (their
+parameters stay float32). ``--gradient_checkpointing`` recomputes the VAE's
 blocks in the backward pass. Each batch's posterior draws come from a
 generator on the device seeded from (--seed, batch index), its augmentation
 draws from a CPU generator seeded from (--seed, batch index, 1), the
@@ -55,6 +57,11 @@ the VAE, the discriminator and the losses on its rows, VGG19 on the whole
 224^2 inputs. Checkpoints, validation and the artifacts are whole. One
 process with --shard_strategy tp or sp raises (a group of at least 2 ranks
 that divides the world, the JAX script's check).
+
+--xattn_kernel, --fused_addln, --winograd_m {2,4} and --winograd_train
+stand for the JAX package's GMDX_XATTN_KERNEL, GMDX_FUSED_ADDLN,
+GMDX_WINOGRAD_M and GMDX_WINOGRAD_TRAIN toggles (``gmdx_torch.kernel_flags``),
+set on the VAE, the one module with kernel calls (its validation included).
 
 Left out, each raising: --dataset_name without --train_metadata (ROADMAP
 Queue 1 item 5) and --push_to_hub.
@@ -163,6 +170,9 @@ def parse_args(argv=None):
     p.add_argument("--hub_model_id", type=str, default=None)
     p.add_argument("--local_rank", type=int, default=int(os.environ.get("LOCAL_RANK", -1)))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    from gmdx_torch.kernel_flags import add_kernel_flags
+
+    add_kernel_flags(p, train=True)
     args = p.parse_args(argv)
     if args.train_metadata is None and args.dataset_name is None:
         p.error("need --train_metadata (parquet) or --dataset_name")
@@ -258,6 +268,22 @@ def load_training_vae(pipe_dir: str, dev, gradient_checkpointing: bool):
     return vae.to(dev).train()
 
 
+def build_gan_models(args, dev):
+    """The discriminator and VGG19 (float32 parameters, seeded by --seed),
+    computing in the dtype --mixed_precision gives
+    (``scripts/stage1/train_vqgan_lora.py:263-282``): float32 unless bf16 or
+    fp16."""
+    import torch
+
+    from gmdx_torch.models import Discriminator, VGG19Features
+
+    compute = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(args.mixed_precision,
+                                                                   torch.float32)
+    torch.manual_seed(args.seed or 0)
+    with torch.device(dev):
+        return Discriminator(dtype=compute), VGG19Features(dtype=compute)
+
+
 def main(argv=None) -> dict:
     """Train; returns {"state", "start_step" (the resumed checkpoint's step,
     else 0), "global_step", "losses" (the logged step_gen_loss /
@@ -288,7 +314,8 @@ def main(argv=None) -> dict:
     from gmdx_torch.io import load_pipeline, save_pipeline
     from gmdx_torch.io.convert import load_vgg19_checkpoint
     from gmdx_torch.io.pipeline import save_component
-    from gmdx_torch.models import AutoencoderKL, Discriminator, LoRAConfig, VGG19Features
+    from gmdx_torch.kernel_flags import apply_kernel_flags
+    from gmdx_torch.models import AutoencoderKL, LoRAConfig
     from gmdx_torch.ops import choose_tmo, random_exposure_adjust
     from gmdx_torch.train import MetricsLogger, make_manager, resolve_resume_step
     from gmdx_torch.train import restore_state, save_state
@@ -304,15 +331,13 @@ def main(argv=None) -> dict:
     pipe_dir = args.pretrained_model_name_or_path
     tokenizer = load_pipeline(pipe_dir, device=dev, components=("tokenizer",))["tokenizer"]
     vae = load_training_vae(pipe_dir, dev, args.gradient_checkpointing)
-    compute = torch.bfloat16 if dev.type == "cuda" else None
+    apply_kernel_flags(args, vae)
     if args.mixed_precision == "fp16":
-        logger.warning("--mixed_precision fp16: the port computes in bfloat16 on the card "
-                       "(the kernels' type) and in float32 on the CPU")
+        logger.warning("--mixed_precision fp16: the VAE computes in bfloat16 on the card "
+                       "(the kernels' type) and in float32 on the CPU; the discriminator and "
+                       "VGG19 in float16, as in the JAX script")
 
-    torch.manual_seed(args.seed or 0)
-    with torch.device(dev):
-        discriminator = Discriminator(dtype=compute)
-        vgg = VGG19Features(dtype=compute)
+    discriminator, vgg = build_gan_models(args, dev)
     if args.perceptual_ckpt:
         vgg.load_state_dict(load_vgg19_checkpoint(args.perceptual_ckpt), strict=True)
         logger.info("loaded pretrained VGG19 from %s", args.perceptual_ckpt)

@@ -20,6 +20,10 @@ Each frame's rows split over S cards, a process a card (the JAX script's
 
 Every rank computes the same frames; rank 0 alone writes them. main()
 returns what it wrote, as float arrays by file name.
+
+--xattn_kernel, --fused_addln and --winograd_m {2,4} stand for the JAX
+package's GMDX_XATTN_KERNEL, GMDX_FUSED_ADDLN and GMDX_WINOGRAD_M toggles
+(``gmdx_torch.kernel_flags``), set on every module.
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ def parse_args(argv=None):
                    help="sequential CFG: the uncond and cond ControlNet + UNet passes one "
                         "after the other")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    from gmdx_torch.kernel_flags import add_kernel_flags
+
+    add_kernel_flags(p, train=False)
     return p.parse_args(argv)
 
 
@@ -78,6 +85,7 @@ def main(argv=None) -> dict:
         controlnet_state_dict_from_unet, load_component, load_image, load_pipeline,
         save_hdr_image, save_image,
     )
+    from gmdx_torch.kernel_flags import apply_kernel_flags
     from gmdx_torch.models import ControlNetConfig, ControlNetModel
     from gmdx_torch.pipelines import StableDiffusionControlNetHDRPipeline, upconvert_sdr_to_hdrtv
 
@@ -94,6 +102,7 @@ def main(argv=None) -> dict:
         cnet.load_state_dict(controlnet_state_dict_from_unet(cnet.state_dict(),
                                                              unet.state_dict()))
         print("no --controlnet_ckpt: using zero adapter from UNet encoder")
+    apply_kernel_flags(args, cnet, *mods.values())
     pipe = StableDiffusionControlNetHDRPipeline(
         mods["unet"], mods["vae"], bundle["scheduler"], mods["gm_unet"], cnet,
         text_encoder=mods["text_encoder"], tokenizer=bundle["tokenizer"], device=dev)

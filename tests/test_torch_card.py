@@ -1875,3 +1875,147 @@ def test_sp_discriminator_gradient_penalty_of_two_gloo_ranks_on_card(card, tmp_p
         np.testing.assert_allclose(got["norm"], want["norm"], rtol=1e-9)
         err = np.linalg.norm(got["grads"] - want["grads"]) / np.linalg.norm(want["grads"])
         assert err <= 1e-9, err
+
+
+# --- training with the opt-in kernels -----------------------------------------
+
+# The Stage-2 step's conv shapes at batch 8 (H = W, C, O): the levels, the
+# decoder's concats and the 8^2 level; then the VAE's 4 x 512^2 x 128.
+OPTIN_TRAIN_CONVS = [(8, 64, 320, 320), (8, 32, 640, 640), (8, 16, 1280, 1280),
+                     (8, 8, 1280, 1280), (8, 64, 960, 320), (8, 32, 1920, 640),
+                     (4, 512, 128, 128)]
+
+
+def _autograd(fn, leaves, cots):
+    """fn's outputs and the gradients of ``leaves`` for cotangents ``cots``."""
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs, leaves, cots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("b,hw,c,o", OPTIN_TRAIN_CONVS)
+def test_conv_training_forward_on_card(card, b, hw, c, o, m):
+    """``Conv3x3`` under ``winograd_train`` (fp32 master weight, bf16
+    activations, pre-padded input as the GroupNorm gives it): the route's
+    kernel forward once, then cuDNN's dgrad and wgrad. The output against
+    the route's plain version (F(4x4)'s with its bf16 V and U, as the
+    kernel rounds them; the conv's in fp32), dx, dw and db against
+    autograd through the fp32 direct conv: each within 1e-2."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.kernels.winograd import (
+        conv3x3_direct, conv_route, pack_weight4, winograd4_conv3x3_plain,
+    )
+    from gmdx_torch.models.layers import Conv3x3, set_kernel_options
+
+    torch.manual_seed(0)
+    conv = Conv3x3(c, o).cuda()
+    set_kernel_options(conv, winograd_m=m, winograd_train=True)
+    x = torch.nn.functional.pad(_bf16(card, b, hw, hw, c), (0, 0, 1, 1, 1, 1))
+    cot = _bf16(card, b, hw, hw, o)
+    route = conv_route(hw, hw, c, o, m)
+    reset_launch_counts()
+    (out,), grads = _autograd(lambda x_, w_, b_: conv(x_, pre_padded=True),
+                              [x.requires_grad_(), conv.weight, conv.bias], [cot])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["winograd4_conv3x3" if route == "wino4" else "conv3x3"] == 1, counts
+    assert counts["conv3x3" if route == "wino4" else "winograd4_conv3x3"] == 0, counts
+    (ref,), ref_grads = _autograd(
+        lambda x_, w_, b_: conv3x3_direct(x_, w_, b_, pre_padded=True),
+        [x.detach().float().requires_grad_(), conv.weight.detach().clone().requires_grad_(),
+         conv.bias.detach().clone().requires_grad_()], [cot.float()])
+    if route == "wino4":
+        with torch.no_grad():
+            ref = winograd4_conv3x3_plain(x.detach(), pack_weight4(conv.weight, torch.bfloat16),
+                                          conv.bias.to(torch.bfloat16), pre_padded=True)
+    assert _rel_l2(out, ref) <= 1e-2
+    for got, want in zip(grads, ref_grads):
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tokens,c", [(8, 4096, 320), (8, 64, 1280)])
+def test_add_layer_norm_autograd_on_card(card, b, tokens, c):
+    """``add_layer_norm`` under autograd: the kernel's s and h once, then the
+    recomputed backward, against autograd through the fp32 plain version:
+    both outputs and dx, dy, dgamma, dbeta within 1e-2."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm, add_layer_norm_plain
+
+    args = [_bf16(card, b, tokens, c), _bf16(card, b, tokens, c),
+            1.0 + _bf16(card, c, scale=0.2).float(), _bf16(card, c, scale=0.2).float()]
+    cots = [_bf16(card, b, tokens, c), _bf16(card, b, tokens, c)]
+    reset_launch_counts()
+    outs, grads = _autograd(add_layer_norm, [a.clone().requires_grad_() for a in args], cots)
+    torch.cuda.synchronize()
+    assert launch_counts()["add_layer_norm"] == 1
+    refs, ref_grads = _autograd(add_layer_norm_plain,
+                                [a.float().requires_grad_() for a in args],
+                                [t.float() for t in cots])
+    for got, want in zip([*outs, *grads], [*refs, *ref_grads]):
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_flash_attention_at_77_keys_on_card(card, d):
+    """The short-K route under autograd (``cross_attention_shortk`` ->
+    FlashAttention) at 8 x 4096 queries x 77 keys, 8 heads: one partial key
+    tile. Every score of a real key is strongly negative, so a padded zero
+    key that took weight would move the output far off; out, lse and dq,
+    dk, dv against the fp32 plain versions within 1e-2."""
+    from gmdx_torch.kernels import reset_launch_counts
+    from gmdx_torch.kernels.flash_attention import cross_attention_shortk
+
+    heads, c = 8, 8 * d
+    q = _bf16(card, 8, 4096, c).abs()
+    k = -_bf16(card, 8, 77, c).abs() * 2.0
+    v = _bf16(card, 8, 77, c)
+    cot = _bf16(card, 8, 4096, c)
+    reset_launch_counts()
+    (out,), grads = _autograd(lambda *t: cross_attention_shortk(*t, heads),
+                              [t.clone().requires_grad_() for t in (q, k, v)], [cot])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 1 and counts["flash_attention_bwd"] == 1, counts
+    assert counts["cross_attention_shortk"] == 0, counts
+    f32 = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = flash_attention_fwd_plain(*f32, heads, d ** -0.5)
+    assert _rel_l2(out, ref_out) <= 1e-2
+    _, lse = flash_attention_fwd(q, k, v, heads)
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    refs = flash_attention_bwd_plain(*f32, ref_out, ref_lse, cot.float(), heads, d ** -0.5)
+    for got, want in zip(grads, refs):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_flash_bwd_writes_no_key_rows_past_77_on_card(card, d):
+    """The backward's dK and dV of 77 keys written into the first 77 rows
+    of 128-row buffers filled with NaN: rows 77 to 127 stay NaN."""
+    from gmdx_torch.kernels import _build
+    from gmdx_torch.kernels.flash_attention import _LOG2_E
+
+    heads, c, sq = 8, 8 * d, 4096
+    q, k, v, dout = _bf16(card, 1, sq, c), _bf16(card, 1, 77, c), _bf16(card, 1, 77, c), \
+        _bf16(card, 1, sq, c)
+    out, lse = flash_attention_fwd(q, k, v, heads)
+    dd = flash_attention_bwd_dd(out, dout, heads)
+    dq = torch.empty_like(q)
+    dk_buf, dv_buf = (torch.full((1, 128, c), float("nan"), dtype=torch.bfloat16,
+                                 device="cuda") for _ in range(2))
+    scale = d ** -0.5
+    _build.call("gmdx_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk_buf.data_ptr(),
+                dv_buf.data_ptr(), 1, sq, 77, heads, d, float(scale), float(scale * _LOG2_E),
+                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.isnan(dk_buf[:, 77:]).all() and torch.isnan(dv_buf[:, 77:]).all()
+    assert torch.isfinite(dk_buf[:, :77]).all() and torch.isfinite(dv_buf[:, :77]).all()
+    want = flash_attention_bwd(q, k, v, out, lse, dout, heads)
+    for got, ref in zip((dq, dk_buf[:, :77], dv_buf[:, :77]), want):
+        assert torch.equal(got, ref)

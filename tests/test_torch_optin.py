@@ -287,20 +287,43 @@ def test_transformer_with_options_matches_jax(monkeypatch, options):
 
 
 def test_opt_in_kernels_refuse_autograd():
-    """Training with the opt-ins is a later slice: the three inference-only
-    wrappers raise under autograd rather than run without a backward."""
+    """The three opt-in wrappers differentiate under autograd, each against
+    autograd through its plain counterpart (fp32 on the CPU): the short-K
+    attention through FlashAttention, add + LayerNorm through its recomputed
+    backward (both outputs), F(4x4) through the direct conv's backward. What
+    they still refuse: F(4x4) under autograd without the OIHW weight its U
+    was made from, and a winograd_m other than 2 or 4."""
+    from gmdx_torch.kernels.attention import attention_kv_resident_plain
+    from gmdx_torch.kernels.geglu_ff import add_layer_norm_plain
+    from gmdx_torch.kernels.winograd import conv3x3_direct
+
     rng = np.random.default_rng(7)
-    q = torch.from_numpy(_normal(rng, 1, 16, 16)).requires_grad_()
-    k = torch.from_numpy(_normal(rng, 1, 8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cross_attention_shortk(q, k, k, 2)
-    x = torch.from_numpy(_normal(rng, 1, 4, 16)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        add_layer_norm(x, x.detach(), torch.ones(16), torch.zeros(16))
-    xc = torch.from_numpy(_normal(rng, 1, 16, 16, 8)).requires_grad_()
-    w = torch.from_numpy(_normal(rng, 8, 8, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        winograd4_conv3x3(xc, pack_weight4(w, torch.float32), torch.zeros(8))
+
+    def leaves(*shapes):
+        return [torch.from_numpy(_normal(rng, *s)).requires_grad_() for s in shapes]
+
+    def check(fn, ref, args, n_out=1):
+        outs, refs = fn(*args), ref(*args)
+        outs, refs = (outs, refs) if n_out > 1 else ((outs,), (refs,))
+        cots = [torch.from_numpy(_normal(rng, *o.shape)) for o in refs]
+        for o, r in zip(outs, refs):
+            assert _rel(o.detach().numpy(), r.detach().numpy()) <= REL
+        got = torch.autograd.grad(outs, args, cots)
+        want = torch.autograd.grad(refs, args, cots)
+        for g, w in zip(got, want):
+            assert _rel(g.numpy(), w.numpy()) <= REL
+
+    check(lambda q, k, v: cross_attention_shortk(q, k, v, 2),
+          lambda q, k, v: attention_kv_resident_plain(q, k, v, 2),
+          leaves((1, 16, 16), (1, 8, 16), (1, 8, 16)))
+    check(add_layer_norm, add_layer_norm_plain, leaves((1, 4, 16), (1, 4, 16), (16,), (16,)),
+          n_out=2)
+    x, w, bias = leaves((1, 16, 16, 8), (8, 8, 3, 3), (8,))
+    u = pack_weight4(w, torch.float32)
+    check(lambda x_, w_, b_: winograd4_conv3x3(x_, u, b_, weight=w_),
+          lambda x_, w_, b_: conv3x3_direct(x_, w_, b_), [x, w, bias])
+    with pytest.raises(ValueError, match="weight="):
+        winograd4_conv3x3(x, u, bias)
     with pytest.raises(ValueError, match="winograd_m"):
         set_kernel_options(torch.nn.Linear(2, 2), winograd_m=3)
 

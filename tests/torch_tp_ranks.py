@@ -6,7 +6,7 @@ on the CPU with one torch thread and hands numpy results back. They import
 torch, numpy and ``gmdx_torch`` only; the tests hold the results against
 the JAX package and against the port's one-process run in their own
 process (``tests/test_torch_tp.py``, ``tests/test_torch_sp.py``,
-``tests/test_torch_cli.py``).
+``tests/test_torch_cli.py``, ``tests/test_torch_optin_train.py``).
 """
 
 from __future__ import annotations
@@ -266,6 +266,10 @@ def train_run(setup: dict, mode: str | None, *, steps=(0, 1), restore=None, save
 
     layout = tpctx.join_train_parallel(mode, setup["size"]) if mode else None
     unet, vae, text = stage2_modules(setup)
+    if "kernel_options" in setup:
+        from gmdx_torch.models import set_kernel_options
+
+        set_kernel_options(unet, **setup["kernel_options"])
     cfg = stage2_config(setup)
     step = make_train_step(cfg, unet=unet, vae=vae, text_encoder=text, device="cpu",
                            layout=layout)
@@ -389,9 +393,16 @@ def job_train_cli(setup: dict) -> dict:
     return out
 
 
+def job_optin_train(setup: dict) -> dict:
+    """One update of the mode's step with the setup's kernel options
+    (``tests/test_torch_optin_train.py``)."""
+    return train_run(setup, setup["mode"], steps=(0,))
+
+
 JOBS = {"tp_models": job_models, "sp_edges": job_sp_edges, "tp_dual": job_dual,
         "sp_step_noise": job_step_noise, "tp_cli": job_cli, "tp_train": job_train,
-        "tp_collectives": job_collectives, "tp_train_cli": job_train_cli}
+        "tp_collectives": job_collectives, "tp_train_cli": job_train_cli,
+        "optin_train": job_optin_train}
 
 
 # --- the Stage-1 and ControlNet trainers under tp / sp -----------------------
