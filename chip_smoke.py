@@ -150,10 +150,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      cosine >= 0.9995, the LoRA leaves of both mid-block attentions'
      to_q/to_k/to_v/to_out within rel-L2 0.1 and, per kind, norm ratio
      within STAGE1_NORM_RATIO_TOL of 1.
- 15. stage1_e2e_d512_plain: stage1_e2e with the 512-wide attention's
-     forward and backward on their plain versions (bf16 out) and every
-     other kernel as it is; report only: it says whether the kernels'
-     LoRA norm deficit lies in the 512-wide kernels.
+ 15. stage1_e2e_d512_plain (with --stage1-d512-plain only): stage1_e2e
+     with the 512-wide attention's forward and backward on their plain
+     versions (bf16 out) and every other kernel as it is; report only: it
+     says whether the kernels' LoRA norm deficit lies in the 512-wide
+     kernels.
  16. stage1_e2e_controls: stage1_e2e with the 512-wide backward's dQ, then
      its dK, scaled by 0.95; each must be caught.
  17. samplers: the full-width single-UNet and dual paths at 512^2, batch 2,
@@ -309,6 +310,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
      weights its stage's modules only, each with the one process's count
      and sum; each rank's peak memory beside the one process's; the
      phase's wall beside PP_BUDGET_S.
+ 29. tools: the measurement tools of scripts/torch once each at SD-1.5
+     width (gmdx_torch.utils.profiling underneath): scan_bench's unet_fwd
+     (the 8-channel GM UNet, 512^2, batch 8) with 10 chained calls
+     captured into one CUDA graph, the replay's output bit-equal to the
+     eager chained loop's and the launches counted while capturing 10
+     times one eager call's, graph and eager s/iteration printed;
+     profile_step's dual_step traced over 3 steps (categories, busy share,
+     the five longest idle gaps by the host op open); ckpt_timing at width
+     0.3 (device->host rates, sync and async saves, restore, the round
+     trip held by state_digest). Its wall beside TOOLS_BUDGET_S.
 ``python3 chip_smoke.py --parallel-cards N`` (N cards, not the default run)
 runs the parts named by --parallel-parts (all by default), a rank a card
 under NCCL against one card: serve, TP = N and SP = N: s/image of
@@ -324,12 +335,17 @@ beside the one card's; pp, the dual path's
 serving headline (batch 8, PNDM 50, CFG 7.5) pipelined over N ranks (N / 2
 a stage) in chunks of 5 and of 1: s/image beside one card's, each stage's
 device ms a chunk, phase pp's checks on every rank (the launch sum with one
-rank a stage only).
+rank a stage only). Every process of serve and pp (each rank, and the one
+card they are held against) also traces a short rerun of each of its runs
+(TRACE_STEPS, PP_TRACE_STEPS) through gmdx_torch.utils.trace, a trace a
+rank, and the run prints each one's busy share, five longest idle gaps
+(each named by the host op and span open where it began), device time by
+category and host spans.
 ``--profile`` adds the device time by kernel and the device's busy share
 over one denoise iteration (phases 4, 9 and 11, the last with the opt-ins
 on and off), over one train step (phase 6), over one Stage-1 pair at
 512^2 and one at 1024^2 (phase 13) and over each sampler's single-UNet
-loop (phase 17).
+loop (phase 17), read from a trace by gmdx_torch.utils.profiling.
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1875,74 +1891,13 @@ def psnr01(a, b) -> float:
     return float("inf") if mse == 0.0 else -10.0 * math.log10(mse)
 
 
-# Device kernels by name, for the profile's breakdown: (category, substrings).
-PROFILE_CATEGORIES = (
-    ("flash_attention_bsc", ("flash_bsc_kernel",)),
-    ("flash_attention_fwd_d512", ("flash_fwd_wide_kernel",)),
-    ("flash_attention_bwd_d512", ("flash_bwd_wide_",)),
-    ("flash_attention_bwd", ("flash_bwd_",)),
-    ("flash_attention_fwd", ("train_fwd_sm90_kernel",)),
-    ("attention_kv_resident", ("kvres_sm90_kernel",)),
-    ("group_norm_silu_bwd", ("gn_bwd_",)),
-    ("group_norm_silu", ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")),
-    ("geglu_ff_ln", ("Gemm1Op", "Gemm2Op", "ln_rows_kernel")),
-    ("geglu_ff", ("NoLnGegluOp", "NoLnOutOp")),
-    ("cross_attention_shortk", ("xattn_sm90_kernel",)),
-    ("add_layer_norm", ("add_ln_",)),
-    ("winograd4_conv3x3", ("wino4_", "Wino4Op")),
-    ("conv3x3", ("ConvOp", "splitk_reduce_kernel")),
-    ("cudnn conv fprop", ("xmma_fprop", "fprop_implicit")),
-    ("cudnn conv dgrad", ("xmma_dgrad", "dgrad")),
-    ("cudnn conv wgrad", ("xmma_wgrad", "wgrad")),
-    ("cublas gemm", ("nvjet", "gemm", "cutlass")),
-    ("foreach (optimizer, grad norms)", ("multi_tensor_apply",)),
-    ("copies and casts", ("copy",)),
-    ("layernorm", ("layer_norm", "GammaBeta")),
-    ("reductions", ("reduce_kernel",)),
-)
-
-
-def _category(name: str) -> str:
-    for cat, keys in PROFILE_CATEGORIES:
-        if any(k in name for k in keys):
-            return cat
-    return "other elementwise"
-
-
 def profile_fn(phase: str, one_step) -> None:
-    """Device time by kernel over one call of ``one_step`` (torch.profiler),
-    and the device's busy share against the same call's unprofiled wall."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """``--profile``'s row for one call of ``one_step``: device time by
+    kernel and by category (gmdx_torch.utils.profiling), the device's busy
+    share against the call's unprofiled wall."""
+    from gmdx_torch.utils import profile_fn as profile_call
 
-    def run():
-        one_step()
-        torch.cuda.synchronize()
-
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    cats: dict[str, list] = {}
-    for us, k, n in rows:
-        c = cats.setdefault(_category(k), [0.0, 0])
-        c[0] += us
-        c[1] += n
-    emit({"phase": phase, "wall_ms": wall_ms, "device_ms": total / 1e3,
-          "device_busy_share": total / 1e3 / wall_ms, "by_category": [
-              {"category": c, "device_ms": us / 1e3, "share": us / total, "count": n}
-              for c, (us, n) in sorted(cats.items(), key=lambda kv: -kv[1][0])], "top": [
-              {"name": k[:80], "device_ms": us / 1e3, "share": us / total, "count": n}
-              for us, k, n in rows[:40]]})
+    emit(profile_call(phase, one_step))
 
 
 def phase_main(args) -> dict[str, int]:
@@ -3154,8 +3109,8 @@ TRAIN_CLI_REMAT_RTOL = 1e-3
 RESUME_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_silu_bwd")
 
 
-def _train_cli_data(root: str, seed: int, pairs: int = TRAIN_CLI_PAIRS) -> tuple[str, str]:
-    """``pairs`` pairs of 600x800 SDR PNGs on disk and gain-map PNG bytes
+def _train_cli_data(root: str, seed: int) -> tuple[str, str]:
+    """TRAIN_CLI_PAIRS pairs of 600x800 SDR PNGs on disk and gain-map PNG bytes
     with captions, in one parquet written by the port; one 512^2 validation
     PNG. Returns (parquet, validation directory)."""
     import numpy as np
@@ -3168,7 +3123,7 @@ def _train_cli_data(root: str, seed: int, pairs: int = TRAIN_CLI_PAIRS) -> tuple
     os.makedirs(os.path.join(root, "sdr"))
     os.makedirs(os.path.join(root, "val"))
     paths, gms, texts = [], [], []
-    for i in range(pairs):
+    for i in range(TRAIN_CLI_PAIRS):
         base = np.stack([np.sin(x / (13 + 3 * c + i) + y / (19 + i)) for c in range(3)], -1)
         sdr = np.clip(base * 90 + 128 + rng.integers(-4, 4, (600, 800, 3)), 0, 255)
         paths.append(os.path.join(root, "sdr", f"{i}.png"))
@@ -3181,6 +3136,17 @@ def _train_cli_data(root: str, seed: int, pairs: int = TRAIN_CLI_PAIRS) -> tuple
     meta = os.path.join(root, "train.parquet")
     write_parquet_dataset(meta, paths, gms, texts)
     return meta, os.path.join(root, "val")
+
+
+def _train_data(pipe_dir: str, seed: int) -> tuple[str, str]:
+    """The trainer phases' TRAIN_CLI_PAIRS pairs (:func:`_train_cli_data`),
+    written once beside phase cli's directory and read by every phase that
+    trains from a parquet; they go with that directory's parent."""
+    root = os.path.join(os.path.dirname(pipe_dir), "train_data")
+    meta = os.path.join(root, "train.parquet")
+    if os.path.exists(meta):  # the parquet is written last
+        return meta, os.path.join(root, "val")
+    return _train_cli_data(root, seed + 70)
 
 
 def _dir_gb(path: str) -> float:
@@ -3228,7 +3194,7 @@ def phase_train_cli(args, pipe_dir: str, train_launches: dict[str, int]) -> None
     root = os.path.join(os.path.dirname(pipe_dir), "train_cli")
     os.makedirs(root)
     t_phase = t0 = time.perf_counter()
-    meta, val_dir = _train_cli_data(root, args.seed + 70)
+    meta, val_dir = _train_data(pipe_dir, args.seed)
     data_s = time.perf_counter() - t0
     tok = CLIPTokenizer.from_pretrained(os.path.join(pipe_dir, "tokenizer"))
     loader = make_dataloader(ParquetImageDataset(meta), tok, batch_size=TRAIN_CLI_BATCH,
@@ -3796,20 +3762,13 @@ def phase_controlnet_cli(args, pipe_dir: str, meta: str, loader_s: float) -> Non
 
 
 def phase_trainer_clis(args, pipe_dir: str, stage1_per_pair: dict[str, float]) -> None:
-    """Phases stage1_cli, controlnet_cli and dist on one set of 24 pairs
-    (the train_cli phase's data), removed at the end."""
-    import shutil
-
-    root = os.path.join(os.path.dirname(pipe_dir), "trainers")
-    os.makedirs(root)
-    try:
-        meta, val_dir = _train_cli_data(root, args.seed + 90)
-        loader_s = _loader_s_per_batch(meta, pipe_dir, args.seed)
-        phase_stage1_cli(args, pipe_dir, meta, val_dir, loader_s, stage1_per_pair)
-        phase_controlnet_cli(args, pipe_dir, meta, loader_s)
-        phase_dist(args, pipe_dir, meta)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    """Phases stage1_cli, controlnet_cli and dist on phase train_cli's 24
+    pairs (:func:`_train_data`)."""
+    meta, val_dir = _train_data(pipe_dir, args.seed)
+    loader_s = _loader_s_per_batch(meta, pipe_dir, args.seed)
+    phase_stage1_cli(args, pipe_dir, meta, val_dir, loader_s, stage1_per_pair)
+    phase_controlnet_cli(args, pipe_dir, meta, loader_s)
+    phase_dist(args, pipe_dir, meta)
 
 
 # ---------------------------------------------------------------------------
@@ -3849,7 +3808,6 @@ OPTIN_STAGE1_HELD = ("recon", "perceptual", "adversarial", "disc_loss", "hinge",
 OPTIN_STAGE1_COSINES = ("disc", "gen_no_adv")
 OPTIN_TRAIN_BUDGET_S = 90.0
 OPTIN_TRAIN_SEED = 180
-OPTIN_CLI_PAIRS = 16
 
 
 @contextlib.contextmanager
@@ -4154,7 +4112,7 @@ def phase_optin_train(args, pipe_dir: str) -> dict[str, int]:
     root = os.path.join(os.path.dirname(pipe_dir), "optin_train")
     os.makedirs(root)
     try:
-        meta, _ = _train_cli_data(root, seed + 7, pairs=OPTIN_CLI_PAIRS)
+        meta, _ = _train_data(pipe_dir, args.seed)
         flags = ["--xattn_kernel", "--fused_addln", "--winograd_m", "4"]
         reset_launch_counts()
         t = time.perf_counter()
@@ -5145,6 +5103,9 @@ PARALLEL_RUNS = (("tp_dual", "tp", "dual", 3), ("sp_gm", "sp", "gm", 3),
 # upconvert_hdrtv's under SP = N, at PNDM 50, each after a 2-step warm-up.
 PARALLEL_CARDS_RUNS = (("tp_gm", "tp", "gm", 50), ("sp_gm", "sp", "gm", 50),
                        ("sp_hdrtv", "sp", "hdrtv", 50))
+# --parallel-cards N: PNDM steps of each run's traced rerun (every rank and
+# the one card write a trace of their own).
+TRACE_STEPS = 3
 # Under TP the JAX dispatch keeps only attention on its kernels.
 TP_OFF_KERNELS = ("conv3x3", "group_norm_silu", "group_norm_moments", "group_norm_apply",
                   "geglu_ff_ln", "geglu_ff", "winograd4_conv3x3", "add_layer_norm")
@@ -5213,6 +5174,7 @@ def parallel_job(args) -> None:
     from gmdx_torch import dist
     from gmdx_torch.dist import tpctx
     from gmdx_torch.kernels import launch_counts, reset_launch_counts
+    from gmdx_torch.utils import read_trace, trace
 
     rank_tag = "ref"
     if args.parallel_job == "ranks":
@@ -5223,6 +5185,8 @@ def parallel_job(args) -> None:
             dist.initialize()
         rank_tag = f"rank{dist.rank()}"
     runs = PARALLEL_CARDS_RUNS if args.parallel_cards else PARALLEL_RUNS
+    if args.parallel_cards:
+        _warm_trace(args.parallel_dir)
     out = {"backend": torch.distributed.get_backend() if dist.is_initialized() else None,
            "world": dist.world_size(), "runs": {}}
     for name, mode, path, steps in runs:
@@ -5244,10 +5208,15 @@ def parallel_job(args) -> None:
             outs = _parallel_path(pipe, path, seed, steps, ctx)
             wall = time.perf_counter() - t0
             counts = launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if args.parallel_cards:  # this rank's trace of a short run
+                with trace(args.parallel_dir, prefix=f"{name}_") as path_trace:
+                    _parallel_path(pipe, path, seed, TRACE_STEPS, ctx)
         torch.save(outs, os.path.join(args.parallel_dir, f"{rank_tag}_{name}.pt"))
         out["runs"][name] = {"launches": counts, "wall_s": wall, "steps": steps,
-                             "weights_gb": weights_gb,
-                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                             "weights_gb": weights_gb, "peak_mem_gb": peak_gb}
+        if args.parallel_cards:
+            out["runs"][name]["trace"] = trace_row(read_trace(path_trace))
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -5613,7 +5582,7 @@ def phase_train_parallel(args, pipe_dir: str) -> dict[str, int]:
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     logs, procs = [], []
     try:
-        meta, _ = _train_cli_data(root, args.seed + 95)
+        meta, _ = _train_data(pipe_dir, args.seed)
         t0 = time.perf_counter()
         # The one process beside the ranks' CLI runs (the ranks' runs wait
         # for its results).
@@ -6066,7 +6035,7 @@ def phase_trainers_parallel(args, pipe_dir: str) -> None:
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     logs, procs = [], []
     try:
-        meta, _ = _train_cli_data(root, args.seed + 96)
+        meta, _ = _train_data(pipe_dir, args.seed)
         t0 = time.perf_counter()
         # The one process beside the ranks' CLI runs (the ranks' comparisons
         # wait for its results).
@@ -6411,7 +6380,18 @@ def _parallel_cards_serve(args, root: str, me: list[str], env) -> list[str]:
     emit({"phase": "parallel_cards", "cards": args.parallel_cards,
           "backend": ranks[0]["backend"], "world": ranks[0]["world"],
           "card": nvidia_smi_line(), **summary})
+    _emit_traces("serve", [("one_card", ref)] + [(f"rank{r}", res) for r, res in
+                                                 enumerate(ranks)])
     return bad
+
+
+def _emit_traces(part: str, procs: list) -> None:
+    """One row a traced run of each process of a --parallel-cards part:
+    its busy share, five longest idle gaps, categories and host spans."""
+    for who, res in procs:
+        for name, run in res["runs"].items():
+            emit({"phase": "parallel_cards", "part": part, "trace": name, "process": who,
+                  "stage": res.get("stage"), **run["trace"]})
 
 
 # ---------------------------------------------------------------------------
@@ -6427,6 +6407,7 @@ PP_SEED = 170
 # warm-up.
 PP_BATCH, PP_STEPS, PP_CHUNKS = 2, 4, (2,)
 PP_CARDS_BATCH, PP_CARDS_STEPS, PP_CARDS_CHUNKS = 8, 50, (5, 1)
+PP_TRACE_STEPS = 10  # --parallel-cards: each chunking's traced rerun
 PP_MODULES = ("unet", "gm_unet", "vae")
 
 
@@ -6552,6 +6533,7 @@ def pp_job(args) -> None:
     from gmdx_torch.kernels import launch_counts, reset_launch_counts
     from gmdx_torch.ops import apply_gm_to_sdr
     from gmdx_torch.pipelines import pp_stage_groups
+    from gmdx_torch.utils import read_trace, trace
 
     cards = args.parallel_cards
     batch, steps, chunks = ((PP_CARDS_BATCH, PP_CARDS_STEPS, PP_CARDS_CHUNKS) if cards
@@ -6566,6 +6548,8 @@ def pp_job(args) -> None:
         tag = f"rank{dist.rank()}"
     stage = None if groups is None else groups.stage
     seed = args.seed + PP_SEED
+    if cards:
+        _warm_trace(args.pp_dir)
     pipe = build_stage_pipeline(seed, stage)
     latents, cond, uncond = make_inputs(pipe, batch, seed + 1)
     gc.collect()
@@ -6618,6 +6602,12 @@ def pp_job(args) -> None:
             row.update(_chunk_ms(stage, wrapper.marks, t_start), chunk=chunk)
         if "hdr" in res:
             row["hdr_finite"] = bool(torch.isfinite(res.pop("hdr")).all())
+        if cards:  # this rank's trace of a short run
+            if wrapper is not None:
+                torch.distributed.barrier()
+            with trace(args.pp_dir, prefix=f"{name}_") as path:
+                run(wrapper, PP_TRACE_STEPS)
+            row["trace"] = trace_row(read_trace(path))
         out["runs"][name] = row
         torch.save({k: v.float().cpu() for k, v in res.items()},
                    os.path.join(args.pp_dir, f"{tag}_{name}.pt"))
@@ -6791,7 +6781,98 @@ def _parallel_cards_pp(args, root: str, env) -> list[str]:
     emit({"phase": "parallel_cards", "part": "pp", "cards": n, "batch": PP_CARDS_BATCH,
           "steps": PP_CARDS_STEPS, "backend": ranks[0]["backend"], "world": ranks[0]["world"],
           "card": nvidia_smi_line(), **summary})
+    _emit_traces("pp", [("one_card", ref)] + [(f"rank{r}", res) for r, res in enumerate(ranks)])
     return bad
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the measurement tools
+# ---------------------------------------------------------------------------
+
+TOOLS_BUDGET_S = 25.0
+TOOLS_SCAN_ITERS = 10  # scan_bench's chained UNet calls in one CUDA graph
+TOOLS_PROFILE_ITERS = 3  # profile_step's traced dual steps
+TOOLS_CKPT_WIDTH = 0.3
+
+
+def _tool(name: str, argv: list[str]) -> dict:
+    """scripts/torch/<name>.py's main(argv) in this process, its printout
+    kept out of the smoke's; returns its JSON row."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _script(name).main(argv)
+
+
+def _warm_trace(directory: str) -> None:
+    """One empty trace, so that the profiler's one-time start-up in this
+    process falls outside the first traced run's window."""
+    from gmdx_torch.utils import trace
+
+    with trace(directory, prefix="warmup_"):
+        pass
+
+
+def trace_row(reading: dict) -> dict:
+    """A trace reading's busy share, device time, largest categories,
+    longest idle gaps and host spans, for a smoke row."""
+    return {"window_ms": reading["window_ms"], "device_ms": reading["device_ms"],
+            "busy_share": reading["busy_share"],
+            "by_category": [{k: c[k] for k in ("category", "device_ms", "share")}
+                            for c in reading["by_category"][:6]],
+            "idle_gaps": reading["idle_gaps"], "spans": reading["spans"][:5]}
+
+
+def phase_tools(args) -> None:
+    """The three measurement tools of scripts/torch once each, at SD-1.5
+    width: scan_bench's unet_fwd (the 8-channel GM UNet, 512^2, batch 8,
+    TOOLS_SCAN_ITERS chained calls captured into one CUDA graph): the
+    replay's output bit-equal to the eager chained loop's, the launches
+    counted while capturing TOOLS_SCAN_ITERS times one eager call's, every
+    inference kernel among them, graph and eager s/iteration printed;
+    profile_step's dual_step (batch 8, TOOLS_PROFILE_ITERS traced steps):
+    categories, busy share and idle gaps read from its trace; ckpt_timing
+    at width TOOLS_CKPT_WIDTH: the device->host rates, the saves and the
+    restore, its round trip verified by state_digest. Its wall beside
+    TOOLS_BUDGET_S."""
+    import torch
+
+    t0 = time.perf_counter()
+    bad = []
+    scan = _tool("scan_bench", ["--workload", "unet_fwd", "--iters", str(TOOLS_SCAN_ITERS)])
+    want = {k: TOOLS_SCAN_ITERS * n for k, n in scan["launches_per_call"].items()}
+    emit({"phase": "tools", "tool": "scan_bench", **{k: scan[k] for k in (
+        "workload", "batch", "res", "iters", "s_per_iter", "eager_s_per_iter", "capture_s",
+        "graph_equals_eager", "launches_per_call", "captured_launches", "card")}})
+    if not (scan["graph_equals_eager"] and scan["graph_output_finite"]):
+        bad.append("scan_bench: the graph's output differs from the eager chained loop's")
+    if scan["captured_launches"] != want:
+        bad.append(f"scan_bench: captured launches {scan['captured_launches']}, want {want}")
+    missing = [k for k in INFERENCE_KERNELS if not scan["launches_per_call"].get(k)]
+    if missing:
+        bad.append(f"scan_bench: unet_fwd launched none of {missing}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prof = _tool("profile_step", ["--workload", "dual_step", "--iters",
+                                  str(TOOLS_PROFILE_ITERS), "--top", "10"])
+    emit({"phase": "tools", "tool": "profile_step", "workload": prof["workload"],
+          "batch": prof["batch"], "iters": prof["iters"], "top": prof["top"][:5],
+          "card": prof["card"], **trace_row(prof)})
+    if not (prof["by_category"] and prof["idle_gaps"] and 0 < (prof["busy_share"] or 0) <= 1):
+        bad.append("profile_step: its trace gave no categories, busy share or idle gaps")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = _tool("ckpt_timing", ["--width", str(TOOLS_CKPT_WIDTH)])
+    emit({"phase": "tools", **ckpt})
+    if not ckpt["round_trip_digest_equal"]:
+        bad.append("ckpt_timing: the restored state's digest differs from the saved one")
+    elapsed = time.perf_counter() - t0
+    emit({"phase": "tools", "elapsed_s": elapsed, "budget_s": TOOLS_BUDGET_S,
+          "within_budget": elapsed <= TOOLS_BUDGET_S, "card": nvidia_smi_line()})
+    if bad:
+        raise SystemExit("chip_smoke: tools failed their checks: " + "; ".join(bad))
 
 
 def main() -> int:
@@ -6811,6 +6892,9 @@ def main() -> int:
                    help="images of the Stage-1 phase's 512^2 pairs (4 for the headline)")
     p.add_argument("--stage1-steps", type=int, default=2,
                    help="timed gen + disc pairs of the Stage-1 phase (10 for the headline)")
+    p.add_argument("--stage1-d512-plain", action="store_true",
+                   help="also phase stage1_e2e_d512_plain (report only: stage1_e2e with the "
+                        "512-wide attention on its plain versions)")
     p.add_argument("--profile", action="store_true",
                    help="device time by kernel over one denoise iteration (512^2 and 1024^2), "
                         "one train step and one Stage-1 pair")
@@ -6914,7 +6998,8 @@ def main() -> int:
     timed(phase_sdr2hdr_e2e, args)
     stage1_launches, stage1_per_pair = timed(phase_stage1, args)
     timed(phase_stage1_e2e, args)
-    timed(phase_stage1_e2e_d512_plain, args)
+    if args.stage1_d512_plain:
+        timed(phase_stage1_e2e_d512_plain, args)
     timed(phase_stage1_e2e_controls, args)
     timed(phase_samplers, args)
     timed(phase_samplers_e2e, args)
@@ -6929,6 +7014,7 @@ def main() -> int:
         train_parallel_launches = timed(phase_train_parallel, args, pipe_dir)
         timed(phase_trainers_parallel, args, pipe_dir)
         timed(phase_pp, args)
+        timed(phase_tools, args)
     finally:
         import shutil
 

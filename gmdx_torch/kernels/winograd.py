@@ -355,18 +355,19 @@ class ConvKernelTrain(torch.autograd.Function):
 
 
 @functools.lru_cache(maxsize=None)
-def _g4(device: torch.device) -> torch.Tensor:
-    """G of F(4x4) on ``device``, copied there once: a copy from host memory
-    at every call would wait for the card's queue (training packs U at
-    every step)."""
-    return torch.tensor(G4, dtype=torch.float32, device=device)
+def _wino4_constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """F(4x4)'s G, B^T and A^T in fp32 on ``device``, copied there once: a
+    copy from host memory at every call would wait for the card's queue
+    (training packs U at every step) and cannot be captured into a CUDA
+    graph."""
+    return tuple(torch.tensor(m, dtype=torch.float32, device=device) for m in (G4, BT4, AT4))
 
 
 def pack_weight4(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """OIHW (O, C, 3, 3) -> U (36, O, C), U[6*xi + nu] = G g G^T at (xi, nu),
     taken in fp32 from the weight's own dtype and rounded to ``dtype``, as
     ``_wino4_kernel`` fills its ``u_scr``."""
-    g4 = _g4(weight.device)
+    g4 = _wino4_constants(weight.device)[0]
     u = torch.einsum("ak,bl,ockl->aboc", g4, g4, weight.detach().float())
     return u.reshape(36, *weight.shape[:2]).to(dtype).contiguous()
 
@@ -386,8 +387,7 @@ def winograd4_conv3x3_plain(
     h, w = (hp - 2, wp - 2) if pre_padded else (hp, wp)
     o = u.shape[1]
     xp = _wino4_pad(x, pre_padded).float()
-    bt = torch.tensor(BT4, dtype=torch.float32, device=x.device)
-    at = torch.tensor(AT4, dtype=torch.float32, device=x.device)
+    _, bt, at = _wino4_constants(x.device)
     # d[i, j] = xpad[4ty + i, 4tx + j]: (6, 6, B, H/4, W/4, C).
     d = torch.stack([torch.stack([xp[:, i:i + h:4, j:j + w:4] for j in range(6)])
                      for i in range(6)])

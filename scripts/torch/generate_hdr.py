@@ -119,7 +119,10 @@ def main(argv=None) -> dict:
     if writes:
         os.makedirs(args.output_dir, exist_ok=True)
     tp = par[2:] if par is not None and par[0] == "tp" else None
-    bundle = load_pipeline(args.pretrained_model_name_or_path, device=dev, tp=tp)
+    # The GM UNet comes from --unet_ckpt: the directory's UNets (and any
+    # safety checker, which this CLI does not apply) stay on disk.
+    bundle = load_pipeline(args.pretrained_model_name_or_path, device=dev, tp=tp,
+                           components=("vae", "text_encoder", "tokenizer", "scheduler"))
     unet_dir = args.unet_ckpt
     if os.path.isdir(os.path.join(unet_dir, "unet")):
         unet_dir = os.path.join(unet_dir, "unet")

@@ -2019,3 +2019,37 @@ def test_flash_bwd_writes_no_key_rows_past_77_on_card(card, d):
     want = flash_attention_bwd(q, k, v, out, lse, dout, heads)
     for got, ref in zip((dq, dk_buf[:, :77], dv_buf[:, :77]), want):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_captured_unet_fwd_equals_eager_on_card(card, channels_last):
+    """scan_bench's unet_fwd body on an 8-channel UNet of two levels at the
+    kernels' widths (320 / 640, head dims 40 / 80), bf16, batch 2, 16^2
+    latents, chained 3 times: the CUDA graph's replay equals the eager
+    chained loop bit for bit, and the capture counts 3 eager calls'
+    launches."""
+    import dataclasses
+    import importlib.util
+    import pathlib
+
+    from gmdx_torch.models import TINY_UNET_CONFIG, UNet2DConditionModel
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "torch" / "scan_bench.py"
+    spec = importlib.util.spec_from_file_location("scan_bench", path)
+    sb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sb)
+    cfg = dataclasses.replace(TINY_UNET_CONFIG, in_channels=8, block_out_channels=(320, 640),
+                              num_attention_heads=8)
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(cfg).to(torch.bfloat16).eval()
+    shape = (2, 16, 16, 8) if channels_last else (2, 8, 16, 16)
+    x = torch.randn(shape, generator=card, device="cuda")
+    ctx = _bf16(card, 2, 77, cfg.cross_attention_dim)
+    t = torch.tensor(501, dtype=torch.int32, device="cuda")
+    got = sb.time_scan(sb.unet_fwd_body(unet, t, ctx, channels_last), x, 3, 1, name="unet_fwd")
+    assert got["graph_equals_eager"] and got["graph_output_finite"]
+    for name in ("conv3x3", "group_norm_silu", "geglu_ff_ln", "attention_kv_resident"):
+        assert got["launches_per_call"].get(name, 0) > 0, name
+    assert got["captured_launches"] == {k: 3 * n for k, n in got["launches_per_call"].items()}

@@ -477,8 +477,7 @@ def tiny_pipe(tmp_path_factory):
 # Each CLI's required flags and the modules it builds before its first step.
 _CLIS = {
     "generate_hdr": (["--unet_ckpt", "{pipe}/gm_unet", "--sdr_input_path", "{pipe}"],
-                     ["AutoencoderKL", "CLIPTextModel", "UNet2DConditionModel",
-                      "UNet2DConditionModel", "UNet2DConditionModel"]),
+                     ["AutoencoderKL", "CLIPTextModel", "UNet2DConditionModel"]),
     "upconvert_hdrtv": (["--sdr_input_path", "{pipe}"],
                         ["AutoencoderKL", "CLIPTextModel", "ControlNetModel",
                          "UNet2DConditionModel", "UNet2DConditionModel"]),
